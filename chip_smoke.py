@@ -4,12 +4,17 @@
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: compiles csrc/flash_attn.cu with nvcc for sm_90a;
+  2. build: compiles csrc/flash_attn.cu with nvcc for sm_90a and prints each
+     kernel's registers and spill bytes (-Xptxas -v) and its HGMMA and
+     UTMALDG instruction counts (cuobjdump -sass, where the toolkit has it);
+     the TMA + wgmma kernels must not spill and must contain both;
   3. kernels: the three flash kernels against their plain PyTorch versions on
-     the card, in bf16, at the shapes of the 410M window (and an EVA-02 shape
-     and a small unaligned case with fully-masked rows), and their times at
-     the CE shape beside the plain versions, the bound and
-     torch.nn.functional.scaled_dot_product_attention (a yardstick only);
+     the card, in bf16, at the shapes of the 410M window (and an EVA-02 shape,
+     a 129-token case across the tile edge and a small unaligned case with
+     fully-masked rows), and their times at the CE shape beside the plain
+     versions, the bound and torch.nn.functional.scaled_dot_product_attention
+     (a yardstick only: its forward for the forward kernel, its whole
+     backward, which also computes dq, for each backward kernel);
   4. reference: one window of a tiny model on the card (CUDA kernels) against
      the same window on the CPU (plain versions);
   5. window: three fused MAFED windows of VL-Pythia-410M at full width and
@@ -48,10 +53,12 @@ LSE_ATOL = 1e-4  # lse is f32 in both
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16
 
+SM90 = "sm90 tma+wgmma"
+# name (its CUDA kernel is name + "_kernel"): (the TPU kernel it replaces, its design)
 KERNELS = {
-    "flash_fwd": "mafed_tpu/kernels/attention.py:81",
-    "flash_bwd_dkv": "mafed_tpu/kernels/attention.py:230",
-    "flash_bwd_dq": "mafed_tpu/kernels/attention.py:294",
+    "flash_fwd": ("mafed_tpu/kernels/attention.py:81", SM90),
+    "flash_bwd_dkv": ("mafed_tpu/kernels/attention.py:230", SM90),
+    "flash_bwd_dq": ("mafed_tpu/kernels/attention.py:294", "wmma"),
 }
 
 
@@ -86,8 +93,21 @@ def phase_device() -> str:
 def phase_build() -> None:
     start = time.perf_counter()
     build.load_library()
-    resources = [line.split(":", 1)[1].strip() for line in build.build_log.splitlines() if "Used" in line]
-    emit({"phase": "build", "seconds": time.perf_counter() - start, "ptxas": resources})
+    seconds = time.perf_counter() - start
+    log = build.build_log()
+    resources = build.kernel_resources(log)
+    sass = build.sass_counts()
+    warnings = [line.strip() for line in log.splitlines() if "warning" in line.lower()]
+    emit({"phase": "build", "seconds": seconds, "ptxas": resources, "sass": sass, "warnings": warnings})
+    for name, (_, design) in KERNELS.items():
+        if design != SM90:
+            continue
+        kernel = f"{name}_kernel"
+        res = resources.get(kernel, {})
+        if res.get("spill_store_bytes") != 0 or res.get("spill_load_bytes") != 0:
+            raise AssertionError(f"{kernel}: spills or no ptxas report: {res}")
+        if sass is not None and not (sass[kernel]["HGMMA"] and sass[kernel]["UTMALDG"]):
+            raise AssertionError(f"{kernel}: no HGMMA or UTMALDG in its SASS: {sass[kernel]}")
 
 
 def _qkv(gen, b, h, t, pad, empty_sample):
@@ -110,6 +130,7 @@ def phase_kernels(gen):
         ("ce_410m", 48, 16, 336, True, (256, 276), False),
         ("student_410m", 16, 16, 336, True, (256, 276), False),
         ("eva02_noncausal", 16, 16, 257, False, None, False),
+        ("causal_129_padded", 8, 4, 129, True, (0, 7), False),
         ("small_unaligned_empty_rows", 3, 2, 77, True, (0, 3), True),
     ]
     errs = {name: 0.0 for name in KERNELS}
@@ -178,7 +199,8 @@ def phase_kernels(gen):
     emit({"phase": "kernels", "case": "timing_ce_410m", "ms": ms, "plain_ms": plain_ms,
           "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
           "bound_ms": {n: v[0] for n, v in bounds.items()}, "kept_pairs": pairs})
-    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dkv": None, "flash_bwd_dq": None}
+    library = {"flash_fwd": (sdpa_fwd, "o"), "flash_bwd_dkv": (sdpa_bwd, "dq+dk+dv"),
+               "flash_bwd_dq": (sdpa_bwd, "dq+dk+dv")}
     return errs, ms, plain_ms, bounds, library
 
 
@@ -295,9 +317,10 @@ def main() -> int:
     launches = phase_window(smi)
     kernels = [
         {"name": name, "route": "cuda", "source": "mafed_tpu_torch/csrc/flash_attn.cu", "replaces": replaces,
-         "launches": launches[name], "max_abs_err": errs[name], "ms": ms[name], "plain_ms": plain_ms[name],
-         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": library[name]}
-        for name, replaces in KERNELS.items()
+         "design": design, "launches": launches[name], "max_abs_err": errs[name], "ms": ms[name],
+         "plain_ms": plain_ms[name], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": library[name][0], "library_covers": library[name][1]}
+        for name, (replaces, design) in KERNELS.items()
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

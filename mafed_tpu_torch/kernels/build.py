@@ -1,9 +1,16 @@
 """Build and load the CUDA kernels of the port.
 
-`load_library()` compiles `csrc/flash_attn.cu` with nvcc for sm_90a into a
-shared library with a plain C interface under `mafed_tpu_torch/_build/`,
-keyed by a hash of the source, and binds it with ctypes. Nothing is built
-when this module is imported: the first launch builds.
+`load_library()` compiles `csrc/flash_attn.cu` (which includes
+`csrc/sm90.cuh`) with nvcc for sm_90a into a shared library with a plain C
+interface under `mafed_tpu_torch/_build/`, keyed by a hash of every file under
+`csrc/`, and binds it with ctypes. Nothing is built when this module is
+imported: the first launch builds. The library does not link `libcuda`: the
+one libcuda call it needs (`cuTensorMapEncodeTiled`) is looked up through the
+CUDA runtime.
+
+`kernel_resources()` reads the build's `-Xptxas -v` output (registers and
+spill bytes of each kernel) and `sass_counts()` counts instructions of each
+kernel in the built library's SASS (`cuobjdump -sass`).
 """
 
 from __future__ import annotations
@@ -11,46 +18,61 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "flash_attn.cu"
+CSRC = _PKG / "csrc"
+SOURCE = CSRC / "flash_attn.cu"
 BUILD_DIR = _PKG / "_build"
+KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 
 _lib: Optional[ctypes.CDLL] = None
-build_log = ""  # nvcc's output of the last build (-Xptxas -v resource usage)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _cuda_tool(name: str) -> str:
+    found = shutil.which(name)
     if found:
         return found
-    default = "/usr/local/cuda/bin/nvcc"
+    default = f"/usr/local/cuda/bin/{name}"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+    raise RuntimeError(f"{name} not found: the CUDA kernels need the CUDA toolkit to build")
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libflash_attn_{digest}.so"
+    digest = hashlib.sha256()
+    for path in sorted(CSRC.iterdir()):
+        if path.is_file():
+            digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"libflash_attn_{digest.hexdigest()[:16]}.so"
+
+
+def build_log() -> str:
+    """nvcc's output (with `-Xptxas -v`) of the build of the current sources; empty before it."""
+    path = library_path().with_suffix(".log")
+    return path.read_text() if path.exists() else ""
+
+
+def nvcc_command(source: Path, out: Path) -> list:
+    """nvcc's command line that builds `source` into the shared library `out`."""
+    return [
+        _cuda_tool("nvcc"), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out), str(source),
+    ]
 
 
 def _compile(out: Path) -> None:
-    global build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
+    proc = subprocess.run(nvcc_command(SOURCE, tmp), capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent loader sees the whole library or none
 
 
@@ -74,3 +96,53 @@ def load_library() -> ctypes.CDLL:
         _bind(lib)
         _lib = lib
     return _lib
+
+
+def _kernel_of(mangled: str) -> Optional[str]:
+    return next((k for k in KERNELS if k in mangled), None)
+
+
+def kernel_resources(log: str) -> Dict[str, Dict[str, int]]:
+    """{kernel: {"registers", "spill_store_bytes", "spill_load_bytes"}} from `-Xptxas -v` output."""
+    out: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in log.splitlines():
+        entry = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if entry:
+            current = _kernel_of(entry.group(1))
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            out.setdefault(current, {})["spill_store_bytes"] = int(spill.group(1))
+            out[current]["spill_load_bytes"] = int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out.setdefault(current, {})["registers"] = int(regs.group(1))
+    return out
+
+
+def sass_counts() -> Optional[Dict[str, Dict[str, int]]]:
+    """{kernel: {"HGMMA": n, "UTMALDG": n}} (wgmma and TMA-load instructions) in
+    the built library's SASS, or None without cuobjdump."""
+    opcodes = ("HGMMA", "UTMALDG")
+    try:
+        tool = _cuda_tool("cuobjdump")
+    except RuntimeError:
+        return None
+    sass = subprocess.run([tool, "-sass", str(library_path())], capture_output=True, text=True, check=True).stdout
+    out: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in sass.splitlines():
+        func = re.search(r"Function : (\S+)", line)
+        if func:
+            current = _kernel_of(func.group(1))
+            if current is not None:
+                out[current] = {op: 0 for op in opcodes}
+            continue
+        if current is not None:
+            for op in opcodes:
+                if re.search(rf"\b{op}\b", line):
+                    out[current][op] += 1
+    return out

@@ -1,0 +1,133 @@
+"""Time source variants of the port's flash kernels side by side on one NVIDIA GPU.
+
+    python3 scripts/flash_variants.py VARIANTS.json [--out PATH]
+
+VARIANTS.json maps a variant's name to a list of [old, new] text
+substitutions applied to mafed_tpu_torch/csrc/flash_attn.cu; a first pair
+["FILE", path] starts from another source file instead (for example the
+parent commit's, unpacked with `git archive`). `{"base": []}` is the source
+as it stands. Every variant is built with nvcc in parallel into its own
+library, checked against the plain versions (a small unaligned case with
+empty rows, a non-causal 100 x 257 case and the 410M CE shape), and the
+forward and dK/dV kernels are timed at the CE shape in turns, three rounds
+of 50 launches each, so every variant sees the same card. Prints one JSON
+line per variant; with --out, the list also goes to that file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _build(variants, workdir):
+    from mafed_tpu_torch.kernels import build
+
+    src = build.SOURCE.read_text()
+    for header in build.CSRC.glob("*.cuh"):
+        shutil.copy(header, workdir)
+    procs = {}
+    for name, subs in variants.items():
+        text = src
+        if subs and subs[0][0] == "FILE":
+            text, subs = open(subs[0][1]).read(), subs[1:]
+        for old, new in subs:
+            if old not in text:
+                raise ValueError(f"variant {name}: text not found: {old[:60]!r}")
+            text = text.replace(old, new)
+        cu = os.path.join(workdir, f"{name}.cu")
+        open(cu, "w").write(text)
+        procs[name] = subprocess.Popen(build.nvcc_command(cu, cu[:-3] + ".so"), stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    return {name: (p.communicate()[0], p.returncode, os.path.join(workdir, f"{name}.so")) for name, p in procs.items()}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("variants", help="JSON file: {name: [[old, new], ...]}")
+    parser.add_argument("--out", help="also write the results to this file")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("flash_variants: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from mafed_tpu_torch.kernels import attention as A
+    from mafed_tpu_torch.kernels import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    variants = json.load(open(args.variants))
+    results = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        libs = {}
+        for name, (log, rc, path) in _build(variants, workdir).items():
+            if rc != 0:
+                raise RuntimeError(f"variant {name} failed to build:\n{log[-3000:]}")
+            lib = ctypes.CDLL(path)
+            build._bind(lib)
+            libs[name] = lib
+            results[name] = {"card": smi, "ptxas": build.kernel_resources(log), "max_abs_err": [],
+                             "fwd_ms": [], "dkv_ms": []}
+
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        cases = [(3, 2, 77, 77, True, (0, 3), True), (2, 4, 100, 257, False, None, False),
+                 (48, 16, 336, 336, True, (256, 276), False)]
+        data = []
+        for b, h, tq, tk, causal, pad, empty in cases:
+            q = torch.randn(b, h, tq, 64, generator=gen, device="cuda").bfloat16()
+            k, v = (torch.randn(b, h, tk, 64, generator=gen, device="cuda").bfloat16() for _ in range(2))
+            do = torch.randn(b, h, tq, 64, generator=gen, device="cuda").bfloat16()
+            mask = torch.ones(b, tk, dtype=torch.int32, device="cuda")
+            if pad:
+                mask[:, pad[0]:pad[1]] = 0
+            if empty:
+                mask[-1] = 0
+            o_p, lse_p = A.flash_forward_plain(q, k, v, mask, causal, 0.125)
+            delta = (do.float() * o_p.float()).sum(-1)
+            _, dk_p, dv_p = A.flash_backward_plain(q, k, v, mask, o_p, lse_p, do, causal, 0.125)
+            data.append((q, k, v, do, mask, causal, o_p, lse_p, delta, dk_p, dv_p))
+
+        try:
+            for name, lib in libs.items():
+                A.load_library = lambda lib=lib: lib
+                for q, k, v, do, mask, causal, o_p, lse_p, delta, dk_p, dv_p in data:
+                    o, lse = A.flash_forward(q, k, v, mask, causal, 0.125)
+                    dk, dv = A.flash_bwd_dkv(q, k, v, mask, do, lse_p, delta, causal, 0.125)
+                    fin = torch.isfinite(lse_p)
+                    if not torch.equal(torch.isinf(lse), ~fin):
+                        raise AssertionError(f"variant {name}: empty rows differ from the plain version")
+                    errs = [chip_smoke._err(o, o_p), (lse[fin] - lse_p[fin]).abs().max().item(),
+                            chip_smoke._err(dk, dk_p), chip_smoke._err(dv, dv_p)]
+                    results[name]["max_abs_err"].append(errs)
+            q, k, v, do, mask, _, _, lse_p, delta, _, _ = data[-1]
+            for _ in range(3):
+                for name, lib in libs.items():
+                    A.load_library = lambda lib=lib: lib
+                    results[name]["fwd_ms"].append(
+                        chip_smoke.time_ms(lambda: A.flash_forward(q, k, v, mask, True, 0.125), iters=50))
+                    results[name]["dkv_ms"].append(chip_smoke.time_ms(
+                        lambda: A.flash_bwd_dkv(q, k, v, mask, do, lse_p, delta, True, 0.125), iters=50))
+        finally:
+            A.load_library = build.load_library
+    for name, res in results.items():
+        print(json.dumps({"variant": name, **res}), flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -30,23 +30,29 @@ def interpret_mode():
     jattn._PALLAS_BWD_MODE = "auto"
 
 
-# (name, batch, heads, seq, causal, masked, all-masked sample 0)
+# (name, batch, heads, q_len, kv_len, causal, masked, all-masked sample 0);
+# 65 and 129 sit one row past the CUDA kernels' 64-row tile edges, and
+# 100 x 257 has query and key lengths that differ
 CASES = [
-    ("causal_padded", 2, 2, 64, True, True, False),
-    ("noncausal_unmasked", 2, 2, 48, False, False, False),
-    ("causal_unaligned_20", 2, 2, 20, True, True, False),
-    ("noncausal_unaligned_200", 1, 2, 200, False, True, False),
-    ("noncausal_empty_rows", 2, 2, 40, False, True, True),
+    ("causal_padded", 2, 2, 64, 64, True, True, False),
+    ("noncausal_unmasked", 2, 2, 48, 48, False, False, False),
+    ("causal_unaligned_20", 2, 2, 20, 20, True, True, False),
+    ("noncausal_unaligned_200", 1, 2, 200, 200, False, True, False),
+    ("noncausal_empty_rows", 2, 2, 40, 40, False, True, True),
+    ("causal_tile_edge_65", 2, 2, 65, 65, True, True, False),
+    ("causal_tile_edge_129", 1, 2, 129, 129, True, True, False),
+    ("noncausal_100x257", 1, 2, 100, 257, False, True, False),
 ]
 
 
-def _inputs(b, h, t, masked, empty, seed=0):
+def _inputs(b, h, t, masked, empty, seed=0, kv_len=None):
     rng = np.random.default_rng(seed)
-    q, k, v, g = (rng.normal(size=(b, h, t, 64)).astype(np.float32) for _ in range(4))
-    mask = np.ones((b, t), np.int32)
+    kv_len = t if kv_len is None else kv_len
+    q, k, v, g = (rng.normal(size=(b, h, n, 64)).astype(np.float32) for n in (t, kv_len, kv_len, t))
+    mask = np.ones((b, kv_len), np.int32)
     if masked:
         mask[:, :3] = 0  # left padding: causal rows 0..2 see no valid key
-        mask[-1, t // 2 : t // 2 + 2] = 0
+        mask[-1, kv_len // 2 : kv_len // 2 + 2] = 0
     if empty:
         mask[0, :] = 0  # every query row of sample 0 is empty
     return q, k, v, g, mask
@@ -71,9 +77,9 @@ def _assert_lse(got, want):
     np.testing.assert_allclose(got[~inf], want[~inf], atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("name,b,h,t,causal,masked,empty", CASES, ids=[c[0] for c in CASES])
-def test_plain_forward_matches_pallas(name, b, h, t, causal, masked, empty):
-    q, k, v, _, mask = _inputs(b, h, t, masked, empty)
+@pytest.mark.parametrize("name,b,h,t,kv_len,causal,masked,empty", CASES, ids=[c[0] for c in CASES])
+def test_plain_forward_matches_pallas(name, b, h, t, kv_len, causal, masked, empty):
+    q, k, v, _, mask = _inputs(b, h, t, masked, empty, kv_len=kv_len)
     o_ref, lse_ref = _jax_fwd(q, k, v, mask, causal, masked)
     o, lse = tattn.flash_forward_plain(_t(q), _t(k), _t(v), _t(mask) if masked else None, causal, 0.125)
     np.testing.assert_allclose(o.numpy(), o_ref, atol=ATOL, rtol=RTOL)
@@ -84,9 +90,9 @@ def test_plain_forward_matches_pallas(name, b, h, t, causal, masked, empty):
         assert np.isinf(lse_ref[0]).all() and (o_ref[0] == 0).all()
 
 
-@pytest.mark.parametrize("name,b,h,t,causal,masked,empty", CASES, ids=[c[0] for c in CASES])
-def test_plain_backward_matches_pallas(name, b, h, t, causal, masked, empty):
-    q, k, v, g, mask = _inputs(b, h, t, masked, empty)
+@pytest.mark.parametrize("name,b,h,t,kv_len,causal,masked,empty", CASES, ids=[c[0] for c in CASES])
+def test_plain_backward_matches_pallas(name, b, h, t, kv_len, causal, masked, empty):
+    q, k, v, g, mask = _inputs(b, h, t, masked, empty, kv_len=kv_len)
     o, lse = _jax_fwd(q, k, v, mask, causal, masked)
     ref = jattn._flash_backward(
         *(jnp.asarray(x) for x in (q, k, v, mask, o, lse, g)),

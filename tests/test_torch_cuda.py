@@ -26,24 +26,31 @@ def gpu():
         pytest.skip("needs an NVIDIA GPU and nvcc")
 
 
-def _inputs(b, h, t, seed):
+def _inputs(b, h, t, seed, kv_len=None):
     """bf16 q, k, v, do on the card and an int32 key mask: 3 left-padded keys
     in every sample, and sample 0 masked entirely (its rows are empty)."""
     rng = np.random.default_rng(seed)
+    kv_len = t if kv_len is None else kv_len
     q, k, v, g = (
-        torch.from_numpy(rng.normal(size=(b, h, t, 64)).astype(np.float32)).cuda().to(torch.bfloat16)
-        for _ in range(4)
+        torch.from_numpy(rng.normal(size=(b, h, n, 64)).astype(np.float32)).cuda().to(torch.bfloat16)
+        for n in (t, kv_len, kv_len, t)
     )
-    mask = np.ones((b, t), np.int32)
+    mask = np.ones((b, kv_len), np.int32)
     mask[:, :3] = 0
     mask[0, :] = 0
     return q, k, v, g, torch.from_numpy(mask).cuda()
 
 
+# (q_len, kv_len, causal): both sides of the 64-row tile edges, the window's
+# 336, and a non-causal call whose q and k tensor maps differ in length
+KERNEL_CASES = [(t, t, causal) for t in (63, 64, 65, 128, 129, 200, 336) for causal in (True, False)]
+KERNEL_CASES.append((100, 257, False))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("causal", [True, False])
-def test_kernels_match_plain(gpu, causal):
-    q, k, v, g, mask = _inputs(2, 4, 200, seed=11)
+@pytest.mark.parametrize("q_len,kv_len,causal", KERNEL_CASES)
+def test_kernels_match_plain(gpu, q_len, kv_len, causal):
+    q, k, v, g, mask = _inputs(2, 4, q_len, seed=11, kv_len=kv_len)
     o, lse = tattn.flash_forward(q, k, v, mask, causal, SCALE)
     o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, causal, SCALE)
     torch.testing.assert_close(o.float(), o_p.float(), atol=ATOL, rtol=RTOL)
