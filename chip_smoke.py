@@ -7,7 +7,7 @@ Phases, each printing one JSON line:
   2. build: compiles csrc/flash_attn.cu with nvcc for sm_90a and prints each
      kernel's registers and spill bytes (-Xptxas -v) and its HGMMA and
      UTMALDG instruction counts (cuobjdump -sass, where the toolkit has it);
-     the TMA + wgmma kernels must not spill and must contain both;
+     all three are TMA + wgmma kernels, and none may spill or lack either;
   3. kernels: the three flash kernels against their plain PyTorch versions on
      the card, in bf16, at the shapes of the 410M window (and an EVA-02 shape,
      a 129-token case across the tile edge and a small unaligned case with
@@ -58,7 +58,7 @@ SM90 = "sm90 tma+wgmma"
 KERNELS = {
     "flash_fwd": ("mafed_tpu/kernels/attention.py:81", SM90),
     "flash_bwd_dkv": ("mafed_tpu/kernels/attention.py:230", SM90),
-    "flash_bwd_dq": ("mafed_tpu/kernels/attention.py:294", "wmma"),
+    "flash_bwd_dq": ("mafed_tpu/kernels/attention.py:294", SM90),
 }
 
 
@@ -99,9 +99,7 @@ def phase_build() -> None:
     sass = build.sass_counts()
     warnings = [line.strip() for line in log.splitlines() if "warning" in line.lower()]
     emit({"phase": "build", "seconds": seconds, "ptxas": resources, "sass": sass, "warnings": warnings})
-    for name, (_, design) in KERNELS.items():
-        if design != SM90:
-            continue
+    for name in KERNELS:
         kernel = f"{name}_kernel"
         res = resources.get(kernel, {})
         if res.get("spill_store_bytes") != 0 or res.get("spill_load_bytes") != 0:

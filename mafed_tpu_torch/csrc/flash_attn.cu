@@ -12,29 +12,26 @@
 // bf16; lse and delta are [batch*heads, q_len] f32; the key-padding mask is
 // [batch, kv_len] int32 (or null). Causal calls need kv_len == q_len.
 //
-// Design. Each CTA has 4 warps and owns one 64-row tile (of queries for the
-// forward and dQ, of keys for dK/dV); the other operand streams through
-// shared memory in 64-row tiles. The ragged end of a sequence is
-// bounds-masked inside every loop: rows past the end load as zeros, their
-// keys are dropped from `keep`, and their outputs are never stored.
-//   * forward and dK/dV: the 4 warps are one warpgroup; tiles arrive by TMA
-//     through a 2-stage ring, every product is wgmma, and scores, softmax
-//     statistics and accumulators stay in registers (sm90.cuh holds the
-//     TMA, mbarrier and wgmma wrappers).
-//   * dQ: each warp owns 16 rows; products go through WMMA 16x16x16
-//     fragments, with scores staged through shared memory whose rows are
-//     padded by 16 bytes to spread the fragment loads over the banks.
+// Design. Each CTA is one warpgroup (4 warps, 128 threads) and owns one
+// 64-row tile: of queries for the forward and dQ, of keys for dK/dV. The
+// other operands stream through shared memory in 64-row tiles, loaded by TMA
+// through a 2-stage mbarrier ring. Every product is wgmma; scores, softmax
+// statistics and accumulators stay in registers, and P and dS pass from one
+// product's accumulator to the next product as register A fragments, never
+// through shared memory (sm90.cuh holds the TMA, mbarrier and wgmma
+// wrappers). The ragged end of a sequence is handled in every loop: rows past
+// the end load as zeros, their keys are dropped from the keep bits, and their
+// outputs are never stored.
+//
 // Nothing is allocated on the device here: the Python wrapper allocates the
 // outputs, and every launch goes on the stream it is given.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 
 #include "sm90.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -42,100 +39,7 @@ namespace {
 constexpr int BLOCK = 64;               // rows of a query tile and of a key tile
 constexpr int WARPS = 4;                // each warp owns 16 rows of its CTA's tile
 constexpr int THREADS = WARPS * 32;
-constexpr int LDP = BLOCK + 8;          // bf16 [BLOCK][BLOCK] row stride in shared memory
-constexpr int LDS = BLOCK + 4;          // f32 [BLOCK][BLOCK] row stride
 constexpr float NEG = -3.4028234663852886e38f;  // finfo(float32).min
-
-template <int D> struct Tile {
-  static constexpr int LD = D + 8;      // bf16 [BLOCK][D] row stride
-  static constexpr size_t BF16_TILE = sizeof(bf16) * BLOCK * LD;
-  static constexpr size_t P_TILE = sizeof(bf16) * BLOCK * LDP;
-  static constexpr size_t S_TILE = sizeof(float) * BLOCK * LDS;
-  static constexpr size_t ROWS = sizeof(float) * BLOCK;
-};
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;  // B = rows^T
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// Bump allocator over the dynamic shared memory; every piece is 128-byte aligned.
-struct Carve {
-  unsigned char* p;
-  template <typename T> __device__ T* take(size_t bytes) {
-    T* out = reinterpret_cast<T*>(p);
-    p += (bytes + 127) / 128 * 128;
-    return out;
-  }
-};
-
-// Rows [row0, row0 + BLOCK) of a contiguous [n_rows, D] bf16 matrix into a
-// padded shared tile; rows past n_rows become zeros. 16-byte loads.
-template <int D>
-__device__ void load_tile(bf16* dst, const bf16* __restrict__ src, int row0, int n_rows) {
-  constexpr int VEC = 8;
-  constexpr int PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < BLOCK * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * Tile<D>::LD + c) = val;
-  }
-}
-
-// keep[c] = key k0 + c exists and is not padding (causality is applied per row).
-__device__ void load_key_keep(int* keep, const int* __restrict__ mask_row, int k0, int kv_len) {
-  for (int i = threadIdx.x; i < BLOCK; i += THREADS) {
-    const int col = k0 + i;
-    keep[i] = col < kv_len && (mask_row == nullptr || mask_row[col] > 0);
-  }
-}
-
-// out[16 x 64] = A_w[16 x D] . B^T, where B is a [64][D] tile (rows = the 64 columns of out).
-template <int D>
-__device__ void rows_times_tile_t(float* out, const bf16* a_rows, const bf16* b_tile) {
-  for (int n = 0; n < BLOCK / 16; ++n) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA a;
-      FragBT bt;
-      wmma::load_matrix_sync(a, a_rows + kk * 16, Tile<D>::LD);
-      wmma::load_matrix_sync(bt, b_tile + n * 16 * Tile<D>::LD + kk * 16, Tile<D>::LD);
-      wmma::mma_sync(acc, a, bt, acc);
-    }
-    wmma::store_matrix_sync(out + n * 16, acc, LDS, wmma::mem_row_major);
-  }
-}
-
-// acc[n] += P_w[16 x 64] . B[64 x D] for the D/16 column blocks of acc.
-template <int D>
-__device__ void accumulate_p_times_tile(FragC* acc, const bf16* p_rows, const bf16* b_tile) {
-  for (int n = 0; n < D / 16; ++n) {
-    for (int kk = 0; kk < BLOCK / 16; ++kk) {
-      FragA a;
-      FragB bm;
-      wmma::load_matrix_sync(a, p_rows + kk * 16, LDP);
-      wmma::load_matrix_sync(bm, b_tile + kk * 16 * Tile<D>::LD + n * 16, Tile<D>::LD);
-      wmma::mma_sync(acc[n], a, bm, acc[n]);
-    }
-  }
-}
-
-// Store a warp's 16 x D f32 accumulator, times `scale`, as bf16 rows
-// [row0, row0 + 16) of a [n_rows, D] output, through a 16 x LDS staging area.
-template <int D>
-__device__ void store_rows(bf16* __restrict__ dst, const FragC* acc, float* stage, int row0, int n_rows,
-                           float scale) {
-  static_assert(D <= LDS, "the staging area holds D columns");
-  const int lane = threadIdx.x % 32;
-  for (int n = 0; n < D / 16; ++n) wmma::store_matrix_sync(stage + n * 16, acc[n], LDS, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int r = i / D, c = i % D;
-    if (row0 + r < n_rows) dst[(size_t)(row0 + r) * D + c] = __float2bfloat16(stage[r * LDS + c] * scale);
-  }
-}
 
 // Keep bits of key tile k0: bit c = key k0 + c exists and is not padding.
 // Warps 0 and 1 each fetch 32 keys (`keep_key`), then ballot them into one
@@ -148,6 +52,16 @@ __device__ __forceinline__ bool keep_key(const int* __restrict__ mask_row, int k
 __device__ __forceinline__ void store_keep_bits(uint64_t* slot, bool keep) {
   const uint32_t word = __ballot_sync(0xffffffffu, keep);
   if (threadIdx.x % 32 == 0) reinterpret_cast<uint32_t*>(slot)[threadIdx.x / 32] = word;
+}
+
+// The keep bits of this thread's row r_i = 16 warp + lane / 4 + 8 i of a
+// query tile against the key tile whose bits are kbits, shifted so that bit
+// 8 j + c says whether its accumulator column 8 j + 2 (lane % 4) + c is kept.
+// On the diagonal tile only keys 0..r_i are (causal).
+__device__ __forceinline__ uint64_t row_keep_bits(uint64_t kbits, bool diag, int i) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int row = warp * 16 + lane / 4 + 8 * i;
+  return (diag ? kbits & ((2ull << row) - 1) : kbits) >> (2 * (lane % 4));
 }
 
 // Store the 64 x D wgmma accumulator of the tile at row0, times `scale`, as
@@ -207,14 +121,9 @@ constexpr float LN2 = 0.6931471805599453f;
 template <bool MASKED>
 __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], float (&l)[2], float (&alpha)[2],
                                              uint64_t kbits, bool diag, float scale_log2) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    uint64_t keep = 0;  // bit 8 j + c: column 8 j + 2 (lane % 4) + c is kept
-    if (MASKED) {
-      const int row = warp * 16 + lane / 4 + 8 * i;
-      keep = (diag ? kbits & ((2ull << row) - 1) : kbits) >> (2 * (lane % 4));  // causal: keys 0..row
-    }
+    const uint64_t keep = MASKED ? row_keep_bits(kbits, diag, i) : 0;
     float mx = NEG;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -246,13 +155,16 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], flo
   }
 }
 
-template <int D> struct FwdSmem {  // byte offsets from the 1024-aligned base
+// Shared memory of the forward and dQ kernels, byte offsets from the
+// 1024-aligned base: ONCE query-side tiles loaded once (Q; Q and dO), the K
+// and V stages of the ring, each stage's keep bits, and the barriers (the
+// once-loaded tiles', then one per stage).
+template <int D, int ONCE> struct QTileSmem {
   static constexpr uint32_t TILE = 64 * D * 2;
-  static constexpr uint32_t Q = 0;
-  static constexpr uint32_t K = Q + TILE;
+  static constexpr uint32_t K = ONCE * TILE;
   static constexpr uint32_t V = K + STAGES * TILE;
   static constexpr uint32_t KEEP = V + STAGES * TILE;   // STAGES x uint64 keep bits
-  static constexpr uint32_t BAR = KEEP + STAGES * 8;    // Q, then one per stage
+  static constexpr uint32_t BAR = KEEP + STAGES * 8;
   static constexpr size_t ALLOC = BAR + (1 + STAGES) * 8 + 1024;  // + room to align the base
 };
 
@@ -260,13 +172,69 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   return raw + ((1024 - (sm90::smem_addr(raw) & 1023)) & 1023);
 }
 
+// The K/V ring of a kernel that owns a query tile (forward, dQ): key tiles
+// 0 .. upper - 1 stream through STAGES stages, one barrier each, with each
+// tile's keep bits. A loop step waits for its tile (wait), fetches the next
+// tile's keep bits before its products (next_keep), and after them stores
+// those bits and refills the stage it used (advance).
+template <int D, int ONCE> struct KvRing {
+  using L = QTileSmem<D, ONCE>;
+  unsigned char* smem;
+  const CUtensorMap* tm_k;
+  const CUtensorMap* tm_v;
+  const int* mask_row;
+  int bh, kv_len, upper;
+
+  __device__ __forceinline__ uint64_t* bar(int i) const { return reinterpret_cast<uint64_t*>(smem + L::BAR) + i; }
+  __device__ __forceinline__ uint64_t* keep_slot(int s) const {
+    return reinterpret_cast<uint64_t*>(smem + L::KEEP) + s;
+  }
+  __device__ __forceinline__ const unsigned char* once_tile(int i) const { return smem + i * L::TILE; }
+  __device__ __forceinline__ const unsigned char* k_tile(int s) const { return smem + L::K + s * L::TILE; }
+  __device__ __forceinline__ const unsigned char* v_tile(int s) const { return smem + L::V + s * L::TILE; }
+
+  __device__ __forceinline__ void load_kv(int kt, int s) const {
+    sm90::mbar_expect_tx(bar(1 + s), 2 * L::TILE);
+    sm90::tma_load_tile<D>(smem + L::K + s * L::TILE, tm_k, bar(1 + s), kt * BLOCK, bh);
+    sm90::tma_load_tile<D>(smem + L::V + s * L::TILE, tm_v, bar(1 + s), kt * BLOCK, bh);
+  }
+
+  // Initialise the barriers and tile 0's keep bits, then (thread 0) load the
+  // ONCE tiles of query rows q0.. onto barrier 0 and fill the stages.
+  __device__ __forceinline__ void start(const CUtensorMap* const (&once)[ONCE], int q0) const {
+    const int tid = threadIdx.x;
+    if (tid == 0) {
+      for (int i = 0; i < 1 + STAGES; ++i) sm90::mbar_init(bar(i), 1);
+      sm90::fence_mbar_init();
+    }
+    if (tid < 64 && upper > 0) store_keep_bits(keep_slot(0), keep_key(mask_row, 0, kv_len));
+    __syncthreads();
+    if (tid == 0) {
+      sm90::mbar_expect_tx(bar(0), ONCE * L::TILE);
+      for (int i = 0; i < ONCE; ++i) sm90::tma_load_tile<D>(smem + i * L::TILE, once[i], bar(0), q0, bh);
+      for (int s = 0; s < STAGES && s < upper; ++s) load_kv(s, s);
+    }
+  }
+
+  __device__ __forceinline__ void wait_once() const { sm90::mbar_wait(bar(0), 0); }
+  __device__ __forceinline__ void wait(int kt) const { sm90::mbar_wait(bar(1 + kt % STAGES), (kt / STAGES) & 1); }
+  __device__ __forceinline__ uint64_t keep_bits(int kt) const { return *keep_slot(kt % STAGES); }
+  __device__ __forceinline__ bool next_keep(int kt) const {
+    return threadIdx.x < 64 && kt + 1 < upper && keep_key(mask_row, (kt + 1) * BLOCK, kv_len);
+  }
+  __device__ __forceinline__ void advance(int kt, bool next) const {
+    if (threadIdx.x < 64 && kt + 1 < upper) store_keep_bits(keep_slot((kt + 1) % STAGES), next);
+    __syncthreads();  // every warp is done with tile kt's stage
+    if (threadIdx.x == 0 && kt + STAGES < upper) load_kv(kt + STAGES, kt % STAGES);
+  }
+};
+
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ mask, bf16* __restrict__ o,
                  float* __restrict__ lse, int heads, int q_len, int kv_len, int causal, float scale) {
   static_assert(D % 64 == 0, "tiles are stored as 64-column panels");
-  using L = FwdSmem<D>;
   constexpr int NP = D / 64;
   const int qt = blockIdx.x, bh = blockIdx.y, b = bh / heads;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -276,30 +244,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   const int* mask_row = mask == nullptr ? nullptr : mask + (size_t)b * kv_len;
 
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = aligned_smem(smem_raw);
-  unsigned char* sQ = smem + L::Q;
-  uint64_t* keep_bits = reinterpret_cast<uint64_t*>(smem + L::KEEP);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR);
-
   const int n_kt = (kv_len + BLOCK - 1) / BLOCK;
-  const int upper = causal ? min(qt + 1, n_kt) : n_kt;
-  auto load_kv = [&](int kt, int s) {
-    sm90::mbar_expect_tx(&bar[1 + s], 2 * L::TILE);
-    sm90::tma_load_tile<D>(smem + L::K + s * L::TILE, &tm_k, &bar[1 + s], kt * BLOCK, bh);
-    sm90::tma_load_tile<D>(smem + L::V + s * L::TILE, &tm_v, &bar[1 + s], kt * BLOCK, bh);
-  };
-
-  if (tid == 0) {
-    for (int i = 0; i < 1 + STAGES; ++i) sm90::mbar_init(&bar[i], 1);
-    sm90::fence_mbar_init();
-  }
-  if (warp < 2 && upper > 0) store_keep_bits(&keep_bits[0], keep_key(mask_row, 0, kv_len));
-  __syncthreads();
-  if (tid == 0) {
-    sm90::mbar_expect_tx(&bar[0], L::TILE);
-    sm90::tma_load_tile<D>(sQ, &tm_q, &bar[0], q0, bh);
-    for (int s = 0; s < STAGES && s < upper; ++s) load_kv(s, s);
-  }
+  const KvRing<D, 1> ring{aligned_smem(smem_raw), &tm_k, &tm_v, mask_row, bh, kv_len,
+                          causal ? min(qt + 1, n_kt) : n_kt};
+  const unsigned char* sQ = ring.once_tile(0);
+  ring.start({&tm_q}, q0);
 
   float acc[NP][32];
 #pragma unroll
@@ -308,15 +257,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     for (int r = 0; r < 32; ++r) acc[n][r] = 0.0f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};  // row max (log2 domain) and sum
   const float scale_log2 = scale * LOG2E;
-  sm90::mbar_wait(&bar[0], 0);
+  ring.wait_once();
 
-  for (int kt = 0; kt < upper; ++kt) {
+  for (int kt = 0; kt < ring.upper; ++kt) {
     const int s = kt % STAGES;
     // the next tile's keep bits: fetched now, stored after this tile's products
-    const bool next_keep = warp < 2 && kt + 1 < upper && keep_key(mask_row, (kt + 1) * BLOCK, kv_len);
-    sm90::mbar_wait(&bar[1 + s], (kt / STAGES) & 1);
-    const unsigned char* sK = smem + L::K + s * L::TILE;
-    const unsigned char* sV = smem + L::V + s * L::TILE;
+    const bool next_keep = ring.next_keep(kt);
+    ring.wait(kt);
+    const unsigned char* sK = ring.k_tile(s);
+    const unsigned char* sV = ring.v_tile(s);
 
     float sc[32];
 #pragma unroll
@@ -332,7 +281,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 
     // online softmax in registers; a tile needs masking on the diagonal or
     // when one of its keys is dropped
-    const uint64_t kbits = keep_bits[s];
+    const uint64_t kbits = ring.keep_bits(kt);
     const bool diag = causal && kt == qt;
     float alpha[2];
     if (diag || kbits != ~0ull)
@@ -363,10 +312,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     sm90::wgmma_wait<0>();
 #pragma unroll
     for (int n = 0; n < NP; ++n) sm90::fence_regs(acc[n]);
-
-    if (warp < 2 && kt + 1 < upper) store_keep_bits(&keep_bits[(kt + 1) % STAGES], next_keep);
-    __syncthreads();  // every warp is done with stage s
-    if (tid == 0 && kt + STAGES < upper) load_kv(kt + STAGES, s);
+    ring.advance(kt, next_keep);
   }
 
 #pragma unroll
@@ -594,92 +540,151 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
 // ---------------------------------------------------------------------------
 // dQ. Replaces _flash_bwd_dq_kernel (mafed_tpu/kernels/attention.py:294-347).
 //
-// Bound on the H100: memory at VQA lengths (reads q, k, v, do, lse, delta,
-// writes dq; 3 products per kept pair, ~17 GFLOP at the CE shape). The CTA
-// keeps its query tile's q, do, lse and delta in shared memory and dQ in
-// register fragments, and streams k/v tiles up to the causal diagonal.
+// Bound on the H100: memory. At the 410M CE shape it reads q, k, v, do, lse
+// and delta and writes dq, ~167 MB: ~50 us at 3.35 TB/s, against ~16 GFLOP
+// (three products per kept (query, key) pair), ~17 us of tensor-core time.
+// As in the forward, the k/v of one head stays in L2 across its query tiles,
+// so what counts is keeping loads in flight on every SM.
+//
+// Design. The forward's, with dP and dS where the forward has O and the
+// softmax. One CTA is one warpgroup and owns one 64-row query tile of one
+// (batch, head). Thread 0 loads Q and dO once with TMA and streams 64-key K/V
+// tiles through the forward's ring (KvRing), up to the diagonal when causal.
+// Per tile: S = Q K^T and dP = dO V^T are wgmma with both operands K-major in
+// shared memory, committed as two groups; P = keep ? exp(S scale - lse) : 0
+// is formed in the S registers (log2 domain) while dP still runs, every tile
+// masked with the forward's keep bits (an unmasked path for tiles with no
+// dropped key measured no faster: the select hides behind the loads); then
+// dS = P (dP - delta) in the dP registers, rounded to bf16 straight into the
+// A fragments of dQ += dS K, which reads the K tile MN-major, the same shared
+// tile that S read K-major. dS never goes to shared memory. lse and delta of
+// a thread's two rows are loaded once into registers by ordinary loads
+// (+inf and 0 past q_len, so those rows get p = 0), and dQ stays in registers
+// until it is scaled once and stored. About 49 KB of shared memory and 122
+// registers a thread: 4 CTAs per SM.
 // ---------------------------------------------------------------------------
+// p = keep ? 2^(s scale log2(e) - lse log2(e)) : 0, in place, for this
+// thread's two rows of one 64-key tile.
+__device__ __forceinline__ void probs_tile(float (&sc)[32], const float (&lse_log2)[2], uint64_t kbits, bool diag,
+                                           float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint64_t keep = row_keep_bits(kbits, diag, i);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float& x = sc[4 * j + 2 * i + c];
+        x = sm90::exp2_approx(fmaf(x, scale_log2, -lse_log2[i]));
+        x = ((keep >> (8 * j + c)) & 1) ? x : 0.0f;
+      }
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                    const bf16* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, const int* __restrict__ mask, bf16* __restrict__ dq,
-                    int heads, int q_len, int kv_len, int causal, float scale) {
-  using T = Tile<D>;
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse, const float* __restrict__ delta, const int* __restrict__ mask,
+                    bf16* __restrict__ dq, int heads, int q_len, int kv_len, int causal, float scale) {
+  static_assert(D % 64 == 0, "tiles are stored as 64-column panels");
+  constexpr int NP = D / 64;
   const int qt = blockIdx.x, bh = blockIdx.y, b = bh / heads;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = qt * BLOCK, wr = warp * 16;
-  q += (size_t)bh * q_len * D;
-  dout += (size_t)bh * q_len * D;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q0 = qt * BLOCK;
   dq += (size_t)bh * q_len * D;
-  k += (size_t)bh * kv_len * D;
-  v += (size_t)bh * kv_len * D;
   lse += (size_t)bh * q_len;
   delta += (size_t)bh * q_len;
   const int* mask_row = mask == nullptr ? nullptr : mask + (size_t)b * kv_len;
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve carve{smem};
-  bf16* sQ = carve.take<bf16>(T::BF16_TILE);
-  bf16* sDO = carve.take<bf16>(T::BF16_TILE);
-  bf16* sK = carve.take<bf16>(T::BF16_TILE);
-  bf16* sV = carve.take<bf16>(T::BF16_TILE);
-  bf16* sDS = carve.take<bf16>(T::P_TILE);
-  float* sS = carve.take<float>(T::S_TILE);
-  float* sDP = carve.take<float>(T::S_TILE);
-  float* sLse = carve.take<float>(T::ROWS);
-  float* sDelta = carve.take<float>(T::ROWS);
-  int* sKeep = carve.take<int>(T::ROWS);
-
-  load_tile<D>(sQ, q, q0, q_len);
-  load_tile<D>(sDO, dout, q0, q_len);
-  for (int i = threadIdx.x; i < BLOCK; i += THREADS) {
-    const bool in = q0 + i < q_len;
-    sLse[i] = in ? lse[q0 + i] : INFINITY;
-    sDelta[i] = in ? delta[q0 + i] : 0.0f;
-  }
-
-  FragC dq_acc[D / 16];
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dq_acc[n], 0.0f);
+  extern __shared__ unsigned char smem_raw[];
   const int n_kt = (kv_len + BLOCK - 1) / BLOCK;
-  const int upper = causal ? min(qt + 1, n_kt) : n_kt;
-  for (int kt = 0; kt < upper; ++kt) {
-    const int k0 = kt * BLOCK;
-    __syncthreads();  // every warp is done with the previous k/v tile
-    load_tile<D>(sK, k, k0, kv_len);
-    load_tile<D>(sV, v, k0, kv_len);
-    load_key_keep(sKeep, mask_row, k0, kv_len);
-    __syncthreads();
+  const KvRing<D, 2> ring{aligned_smem(smem_raw), &tm_k, &tm_v, mask_row, bh, kv_len,
+                          causal ? min(qt + 1, n_kt) : n_kt};
+  const unsigned char* sQ = ring.once_tile(0);
+  const unsigned char* sDO = ring.once_tile(1);
+  ring.start({&tm_q, &tm_do}, q0);
 
-    rows_times_tile_t<D>(sS + wr * LDS, sQ + wr * T::LD, sK);    // q k^T
-    rows_times_tile_t<D>(sDP + wr * LDS, sDO + wr * T::LD, sV);  // do v^T
-    __syncwarp();
-
-    for (int i = lane; i < 16 * BLOCK; i += 32) {
-      const int r = wr + i / BLOCK, c = i % BLOCK;  // r: query within tile, c: key within tile
-      const bool keep = sKeep[c] && (!causal || k0 + c <= q0 + r);
-      const float p = keep ? expf(sS[r * LDS + c] * scale - sLse[r]) : 0.0f;
-      sDS[r * LDP + c] = __float2bfloat16(p * (sDP[r * LDS + c] - sDelta[r]));
-    }
-    __syncwarp();
-
-    accumulate_p_times_tile<D>(dq_acc, sDS + wr * LDP, sK);  // dq += ds k
+  // lse (log2 domain, +inf stays +inf) and delta of this thread's rows
+  float lse_log2[2], row_delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + lane / 4 + 8 * i;
+    lse_log2[i] = row < q_len ? lse[row] * LOG2E : INFINITY;
+    row_delta[i] = row < q_len ? delta[row] : 0.0f;
   }
-  __syncwarp();
-  store_rows<D>(dq, dq_acc, sS + wr * LDS, q0 + wr, q_len, scale);
-}
+  float dq_acc[NP][32], sc[32], dp[32];
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    sc[r] = dp[r] = 0.0f;
+#pragma unroll
+    for (int n = 0; n < NP; ++n) dq_acc[n][r] = 0.0f;
+  }
+  const float scale_log2 = scale * LOG2E;
+  ring.wait_once();
 
-template <int D> constexpr size_t bwd_dq_smem() {
-  using T = Tile<D>;
-  return 4 * T::BF16_TILE + T::P_TILE + 2 * T::S_TILE + 3 * T::ROWS;
+  for (int kt = 0; kt < ring.upper; ++kt) {
+    const int s = kt % STAGES;
+    // the next tile's keep bits: fetched now, stored after this tile's products
+    const bool next_keep = ring.next_keep(kt);
+    ring.wait(kt);
+    const unsigned char* sK = ring.k_tile(s);
+    const unsigned char* sV = ring.v_tile(s);
+
+    // S and dP as two groups; P is formed while dP still runs
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss(sc, sm90::desc_k_major(sQ, kk), sm90::desc_k_major(sK, kk), kk > 0);
+    sm90::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss(dp, sm90::desc_k_major(sDO, kk), sm90::desc_k_major(sV, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(sc);
+
+    probs_tile(sc, lse_log2, ring.keep_bits(kt), causal && kt == qt, scale_log2);
+
+    // dS = P (dP - delta); dQ += dS K, dS (bf16) from registers, K read MN-major
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int r = 4 * j + 2 * i + c;
+          dp[r] = sc[r] * (dp[r] - row_delta[i]);
+        }
+    uint32_t dsa[4][4];
+    sm90::acc_to_a(dp, dsa);
+#pragma unroll
+    for (int n = 0; n < NP; ++n) sm90::fence_regs(dq_acc[n]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int n = 0; n < NP; ++n)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs(dq_acc[n], dsa[kk], sm90::desc_mn_major(sK, n, kk));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int n = 0; n < NP; ++n) sm90::fence_regs(dq_acc[n]);
+    ring.advance(kt, next_keep);
+  }
+
+  store_acc_rows<D>(dq, dq_acc, q0, q_len, scale);
 }
 
 }  // namespace
 
 // ---------------------------------------------------------------------------
 // C launchers (bound from Python with ctypes). head_dim 64 is instantiated;
-// any other head_dim returns cudaErrorInvalidValue. The forward and dK/dV
-// launchers encode one tensor map per bf16 input on the host, per launch.
+// any other head_dim returns cudaErrorInvalidValue. Each launcher encodes one
+// tensor map per bf16 input on the host, per launch.
 // ---------------------------------------------------------------------------
 
 extern "C" cudaError_t flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
@@ -692,7 +697,7 @@ extern "C" cudaError_t flash_attn_fwd(const void* q, const void* k, const void* 
   if ((err = sm90_host::make_map_3d(&tm_q, q, batch_heads, q_len, D)) != cudaSuccess) return err;
   if ((err = sm90_host::make_map_3d(&tm_k, k, batch_heads, kv_len, D)) != cudaSuccess) return err;
   if ((err = sm90_host::make_map_3d(&tm_v, v, batch_heads, kv_len, D)) != cudaSuccess) return err;
-  constexpr size_t smem = FwdSmem<D>::ALLOC;
+  constexpr size_t smem = QTileSmem<D, 1>::ALLOC;
   err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((q_len + BLOCK - 1) / BLOCK, batch_heads);
@@ -729,13 +734,18 @@ extern "C" cudaError_t flash_attn_bwd_dq(const void* q, const void* k, const voi
                                          int causal, float scale, void* stream) {
   if (head_dim != 64) return cudaErrorInvalidValue;
   constexpr int D = 64;
-  constexpr size_t smem = bwd_dq_smem<D>();
-  cudaError_t err =
-      cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t err;
+  if ((err = sm90_host::make_map_3d(&tm_q, q, batch_heads, q_len, D)) != cudaSuccess) return err;
+  if ((err = sm90_host::make_map_3d(&tm_k, k, batch_heads, kv_len, D)) != cudaSuccess) return err;
+  if ((err = sm90_host::make_map_3d(&tm_v, v, batch_heads, kv_len, D)) != cudaSuccess) return err;
+  if ((err = sm90_host::make_map_3d(&tm_do, dout, batch_heads, q_len, D)) != cudaSuccess) return err;
+  constexpr size_t smem = QTileSmem<D, 2>::ALLOC;
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((q_len + BLOCK - 1) / BLOCK, batch_heads);
   flash_bwd_dq_kernel<D><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (const int*)mask, (bf16*)dq, heads, q_len, kv_len, causal, scale);
+      tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)delta, (const int*)mask, (bf16*)dq, heads, q_len,
+      kv_len, causal, scale);
   return cudaGetLastError();
 }

@@ -7,11 +7,13 @@ substitutions applied to mafed_tpu_torch/csrc/flash_attn.cu; a first pair
 ["FILE", path] starts from another source file instead (for example the
 parent commit's, unpacked with `git archive`). `{"base": []}` is the source
 as it stands. Every variant is built with nvcc in parallel into its own
-library, checked against the plain versions (a small unaligned case with
-empty rows, a non-causal 100 x 257 case and the 410M CE shape), and the
-forward and dK/dV kernels are timed at the CE shape in turns, three rounds
-of 50 launches each, so every variant sees the same card. Prints one JSON
-line per variant; with --out, the list also goes to that file.
+library and held against the plain versions (o, dk, dv and dq at
+chip_smoke's tolerances, lse's empty rows exactly) in a small unaligned
+case with empty rows, a non-causal 100 x 257 case and the 410M CE shape.
+Then the forward, dK/dV and dQ kernels are timed at the CE shape in turns,
+three rounds of 50 launches each, so every variant sees the same card.
+Prints one JSON line per variant; with --out, the list also goes to that
+file.
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ def main() -> int:
             build._bind(lib)
             libs[name] = lib
             results[name] = {"card": smi, "ptxas": build.kernel_resources(log), "max_abs_err": [],
-                             "fwd_ms": [], "dkv_ms": []}
+                             "fwd_ms": [], "dkv_ms": [], "dq_ms": []}
 
         gen = torch.Generator(device="cuda").manual_seed(0)
         cases = [(3, 2, 77, 77, True, (0, 3), True), (2, 4, 100, 257, False, None, False),
@@ -95,22 +97,26 @@ def main() -> int:
                 mask[-1] = 0
             o_p, lse_p = A.flash_forward_plain(q, k, v, mask, causal, 0.125)
             delta = (do.float() * o_p.float()).sum(-1)
-            _, dk_p, dv_p = A.flash_backward_plain(q, k, v, mask, o_p, lse_p, do, causal, 0.125)
-            data.append((q, k, v, do, mask, causal, o_p, lse_p, delta, dk_p, dv_p))
+            dq_p, dk_p, dv_p = A.flash_backward_plain(q, k, v, mask, o_p, lse_p, do, causal, 0.125)
+            data.append((q, k, v, do, mask, causal, o_p, lse_p, delta, dq_p, dk_p, dv_p))
 
         try:
             for name, lib in libs.items():
                 A.load_library = lambda lib=lib: lib
-                for q, k, v, do, mask, causal, o_p, lse_p, delta, dk_p, dv_p in data:
+                for q, k, v, do, mask, causal, o_p, lse_p, delta, dq_p, dk_p, dv_p in data:
                     o, lse = A.flash_forward(q, k, v, mask, causal, 0.125)
                     dk, dv = A.flash_bwd_dkv(q, k, v, mask, do, lse_p, delta, causal, 0.125)
+                    dq = A.flash_bwd_dq(q, k, v, mask, do, lse_p, delta, causal, 0.125)
                     fin = torch.isfinite(lse_p)
                     if not torch.equal(torch.isinf(lse), ~fin):
                         raise AssertionError(f"variant {name}: empty rows differ from the plain version")
+                    for label, got, want in (("o", o, o_p), ("dk", dk, dk_p), ("dv", dv, dv_p), ("dq", dq, dq_p)):
+                        torch.testing.assert_close(got.float(), want.float(), atol=chip_smoke.ATOL, rtol=chip_smoke.RTOL,
+                                                   msg=lambda m: f"variant {name}, {label}: {m}")
                     errs = [chip_smoke._err(o, o_p), (lse[fin] - lse_p[fin]).abs().max().item(),
-                            chip_smoke._err(dk, dk_p), chip_smoke._err(dv, dv_p)]
+                            chip_smoke._err(dk, dk_p), chip_smoke._err(dv, dv_p), chip_smoke._err(dq, dq_p)]
                     results[name]["max_abs_err"].append(errs)
-            q, k, v, do, mask, _, _, lse_p, delta, _, _ = data[-1]
+            q, k, v, do, mask, _, _, lse_p, delta, _, _, _ = data[-1]
             for _ in range(3):
                 for name, lib in libs.items():
                     A.load_library = lambda lib=lib: lib
@@ -118,6 +124,8 @@ def main() -> int:
                         chip_smoke.time_ms(lambda: A.flash_forward(q, k, v, mask, True, 0.125), iters=50))
                     results[name]["dkv_ms"].append(chip_smoke.time_ms(
                         lambda: A.flash_bwd_dkv(q, k, v, mask, do, lse_p, delta, True, 0.125), iters=50))
+                    results[name]["dq_ms"].append(chip_smoke.time_ms(
+                        lambda: A.flash_bwd_dq(q, k, v, mask, do, lse_p, delta, True, 0.125), iters=50))
         finally:
             A.load_library = build.load_library
     for name, res in results.items():

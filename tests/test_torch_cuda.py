@@ -26,9 +26,10 @@ def gpu():
         pytest.skip("needs an NVIDIA GPU and nvcc")
 
 
-def _inputs(b, h, t, seed, kv_len=None):
+def _inputs(b, h, t, seed, kv_len=None, masked=None):
     """bf16 q, k, v, do on the card and an int32 key mask: 3 left-padded keys
-    in every sample, and sample 0 masked entirely (its rows are empty)."""
+    in every sample, the keys of the range `masked` (start, stop) if given,
+    and sample 0 masked entirely (its rows are empty)."""
     rng = np.random.default_rng(seed)
     kv_len = t if kv_len is None else kv_len
     q, k, v, g = (
@@ -37,20 +38,24 @@ def _inputs(b, h, t, seed, kv_len=None):
     )
     mask = np.ones((b, kv_len), np.int32)
     mask[:, :3] = 0
+    if masked is not None:
+        mask[:, masked[0]:masked[1]] = 0
     mask[0, :] = 0
     return q, k, v, g, torch.from_numpy(mask).cuda()
 
 
-# (q_len, kv_len, causal): both sides of the 64-row tile edges, the window's
-# 336, and a non-causal call whose q and k tensor maps differ in length
-KERNEL_CASES = [(t, t, causal) for t in (63, 64, 65, 128, 129, 200, 336) for causal in (True, False)]
-KERNEL_CASES.append((100, 257, False))
+# (q_len, kv_len, causal, masked key range): both sides of the 64-row tile
+# edges, the window's 336, non-causal calls whose q and k tensor maps differ
+# in length (one with a one-row last query tile against six key tiles), and a
+# causal call whose second key tile is masked whole (its keep word is 0)
+KERNEL_CASES = [(t, t, causal, None) for t in (63, 64, 65, 128, 129, 200, 336) for causal in (True, False)]
+KERNEL_CASES += [(100, 257, False, None), (65, 336, False, None), (200, 200, True, (64, 128))]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("q_len,kv_len,causal", KERNEL_CASES)
-def test_kernels_match_plain(gpu, q_len, kv_len, causal):
-    q, k, v, g, mask = _inputs(2, 4, q_len, seed=11, kv_len=kv_len)
+@pytest.mark.parametrize("q_len,kv_len,causal,masked", KERNEL_CASES)
+def test_kernels_match_plain(gpu, q_len, kv_len, causal, masked):
+    q, k, v, g, mask = _inputs(2, 4, q_len, seed=11, kv_len=kv_len, masked=masked)
     o, lse = tattn.flash_forward(q, k, v, mask, causal, SCALE)
     o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, causal, SCALE)
     torch.testing.assert_close(o.float(), o_p.float(), atol=ATOL, rtol=RTOL)
