@@ -16,10 +16,18 @@ Phases, each printing one JSON line:
      (a yardstick only: its forward for the forward kernel, its whole
      backward, which also computes dq, for each backward kernel);
   4. reference: one window of a tiny model on the card (CUDA kernels) against
-     the same window on the CPU (plain versions);
+     the same window on the CPU (plain versions), and that model's tower
+     features and KV-cache prefill logits (head_dim-64 tower and decoder);
   5. window: three fused MAFED windows of VL-Pythia-410M at full width and
      depth (random seeded weights, cached-patch shapes of the bench), with the
-     kernel launch counts of that run.
+     kernel launch counts of that run;
+  6. decode: greedy KV-cache decode of VL-Pythia-410M + EVA-02-L at full width
+     and depth (bf16 weights from a seed; batch 32, text 64 with 16 left-padded
+     positions, 10 new tokens), from uint8 pixels through the tower and from
+     the tower's cached patch features, each timed over 6 batches after a
+     warm-up with batch i+1 dispatched before batch i is read, with the kernel
+     launch counts of each route; the emitted tokens checked against a
+     no-cache forward; then validate_vqa over 3 synthetic batches.
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; without
 a CUDA device, or without the package beside it, the script exits non-zero
@@ -33,14 +41,21 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from mafed_tpu_torch.core.config import ModelConfig, TrainConfig, VisionConfig, model_config_for_preset
+from mafed_tpu_torch.data.images import make_normalizer, prep_pixels, synthetic_image
+from mafed_tpu_torch.data.tokenizer import ByteTokenizer
+from mafed_tpu_torch.evaluation.decode import make_greedy_decoder
+from mafed_tpu_torch.evaluation.validate import validate_vqa
 from mafed_tpu_torch.kernels import attention as A
 from mafed_tpu_torch.kernels import build
+from mafed_tpu_torch.models import gpt_neox
+from mafed_tpu_torch.models import vl_pythia as V
 from mafed_tpu_torch.models.vl_pythia import init_model
 from mafed_tpu_torch.optim.optimizer import build_optimizer, set_schedule
-from mafed_tpu_torch.training.flops import framework_window_flops, mfu
+from mafed_tpu_torch.training.flops import framework_decode_flops_per_example, framework_window_flops, mfu
 from mafed_tpu_torch.training.step import make_mafed_window_step
 from mafed_tpu_torch.training.train_state import TrainState, make_teacher, trainable_parameters
 
@@ -128,6 +143,8 @@ def phase_kernels(gen):
         ("ce_410m", 48, 16, 336, True, (256, 276), False),
         ("student_410m", 16, 16, 336, True, (256, 276), False),
         ("eva02_noncausal", 16, 16, 257, False, None, False),
+        ("eva02_tower_b32", 32, 16, 257, False, None, False),  # the decode's tower
+        ("decode_prefill_b32", 32, 16, 320, True, (256, 272), False),  # the decode's prefill
         ("causal_129_padded", 8, 4, 129, True, (0, 7), False),
         ("small_unaligned_empty_rows", 3, 2, 77, True, (0, 3), True),
     ]
@@ -197,9 +214,32 @@ def phase_kernels(gen):
     emit({"phase": "kernels", "case": "timing_ce_410m", "ms": ms, "plain_ms": plain_ms,
           "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
           "bound_ms": {n: v[0] for n, v in bounds.items()}, "kept_pairs": pairs})
+    for case, t2, causal, pad in (("timing_decode_tower", 257, False, None), ("timing_decode_prefill", 320, True, (256, 272))):
+        emit({"phase": "kernels", "case": case, **_fwd_timing(gen, 32, h, t2, causal, pad, scale)})
     library = {"flash_fwd": (sdpa_fwd, "o"), "flash_bwd_dkv": (sdpa_bwd, "dq+dk+dv"),
                "flash_bwd_dq": (sdpa_bwd, "dq+dk+dv")}
     return errs, ms, plain_ms, bounds, library
+
+
+def _fwd_timing(gen, b, h, t, causal, pad, scale) -> dict:
+    """The forward kernel at one shape of the decode: its time beside the plain
+    version's, SDPA's forward and its bound (as at the CE shape)."""
+    q, k, v, _, mask = _qkv(gen, b, h, t, pad, False)
+    keep = torch.ones(t, t, dtype=torch.bool, device="cuda")
+    if causal:
+        keep = keep.tril()
+    keep = keep[None, None] & ((mask > 0)[:, None, None, :] if mask is not None else True)
+    pairs = h * int(keep.expand(b, 1, t, t).sum().item())
+    act, row = b * h * t * 64 * 2, b * h * t * 4
+    nbytes = 4 * act + row + (b * t * 4 if mask is not None else 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 4 * 64 * pairs / BF16_FLOPS_PER_S * 1e3
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return {"shape": [b, h, t, 64], "causal": causal,
+            "ms": time_ms(lambda: A.flash_forward(q, k, v, mask, causal, scale)),
+            "plain_ms": time_ms(lambda: A.flash_forward_plain(q, k, v, mask, causal, scale)),
+            "sdpa_fwd_ms": time_ms(lambda: sdpa(q, k, v, attn_mask=keep, scale=scale)),
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "kept_pairs": pairs}
 
 
 def example_batch(gen, cfg, b: int, text_len: int, device="cpu"):
@@ -234,15 +274,43 @@ def window_setup(cfg, model, n_ce, b, text_len, gen, device):
     return step, state, teacher, ce, distill, lang
 
 
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float().cpu() - want.float()).norm() / want.float().norm()).item()
+
+
+def tower_and_prefill(model, cfg, pixels, input_ids, attention_mask, device):
+    """(tower features, last-position logits of the KV-cache prefill), bf16."""
+    dtype = torch.bfloat16
+    with torch.inference_mode():
+        px = prep_pixels({"pixels": pixels.to(device)}, make_normalizer(cfg.vision), dtype)
+        feats = model.vision_encoder.forward_features(px, dtype=dtype)
+        ids, mask = input_ids.to(device), attention_mask.to(device)
+        embeds, full_mask = V.build_inputs(model, ids, mask, pixel_values=px, dtype=dtype)
+        cache = gpt_neox.KVCache.create(cfg, ids.shape[0], embeds.shape[1] + 1, dtype=dtype, device=device)
+        buf_mask = torch.cat([full_mask, full_mask.new_ones((ids.shape[0], 1))], dim=1)
+        hidden = model.gpt_neox(embeds, attention_mask=buf_mask, cache=cache, dtype=dtype)["last_hidden_state"]
+        return feats, gpt_neox.logits(model.embed_out, hidden[:, -1], dtype=dtype)
+
+
 def phase_reference() -> None:
     """One window of a tiny model (head_dim 64) on the card against the same
     window on the CPU, both bf16: losses within rtol 3e-2 (bf16 matmul
-    outputs and the tiled softmax round differently on the two devices)."""
+    outputs and the tiled softmax round differently on the two devices). The
+    same model with a head_dim-64 tower (16 patches + CLS): its tower features
+    and the KV-cache prefill's last-position logits on the card against the
+    CPU, relative norm error within 3e-2."""
     cfg = ModelConfig(vocab_size=512, hidden_size=128, num_hidden_layers=3, num_attention_heads=2,
-                      intermediate_size=256, vision=VisionConfig(embed_dim=64))
-    metrics = {}
+                      intermediate_size=256,
+                      vision=VisionConfig(img_size=56, embed_dim=128, depth=2, num_heads=2))
+    gen = torch.Generator().manual_seed(3)
+    pixels = torch.randint(0, 256, (4, 56, 56, 3), generator=gen, dtype=torch.uint8)
+    input_ids = torch.randint(1, 500, (4, 24), generator=gen)
+    attention_mask = torch.ones(4, 24, dtype=torch.int32)
+    attention_mask[:, :5] = 0
+    metrics, evals = {}, {}
     for device in ("cpu", "cuda"):
         model = init_model(cfg, seed=0, device="cpu").to(device)
+        evals[device] = tower_and_prefill(model, cfg, pixels, input_ids, attention_mask, device)
         step, state, teacher, ce, distill, lang = window_setup(
             cfg, model, 3, 4, 24, torch.Generator().manual_seed(1), device)
         _, m = step(state, teacher, ce, distill, lang)
@@ -251,7 +319,11 @@ def phase_reference() -> None:
         got = metrics["cuda"][key]
         if not abs(got - want) <= 3e-2 * abs(want):
             raise AssertionError(f"reference window: {key} {got} on the card vs {want} on the CPU")
-    emit({"phase": "reference", "cpu": metrics["cpu"], "cuda": metrics["cuda"], "rtol": 3e-2})
+    errs = {name: _rel_err(got, want) for name, got, want in zip(("tower", "prefill_logits"), evals["cuda"], evals["cpu"])}
+    if not all(e <= 3e-2 for e in errs.values()):
+        raise AssertionError(f"reference eval: relative errors {errs} on the card vs the CPU, above 3e-2")
+    emit({"phase": "reference", "cpu": metrics["cpu"], "cuda": metrics["cuda"], "rtol": 3e-2,
+          "eval_rel_err": errs})
 
 
 def phase_window(smi: str):
@@ -260,7 +332,7 @@ def phase_window(smi: str):
     model = init_model(cfg, seed=0, device="cuda")
     step, state, teacher, ce, distill, lang = window_setup(
         cfg, model, n_ce, b, text_len, torch.Generator().manual_seed(2), "cuda")
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    before = {n: p.detach().clone() for n, p in trainable_parameters(model).items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -278,7 +350,7 @@ def phase_window(smi: str):
         bad = [k for k, v in h.items() if not torch.isfinite(torch.tensor(v))]
         if bad:
             raise AssertionError(f"non-finite window metrics: {bad} in {h}")
-    unchanged = [n for n, p in model.named_parameters() if torch.equal(p, before[n])]
+    unchanged = [n for n, p in trainable_parameters(model).items() if torch.equal(p, before[n])]
     if unchanged:
         raise AssertionError(f"parameters that no update moved: {unchanged[:5]} ({len(unchanged)})")
     # per window: fwd in every layer of the CE (24), student (24) and teacher
@@ -303,6 +375,116 @@ def phase_window(smi: str):
     return launches
 
 
+def decode_batches(cfg, n: int, b: int, text_len: int, pad: int, seed: int):
+    """Host (numpy) batches as a loader gives them: left-padded text and
+    uint8 NHWC pixels."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        mask = np.ones((b, text_len), np.int32)
+        mask[:, :pad] = 0
+        out.append({
+            "input_ids": rng.integers(1, 257, size=(b, text_len)).astype(np.int32),
+            "attention_mask": mask,
+            "pixels": np.stack([synthetic_image(seed * 1000 + i * b + j, cfg.vision) for j in range(b)]),
+        })
+    return out
+
+
+def run_decode(decode, model, batches):
+    """Decode every batch, dispatching batch i+1 before reading batch i: (tokens, ms per batch)."""
+    torch.cuda.synchronize()
+    start, pending, toks = time.perf_counter(), None, []
+    for batch in batches:
+        out = decode(model, batch)
+        if pending is not None:
+            toks.append(pending.cpu())
+        pending = out
+    toks.append(pending.cpu())
+    return toks, (time.perf_counter() - start) * 1e3 / len(batches)
+
+
+def check_cache_invariance(model, cfg, batch, toks, eos: int) -> dict:
+    """A no-cache forward over prefix + emitted tokens: each emitted token up
+    to a row's first EOS must be within bf16 tolerance (2e-2 |max|) of the
+    argmax logit at its position."""
+    dtype, max_new = torch.bfloat16, toks.shape[1]
+    ids = torch.cat([torch.from_numpy(batch["input_ids"]), toks[:, :-1]], dim=1).cuda()
+    mask = torch.from_numpy(batch["attention_mask"]).cuda()
+    mask = torch.cat([mask, mask.new_ones((mask.shape[0], max_new - 1))], dim=1)
+    with torch.inference_mode():
+        px = prep_pixels({"pixels": torch.from_numpy(batch["pixels"]).cuda()}, make_normalizer(cfg.vision), dtype)
+        embeds, full_mask = V.build_inputs(model, ids, mask, pixel_values=px, dtype=dtype)
+        hidden = model.gpt_neox(embeds, attention_mask=full_mask, dtype=dtype)["last_hidden_state"]
+        logits = gpt_neox.logits(model.embed_out, hidden[:, -max_new:], dtype=dtype).float().cpu()
+    checked, worst = 0, 0.0
+    for r in range(toks.shape[0]):
+        for k in range(max_new):
+            row = logits[r, k]
+            gap = (row.max() - row[toks[r, k]]).item()
+            worst = max(worst, gap / row.abs().max().item())
+            if gap > 2e-2 * row.abs().max().item():
+                raise AssertionError(f"decode row {r} step {k}: token {int(toks[r, k])} is {gap} below the argmax")
+            checked += 1
+            if toks[r, k] == eos:
+                break
+    return {"tokens_checked": checked, "worst_gap_over_max": worst}
+
+
+def phase_decode(smi: str):
+    """Greedy decode of VL-Pythia-410M + EVA-02-L (bench_eval.py's shapes), uncached and cached routes."""
+    cfg = model_config_for_preset("410m")
+    b, text_len, pad, max_new, n = 32, 64, 16, 10, 6
+    model = init_model(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    decode = make_greedy_decoder(cfg, max_new_tokens=max_new, eos_token_id=0)
+    batches = decode_batches(cfg, n + 1, b, text_len, pad, seed=4)
+    host = [{k: torch.from_numpy(v) for k, v in bt.items()} for bt in batches]
+    normalize = make_normalizer(cfg.vision)
+    with torch.inference_mode():  # the cached route's features, from the port's tower
+        cached = [{"input_ids": h["input_ids"], "attention_mask": h["attention_mask"],
+                   "patches": V.get_patch_embeddings(model, prep_pixels({"pixels": h["pixels"].cuda()}, normalize,
+                                                                        torch.bfloat16))}
+                  for h in host]
+    layers, vis_layers = cfg.num_hidden_layers, cfg.vision.depth
+    routes, launches, first = {}, {}, {}
+    for route, data, per_batch in (("pixels", host, vis_layers + layers), ("patches", cached, layers)):
+        run_decode(decode, model, data[:1])  # warm-up: cuBLAS, the allocator, the kernel library
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launches()
+        toks, ms = run_decode(decode, model, data[1:])
+        launches[route] = dict(A.LAUNCHES)
+        expected = {"flash_fwd": per_batch * n, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+        if launches[route] != expected:
+            raise AssertionError(f"decode ({route}): kernel launches {launches[route]}, expected {expected}")
+        if any(t.shape != (b, max_new) or t.dtype != torch.int32 or t.min() < 0 or t.max() >= cfg.vocab_size
+               for t in toks):
+            raise AssertionError(f"decode ({route}): tokens of shape {toks[0].shape} {toks[0].dtype} or out of the vocabulary")
+        ex_per_s = b / (ms / 1e3)
+        flops = framework_decode_flops_per_example(cfg, text_len, max_new, vision_cached=route == "patches")
+        routes[route] = {"ms_per_batch": ms, "examples_per_s": ex_per_s, "mfu": mfu(ex_per_s, flops),
+                         "flops_per_example": flops, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "launches": launches[route], "tokens_row0": toks[0][0].tolist()}
+        first[route] = toks[0]
+    # the same features reach the decoder on both routes, so the same tokens should come out
+    routes["patches"]["tokens_equal_pixels_route"] = torch.equal(first["pixels"], first["patches"])
+    invariance = check_cache_invariance(model, cfg, batches[1], first["pixels"], eos=0)
+
+    tokenizer = ByteTokenizer()
+    loader = decode_batches(cfg, 3, b, text_len, pad, seed=5)
+    loader[-1] = {k: v[:20] for k, v in loader[-1].items()}  # a short last batch: padded, then dropped
+    for i, batch in enumerate(loader):
+        batch["qids"] = [f"q{i}_{j}" for j in range(len(batch["input_ids"]))]
+        batch["answers"] = [["yes", "no", "2"]] * len(batch["input_ids"])
+    val_log, results = validate_vqa(model, decode, loader, tokenizer, batch_size=b)
+    if val_log["valid/n_ex"] != 2 * b + 20 or len(results) != 2 * b + 20 or not 0 <= val_log["valid/acc"] <= 1:
+        raise AssertionError(f"validate_vqa: {val_log}, {len(results)} results")
+    emit({"phase": "decode", "card": smi, "preset": "410m", "vision": "eva02_large_patch14_224",
+          "batch": b, "text_len": text_len, "left_pad": pad, "max_new_tokens": max_new, "timed_batches": n,
+          "dtype": "bfloat16", "routes": routes, "cache_invariance": invariance, "validate": val_log})
+    return {k: sum(launches[r][k] for r in launches) for k in A.LAUNCHES}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -312,10 +494,12 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs, ms, plain_ms, bounds, library = phase_kernels(gen)
     phase_reference()
-    launches = phase_window(smi)
+    by_path = {"window": phase_window(smi), "decode": phase_decode(smi)}
     kernels = [
         {"name": name, "route": "cuda", "source": "mafed_tpu_torch/csrc/flash_attn.cu", "replaces": replaces,
-         "design": design, "launches": launches[name], "max_abs_err": errs[name], "ms": ms[name],
+         "design": design, "launches": sum(path[name] for path in by_path.values()),
+         "launches_by_path": {p: path[name] for p, path in by_path.items()},
+         "max_abs_err": errs[name], "ms": ms[name],
          "plain_ms": plain_ms[name], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library[name][0], "library_covers": library[name][1]}
         for name, (replaces, design) in KERNELS.items()

@@ -7,3 +7,6 @@ NUM_VISION_TOKENS = 256
 
 # Labels value that the LM loss ignores (HF convention).
 IGNORE_INDEX = -100
+
+# Generation budget for VQA answers (greedy decode).
+MAX_NEW_TOKENS = 10

@@ -1,0 +1,85 @@
+"""Generative VQA validation loop, on one device (counterpart of
+mafed_tpu/evaluation/validate.py).
+
+Greedy generation of up to 10 tokens, the decoded answers scored with the
+VQA-v2 soft metric; returns valid/acc, valid/ex_per_s, valid/n_ex and the
+per-question results. A short last batch is padded to the batch size by
+repeating its last row, and the padding rows are dropped before scoring.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from collections import Counter
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mafed_tpu_torch.evaluation.vqa_metrics import VQAGenerativeAccuracy, normalize_answer, vqa_v2_score
+
+LOGGER = logging.getLogger(__name__)
+
+_DECODE_KEYS = ("input_ids", "attention_mask", "pixels", "patches")
+
+
+def _pad_batch(batch: Dict, batch_size: int) -> Tuple[Dict, int]:
+    n = batch["input_ids"].shape[0]
+    if n == batch_size:
+        return batch, n
+    out = dict(batch)
+    for k in _DECODE_KEYS:
+        if k in batch:
+            v = batch[k]
+            out[k] = np.concatenate([v, np.repeat(v[-1:], batch_size - n, axis=0)], axis=0)
+    return out, n
+
+
+def validate_vqa(
+    model,
+    decoder: Callable,
+    val_loader,
+    tokenizer,
+    batch_size: int,
+    max_batches: Optional[int] = None,
+) -> Tuple[Dict, Dict]:
+    """Generative VQA eval of `model` with `decoder` (make_greedy_decoder)
+    over a loader of numpy batches ("input_ids", "attention_mask", "pixels" or
+    "patches", "answers", "qids").
+
+    The decode of batch i+1 is enqueued on the device before batch i's tokens
+    are copied to the host and scored, so the tokenizer and the metric run
+    while the card decodes."""
+    start = time.time()
+    results: Dict = {}
+    metric = VQAGenerativeAccuracy()
+
+    def score(toks_dev, batch, n_valid):
+        toks = toks_dev.cpu().numpy()[:n_valid]  # the host waits here, for this batch only
+        predictions = tokenizer.batch_decode(toks, skip_special_tokens=True)
+        answers = batch["answers"][:n_valid]
+        metric(predictions, answers)
+        for qid, pred, gts in zip(batch["qids"][:n_valid], predictions, answers):
+            pred_norm = normalize_answer(pred)
+            results[qid] = {"answer": pred_norm, "acc": vqa_v2_score(Counter(gts).get(pred_norm, 0))}
+
+    pending = None
+    for i, batch in enumerate(val_loader):
+        if max_batches is not None and i >= max_batches:
+            break
+        padded, n_valid = _pad_batch(batch, batch_size)
+        dec_batch = {k: torch.from_numpy(np.ascontiguousarray(padded[k])) for k in _DECODE_KEYS if k in padded}
+        toks_dev = decoder(model, dec_batch)
+        if pending is not None:
+            score(*pending)
+        pending = (toks_dev, batch, n_valid)
+    if pending is not None:
+        score(*pending)
+
+    tot_time = max(time.time() - start, 1e-9)
+    total = metric.total
+    val_acc = metric.accuracy / max(total, 1.0)
+    LOGGER.info("Tested %d samples", total)
+    LOGGER.info("validation finished in %d seconds, score: %.2f", int(tot_time), val_acc * 100)
+    return {"valid/acc": val_acc, "valid/ex_per_s": total / tot_time, "valid/n_ex": total}, results

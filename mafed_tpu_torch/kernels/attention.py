@@ -11,9 +11,10 @@ Counterpart of mafed_tpu/kernels/attention.py. Layout: q, k, v are
     (q, k, v, mask, o, lse) and its backward computes delta = rowsum(do * o)
     and launches the dK/dV and dQ kernels.
   * `dot_product_attention` dispatches as the JAX package's does, minus its
-    TPU routing choices: a call with `causal_offset` (KV-cache decode) takes
-    the plain masked path, every other call with supported shapes the flash
-    path.
+    TPU routing choices: a call with `causal_offset` (a KV-cache decode step)
+    takes the plain masked path, every other call with supported shapes the
+    flash path: the training window, the EVA-02 tower (non-causal, unmasked)
+    and the KV-cache prefill (causal over its own positions, key-padded).
 
 `LAUNCHES` counts kernel launches, one per launch, for callers that check
 which path ran.

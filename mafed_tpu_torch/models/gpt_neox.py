@@ -9,12 +9,17 @@ Attention goes through `kernels.attention.dot_product_attention`, i.e. the
 CUDA flash kernels on the card.
 
 Module and parameter names are HF's (`layers.{i}.attention.query_key_value`,
-...), so a reference checkpoint's state_dict loads without a mapping. This
-slice has the no-cache path; the KV cache comes with the decode slice.
+...), so a reference checkpoint's state_dict loads without a mapping.
+
+With a `KVCache` (greedy decode) the prefill (empty cache) attends over its
+own positions through the flash kernel, causal and key-padded; later calls
+(single-token steps) attend over the whole buffer on the plain masked path,
+the counterpart of the JAX package's `xla_attention`.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import torch
@@ -24,6 +29,25 @@ from torch.utils.checkpoint import checkpoint
 
 from mafed_tpu_torch.core.config import ModelConfig
 from mafed_tpu_torch.kernels.attention import dot_product_attention
+
+
+@dataclass
+class KVCache:
+    """Preallocated per-layer k/v buffers [B, H, Tmax, D] and the number of
+    positions written so far (a host int: eager PyTorch needs no traced offset)."""
+
+    k: List[torch.Tensor]
+    v: List[torch.Tensor]
+    length: int = 0
+
+    @classmethod
+    def create(cls, cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> "KVCache":
+        shape = (batch, cfg.num_attention_heads, max_len, cfg.head_dim)
+        layers = range(cfg.num_hidden_layers)
+        return cls(
+            [torch.zeros(shape, dtype=dtype, device=device) for _ in layers],
+            [torch.zeros(shape, dtype=dtype, device=device) for _ in layers],
+        )
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -94,7 +118,9 @@ class GPTNeoXLayer(nn.Module):
         self.attention = GPTNeoXAttention(cfg, device=device)
         self.mlp = GPTNeoXMLP(cfg, device=device)
 
-    def forward(self, h, cos, sin, key_mask: Optional[torch.Tensor], dtype: torch.dtype):
+    def forward(self, h, cos, sin, key_mask: Optional[torch.Tensor], dtype: torch.dtype, kv=None, past: int = 0):
+        """kv: this layer's (k, v) cache buffers; the new positions are written
+        at `past`. key_mask then spans the whole buffer."""
         cfg = self.cfg
         batch, t, hidden = h.shape
         n_heads, head_dim = cfg.num_attention_heads, cfg.head_dim
@@ -105,7 +131,16 @@ class GPTNeoXLayer(nn.Module):
         k = qkv[..., head_dim : 2 * head_dim].transpose(1, 2)
         v = qkv[..., 2 * head_dim :].transpose(1, 2)
         q, k = apply_rotary(q, k, cos, sin, cfg.rotary_ndims)
-        attn = dot_product_attention(q, k, v, key_padding_mask=key_mask, causal=True)
+        if kv is None:
+            attn = dot_product_attention(q, k, v, key_padding_mask=key_mask, causal=True)
+        else:
+            ck, cv = kv
+            ck[:, :, past : past + t] = k
+            cv[:, :, past : past + t] = v
+            if past == 0:  # prefill: its own positions, the keys past them are all masked
+                attn = dot_product_attention(q, k, v, key_padding_mask=key_mask[:, :t], causal=True)
+            else:
+                attn = dot_product_attention(q, ck, cv, key_padding_mask=key_mask, causal=True, causal_offset=past)
         attn = attn.transpose(1, 2).reshape(batch, t, hidden)
         attn = dense(attn, self.attention.dense, dtype)
         if not cfg.use_parallel_residual:
@@ -134,11 +169,17 @@ class GPTNeoXModel(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         num_layers: Optional[int] = None,
         remat: bool = False,
+        cache: Optional[KVCache] = None,
     ) -> Dict[str, torch.Tensor]:
         """Run the decoder stack over precomputed input embeddings.
 
         Returns {"last_hidden_state", "hidden_states" (when asked: [L+1, B, T, H],
         the embeddings, the layer outputs, and final_layer_norm(out_L) last)}.
+
+        cache: inputs_embeds holds only the new positions. They sit at
+        absolute positions cache.length + arange(T), their k/v are written
+        there, attention_mask spans the whole buffer [B, Tmax], and
+        cache.length advances by T.
 
         num_layers: run only the first num_layers blocks; the final layer norm
         is then skipped, so hidden_states are the raw taps hs[0..num_layers]
@@ -149,26 +190,40 @@ class GPTNeoXModel(nn.Module):
         """
         cfg = self.cfg
         batch, t, _ = inputs_embeds.shape
+        device = inputs_embeds.device
+        past = 0 if cache is None else cache.length
         # HF GPTNeoX positions: absolute arange, left padding included
-        positions = torch.arange(t, device=inputs_embeds.device)[None, :].expand(batch, t)
+        positions = (past + torch.arange(t, device=device))[None, :].expand(batch, t)
         cos, sin = rotary_tables(cfg, positions)
         key_mask = attention_mask.to(torch.int32) if attention_mask is not None else None
+        if cache is not None:
+            max_len = cache.k[0].shape[2]
+            if past + t > max_len:
+                raise ValueError(f"KV cache of {max_len} positions cannot take {t} more after {past}")
+            valid = (torch.arange(max_len, device=device) < past + t).to(torch.int32).expand(batch, max_len)
+            key_mask = valid if key_mask is None else valid * (key_mask > 0)
 
         layers: List[GPTNeoXLayer] = list(self.layers)
         truncated = num_layers is not None and num_layers < cfg.num_hidden_layers
         if truncated:
             if num_layers < 0:
                 raise ValueError(f"num_layers must be >= 0, got {num_layers}")
+            if cache is not None:
+                raise ValueError("num_layers truncation is for the no-cache path")
             layers = layers[:num_layers]
 
         h = inputs_embeds.to(dtype)
         hs = [h]
-        for layer in layers:
-            if remat and torch.is_grad_enabled():
+        for i, layer in enumerate(layers):
+            if cache is not None:
+                h = layer(h, cos, sin, key_mask, dtype, (cache.k[i], cache.v[i]), past)
+            elif remat and torch.is_grad_enabled():
                 h = checkpoint(layer, h, cos, sin, key_mask, dtype, use_reentrant=False, preserve_rng_state=False)
             else:
                 h = layer(h, cos, sin, key_mask, dtype)
             hs.append(h)
+        if cache is not None:
+            cache.length = past + t
 
         if truncated:
             out = {"last_hidden_state": h}

@@ -1,15 +1,18 @@
-"""VL-Pythia in PyTorch: MLP projector + GPT-NeoX decoder (counterpart of
-mafed_tpu/models/vl_pythia.py).
+"""VL-Pythia in PyTorch: frozen EVA-02 tower + MLP projector + GPT-NeoX
+decoder (counterpart of mafed_tpu/models/vl_pythia.py).
 
-  * vision features (cached EVA-02 patch features, CLS dropped) go through
-    the 2-layer projector Linear-GELU-Linear (`vision_embed_tokens`);
+  * vision features = the EVA-02 tower's forward_features with CLS dropped
+    ("patch" feature select), or cached patch features of the same shape;
+  * they go through the 2-layer projector Linear-GELU-Linear
+    (`vision_embed_tokens`);
   * inputs_embeds = [projected vision, embed_in(input_ids)], vision first;
     the attention mask gets leading ones for the vision tokens;
   * loss = length-normalised CE: logits sliced to the labels' length,
     shifted, per-sample mean over valid (non -100) positions, batch mean.
 
-This slice takes the vision features as input (`patch_embeddings`); the
-frozen EVA-02 tower that computes them comes in a later slice.
+The tower is frozen in every reference config: `init_model` holds it in
+bfloat16 (the JAX package's `vision_dtype`) with requires_grad off, and the
+trainer keeps it out of the trainable set.
 """
 
 from __future__ import annotations
@@ -23,15 +26,17 @@ from torch import nn
 from mafed_tpu_torch.constants import IGNORE_INDEX
 from mafed_tpu_torch.core.config import ModelConfig
 from mafed_tpu_torch.core.device import resolve_device
-from mafed_tpu_torch.models import gpt_neox
+from mafed_tpu_torch.models import eva02, gpt_neox
 
 
 class VLPythia(nn.Module):
     """Parameters under the reference's torch names: `gpt_neox.*`,
-    `embed_out.weight`, `vision_embed_tokens.{0,2}.*`."""
+    `embed_out.weight`, `vision_embed_tokens.{0,2}.*`, `vision_encoder.*`."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
+        if cfg.vision.backbone != "eva02":
+            raise NotImplementedError(f"vision backbone {cfg.vision.backbone!r}: the port has the EVA-02 tower only")
         self.cfg = cfg
         h = cfg.hidden_size
         self.gpt_neox = gpt_neox.GPTNeoXModel(cfg, device=device)
@@ -39,14 +44,19 @@ class VLPythia(nn.Module):
         self.vision_embed_tokens = nn.Sequential(
             nn.Linear(cfg.vision.embed_dim, h, device=device), nn.GELU(), nn.Linear(h, h, device=device)
         )
+        self.vision_encoder = eva02.EVA02(cfg.vision, device=device)
+        self.vision_encoder.requires_grad_(False)
 
 
 @torch.no_grad()
 def init_weights(model: VLPythia, generator: torch.Generator) -> None:
-    """HF-style init: normal(0, initializer_range) weights, zero biases,
-    unit layernorm scales."""
+    """HF-style init of the decoder and projector: normal(0,
+    initializer_range) weights, zero biases, unit layernorm scales; then the
+    tower's own init, from the same generator."""
     std = model.cfg.initializer_range
-    for module in model.modules():
+    for name, module in model.named_modules():
+        if name.startswith("vision_encoder"):
+            continue
         if isinstance(module, (nn.Linear, nn.Embedding)):
             module.weight.normal_(0.0, std, generator=generator)
             if getattr(module, "bias", None) is not None:
@@ -54,14 +64,19 @@ def init_weights(model: VLPythia, generator: torch.Generator) -> None:
         elif isinstance(module, nn.LayerNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
+    eva02.init_weights(model.vision_encoder, generator)
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda", dtype=torch.float32) -> VLPythia:
-    """A randomly initialised VL-Pythia on `device` (CUDA unless the caller asks for the CPU)."""
+    """A randomly initialised VL-Pythia on `device` (CUDA unless the caller
+    asks for the CPU): decoder and projector in `dtype`, the frozen tower in
+    bfloat16."""
     device = resolve_device(device)
     model = VLPythia(cfg, device=device)
     init_weights(model, torch.Generator(device=device).manual_seed(seed))
-    return model.to(dtype)
+    model.to(dtype)
+    model.vision_encoder.to(torch.bfloat16)
+    return model
 
 
 def masked_mean(vector: torch.Tensor, mask: torch.Tensor, dim: int) -> torch.Tensor:
@@ -95,14 +110,36 @@ class VLPythiaOutput(NamedTuple):
     hidden_states: Optional[torch.Tensor]
 
 
+def get_patch_embeddings(model: VLPythia, pixel_values: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Frozen vision features [B, n_vision_tokens, d_vis]: forward_features,
+    CLS dropped for select_feature == "patch"."""
+    feats = model.vision_encoder.forward_features(pixel_values, dtype=dtype)
+    if model.cfg.select_feature == "patch":
+        feats = feats[:, 1:]
+    elif model.cfg.select_feature != "cls_patch":
+        raise ValueError(f"Unexpected select feature: {model.cfg.select_feature}")
+    return feats.detach()
+
+
+def n_vision_tokens(cfg: ModelConfig) -> int:
+    """Length of the vision prefix: num_patches, plus CLS unless select_feature == "patch" drops it."""
+    return cfg.vision.num_patches + (0 if cfg.select_feature == "patch" else 1)
+
+
 def project_vision(model: VLPythia, patch_embeddings: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     fc1, fc2 = model.vision_embed_tokens[0], model.vision_embed_tokens[2]
     x = gpt_neox.dense(patch_embeddings.to(dtype), fc1, dtype)
     return gpt_neox.dense(F.gelu(x), fc2, dtype)
 
 
-def build_inputs(model: VLPythia, input_ids, attention_mask, patch_embeddings, *, dtype=torch.bfloat16):
-    """Vision-first concat of the embeddings, and the extended mask."""
+def build_inputs(model: VLPythia, input_ids, attention_mask, patch_embeddings=None, *, pixel_values=None, dtype=torch.bfloat16):
+    """Vision-first concat of the embeddings, and the extended mask. The
+    vision features are `patch_embeddings` (cached) or the tower's output on
+    `pixel_values` (NCHW)."""
+    if patch_embeddings is None:
+        if pixel_values is None:
+            raise ValueError("build_inputs needs patch_embeddings or pixel_values")
+        patch_embeddings = get_patch_embeddings(model, pixel_values, dtype=dtype)
     vis_embeds = project_vision(model, patch_embeddings, dtype=dtype)
     batch, n_vis = vis_embeds.shape[:2]
     txt_embeds = gpt_neox.embed(model.gpt_neox, input_ids, dtype=dtype)
@@ -119,7 +156,8 @@ def forward(
     attention_mask: Optional[torch.Tensor] = None,
     labels: Optional[torch.Tensor] = None,
     *,
-    patch_embeddings: torch.Tensor,
+    patch_embeddings: Optional[torch.Tensor] = None,
+    pixel_values: Optional[torch.Tensor] = None,
     output_hidden_states: bool = False,
     dtype=torch.bfloat16,
     loss_only: bool = False,
@@ -128,7 +166,8 @@ def forward(
     remat_layers: bool = False,
     label_tail: Optional[int] = None,
 ) -> VLPythiaOutput:
-    """Training/eval forward over cached vision features (no KV cache).
+    """Training/eval forward (no KV cache) over cached vision features
+    (`patch_embeddings`) or pixels through the frozen tower (`pixel_values`).
 
     loss_only: project embed_out only over the last label_len positions (the
     loss slices logits there anyway); returned logits cover only those.
@@ -139,7 +178,9 @@ def forward(
     """
     if num_layers is not None and (need_logits or labels is not None):
         raise ValueError("num_layers truncation skips the final LN: logits/loss unavailable")
-    inputs_embeds, full_mask = build_inputs(model, input_ids, attention_mask, patch_embeddings, dtype=dtype)
+    inputs_embeds, full_mask = build_inputs(
+        model, input_ids, attention_mask, patch_embeddings, pixel_values=pixel_values, dtype=dtype
+    )
     dec = model.gpt_neox(
         inputs_embeds,
         attention_mask=full_mask,

@@ -4,7 +4,8 @@
 JAX package's `vl_pythia.init_params` after `jax.tree.map(np.asarray, ...)`,
 or a checkpoint restored to numpy) into this package's state_dict: stacked
 `[L, ...]` layer leaves are un-stacked, `[in, out]` matrices transposed to
-torch's `[out, in]`, and the names are the reference's torch names.
+torch's `[out, in]`, the HWIO patch-embed conv to OIHW, and the names are the
+reference's torch names (timm's under `vision_encoder.` for the EVA-02 tower).
 """
 
 from __future__ import annotations
@@ -17,23 +18,21 @@ import torch
 from mafed_tpu_torch.core.config import ModelConfig
 
 
-def _tensor(x: Any, transpose: bool = False) -> torch.Tensor:
+def _tensor(x: Any, transpose: bool = False, axes=None) -> torch.Tensor:
     arr = np.asarray(x)
     bf16 = arr.dtype.name == "bfloat16"  # numpy has no bf16: go through f32
     if bf16:
         arr = arr.astype(np.float32)
-    if transpose:
-        arr = arr.T
+    if transpose or axes is not None:
+        arr = arr.transpose(axes)
     t = torch.tensor(arr)  # a copy: the pytree's arrays may be read-only
     return t.to(torch.bfloat16) if bf16 else t
 
 
 def params_from_jax(params_np: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """JAX pytree -> state_dict with the reference torch names.
-
-    The `vision` subtree (the frozen EVA-02 tower) is skipped: the tower comes
-    with a later slice of the port, and this one takes cached patch features.
-    """
+    """JAX pytree -> state_dict with the reference torch names. A pytree
+    without the `vision` subtree (the trainable split) gives no
+    `vision_encoder.*` entries."""
     out: Dict[str, torch.Tensor] = {}
     dec = params_np["decoder"]
     out["gpt_neox.embed_in.weight"] = _tensor(dec["embed_in"]["weight"])
@@ -56,4 +55,33 @@ def params_from_jax(params_np: Dict[str, Any], cfg: ModelConfig) -> Dict[str, to
     for idx, name in ((0, "fc1"), (2, "fc2")):
         out[f"vision_embed_tokens.{idx}.weight"] = _tensor(proj[name]["weight"], transpose=True)
         out[f"vision_embed_tokens.{idx}.bias"] = _tensor(proj[name]["bias"])
+    if "vision" in params_np:
+        out.update(_vision_from_jax(params_np["vision"], cfg))
+    return out
+
+
+def _vision_from_jax(vis: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    out = {
+        "vision_encoder.patch_embed.proj.weight": _tensor(vis["patch_embed"]["proj"]["weight"], axes=(3, 2, 0, 1)),
+        "vision_encoder.patch_embed.proj.bias": _tensor(vis["patch_embed"]["proj"]["bias"]),
+        "vision_encoder.cls_token": _tensor(vis["cls_token"]),
+        "vision_encoder.pos_embed": _tensor(vis["pos_embed"]),
+        "vision_encoder.norm.weight": _tensor(vis["norm"]["weight"]),
+        "vision_encoder.norm.bias": _tensor(vis["norm"]["bias"]),
+    }
+    bp = vis["blocks"]
+    for i in range(cfg.vision.depth):
+        base = f"vision_encoder.blocks.{i}."
+        for norm in ("norm1", "norm2"):
+            out[base + f"{norm}.weight"] = _tensor(bp[norm]["weight"][i])
+            out[base + f"{norm}.bias"] = _tensor(bp[norm]["bias"][i])
+        for group, names in (("attn", ("q_proj", "k_proj", "v_proj", "proj")), ("mlp", ("fc1_g", "fc1_x", "fc2"))):
+            for name in names:
+                leaf = bp[group][name]
+                out[base + f"{group}.{name}.weight"] = _tensor(leaf["weight"][i], transpose=True)
+                if "bias" in leaf:  # k_proj has none
+                    out[base + f"{group}.{name}.bias"] = _tensor(leaf["bias"][i])
+        for group in ("attn", "mlp"):  # the sub-LNs
+            out[base + f"{group}.norm.weight"] = _tensor(bp[group]["norm"]["weight"][i])
+            out[base + f"{group}.norm.bias"] = _tensor(bp[group]["norm"]["bias"][i])
     return out

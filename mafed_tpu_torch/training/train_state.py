@@ -1,9 +1,8 @@
 """Training state: the trainable/frozen split, the teacher copy, the optimizer state.
 
 The vision encoder is frozen in every reference config, so it is kept out of
-the trainable set: no gradients, no Adam moments. In this slice the model
-holds no vision tower (cached patch features feed the projector), so every
-parameter of `VLPythia` is trainable.
+the trainable set: no gradients, no Adam moments. The training window runs
+on cached patch features and never calls it; the teacher shares it.
 """
 
 from __future__ import annotations
@@ -31,7 +30,12 @@ def trainable_parameters(model: VLPythia) -> Dict[str, torch.nn.Parameter]:
 
 
 def make_teacher(model: VLPythia) -> VLPythia:
-    """The distillation teacher: a bfloat16 copy of the model with no gradients."""
-    teacher = copy.deepcopy(model).to(torch.bfloat16)
+    """The distillation teacher: a bfloat16 copy of the decoder and projector
+    with no gradients, sharing the student's frozen tower (not copied)."""
+    tower = model.vision_encoder
+    teacher = copy.deepcopy(model, memo={id(tower): tower})
+    for name, child in teacher.named_children():
+        if child is not tower:
+            child.to(torch.bfloat16)
     teacher.requires_grad_(False)
     return teacher

@@ -1,0 +1,193 @@
+"""Where the time of the port's main paths goes on an NVIDIA GPU.
+
+    python3 scripts/profile_torch.py [--path window|decode] [--reps 2] [--out PATH]
+
+window: the fused MAFED window of chip_smoke.py (VL-Pythia-410M at full width
+and depth, 3 CE microbatches of 16 + 1 memory microbatch of 16, 256 cached
+patches + 80 text tokens, bf16), two warm-up windows, then `--reps` profiled
+windows.
+
+decode: the greedy decode of chip_smoke.py's decode phase (410M + EVA-02-L,
+bf16 weights, batch 32, text 64 with 16 left-padded positions, 10 new
+tokens): the whole decode from uint8 pixels and from cached patches, and its
+parts alone: the tower, the KV-cache prefill, and one single-token step.
+
+For each profiled unit, torch.profiler over `--reps` steady repetitions
+gives the wall ms per repetition (host clock, ending in a synchronise),
+the device busy ms (union of kernel intervals), the idle share, kernel time
+by category, kernel launches per repetition and the top kernels. One JSON
+object goes to stdout, and with --out to that file too.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def category(name: str) -> str:
+    for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        if f"{kernel}_kernel" in name:
+            return kernel
+    lowered = name.lower()
+    if any(s in lowered for s in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
+        return "matmul"
+    if "reduce" in lowered or "norm" in lowered or "softmax" in lowered:
+        return "reduction"
+    if "memcpy" in lowered or "memset" in lowered:
+        return "copy"
+    return "elementwise"
+
+
+def busy_us(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def profile(fn, reps: int, warmup: int = 2) -> dict:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        start = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3 / reps
+    per_kernel = defaultdict(lambda: [0.0, 0])
+    intervals = []
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        intervals.append((evt.time_range.start, evt.time_range.end))
+        per_kernel[evt.name][0] += evt.time_range.elapsed_us()
+        per_kernel[evt.name][1] += 1
+    by_category = defaultdict(float)
+    for name, (us, _) in per_kernel.items():
+        by_category[category(name)] += us / 1e3 / reps
+    busy_ms = busy_us(intervals) / 1e3 / reps
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+        "kernel_ms_by_category": dict(sorted(by_category.items(), key=lambda kv: -kv[1])),
+        "device_events": len(intervals) / reps,
+        "top_kernels": [
+            {"name": n[:100], "ms": us / 1e3 / reps, "calls": c / reps} for n, (us, c) in top
+        ],
+    }
+
+
+def window_units(reps: int) -> dict:
+    from chip_smoke import window_setup
+    from mafed_tpu_torch.core.config import model_config_for_preset
+    from mafed_tpu_torch.models.vl_pythia import init_model
+
+    cfg = model_config_for_preset("410m")
+    model = init_model(cfg, seed=0, device="cuda")
+    step, state, teacher, ce, distill, lang = window_setup(cfg, model, 3, 16, 80, torch.Generator().manual_seed(2), "cuda")
+    box = [state]
+
+    def window():
+        box[0], _ = step(box[0], teacher, ce, distill, lang)
+
+    return {"window": profile(window, reps)}
+
+
+def decode_units(reps: int) -> dict:
+    from chip_smoke import decode_batches
+    from mafed_tpu_torch.core.config import model_config_for_preset
+    from mafed_tpu_torch.data.images import make_normalizer, prep_pixels
+    from mafed_tpu_torch.evaluation.decode import make_greedy_decoder
+    from mafed_tpu_torch.models import gpt_neox
+    from mafed_tpu_torch.models import vl_pythia as V
+    from mafed_tpu_torch.models.vl_pythia import init_model
+
+    cfg = model_config_for_preset("410m")
+    b, text_len, pad, max_new, dtype = 32, 64, 16, 10, torch.bfloat16
+    model = init_model(cfg, seed=0, device="cuda", dtype=dtype)
+    decode = make_greedy_decoder(cfg, max_new_tokens=max_new)
+    host = {k: torch.from_numpy(v) for k, v in decode_batches(cfg, 1, b, text_len, pad, seed=4)[0].items()}
+    with torch.inference_mode():
+        px = prep_pixels({"pixels": host["pixels"].cuda()}, make_normalizer(cfg.vision), dtype)
+        patches = V.get_patch_embeddings(model, px, dtype=dtype)
+        ids, mask = host["input_ids"].cuda(), host["attention_mask"].cuda()
+        embeds, full_mask = V.build_inputs(model, ids, mask, patches, dtype=dtype)
+    buf_mask = torch.cat([full_mask, full_mask.new_ones((b, max_new))], dim=1)
+    prefix = embeds.shape[1]
+    cache = gpt_neox.KVCache.create(cfg, b, prefix + max_new, dtype=dtype, device="cuda")
+    tok = torch.ones(b, 1, dtype=torch.int32, device="cuda")
+    cached = {"input_ids": host["input_ids"], "attention_mask": host["attention_mask"], "patches": patches}
+
+    def tower():
+        with torch.inference_mode():
+            V.get_patch_embeddings(model, px, dtype=dtype)
+
+    def prefill():
+        with torch.inference_mode():
+            cache.length = 0
+            h = model.gpt_neox(embeds, attention_mask=buf_mask, cache=cache, dtype=dtype)["last_hidden_state"]
+            gpt_neox.logits(model.embed_out, h[:, -1], dtype=dtype).argmax(-1)
+
+    def step():  # the 5th single-token step
+        with torch.inference_mode():
+            cache.length = prefix + 4
+            e = gpt_neox.embed(model.gpt_neox, tok, dtype=dtype)
+            h = model.gpt_neox(e, attention_mask=buf_mask, cache=cache, dtype=dtype)["last_hidden_state"]
+            gpt_neox.logits(model.embed_out, h[:, -1], dtype=dtype).argmax(-1)
+
+    return {
+        "decode_pixels": profile(lambda: decode(model, host), reps),
+        "decode_patches": profile(lambda: decode(model, cached), reps),
+        "tower": profile(tower, reps),
+        "prefill": profile(prefill, reps),
+        "step": profile(step, reps),
+    }
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--path", choices=("window", "decode"), default="window")
+    parser.add_argument("--reps", type=int, default=2)
+    parser.add_argument("--out", help="also write the JSON object to this file")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    units = window_units(args.reps) if args.path == "window" else decode_units(args.reps)
+    result = {"card": smi, "path": args.path, "reps": args.reps, "units": units}
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,19 +6,41 @@ what the CUDA kernels are held against on the card. Here they are held
 against `_flash_forward` / `_flash_backward` in float32 with atol 1e-5,
 rtol 1e-4: both sum f32 products, in different orders (online softmax over
 64-key tiles against one dense softmax), so they differ by float32 rounding
-only.
+only. Both forwards are also held, at the same tolerance, against a float64
+dense softmax in numpy, so a disagreement names the side that moved.
+
+The JAX references are compiled in this module's process, never read from
+the persistent compilation cache (`tests/conftest.py` turns it on for the
+suite): an executable from that cache may have been compiled by another
+process, on another machine type.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
+from jax._src import compilation_cache
 
 from mafed_tpu.kernels import attention as jattn
 from mafed_tpu_torch.kernels import attention as tattn
 
 ATOL, RTOL = 1e-5, 1e-4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def no_persistent_cache():
+    """The persistent compilation cache off for this module, and the
+    in-memory executables dropped, so every JAX reference is compiled here;
+    both restored afterwards."""
+    was = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    jax.clear_caches()
+    yield
+    jax.config.update("jax_enable_compilation_cache", was)
+    compilation_cache.reset_cache()
 
 
 @pytest.fixture(autouse=True)
@@ -88,6 +110,43 @@ def test_plain_forward_matches_pallas(name, b, h, t, kv_len, causal, masked, emp
         assert np.isinf(lse_ref[:, :, :3]).all() and (o_ref[:, :, :3] == 0).all()
     if empty:
         assert np.isinf(lse_ref[0]).all() and (o_ref[0] == 0).all()
+
+
+def _dense_f64(q, k, v, mask, causal):
+    """o of the masked softmax in float64 numpy; rows with no valid key give 0."""
+    q, k, v = (x.astype(np.float64) for x in (q, k, v))
+    keep = np.ones((1, 1, q.shape[2], k.shape[2]), bool)
+    if causal:
+        keep = keep & np.tril(keep[0, 0])
+    if mask is not None:
+        keep = keep & (mask > 0)[:, None, None, :]
+    s = np.where(keep, np.einsum("bhqd,bhkd->bhqk", q, k) * 0.125, -np.inf)
+    m = s.max(axis=-1, keepdims=True)
+    p = np.exp(s - np.where(np.isfinite(m), m, 0.0)) * keep
+    l = p.sum(axis=-1, keepdims=True)
+    return np.einsum("bhqk,bhkd->bhqd", p, v) / np.where(l == 0.0, 1.0, l)
+
+
+@pytest.mark.parametrize("name,b,h,t,kv_len,causal,masked,empty", CASES, ids=[c[0] for c in CASES])
+def test_both_forwards_match_float64(name, b, h, t, kv_len, causal, masked, empty):
+    q, k, v, _, mask = _inputs(b, h, t, masked, empty, kv_len=kv_len)
+    want = _dense_f64(q, k, v, mask if masked else None, causal)
+    o_jax, _ = _jax_fwd(q, k, v, mask, causal, masked)
+    o_port, _ = tattn.flash_forward_plain(_t(q), _t(k), _t(v), _t(mask) if masked else None, causal, 0.125)
+    np.testing.assert_allclose(o_jax, want, atol=ATOL, rtol=RTOL, err_msg="Pallas (interpret) vs float64")
+    np.testing.assert_allclose(o_port.numpy(), want, atol=ATOL, rtol=RTOL, err_msg="port plain vs float64")
+
+
+def test_references_bypass_the_persistent_cache(monkeypatch):
+    """A JAX reference compiled in this module neither reads nor writes the
+    persistent compilation cache."""
+    assert not compilation_cache.is_persistent_cache_enabled()
+    used = []
+    for name in ("get_executable_and_time", "put_executable_and_time"):
+        monkeypatch.setattr(compilation_cache, name, lambda *a, _name=name, **k: used.append(_name))
+    q, k, v, _, mask = _inputs(1, 3, 72, True, False, seed=9)  # a shape no other test compiles
+    _jax_fwd(q, k, v, mask, True, True)
+    assert used == []
 
 
 @pytest.mark.parametrize("name,b,h,t,kv_len,causal,masked,empty", CASES, ids=[c[0] for c in CASES])

@@ -1,4 +1,5 @@
-"""The port's CUDA flash kernels on the card (marker `cuda`; they skip without a GPU).
+"""The port's CUDA flash kernels on the card, and the eval path through them
+(marker `cuda`; they skip without a GPU).
 
 This file imports no JAX, so it runs where only PyTorch is installed:
 
@@ -101,3 +102,70 @@ def test_cuda_calls_the_kernels_cannot_take_raise(gpu):
     narrow = torch.zeros(1, 2, 64, 16, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="unsupported shapes"):
         tattn.dot_product_attention(narrow, narrow, narrow, causal=True)
+
+
+def _tiny_eval_model(device):
+    """A tiny VL-Pythia whose tower and decoder both have heads of 64
+    (16 patches + CLS), seeded on the CPU, then moved; bf16 throughout."""
+    from mafed_tpu_torch.core.config import ModelConfig, VisionConfig
+    from mafed_tpu_torch.models.vl_pythia import init_model
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=128, num_hidden_layers=3, num_attention_heads=2,
+                      intermediate_size=256, vision=VisionConfig(img_size=56, embed_dim=128, depth=2, num_heads=2))
+    return cfg, init_model(cfg, seed=0, device="cpu", dtype=torch.bfloat16).to(device)
+
+
+def _eval_batch(seed):
+    rng = np.random.default_rng(seed)
+    mask = np.ones((4, 12), np.int32)
+    mask[:, :3] = 0
+    return {"input_ids": torch.from_numpy(rng.integers(1, 500, size=(4, 12)).astype(np.int32)),
+            "attention_mask": torch.from_numpy(mask),
+            "pixels": torch.from_numpy(rng.integers(0, 256, size=(4, 56, 56, 3)).astype(np.uint8))}
+
+
+@pytest.mark.cuda
+def test_tower_on_card_matches_cpu(gpu):
+    """The EVA-02 tower through the flash forward kernel (one launch per
+    block) against the same tower on the CPU (plain version): relative norm
+    error within 3e-2 in bf16."""
+    from mafed_tpu_torch.data.images import make_normalizer, prep_pixels
+
+    feats = {}
+    for device in ("cpu", "cuda"):
+        cfg, model = _tiny_eval_model(device)
+        px = prep_pixels({"pixels": _eval_batch(1)["pixels"].to(device)}, make_normalizer(cfg.vision), torch.bfloat16)
+        tattn.reset_launches()
+        with torch.inference_mode():
+            feats[device] = model.vision_encoder.forward_features(px, dtype=torch.bfloat16).float().cpu()
+    assert tattn.LAUNCHES["flash_fwd"] == cfg.vision.depth
+    err = (feats["cuda"] - feats["cpu"]).norm() / feats["cpu"].norm()
+    assert err <= 3e-2, err
+
+
+@pytest.mark.cuda
+def test_decode_is_cache_invariant_on_card(gpu):
+    """Each token of the cached decode on the card, up to a row's first EOS,
+    is within bf16 tolerance (2e-2 |max|) of the argmax of a no-cache forward
+    over the prefix and the tokens before it."""
+    from mafed_tpu_torch.data.images import make_normalizer, prep_pixels
+    from mafed_tpu_torch.evaluation.decode import make_greedy_decoder
+    from mafed_tpu_torch.models import vl_pythia as V
+
+    cfg, model = _tiny_eval_model("cuda")
+    batch = _eval_batch(2)
+    max_new = 8
+    tattn.reset_launches()
+    toks = make_greedy_decoder(cfg, max_new_tokens=max_new)(model, batch).cpu()
+    assert tattn.LAUNCHES["flash_fwd"] == cfg.vision.depth + cfg.num_hidden_layers
+    ids = torch.cat([batch["input_ids"], toks[:, :-1]], dim=1).cuda()
+    mask = torch.cat([batch["attention_mask"], torch.ones(4, max_new - 1, dtype=torch.int32)], dim=1).cuda()
+    with torch.inference_mode():
+        px = prep_pixels({"pixels": batch["pixels"].cuda()}, make_normalizer(cfg.vision), torch.bfloat16)
+        logits = V.forward(model, ids, mask, pixel_values=px).logits[:, -max_new:].float().cpu()
+    for r in range(4):
+        for k in range(max_new):
+            row = logits[r, k]
+            assert row.max() - row[toks[r, k]] <= 2e-2 * row.abs().max(), (r, k)
+            if toks[r, k] == 0:
+                break

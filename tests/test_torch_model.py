@@ -23,6 +23,7 @@ from mafed_tpu.models.weights import params_to_reference_state_dict
 from mafed_tpu_torch.kernels import attention as tattn
 from mafed_tpu_torch.models import vl_pythia as tvl
 from mafed_tpu_torch.models.weights import params_from_jax
+from mafed_tpu_torch.training.train_state import trainable_parameters
 from tests.torch_helpers import batch, jax_params, tiny_cfgs, to_jax, to_torch, torch_model
 
 ATOL, RTOL = 1e-5, 1e-4
@@ -44,16 +45,21 @@ def setup():
 
 
 def test_params_from_jax_matches_reference_names(setup):
-    """Every port parameter equals the JAX package's own export under the
-    reference name (its vision entries aside), and loads strictly."""
+    """Every entry of the JAX package's own export, the EVA-02 tower's
+    `vision_encoder.*` included, is a port parameter under the same name with
+    the same values (bf16 tower leaves compared in f32), and loads strictly."""
     jcfg, tc, params = setup
     params_np = jax.tree.map(np.asarray, params)
     sd = params_from_jax(params_np, tc)
     ref = params_to_reference_state_dict(params_np, jcfg)
-    assert set(sd) == {k for k in ref if not k.startswith("vision_encoder.")}
+    assert set(sd) == set(ref)
     assert set(sd) == set(tvl.VLPythia(tc, device="cpu").state_dict())
+    assert any(k.startswith("vision_encoder.blocks.1.") for k in sd)
     for name, t in sd.items():
-        np.testing.assert_array_equal(t.numpy(), ref[name], err_msg=name)
+        np.testing.assert_array_equal(t.float().numpy(), ref[name].astype(np.float32), err_msg=name)
+    # the trainable split (no `vision` subtree) carries no tower entries
+    trainable = {k: v for k, v in params_np.items() if k != "vision"}
+    assert set(params_from_jax(trainable, tc)) == {k for k in ref if not k.startswith("vision_encoder.")}
 
 
 def test_params_from_jax_keeps_bf16(setup):
@@ -154,7 +160,8 @@ def test_vl_pythia_grads_f32_with_remat(setup):
     ).loss
     loss.backward()
     assert tattn.LAUNCHES["flash_fwd"] == 0  # CPU tensors: plain versions, no kernel
-    for name, p in model.named_parameters():
+    assert all(p.grad is None for p in model.vision_encoder.parameters())  # frozen
+    for name, p in trainable_parameters(model).items():
         np.testing.assert_allclose(p.grad.numpy(), jgrads[name].numpy(), atol=1e-6, rtol=1e-4, err_msg=name)
 
 

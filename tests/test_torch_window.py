@@ -124,10 +124,12 @@ def test_window_matches_jax_f32(setup, case):
     j_sd = params_from_jax(jax.tree.map(np.asarray, j_trainable), tc)
     moved = 0
     init_sd = params_from_jax(jax.tree.map(np.asarray, params), tc)
-    for name, p in model.state_dict().items():
-        np.testing.assert_allclose(p.numpy(), j_sd[name].numpy(), atol=1e-6, rtol=1e-5, err_msg=name)
+    for name, p in trainable_parameters(model).items():
+        np.testing.assert_allclose(p.detach().numpy(), j_sd[name].numpy(), atol=1e-6, rtol=1e-5, err_msg=name)
         moved += int(not torch.equal(p, init_sd[name]))
     assert moved == len(j_sd)  # every trainable tensor took the update
+    for name, p in model.vision_encoder.state_dict().items():  # the frozen tower did not move
+        assert torch.equal(p, init_sd["vision_encoder." + name]), name
 
 
 def test_window_matches_jax_bf16(setup):

@@ -19,18 +19,20 @@ from mafed_tpu_torch.models.weights import params_from_jax
 
 TINY = dict(vocab_size=512, hidden_size=128, num_hidden_layers=3, num_attention_heads=2, intermediate_size=256, rotary_pct=0.25)
 TINY_VISION = dict(img_size=28, patch_size=14, embed_dim=32, depth=2, num_heads=2, mlp_ratio=2.0)
+# a tower whose attention the flash dispatch takes: 16 patches + CLS, 2 heads of 64
+TINY_VISION_64 = dict(img_size=56, patch_size=14, embed_dim=128, depth=2, num_heads=2)
 
 
-def tiny_cfgs():
+def tiny_cfgs(vision=TINY_VISION):
     """(JAX ModelConfig, port ModelConfig) of the same tiny model: hidden 128,
-    2 heads of 64, 3 layers, 4 cached patches of width 32."""
-    jcfg = ModelConfig(**TINY, vision=VisionConfig(**TINY_VISION), vision_encoder_name="tiny-eva")
-    tc = tcfg.ModelConfig(**TINY, vision=tcfg.VisionConfig(**TINY_VISION), vision_encoder_name="tiny-eva")
+    2 heads of 64, 3 layers; by default a tower of 4 patches of width 32."""
+    jcfg = ModelConfig(**TINY, vision=VisionConfig(**vision), vision_encoder_name="tiny-eva")
+    tc = tcfg.ModelConfig(**TINY, vision=tcfg.VisionConfig(**vision), vision_encoder_name="tiny-eva")
     return jcfg, tc
 
 
-def jax_params(jcfg, seed: int = 0):
-    return jvl.init_params(jcfg, jax.random.PRNGKey(seed), dtype=jnp.float32)
+def jax_params(jcfg, seed: int = 0, vision_dtype=jnp.bfloat16):
+    return jvl.init_params(jcfg, jax.random.PRNGKey(seed), dtype=jnp.float32, vision_dtype=vision_dtype)
 
 
 def torch_model(params, tc, dtype=torch.float32) -> tvl.VLPythia:
