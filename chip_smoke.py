@@ -9,15 +9,17 @@ Phases, each printing one JSON line:
      UTMALDG instruction counts (cuobjdump -sass, where the toolkit has it);
      all three are TMA + wgmma kernels, and none may spill or lack either;
   3. kernels: the three flash kernels against their plain PyTorch versions on
-     the card, in bf16, at the shapes of the 410M window (and an EVA-02 shape,
-     a 129-token case across the tile edge and a small unaligned case with
-     fully-masked rows), and their times at the CE shape beside the plain
+     the card, in bf16, at the shapes of the 410M window and CE window (and
+     EVA-02 shapes, a 129-token case across the tile edge and a small
+     unaligned case with fully-masked rows), and their times at the CE shape beside the plain
      versions, the bound and torch.nn.functional.scaled_dot_product_attention
      (a yardstick only: its forward for the forward kernel, its whole
      backward, which also computes dq, for each backward kernel);
   4. reference: one window of a tiny model on the card (CUDA kernels) against
      the same window on the CPU (plain versions), and that model's tower
      features and KV-cache prefill logits (head_dim-64 tower and decoder);
+     then its CE window, EWC window, train step, distill step, Fisher
+     accumulator and adaptive-weight sums, card against CPU;
   5. window: three fused MAFED windows of VL-Pythia-410M at full width and
      depth (random seeded weights, cached-patch shapes of the bench), with the
      kernel launch counts of that run;
@@ -27,7 +29,16 @@ Phases, each printing one JSON line:
      the tower's cached patch features, each timed over 6 batches after a
      warm-up with batch i+1 dispatched before batch i is read, with the kernel
      launch counts of each route; the emitted tokens checked against a
-     no-cache forward; then validate_vqa over 3 synthetic batches.
+     no-cache forward; then validate_vqa over 3 synthetic batches;
+  7. train_steps: the other training paths of VL-Pythia-410M at full width and
+     depth, each from the same seeded weights and microbatches of 16 (text 80,
+     20 left-padded positions, an 8-token answer, uint8 pixels and the tower's
+     features of them): CE and EWC windows of 4 microbatches (the EWC
+     importances from the Fisher accumulator over 2 batches), the
+     per-microbatch cadence under MultiSteps(4) (4 train steps; 3 train steps
+     and a distill step), the MAFED window fused, unfused and from pixels, and
+     the adaptive-weight sums; each path's times, launches and checks, and two
+     cross-path checks of the first losses.
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; without
 a CUDA device, or without the package beside it, the script exits non-zero
@@ -54,9 +65,14 @@ from mafed_tpu_torch.kernels import build
 from mafed_tpu_torch.models import gpt_neox
 from mafed_tpu_torch.models import vl_pythia as V
 from mafed_tpu_torch.models.vl_pythia import init_model
-from mafed_tpu_torch.optim.optimizer import build_optimizer, set_schedule
-from mafed_tpu_torch.training.flops import framework_decode_flops_per_example, framework_window_flops, mfu
-from mafed_tpu_torch.training.step import make_mafed_window_step
+from mafed_tpu_torch.optim.optimizer import MultiSteps, build_optimizer, set_schedule
+from mafed_tpu_torch.training.flops import (
+    ce_example_flops, framework_decode_flops_per_example, framework_window_flops, mfu,
+)
+from mafed_tpu_torch.training.step import (
+    distillation_layers, make_adaptive_weights_fn, make_ce_window_step, make_distill_step, make_ewc_fisher_fn,
+    make_mafed_window_step, make_train_step,
+)
 from mafed_tpu_torch.training.train_state import TrainState, make_teacher, trainable_parameters
 
 # Tolerances of the kernel checks (bf16): the tiled kernels round p to bf16
@@ -141,9 +157,11 @@ def phase_kernels(gen):
     # (name, batch, heads, seq, causal, padded key range, all-masked last sample)
     cases = [
         ("ce_410m", 48, 16, 336, True, (256, 276), False),
+        ("ce_window_410m", 64, 16, 336, True, (256, 276), False),  # the CE window's 4 x 16 rows
         ("student_410m", 16, 16, 336, True, (256, 276), False),
         ("eva02_noncausal", 16, 16, 257, False, None, False),
         ("eva02_tower_b32", 32, 16, 257, False, None, False),  # the decode's tower
+        ("eva02_tower_b64", 64, 16, 257, False, None, False),  # a pixels-route window's 48 + 16 images
         ("decode_prefill_b32", 32, 16, 320, True, (256, 272), False),  # the decode's prefill
         ("causal_129_padded", 8, 4, 129, True, (0, 7), False),
         ("small_unaligned_empty_rows", 3, 2, 77, True, (0, 3), True),
@@ -214,16 +232,20 @@ def phase_kernels(gen):
     emit({"phase": "kernels", "case": "timing_ce_410m", "ms": ms, "plain_ms": plain_ms,
           "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
           "bound_ms": {n: v[0] for n, v in bounds.items()}, "kept_pairs": pairs})
-    for case, t2, causal, pad in (("timing_decode_tower", 257, False, None), ("timing_decode_prefill", 320, True, (256, 272))):
-        emit({"phase": "kernels", "case": case, **_fwd_timing(gen, 32, h, t2, causal, pad, scale)})
+    for case, b2, t2, causal, pad in (("timing_decode_tower", 32, 257, False, None),
+                                      ("timing_decode_prefill", 32, 320, True, (256, 272)),
+                                      ("timing_ce_window", 64, 336, True, (256, 276)),
+                                      ("timing_window_tower_b64", 64, 257, False, None)):
+        emit({"phase": "kernels", "case": case, **_fwd_timing(gen, b2, h, t2, causal, pad, scale)})
     library = {"flash_fwd": (sdpa_fwd, "o"), "flash_bwd_dkv": (sdpa_bwd, "dq+dk+dv"),
                "flash_bwd_dq": (sdpa_bwd, "dq+dk+dv")}
     return errs, ms, plain_ms, bounds, library
 
 
 def _fwd_timing(gen, b, h, t, causal, pad, scale) -> dict:
-    """The forward kernel at one shape of the decode: its time beside the plain
-    version's, SDPA's forward and its bound (as at the CE shape)."""
+    """The forward kernel at one shape of the decode or the training paths:
+    its time beside the plain version's, SDPA's forward and its bound (as at
+    the CE shape)."""
     q, k, v, _, mask = _qkv(gen, b, h, t, pad, False)
     keep = torch.ones(t, t, dtype=torch.bool, device="cuda")
     if causal:
@@ -242,31 +264,48 @@ def _fwd_timing(gen, b, h, t, causal, pad, scale) -> dict:
             "kept_pairs": pairs}
 
 
-def example_batch(gen, cfg, b: int, text_len: int, device="cpu"):
+def example_batch(gen, cfg, b: int, text_len: int, device="cpu", pixels: bool = False):
     """Left-padded text (a quarter of the positions), an 8-token answer suffix,
-    cached patch features of the real shape [b, 256, 1024]."""
+    cached patch features of the real shape [b, 256, 1024], or with `pixels`
+    uint8 NHWC images [b, 224, 224, 3]."""
     input_ids = torch.randint(1, min(200, cfg.vocab_size - 1), (b, text_len), generator=gen, device=device)
     attention_mask = torch.ones(b, text_len, dtype=torch.int32, device=device)
     attention_mask[:, : text_len // 4] = 0
     labels = input_ids.clone()
     labels[:, :-8] = -100
-    patches = torch.randn(b, cfg.vision.num_patches, cfg.vision.embed_dim, generator=gen, device=device)
-    return {"input_ids": input_ids, "attention_mask": attention_mask, "labels": labels,
-            "patches": patches.to(torch.bfloat16)}
+    out = {"input_ids": input_ids, "attention_mask": attention_mask, "labels": labels}
+    if pixels:
+        side = cfg.vision.img_size
+        out["pixels"] = torch.randint(0, 256, (b, side, side, 3), generator=gen, device=device, dtype=torch.uint8)
+    else:
+        patches = torch.randn(b, cfg.vision.num_patches, cfg.vision.embed_dim, generator=gen, device=device)
+        out["patches"] = patches.to(torch.bfloat16)
+    return out
 
 
-def window_setup(cfg, model, n_ce, b, text_len, gen, device):
-    train_cfg = TrainConfig(
+def train_config() -> TrainConfig:
+    """The bench's training settings: AdamW with a bf16 first moment, balanced
+    modality weights, discounted layers (gamma 0.5)."""
+    return TrainConfig(
         optim="adamw", weight_decay=0.01, adam_mu_dtype="bfloat16",
         replay_coeff=1.0, distillation_coeff=1.0,
         distillation_modality_weighing_strategy="balanced",
         distillation_layer_weighing_strategy="discounted", distillation_layer_discount=0.5,
     )
+
+
+def stack(batches):
+    """[n_mb, B, ...] stacks of a list of microbatches."""
+    return {k: torch.stack([mb[k] for mb in batches]) for k in batches[0]}
+
+
+def window_setup(cfg, model, n_ce, b, text_len, gen, device, fuse_ce_batch=True):
+    train_cfg = train_config()
     teacher = make_teacher(model)
     trainable = trainable_parameters(model)
     opt = build_optimizer(train_cfg, trainable)
     state = TrainState(0, model, set_schedule(opt.init(trainable), 0, 100))
-    step = make_mafed_window_step(cfg, train_cfg, opt, n_ce=n_ce, device=device)
+    step = make_mafed_window_step(cfg, train_cfg, opt, n_ce=n_ce, fuse_ce_batch=fuse_ce_batch, device=device)
     mbs = [example_batch(gen, cfg, b, text_len) for _ in range(n_ce + 1)]  # on the CPU: same data on any device
     ce = {k: torch.stack([mb[k] for mb in mbs[:n_ce]]).to(device) for k in mbs[0]}
     distill = {k: v.to(device) for k, v in mbs[n_ce].items()}
@@ -292,6 +331,13 @@ def tower_and_prefill(model, cfg, pixels, input_ids, attention_mask, device):
         return feats, gpt_neox.logits(model.embed_out, hidden[:, -1], dtype=dtype)
 
 
+def tiny_config() -> ModelConfig:
+    """A tiny VL-Pythia whose decoder and tower both have heads of 64 (16
+    patches + CLS), so every attention call takes the flash kernels."""
+    return ModelConfig(vocab_size=512, hidden_size=128, num_hidden_layers=3, num_attention_heads=2,
+                       intermediate_size=256, vision=VisionConfig(img_size=56, embed_dim=128, depth=2, num_heads=2))
+
+
 def phase_reference() -> None:
     """One window of a tiny model (head_dim 64) on the card against the same
     window on the CPU, both bf16: losses within rtol 3e-2 (bf16 matmul
@@ -299,9 +345,7 @@ def phase_reference() -> None:
     same model with a head_dim-64 tower (16 patches + CLS): its tower features
     and the KV-cache prefill's last-position logits on the card against the
     CPU, relative norm error within 3e-2."""
-    cfg = ModelConfig(vocab_size=512, hidden_size=128, num_hidden_layers=3, num_attention_heads=2,
-                      intermediate_size=256,
-                      vision=VisionConfig(img_size=56, embed_dim=128, depth=2, num_heads=2))
+    cfg = tiny_config()
     gen = torch.Generator().manual_seed(3)
     pixels = torch.randint(0, 256, (4, 56, 56, 3), generator=gen, dtype=torch.uint8)
     input_ids = torch.randint(1, 500, (4, 24), generator=gen)
@@ -324,6 +368,73 @@ def phase_reference() -> None:
         raise AssertionError(f"reference eval: relative errors {errs} on the card vs the CPU, above 3e-2")
     emit({"phase": "reference", "cpu": metrics["cpu"], "cuda": metrics["cuda"], "rtol": 3e-2,
           "eval_rel_err": errs})
+
+
+def reference_steps(cfg, device):
+    """bf16 on `device`, from the same seeded tiny model each time: a CE window
+    of 4 microbatches, an EWC window (F uniform in [0, 1), theta* = theta +
+    N(0, 0.01^2)), one train step, one distill step (a teacher of other
+    weights), the Fisher importances over two batches and the adaptive-weight
+    sums of the memory batch. Returns (losses and grad norms by path,
+    {"fisher", "adaptive_sums"} flattened on the CPU)."""
+    gen = torch.Generator().manual_seed(6)
+    mbs = [{k: v.to(device) for k, v in example_batch(gen, cfg, 4, 24).items()} for _ in range(4)]
+    train_cfg = train_config()
+    lang = torch.full((cfg.num_hidden_layers - 1,), 0.5, device=device)
+
+    def fresh():
+        model = init_model(cfg, seed=0, device="cpu").to(device)
+        trainable = trainable_parameters(model)
+        opt = build_optimizer(train_cfg, trainable)
+        return model, trainable, opt, TrainState(0, model, set_schedule(opt.init(trainable), 0, 100))
+
+    def scalars(m):
+        return {k: float(m[k]) for k in ("loss", "grad_norm")}
+
+    out = {}
+    _, _, opt, state = fresh()
+    out["ce_window"] = scalars(make_ce_window_step(cfg, train_cfg, opt, device=device)(state, stack(mbs))[1])
+    _, trainable, opt, state = fresh()
+    g = torch.Generator().manual_seed(7)
+    fisher = {k: torch.rand(p.shape, generator=g).to(device) for k, p in trainable.items()}
+    old = {k: (p.detach().cpu() + 0.01 * torch.randn(p.shape, generator=g)).to(device) for k, p in trainable.items()}
+    ewc_step = make_ce_window_step(cfg, train_cfg, opt, with_ewc=True, device=device)
+    out["ewc_window"] = scalars(ewc_step(state, stack(mbs), (fisher, old))[1])
+    _, _, opt, state = fresh()
+    out["train_step"] = scalars(make_train_step(cfg, train_cfg, opt, device=device)(state, mbs[0])[1])
+    _, _, opt, state = fresh()
+    teacher = make_teacher(init_model(cfg, seed=1, device="cpu").to(device))
+    out["distill_step"] = scalars(make_distill_step(cfg, train_cfg, opt, device=device)(state, teacher, mbs[3], lang)[1])
+    model, trainable, _, _ = fresh()
+    importances = {k: torch.zeros_like(p) for k, p in trainable.items()}
+    fisher_fn = make_ewc_fisher_fn(cfg, train_cfg, device=device)
+    for mb in mbs[:2]:
+        fisher_fn(model, mb, importances)
+    layers = distillation_layers("discounted", cfg.num_hidden_layers - 1, None)
+    sums = make_adaptive_weights_fn(cfg, train_cfg, layers, device=device)(model, mbs[3])
+    vectors = {"fisher": torch.cat([v.flatten().cpu() for v in importances.values()]),
+               "adaptive_sums": torch.cat([sums[0].cpu(), sums[1].cpu()])}
+    return out, vectors
+
+
+# card against CPU, bf16: losses and grad norms (as the window's), and the
+# relative norm error of the Fisher importances (squared bf16 gradients, whose
+# relative error doubles) and of the adaptive sums (norms of bf16 gradients)
+STEP_RTOL, VECTOR_RTOL = 3e-2, 5e-2
+
+
+def phase_reference_steps() -> None:
+    cfg = tiny_config()
+    (cpu, cpu_vec), (card, card_vec) = (reference_steps(cfg, d) for d in ("cpu", "cuda"))
+    for path, want in cpu.items():
+        for key, w in want.items():
+            if not abs(card[path][key] - w) <= STEP_RTOL * abs(w):
+                raise AssertionError(f"reference {path}: {key} {card[path][key]} on the card vs {w} on the CPU")
+    errs = {name: _rel_err(card_vec[name], cpu_vec[name]) for name in cpu_vec}
+    if not all(e <= VECTOR_RTOL for e in errs.values()):
+        raise AssertionError(f"reference Fisher / adaptive sums: relative errors {errs}, above {VECTOR_RTOL}")
+    emit({"phase": "reference", "case": "steps", "cpu": cpu, "cuda": card, "rtol": STEP_RTOL,
+          "rel_err": errs, "rel_err_limit": VECTOR_RTOL})
 
 
 def phase_window(smi: str):
@@ -373,6 +484,178 @@ def phase_window(smi: str):
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "metrics": history, "launches": launches, "expected_launches": expected})
     return launches
+
+
+def _kernels(fwd: int, bwd: int) -> dict:
+    return {"flash_fwd": fwd, "flash_bwd_dkv": bwd, "flash_bwd_dq": bwd}
+
+
+def run_path(name, calls, trainable=None, snapshot=None) -> dict:
+    """Run one path's calls in order, each a (fn, launches, examples, flops)
+    with fn() -> metrics; check finite metrics, the kernel launches and, when
+    a snapshot is given, that every trainable tensor moved. Times exclude the
+    first call (cuBLAS and allocator warm-up)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    times, history = [], []
+    for fn, _, _, _ in calls:
+        start = time.perf_counter()
+        m = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        history.append({k: v.float().tolist() for k, v in m.items()})
+    launches = dict(A.LAUNCHES)
+    expected = {k: sum(c[1][k] for c in calls) for k in A.LAUNCHES}
+    if launches != expected:
+        raise AssertionError(f"{name}: kernel launches {launches}, expected {expected}")
+    bad = [h for h in history if not all(np.isfinite(v).all() for v in h.values())]
+    if bad:
+        raise AssertionError(f"{name}: non-finite metrics {bad[0]}")
+    if snapshot is not None:
+        unchanged = [n for n, p in trainable.items() if torch.equal(p, snapshot[n])]
+        if unchanged:
+            raise AssertionError(f"{name}: parameters that no update moved: {unchanged[:5]} ({len(unchanged)})")
+    ms = sum(times[1:])
+    examples, flops = sum(c[2] for c in calls[1:]), sum(c[3] for c in calls[1:])
+    return {"calls": len(calls), "call_ms": times, "ms_per_call": ms / (len(calls) - 1),
+            "examples_per_s": examples / (ms / 1e3), "mfu": mfu(examples / (ms / 1e3), flops / examples),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+            "metrics": history}
+
+
+def phase_train_steps(smi: str):
+    """The other training paths of VL-Pythia-410M, each from the same seeded
+    weights, on the same 4 microbatches of 16 (cached features = the port's
+    tower on their pixels)."""
+    cfg = model_config_for_preset("410m")
+    n_mb, b, text_len = 4, 16, 80
+    n_ce = n_mb - 1
+    layers, vis_depth = cfg.num_hidden_layers, cfg.vision.depth
+    model = init_model(cfg, seed=0, device="cuda")
+    train_cfg = train_config()
+    trainable = trainable_parameters(model)
+    snapshot = {k: p.detach().clone() for k, p in trainable.items()}
+    teacher = make_teacher(init_model(cfg, seed=1, device="cuda"))  # the previous task's model
+    distilled = distillation_layers(train_cfg.distillation_layer_weighing_strategy, layers - 1,
+                                    train_cfg.distillation_layer)
+    deepest = max(distilled)  # the teacher's early exit
+    lang = torch.full((len(distilled),), 0.5, device="cuda")
+    gen = torch.Generator().manual_seed(5)
+    px = [{k: v.cuda() for k, v in example_batch(gen, cfg, b, text_len, pixels=True).items()} for _ in range(n_mb)]
+    normalize = make_normalizer(cfg.vision)
+    with torch.no_grad():
+        mbs = [{**{k: v for k, v in m.items() if k != "pixels"},
+                "patches": V.get_patch_embeddings(model, prep_pixels(m, normalize, torch.bfloat16))} for m in px]
+
+    def fresh(every_k=None):
+        """The snapshot's weights and a new optimizer state: (optimizer, state box)."""
+        with torch.no_grad():
+            for k, p in trainable.items():
+                p.copy_(snapshot[k])
+        opt = build_optimizer(train_cfg, trainable)
+        if every_k:
+            opt = MultiSteps(opt, every_k)
+        return opt, [TrainState(0, model, set_schedule(opt.init(trainable), 0, 100))]
+
+    def call(box, step, *args):
+        def fn():
+            box[0], m = step(box[0], *args)
+            return m
+        return fn
+
+    ce_ex = ce_example_flops(cfg, text_len)
+    memory_ex = framework_window_flops(cfg, text_len, 0, 1)  # one memory example: student + teacher
+    train_call = _kernels(layers, layers)  # no remat: the saved (o, lse) go to the backward kernels
+    remat_pass = _kernels(2 * layers, layers)  # a forward, and the layers' recompute in backward
+    paths, first = {}, {}
+
+    opt, box = fresh()
+    step = make_ce_window_step(cfg, train_cfg, opt)
+    paths["ce_window"] = run_path("ce_window", [(call(box, step, stack(mbs)), remat_pass, n_mb * b, n_mb * b * ce_ex)] * 3,
+                                  trainable, snapshot)
+
+    fresh()
+    importances = {k: torch.zeros_like(p) for k, p in trainable.items()}
+    fisher_fn = make_ewc_fisher_fn(cfg, train_cfg)
+
+    def fisher_call(mb):
+        def fn():
+            fisher_fn(model, mb, importances)
+            return {}
+        return fn
+
+    paths["ewc_fisher"] = run_path("ewc_fisher", [(fisher_call(mb), train_call, b, b * ce_ex) for mb in mbs[:2]])
+    ewc_state = ({k: v / (2 * b) for k, v in importances.items()}, snapshot)  # F over the samples; theta* = the start
+    del importances
+    opt, box = fresh()
+    step = make_ce_window_step(cfg, train_cfg, opt, with_ewc=True)
+    paths["ewc_window"] = run_path(
+        "ewc_window", [(call(box, step, stack(mbs), ewc_state), remat_pass, n_mb * b, n_mb * b * ce_ex)] * 3,
+        trainable, snapshot)
+    del ewc_state
+
+    opt, box = fresh(every_k=n_mb)
+    step = make_train_step(cfg, train_cfg, opt)
+    paths["train_step_cadence"] = run_path(
+        "train_step_cadence", [(call(box, step, mb), train_call, b, b * ce_ex) for mb in mbs], trainable, snapshot)
+
+    opt, box = fresh(every_k=n_mb)
+    step, d_step = make_train_step(cfg, train_cfg, opt), make_distill_step(cfg, train_cfg, opt)
+    calls = [(call(box, step, mb), train_call, b, b * ce_ex) for mb in mbs[:n_ce]]
+    calls.append((call(box, d_step, teacher, mbs[n_ce], lang), _kernels(layers + deepest, layers), b, b * memory_ex))
+    paths["mafed_cadence"] = run_path("mafed_cadence", calls, trainable, snapshot)
+
+    fused_window = _kernels(2 * 2 * layers + deepest, 2 * layers)  # CE and student remat, teacher forward only
+    window_ex = framework_window_flops(cfg, text_len, n_ce, b)
+    ce_stack, memory = stack(mbs[:n_ce]), mbs[n_ce]
+    opt, box = fresh()
+    step = make_mafed_window_step(cfg, train_cfg, opt, n_ce=n_ce)
+    paths["mafed_fused"] = run_path(
+        "mafed_fused", [(call(box, step, teacher, ce_stack, memory, lang), fused_window, n_mb * b, window_ex)] * 2,
+        trainable, snapshot)
+    opt, box = fresh()
+    step = make_mafed_window_step(cfg, train_cfg, opt, n_ce=n_ce, fuse_ce_batch=False)
+    unfused = _kernels(n_ce * 2 * layers + 2 * layers + deepest, (n_ce + 1) * layers)
+    paths["mafed_unfused"] = run_path(
+        "mafed_unfused", [(call(box, step, teacher, ce_stack, memory, lang), unfused, n_mb * b, window_ex)] * 2,
+        trainable, snapshot)
+    opt, box = fresh()
+    step = make_mafed_window_step(cfg, train_cfg, opt, n_ce=n_ce)
+    pixels_window = dict(fused_window, flash_fwd=fused_window["flash_fwd"] + vis_depth)  # the tower once
+    pixels_ex = framework_window_flops(cfg, text_len, n_ce, b, vision_cached=False)
+    paths["mafed_pixels"] = run_path(
+        "mafed_pixels", [(call(box, step, teacher, stack(px[:n_ce]), px[n_ce], lang), pixels_window, n_mb * b,
+                          pixels_ex)] * 2, trainable, snapshot)
+
+    fresh()
+    sums_fn = make_adaptive_weights_fn(cfg, train_cfg, distilled)
+
+    def adaptive():
+        lang_sums, image_sums, n_lang, n_img = sums_fn(model, memory)
+        return {"lang_sums": lang_sums, "image_sums": image_sums, "n_lang": n_lang, "n_img": n_img}
+
+    # a forward and the activation gradients (no weight gradients): ~2/3 of a CE example
+    paths["adaptive_weights"] = run_path("adaptive_weights", [(adaptive, train_call, b, b * ce_ex * 2 / 3)] * 2)
+    sums = paths["adaptive_weights"]["metrics"][0]
+    if min(sums["lang_sums"] + sums["image_sums"]) <= 0:
+        raise AssertionError(f"adaptive weights: a non-positive gradient-norm sum in {sums}")
+
+    # cross-path checks from equal starting weights (bf16)
+    first = {p: paths[p]["metrics"][0]["loss"] for p in ("ce_window", "mafed_fused", "mafed_unfused", "mafed_pixels")}
+    cadence = float(np.mean([m["loss"] for m in paths["train_step_cadence"]["metrics"]]))
+    checks = {"cadence_mean_vs_ce_window": (cadence, first["ce_window"]),
+              "unfused_vs_fused": (first["mafed_unfused"], first["mafed_fused"]),
+              "pixels_vs_cached": (first["mafed_pixels"], first["mafed_fused"])}
+    for name, (got, want) in checks.items():
+        if not abs(got - want) <= 2e-2 * abs(want):
+            raise AssertionError(f"train_steps {name}: {got} vs {want}, beyond rtol 2e-2")
+    for p in paths.values():
+        del p["metrics"][2:]  # keep the line short: the first two calls' metrics
+    emit({"phase": "train_steps", "card": smi, "preset": "410m", "layers": layers, "hidden": cfg.hidden_size,
+          "n_mb": n_mb, "batch": b, "text_len": text_len, "paths": paths,
+          "cross_checks": {k: {"got": g, "want": w, "rtol": 2e-2} for k, (g, w) in checks.items()}})
+    return {p: v["launches"] for p, v in paths.items()}
 
 
 def decode_batches(cfg, n: int, b: int, text_len: int, pad: int, seed: int):
@@ -494,7 +777,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs, ms, plain_ms, bounds, library = phase_kernels(gen)
     phase_reference()
-    by_path = {"window": phase_window(smi), "decode": phase_decode(smi)}
+    phase_reference_steps()
+    by_path = {"window": phase_window(smi), "decode": phase_decode(smi), **phase_train_steps(smi)}
     kernels = [
         {"name": name, "route": "cuda", "source": "mafed_tpu_torch/csrc/flash_attn.cu", "replaces": replaces,
          "design": design, "launches": sum(path[name] for path in by_path.values()),

@@ -1,7 +1,7 @@
 """Typed configuration (the port's copy of mafed_tpu/core/config.py).
 
 This slice carries the model configuration, the presets, and the
-`TrainConfig` fields that the fused MAFED window reads. Field names and
+`TrainConfig` fields that the training steps read. Field names and
 defaults are the reference's, so a config written for one package reads the
 same in the other. The CLI/JSON merge comes with the trainer.
 """
@@ -97,8 +97,9 @@ def model_config_for_preset(preset: str, **overrides: Any) -> ModelConfig:
 
 @dataclass
 class TrainConfig:
-    """The training fields the fused MAFED window reads (names and defaults
-    of mafed_tpu's TrainConfig)."""
+    """The training fields the training steps read (names and defaults of
+    mafed_tpu's TrainConfig). `remat_policy` takes "" or "full" only: the
+    named policies are not ported (training/step.resolve_remat_policy)."""
 
     learning_rate: float = 5e-5
     lr_mul: float = 10.0
@@ -117,3 +118,8 @@ class TrainConfig:
     compute_dtype: str = "bfloat16"
     adam_mu_dtype: Optional[str] = None
     label_tail: int = 32
+    accumulate_grad_batches: int = 1
+    reg_lambda: float = 1.0  # EWC penalty weight
+    ewc_state_dtype: str = "float32"  # storage of the Fisher and theta*: float32 or bfloat16
+    remat: bool = False  # recompute each decoder layer in backward (make_train_step)
+    remat_policy: str = ""

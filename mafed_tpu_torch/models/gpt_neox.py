@@ -170,6 +170,7 @@ class GPTNeoXModel(nn.Module):
         num_layers: Optional[int] = None,
         remat: bool = False,
         cache: Optional[KVCache] = None,
+        layer_perturbation: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         """Run the decoder stack over precomputed input embeddings.
 
@@ -187,6 +188,12 @@ class GPTNeoXModel(nn.Module):
 
         remat: recompute each layer in backward (torch.utils.checkpoint), so
         only the layer inputs are kept between forward and backward.
+
+        layer_perturbation ([L-1, B, T, H], no-cache path only): entry i is
+        added to layer i's output, i.e. to hidden_states[i+1]; the last
+        layer's output gets none. The gradient of a loss with respect to a
+        zero perturbation is its gradient with respect to those hidden
+        states (adaptive modality weights).
         """
         cfg = self.cfg
         batch, t, _ = inputs_embeds.shape
@@ -205,11 +212,13 @@ class GPTNeoXModel(nn.Module):
 
         layers: List[GPTNeoXLayer] = list(self.layers)
         truncated = num_layers is not None and num_layers < cfg.num_hidden_layers
+        if cache is not None and layer_perturbation is not None:
+            raise ValueError("layer_perturbation is for the no-cache path")
         if truncated:
             if num_layers < 0:
                 raise ValueError(f"num_layers must be >= 0, got {num_layers}")
-            if cache is not None:
-                raise ValueError("num_layers truncation is for the no-cache path")
+            if cache is not None or layer_perturbation is not None:
+                raise ValueError("num_layers truncation is for the plain forward path")
             layers = layers[:num_layers]
 
         h = inputs_embeds.to(dtype)
@@ -221,6 +230,8 @@ class GPTNeoXModel(nn.Module):
                 h = checkpoint(layer, h, cos, sin, key_mask, dtype, use_reentrant=False, preserve_rng_state=False)
             else:
                 h = layer(h, cos, sin, key_mask, dtype)
+            if layer_perturbation is not None and i < len(layers) - 1:
+                h = h + layer_perturbation[i].to(h.dtype)
             hs.append(h)
         if cache is not None:
             cache.length = past + t

@@ -159,6 +159,7 @@ def forward(
     patch_embeddings: Optional[torch.Tensor] = None,
     pixel_values: Optional[torch.Tensor] = None,
     output_hidden_states: bool = False,
+    hidden_perturbation: Optional[torch.Tensor] = None,
     dtype=torch.bfloat16,
     loss_only: bool = False,
     need_logits: bool = True,
@@ -175,12 +176,19 @@ def forward(
     last `label_tail` positions, where the answer suffix lives.
     num_layers: early-exit the decoder after this many blocks (teacher path);
     needs need_logits=False and labels=None.
+    hidden_perturbation ([L, B, n_vis + T, H]): entry 0 is added to the input
+    embeddings, entries 1.. to the decoder layers' outputs (see
+    GPTNeoXModel.forward's layer_perturbation).
     """
     if num_layers is not None and (need_logits or labels is not None):
         raise ValueError("num_layers truncation skips the final LN: logits/loss unavailable")
     inputs_embeds, full_mask = build_inputs(
         model, input_ids, attention_mask, patch_embeddings, pixel_values=pixel_values, dtype=dtype
     )
+    layer_pert = None
+    if hidden_perturbation is not None:
+        inputs_embeds = inputs_embeds + hidden_perturbation[0].to(inputs_embeds.dtype)
+        layer_pert = hidden_perturbation[1:]
     dec = model.gpt_neox(
         inputs_embeds,
         attention_mask=full_mask,
@@ -188,6 +196,7 @@ def forward(
         dtype=dtype,
         num_layers=num_layers,
         remat=remat_layers,
+        layer_perturbation=layer_pert,
     )
     hidden = dec["last_hidden_state"]
     if not need_logits and labels is None:

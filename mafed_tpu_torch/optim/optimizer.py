@@ -4,12 +4,18 @@ mafed_tpu/optim/optimizer.py, which chains optax transforms).
 One update applies, in order:
   * global-norm clipping (grad_norm, 2.0 by default), keeping the pre-clip
     norm in the state (`clip_by_global_norm_recorded`);
-  * Adam moments (bias-corrected; eps 1e-6 for AdamW, 1e-8 for Adam), with
-    an optional bfloat16 first moment (`adam_mu_dtype`);
-  * weight decay masked by the no-decay markers: decoupled for AdamW,
-    theta -= lr_group * (adam_dir + wd * theta); added to the gradient for Adam;
+  * weight decay added to the gradient (L2) for Adam and Adamax, masked by
+    the no-decay markers;
+  * the moments: Adam's (bias-corrected; eps 1e-6 for AdamW, 1e-8 for Adam,
+    an optional bfloat16 first moment, `adam_mu_dtype`) or Adamax's
+    (optax.scale_by_adamax: nu = max(b2 * nu, |g| + 1e-8), the first moment
+    bias-corrected, no mu_dtype);
+  * for AdamW, decoupled weight decay: theta -= lr_group * (adam_dir + wd * theta);
   * the learning rate, from the triangular `ScheduleState` (or a schedule
     callable), times `lr_mul` for "vqa_output" parameters.
+
+`MultiSteps` wraps an `Optimizer` as optax.MultiSteps does: gradients
+accumulate for k mini-steps and the k-th applies one update.
 
 Plain tensor code; parameters and moments are updated in place.
 """
@@ -63,7 +69,11 @@ def clip_by_global_norm_recorded(
     return {k: g * scale.to(g.dtype) for k, g in grads.items()}, ClipState(gnorm)
 
 
-def last_grad_norm(opt_state: OptState) -> torch.Tensor:
+def last_grad_norm(opt_state) -> torch.Tensor:
+    """The pre-clip global norm of the last update; under `MultiSteps`, that
+    of the last accumulation boundary."""
+    if isinstance(opt_state, MultiStepsState):
+        opt_state = opt_state.inner
     if opt_state.clip is None:
         raise ValueError("optimizer state holds no ClipState (grad clipping disabled?)")
     return opt_state.clip.grad_norm
@@ -78,8 +88,11 @@ def triangular_factor(state: ScheduleState) -> torch.Tensor:
     return torch.clamp(remaining / max(float(state.total_steps - state.warmup_steps), 1.0), min=0.0)
 
 
-def set_schedule(opt_state: OptState, warmup_steps: int, total_steps: int, reset_count: bool = True) -> OptState:
-    """Replace the schedule horizon inside an optimizer state."""
+def set_schedule(opt_state, warmup_steps: int, total_steps: int, reset_count: bool = True):
+    """Replace the schedule horizon inside an optimizer state (or the inner
+    state of a `MultiSteps` one)."""
+    if isinstance(opt_state, MultiStepsState):
+        return opt_state._replace(inner=set_schedule(opt_state.inner, warmup_steps, total_steps, reset_count))
     sched = opt_state.schedule
     if not isinstance(sched, ScheduleState):
         raise ValueError("this optimizer runs a schedule callable, not a ScheduleState")
@@ -100,15 +113,17 @@ class Optimizer:
     def __init__(self, config: TrainConfig, names, schedule: Optional[Callable] = None):
         if config.optim == "adamw":
             self.eps, self.decoupled_wd = 1e-6, True
-        elif config.optim == "adam":
+        elif config.optim in ("adam", "adamax"):
             self.eps, self.decoupled_wd = 1e-8, False
         else:
-            raise ValueError(f"optimizer {config.optim!r} is not ported (adamw and adam are)")
+            raise ValueError(f"invalid optimizer {config.optim}")
+        self.adamax = config.optim == "adamax"
         self.b1, self.b2 = (float(b) for b in config.betas)
         self.lr_mul = config.lr_mul
         self.wd = config.weight_decay
         self.max_norm = config.grad_norm if config.grad_norm and config.grad_norm > 0 else None
-        self.mu_dtype = _DTYPES[config.adam_mu_dtype] if config.adam_mu_dtype else None
+        # optax.scale_by_adamax has no mu_dtype
+        self.mu_dtype = _DTYPES[config.adam_mu_dtype] if config.adam_mu_dtype and not self.adamax else None
         self.lr0 = config.learning_rate
         self.schedule = schedule
         self.top, self.decay = param_group_masks(list(names))
@@ -146,14 +161,56 @@ class Optimizer:
             g = grads[k]
             mu_prev = state.adam.mu[k]
             mu = (1 - self.b1) * g + b1[mu_prev.dtype] * mu_prev
-            nu = (1 - self.b2) * (g * g) + self.b2 * state.adam.nu[k]
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            if self.adamax:  # infinity-norm second moment, no bias correction
+                nu = torch.maximum(torch.abs(g) + self.eps, self.b2 * state.adam.nu[k])
+                u = (mu / bc1) / nu
+            else:
+                nu = (1 - self.b2) * (g * g) + self.b2 * state.adam.nu[k]
+                u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             if self.wd > 0 and self.decoupled_wd and self.decay[k]:
                 u = u + self.wd * p
             p.add_((-(lr * (self.lr_mul if self.top[k] else 1.0)) * u).to(p.dtype))
             state.adam.mu[k].copy_(mu)
             state.adam.nu[k].copy_(nu)
         return OptState(clip, AdamState(count, state.adam.mu, state.adam.nu), sched)
+
+
+class MultiStepsState(NamedTuple):
+    mini_step: int  # gradients accumulated since the last update
+    gradient_step: int  # updates applied
+    inner: OptState
+    acc_grads: Dict[str, torch.Tensor]  # running mean of this window's gradients
+
+
+class MultiSteps:
+    """Gradient accumulation over `every_k` mini-steps (optax.MultiSteps with
+    use_grad_mean): each call folds its gradients into a running mean,
+    acc + (g - acc) / (n + 1); the k-th applies the inner update to that mean
+    and keeps the inner state (clip norm, moments, schedule count). On the
+    other calls the parameters do not move and the inner state stays as it
+    was, so `last_grad_norm` reads the previous boundary's norm."""
+
+    def __init__(self, inner: Optimizer, every_k: int):
+        if every_k < 1:
+            raise ValueError(f"every_k must be >= 1, got {every_k}")
+        self.inner = inner
+        self.every_k = int(every_k)
+
+    def init(self, params: Dict[str, torch.Tensor]) -> MultiStepsState:
+        acc = {k: torch.zeros_like(p) for k, p in params.items()}
+        return MultiStepsState(0, 0, self.inner.init(params), acc)
+
+    @torch.no_grad()
+    def update(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor], state: MultiStepsState) -> MultiStepsState:
+        n = state.mini_step
+        for k, acc in state.acc_grads.items():
+            acc.add_((grads[k] - acc) / (n + 1))
+        if n + 1 < self.every_k:
+            return state._replace(mini_step=n + 1)
+        inner = self.inner.update(params, state.acc_grads, state.inner)
+        for acc in state.acc_grads.values():
+            acc.zero_()
+        return MultiStepsState(0, state.gradient_step + 1, inner, state.acc_grads)
 
 
 def build_optimizer(config: TrainConfig, params: Dict[str, torch.Tensor], schedule: Optional[Callable] = None) -> Optimizer:

@@ -1,5 +1,7 @@
-"""Analytic FLOPs of the fused MAFED window and of the greedy decode, and MFU
-on an H100 (counterpart of mafed_tpu/training/flops.py)."""
+"""Analytic FLOPs of the training steps and of the greedy decode, and MFU on
+an H100 (counterpart of mafed_tpu/training/flops.py). Model FLOPs in the
+PaLM-MFU convention: fwd + bwd = 3x fwd for trainable paths, layer
+recompute excluded."""
 
 from __future__ import annotations
 
@@ -36,25 +38,52 @@ def lm_head_flops(cfg: ModelConfig, positions: int) -> float:
     return 2 * positions * cfg.hidden_size * cfg.vocab_size
 
 
+def projector_flops(cfg: ModelConfig) -> float:
+    """Forward FLOPs of the two-layer projector over one example's patches."""
+    return 2 * cfg.vision.num_patches * (cfg.vision.embed_dim * cfg.hidden_size + cfg.hidden_size ** 2)
+
+
+def ce_example_flops(cfg: ModelConfig, text_len: int, *, vision_cached: bool = True) -> float:
+    """One example of a differentiated CE pass: decoder, lm_head over the last
+    label_len (= text_len) positions and projector, fwd + bwd, plus one tower
+    forward unless the features are cached. A CE window of n_mb microbatches
+    of B is n_mb * B of these; a train step, B."""
+    seq = cfg.vision.num_patches + text_len
+    dec_fwd = decoder_flops_per_token(cfg) * seq + attention_flops(cfg, seq)
+    student = 3 * (dec_fwd + lm_head_flops(cfg, text_len) + projector_flops(cfg))
+    return student + (0.0 if vision_cached else vision_flops_per_image(cfg))
+
+
+def distill_step_flops_per_example(cfg: ModelConfig, text_len: int) -> float:
+    """The JAX package's count for one example of the fused student+teacher
+    step: student fwd+bwd (3x fwd), a whole teacher fwd, ONE shared tower
+    fwd and the projector fwd (an upper bound of the early-exited,
+    cached-feature step; `framework_window_flops(cfg, t, 0, 1)` is the exact
+    count of that one)."""
+    seq = cfg.vision.num_patches + text_len
+    dec_fwd = decoder_flops_per_token(cfg) * seq + attention_flops(cfg, seq)
+    head = lm_head_flops(cfg, text_len)
+    return 3 * (dec_fwd + head) + dec_fwd + vision_flops_per_image(cfg) + projector_flops(cfg)
+
+
 def framework_window_flops(
     cfg: ModelConfig,
     text_len: int,
     n_ce: int,
     batch: int,
+    *,
+    vision_cached: bool = True,
 ) -> float:
-    """Model FLOPs of one fused MAFED window on cached vision features
-    (PaLM-MFU convention: fwd + bwd = 3x fwd for trainable paths, layer
-    recompute excluded): lm_head over the last label_len (= text_len)
-    positions, the teacher early-exited after num_hidden_layers - 2 blocks
-    with no lm_head, the projector on every pass."""
+    """Model FLOPs of one MAFED window (n_ce CE microbatches + 1 memory
+    microbatch of `batch` rows): every example a CE example (`ce_example_flops`),
+    plus, for the memory microbatch, the teacher early-exited after
+    num_hidden_layers - 2 blocks with no lm_head and its projector forward.
+    Uncached, one tower forward per image, shared by student and teacher."""
     seq = cfg.vision.num_patches + text_len
     dec_fwd = decoder_flops_per_token(cfg) * seq + attention_flops(cfg, seq)
-    head = lm_head_flops(cfg, text_len)
-    proj = 2 * cfg.vision.num_patches * (cfg.vision.embed_dim * cfg.hidden_size + cfg.hidden_size ** 2)
-    student_ex = 3 * (dec_fwd + head + proj)
     deepest = cfg.num_hidden_layers - 2
-    teacher_ex = dec_fwd * deepest / cfg.num_hidden_layers + proj
-    return batch * (n_ce * student_ex + student_ex + teacher_ex)
+    teacher_ex = dec_fwd * deepest / cfg.num_hidden_layers + projector_flops(cfg)
+    return batch * ((n_ce + 1) * ce_example_flops(cfg, text_len, vision_cached=vision_cached) + teacher_ex)
 
 
 def framework_decode_flops_per_example(cfg: ModelConfig, text_len: int, max_new: int, *, vision_cached: bool = True) -> float:
@@ -63,8 +92,7 @@ def framework_decode_flops_per_example(cfg: ModelConfig, text_len: int, max_new:
     vision + text with logits at the last position, then max_new - 1 cached
     single-token steps against the growing prefix."""
     seq0 = cfg.vision.num_patches + text_len
-    proj = 2 * cfg.vision.num_patches * (cfg.vision.embed_dim * cfg.hidden_size + cfg.hidden_size ** 2)
-    total = proj + (0.0 if vision_cached else vision_flops_per_image(cfg))
+    total = projector_flops(cfg) + (0.0 if vision_cached else vision_flops_per_image(cfg))
     total += decoder_flops_per_token(cfg) * seq0 + attention_flops(cfg, seq0) + lm_head_flops(cfg, 1)
     for k in range(1, max_new):
         seq = seq0 + k

@@ -1,17 +1,29 @@
 """Training steps (counterpart of mafed_tpu/training/step.py).
 
-This slice ports the fused MAFED accumulation window on the vision-cache
-path: n_ce current-task CE microbatches, merged into one pass, plus one
-memory microbatch that runs the student with hidden-state taps and the
-frozen bfloat16 teacher, early-exited at the deepest tap. The combined loss
-(n_ce * ce + distill) / (n_ce + 1) gets ONE backward, then global-norm
-clipping and AdamW. Every attention call of the three passes goes through the
-CUDA flash kernels on the card.
+Every step takes one loss through ONE optimizer update (or, under
+`optim.MultiSteps`, one accumulation mini-step):
+
+  * `make_train_step`: one CE microbatch (naive / ER / EWC), the EWC penalty
+    optionally added; the per-microbatch cadence runs it under `MultiSteps`;
+  * `make_ce_window_step`: a whole accumulation window of CE microbatches
+    merged into one pass;
+  * `make_distill_step`: one memory microbatch of the fused student+teacher
+    MAFED loss;
+  * `make_mafed_window_step`: n_ce CE microbatches + 1 memory microbatch,
+    fused into one combined loss, or one backward per microbatch
+    (`fuse_ce_batch=False`);
+  * `make_ewc_fisher_fn` and `make_adaptive_weights_fn` compute, without an
+    update, the EWC importances and the adaptive modality weights' gradient
+    norms.
+
+Batches carry cached "patches" or uint8 "pixels"; pixels go through the
+frozen tower with no graph, once per window where the window is fused. Every
+attention call goes through the CUDA flash kernels on the card.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,23 +31,60 @@ import torch
 from mafed_tpu_torch.constants import NUM_VISION_TOKENS
 from mafed_tpu_torch.core.config import ModelConfig, TrainConfig
 from mafed_tpu_torch.core.device import resolve_device
+from mafed_tpu_torch.data.images import make_normalizer, prep_pixels
 from mafed_tpu_torch.models import vl_pythia
-from mafed_tpu_torch.optim.optimizer import Optimizer, global_norm, last_grad_norm
+from mafed_tpu_torch.optim.optimizer import global_norm, last_grad_norm
 from mafed_tpu_torch.training.train_state import TrainState, trainable_parameters
+
+_NAMED_REMAT_POLICIES = ("attn", "attn_qkv", "attn_mlp", "attn_qkv_mlp", "dots")
 
 
 def compute_dtype(train_cfg: TrainConfig) -> torch.dtype:
     return torch.bfloat16 if train_cfg.compute_dtype == "bfloat16" else torch.float32
 
 
-def _ce_loss(model, batch, patches, dtype, label_tail) -> torch.Tensor:
-    """Length-normalised CE of one (merged) batch over its cached patch
-    features, each decoder layer recomputed in backward."""
+def resolve_remat_policy(name: str) -> None:
+    """'' / 'full': plain per-layer remat (keep only the layer inputs), the
+    one policy the port has. The JAX package's named policies, which save
+    chosen layer intermediates through jax.checkpoint, are not ported."""
+    if not name or name == "full":
+        return None
+    if name in _NAMED_REMAT_POLICIES:
+        raise NotImplementedError(f"remat_policy {name!r} is not ported: resolve_remat_policy takes '' or 'full'")
+    raise ValueError(f"unknown remat_policy '{name}'")
+
+
+def _check_device(device: torch.device, *batches: Dict[str, torch.Tensor]) -> None:
+    if any(b["input_ids"].device != device for b in batches):
+        raise ValueError(f"batches must be on {device}")
+
+
+def _vision_features(model, batch, normalize, dtype) -> torch.Tensor:
+    """The batch's vision features in the compute dtype: its cached "patches",
+    or the frozen tower's output on its "pixels" (no graph)."""
+    if "patches" in batch:
+        return batch["patches"].to(dtype)
+    with torch.no_grad():
+        return vl_pythia.get_patch_embeddings(model, prep_pixels(batch, normalize, dtype), dtype=dtype)
+
+
+def _ce_loss(model, batch, patches, dtype, label_tail, *, remat: bool) -> torch.Tensor:
+    """Length-normalised CE of one (merged) batch over its vision features;
+    remat recomputes each decoder layer in backward."""
     return vl_pythia.forward(
         model, batch["input_ids"], batch["attention_mask"], batch["labels"],
         patch_embeddings=patches, dtype=dtype, loss_only=True,
-        remat_layers=True, label_tail=label_tail,
+        remat_layers=remat, label_tail=label_tail,
     ).loss
+
+
+def ewc_penalty(params: Dict[str, torch.Tensor], ewc_state, reg_lambda: float) -> torch.Tensor:
+    """0.5 * lambda * sum(F * (theta - theta*)^2) over name-keyed dicts;
+    ewc_state = (fisher, theta*), either stored in bfloat16 or float32, and
+    both upcast to float32 with theta before the difference."""
+    fisher, old = ewc_state
+    terms = [torch.sum(fisher[k].float() * torch.square(p.float() - old[k].float())) for k, p in params.items()]
+    return 0.5 * reg_lambda * sum(terms)
 
 
 def _merge_window(x: torch.Tensor) -> torch.Tensor:
@@ -43,6 +92,103 @@ def _merge_window(x: torch.Tensor) -> torch.Tensor:
     as the JAX package does (row order differs from a plain reshape, which
     no per-sample mean sees)."""
     return x.transpose(0, 1).reshape((-1,) + tuple(x.shape[2:]))
+
+
+def _cleared(model) -> Dict[str, torch.nn.Parameter]:
+    """The trainable parameters, with no gradient left on them."""
+    params = trainable_parameters(model)
+    for p in params.values():
+        p.grad = None
+    return params
+
+
+def _update(state: TrainState, optimizer, params) -> Tuple[TrainState, torch.Tensor]:
+    """Apply the optimizer to the gradients the backward left on `params`
+    (zeros where none reached), clear them; (new state, grad-norm metric)."""
+    grads = {k: p.grad if p.grad is not None else torch.zeros_like(p) for k, p in params.items()}
+    opt_state = optimizer.update(params, grads, state.opt_state)
+    for p in params.values():
+        p.grad = None
+    try:  # the pre-clip norm the clip recorded (the last boundary's under MultiSteps)
+        gnorm = last_grad_norm(opt_state)
+    except ValueError:
+        gnorm = global_norm(grads.values())
+    return TrainState(state.step + 1, state.model, opt_state), gnorm
+
+
+# ---------------------------------------------------------------------------
+# CE steps (naive / EWC / ER)
+# ---------------------------------------------------------------------------
+
+def make_train_step(
+    model_cfg: ModelConfig,
+    train_cfg: TrainConfig,
+    optimizer,
+    *,
+    with_ewc: bool = False,
+    device="cuda",
+) -> Callable:
+    """Standard CE step on ONE microbatch (naive / ER current-task and memory
+    batches / EWC): step(state, batch, ewc_state=None) -> (state, {"loss",
+    "grad_norm"}). Accumulation lives outside, in `MultiSteps`, which
+    reproduces the reference's per-microbatch replay cadence. Layers are
+    recomputed in backward only with `train_cfg.remat`; otherwise each flash
+    call's saved (o, lse) go straight to the backward kernels."""
+    device = resolve_device(device)
+    dtype = compute_dtype(train_cfg)
+    tail = train_cfg.label_tail or None
+    resolve_remat_policy(train_cfg.remat_policy)
+    normalize = make_normalizer(model_cfg.vision)
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor], ewc_state=None):
+        _check_device(device, batch)
+        model = state.model
+        params = _cleared(model)
+        loss = _ce_loss(model, batch, _vision_features(model, batch, normalize, dtype), dtype, tail,
+                        remat=train_cfg.remat)
+        if with_ewc and ewc_state is not None:
+            loss = loss + ewc_penalty(params, ewc_state, train_cfg.reg_lambda)
+        loss.backward()
+        state, gnorm = _update(state, optimizer, params)
+        return state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return step
+
+
+def make_ce_window_step(
+    model_cfg: ModelConfig,
+    train_cfg: TrainConfig,
+    optimizer,
+    *,
+    with_ewc: bool = False,
+    device="cuda",
+) -> Callable:
+    """A FULL accumulation window of CE microbatches (naive / EWC / ER
+    windows): step(state, batches, ewc_state=None) with [n_mb, B, ...]
+    stacks. The microbatches merge batch-major into ONE pass over n_mb*B rows
+    with per-layer remat (per-sample losses are length-normalised and the
+    microbatches share a size, so this is the mean of the per-microbatch
+    means); the EWC penalty is added once, which equals adding it to every
+    microbatch and averaging. One backward, one update."""
+    device = resolve_device(device)
+    dtype = compute_dtype(train_cfg)
+    tail = train_cfg.label_tail or None
+    resolve_remat_policy(train_cfg.remat_policy)
+    normalize = make_normalizer(model_cfg.vision)
+
+    def step(state: TrainState, batches: Dict[str, torch.Tensor], ewc_state=None):
+        _check_device(device, batches)
+        model = state.model
+        params = _cleared(model)
+        merged = {k: _merge_window(v) for k, v in batches.items()}
+        loss = _ce_loss(model, merged, _vision_features(model, merged, normalize, dtype), dtype, tail, remat=True)
+        if with_ewc and ewc_state is not None:
+            loss = loss + ewc_penalty(params, ewc_state, train_cfg.reg_lambda)
+        loss.backward()
+        state, gnorm = _update(state, optimizer, params)
+        return state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return step
 
 
 # ---------------------------------------------------------------------------
@@ -102,18 +248,19 @@ def _masked_token_loss(h, h_past, mask, kind: str) -> torch.Tensor:
     return torch.sum(tok * m, dim=(-2, -1)) / denom
 
 
-def make_distill_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Callable:
+def make_distill_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *, remat_student: bool = False) -> Callable:
     """Build the fused student+teacher MAFED replay loss.
 
     Returns loss_fn(model, teacher, batch, lang_coeffs, patches) ->
-    (loss, per_layer): patches are the batch's cached vision features in the
+    (loss, per_layer): patches are the batch's vision features in the
     compute dtype; lang_coeffs holds the language-modality weight per
     distilled layer (ignored by the 'equal' strategy, which weights by token
     counts); per_layer is the modality-weighted distill loss per tap before
-    the layer coefficients. The student recomputes each decoder layer in
-    backward.
+    the layer coefficients. remat_student recomputes each of the student's
+    decoder layers in backward.
     """
     dtype = compute_dtype(train_cfg)
+    resolve_remat_policy(train_cfg.remat_policy)
     num_hl = model_cfg.num_hidden_layers - 1
     layers = tuple(distillation_layers(
         train_cfg.distillation_layer_weighing_strategy, num_hl, train_cfg.distillation_layer,
@@ -144,7 +291,7 @@ def make_distill_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Call
             patch_embeddings=patches, output_hidden_states=True,
             dtype=dtype, loss_only=True, need_logits=replay_coeff > 0,
             num_layers=None if replay_coeff > 0 else deepest_tap,
-            remat_layers=True, label_tail=tail,
+            remat_layers=remat_student, label_tail=tail,
         )
         # the frozen teacher, early-exited after the deepest distilled tap
         with torch.no_grad():
@@ -194,62 +341,189 @@ def make_distill_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Call
     return loss_fn
 
 
+def make_distill_step(
+    model_cfg: ModelConfig,
+    train_cfg: TrainConfig,
+    optimizer,
+    *,
+    device="cuda",
+) -> Callable:
+    """Fused student+teacher replay step on ONE memory microbatch:
+    step(state, teacher, batch, lang_coeffs) -> (state, {"loss",
+    "grad_norm", "distill_layer_losses"}). The student is not recomputed in
+    backward; pixels go through the tower once, shared by both passes."""
+    device = resolve_device(device)
+    dtype = compute_dtype(train_cfg)
+    loss_fn = make_distill_loss_fn(model_cfg, train_cfg, remat_student=False)
+    normalize = make_normalizer(model_cfg.vision)
+
+    def step(state: TrainState, teacher, batch: Dict[str, torch.Tensor], lang_coeffs: torch.Tensor):
+        _check_device(device, batch)
+        model = state.model
+        params = _cleared(model)
+        loss, per_layer = loss_fn(model, teacher, batch, lang_coeffs, _vision_features(model, batch, normalize, dtype))
+        loss.backward()
+        state, gnorm = _update(state, optimizer, params)
+        return state, {"loss": loss.detach(), "grad_norm": gnorm, "distill_layer_losses": per_layer.detach()}
+
+    return step
+
+
 def make_mafed_window_step(
     model_cfg: ModelConfig,
     train_cfg: TrainConfig,
-    optimizer: Optimizer,
+    optimizer,
     *,
     n_ce: int,
+    fuse_ce_batch: bool = True,
     device="cuda",
 ) -> Callable:
     """One call = a FULL accumulation window of the MAFED workload: n_ce
-    current-task CE microbatches + 1 distill (memory) microbatch, one
-    combined loss, one backward, one optimizer update.
+    current-task CE microbatches + 1 distill (memory) microbatch, the
+    combined loss (n_ce * ce + distill) / (n_ce + 1), one optimizer update.
 
     step(state, teacher, ce_batches, distill_batch, lang_coeffs) -> (state, metrics)
-    where ce_batches holds [n_ce, B, ...] stacks and both carry cached
-    "patches" [.., B, 256, d_vis]. The n_ce CE microbatches run as ONE pass
-    over n_ce*B rows (mean of the per-microbatch means, since they share a
-    size and per-sample losses are length-normalised). Both differentiated
-    passes recompute each decoder layer in backward, so only the layer
-    inputs stay alive between forward and backward.
+    where ce_batches holds [n_ce, B, ...] stacks. Both differentiated passes
+    recompute each decoder layer in backward, so only the layer inputs stay
+    alive between forward and backward.
+
+    fuse_ce_batch=True runs the n_ce CE microbatches as ONE pass over n_ce*B
+    rows (mean of the per-microbatch means, since they share a size and
+    per-sample losses are length-normalised) and takes ONE backward of the
+    combined loss. False runs each microbatch alone and takes one backward
+    per microbatch, its loss scaled by 1 / (n_ce + 1): the same gradient, with
+    one microbatch's layer inputs alive at a time.
+
+    Batches carry cached "patches" [.., B, 256, d_vis], or uint8 "pixels".
+    With pixels and fuse_ce_batch, the frozen tower runs ONCE over the
+    window's n_ce*B + B images (merged batch-major) with no graph, and its
+    features are split between the CE and the distill pass; unfused, each
+    microbatch runs the tower on its own images.
     """
     device = resolve_device(device)
     dtype = compute_dtype(train_cfg)
-    distill_loss_fn = make_distill_loss_fn(model_cfg, train_cfg)
+    distill_loss_fn = make_distill_loss_fn(model_cfg, train_cfg, remat_student=True)  # checks remat_policy
     denom = float(n_ce + 1)
     tail = train_cfg.label_tail or None
+    normalize = make_normalizer(model_cfg.vision)
+    vision_keys = ("patches", "pixels")
 
     def step(state: TrainState, teacher, ce_batches: Dict[str, torch.Tensor], distill_batch: Dict[str, torch.Tensor], lang_coeffs: torch.Tensor):
-        if ce_batches["input_ids"].device != device or distill_batch["input_ids"].device != device:
-            raise ValueError(f"window batches must be on {device}")
+        _check_device(device, ce_batches, distill_batch)
         if ce_batches["input_ids"].shape[0] != n_ce:
             raise ValueError(f"expected {n_ce} CE microbatches, got {ce_batches['input_ids'].shape[0]}")
         model = state.model
-        params = trainable_parameters(model)
-        for p in params.values():
-            p.grad = None
-        ce_patches = _merge_window(ce_batches["patches"]).to(dtype)
-        merged = {k: _merge_window(v) for k, v in ce_batches.items() if k != "patches"}
-        ce_loss = _ce_loss(model, merged, ce_patches, dtype, tail)
-        d_loss, per_layer = distill_loss_fn(
-            model, teacher, distill_batch, lang_coeffs, distill_batch["patches"].to(dtype)
-        )
-        # ONE loss, ONE backward into a single set of gradients
-        total = (n_ce * ce_loss + d_loss) / denom
-        total.backward()
-        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p) for k, p in params.items()}
-        opt_state = optimizer.update(params, grads, state.opt_state)
-        for p in params.values():
-            p.grad = None
+        params = _cleared(model)
+        if fuse_ce_batch:
+            merged = {k: _merge_window(v) for k, v in ce_batches.items() if k not in vision_keys}
+            if "patches" in ce_batches:
+                ce_patches = _merge_window(ce_batches["patches"]).to(dtype)
+                d_patches = distill_batch["patches"].to(dtype)
+            else:  # share_vision: one tower pass over every image of the window
+                n_merged = merged["input_ids"].shape[0]
+                pixels = torch.cat([_merge_window(ce_batches["pixels"]), distill_batch["pixels"]])
+                all_patches = _vision_features(model, {"pixels": pixels}, normalize, dtype)
+                ce_patches, d_patches = all_patches[:n_merged], all_patches[n_merged:]
+            ce_loss = _ce_loss(model, merged, ce_patches, dtype, tail, remat=True)
+            d_loss, per_layer = distill_loss_fn(model, teacher, distill_batch, lang_coeffs, d_patches)
+            # ONE loss, ONE backward into a single set of gradients
+            total = (n_ce * ce_loss + d_loss) / denom
+            total.backward()
+        else:
+            ce_sum = torch.zeros((), dtype=torch.float32, device=device)
+            for i in range(n_ce):
+                mb = {k: v[i] for k, v in ce_batches.items()}
+                ce_i = _ce_loss(model, mb, _vision_features(model, mb, normalize, dtype), dtype, tail, remat=True)
+                (ce_i / denom).backward()
+                ce_sum = ce_sum + ce_i.detach()
+            ce_loss = ce_sum / n_ce
+            d_loss, per_layer = distill_loss_fn(
+                model, teacher, distill_batch, lang_coeffs, _vision_features(model, distill_batch, normalize, dtype))
+            (d_loss / denom).backward()
+            total = (n_ce * ce_loss + d_loss.detach()) / denom
+        state, gnorm = _update(state, optimizer, params)
         metrics = {
             "loss": total.detach(),
             "ce_loss": ce_loss.detach(),
             "distill_loss": d_loss.detach(),
-            "grad_norm": last_grad_norm(opt_state) if opt_state.clip is not None else global_norm(grads.values()),
+            "grad_norm": gnorm,
             # modality-weighted per-tap distill losses
             "distill_layer_losses": per_layer.detach(),
         }
-        return TrainState(state.step + 1, model, opt_state), metrics
+        return state, metrics
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# EWC Fisher estimation
+# ---------------------------------------------------------------------------
+
+def make_ewc_fisher_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, device="cuda") -> Callable:
+    """The squared-gradient accumulator: fisher_step(model, batch,
+    importances) adds (d(batch_size * loss)/d theta)^2, in float32, to the
+    name-keyed `importances` in place and returns them. No remat; the
+    gradients come from torch.autograd.grad, so no .grad is left on the
+    model and no optimizer state is touched. The caller divides by the
+    number of samples."""
+    device = resolve_device(device)
+    dtype = compute_dtype(train_cfg)
+    tail = train_cfg.label_tail or None
+    normalize = make_normalizer(model_cfg.vision)
+
+    def fisher_step(model, batch: Dict[str, torch.Tensor], importances: Dict[str, torch.Tensor]):
+        _check_device(device, batch)
+        params = trainable_parameters(model)
+        bsz = batch["input_ids"].shape[0]
+        loss = bsz * _ce_loss(model, batch, _vision_features(model, batch, normalize, dtype), dtype, tail, remat=False)
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        with torch.no_grad():
+            for name, g in zip(params, grads):
+                if g is not None:
+                    importances[name].add_(torch.square(g.float()))
+        return importances
+
+    return fisher_step
+
+
+# ---------------------------------------------------------------------------
+# Adaptive modality weights
+# ---------------------------------------------------------------------------
+
+def make_adaptive_weights_fn(
+    model_cfg: ModelConfig,
+    train_cfg: TrainConfig,
+    layers: Sequence[int],
+    device="cuda",
+) -> Callable:
+    """Per-batch modality importances from d(loss)/d(hidden_states[layer]):
+    fn(model, batch) -> (lang_sums[Ld], image_sums[Ld], n_lang_tokens,
+    n_image_tokens), the per-token L2 norms of those gradients summed over
+    each modality's mask. The gradient is taken with respect to a zero
+    perturbation in the compute dtype added to the input embeddings and to
+    every layer's output but the last (no remat)."""
+    device = resolve_device(device)
+    dtype = compute_dtype(train_cfg)
+    layers = list(layers)
+    n_vis = model_cfg.vision.num_patches
+    normalize = make_normalizer(model_cfg.vision)
+
+    def fn(model, batch: Dict[str, torch.Tensor]):
+        _check_device(device, batch)
+        patches = _vision_features(model, batch, normalize, dtype)
+        b, t = batch["input_ids"].shape
+        pert = torch.zeros((model_cfg.num_hidden_layers, b, n_vis + t, model_cfg.hidden_size),
+                           dtype=dtype, device=device, requires_grad=True)
+        loss = vl_pythia.forward(
+            model, batch["input_ids"], batch["attention_mask"], batch["labels"],
+            patch_embeddings=patches, hidden_perturbation=pert, dtype=dtype, loss_only=True,
+        ).loss
+        (grads,) = torch.autograd.grad(loss, pert)  # [L, B, T, H] = dL/d hs[0..L-1]
+        with torch.no_grad():
+            gnorm = torch.linalg.norm(grads[layers].float(), dim=-1)  # [Ld, B, T]
+            lang_mask, image_mask = modality_masks(batch["attention_mask"], n_vis)
+            lm, im = lang_mask.float()[None], image_mask.float()[None]
+            return (torch.sum(gnorm * lm, dim=(1, 2)), torch.sum(gnorm * im, dim=(1, 2)),
+                    torch.sum(lm[0]), torch.sum(im[0]))
+
+    return fn

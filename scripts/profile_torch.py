@@ -1,11 +1,17 @@
 """Where the time of the port's main paths goes on an NVIDIA GPU.
 
-    python3 scripts/profile_torch.py [--path window|decode] [--reps 2] [--out PATH]
+    python3 scripts/profile_torch.py [--path window|window_unfused|ce_window|train_step|decode] [--reps 2] [--out PATH]
 
 window: the fused MAFED window of chip_smoke.py (VL-Pythia-410M at full width
 and depth, 3 CE microbatches of 16 + 1 memory microbatch of 16, 256 cached
 patches + 80 text tokens, bf16), two warm-up windows, then `--reps` profiled
-windows.
+windows. window_unfused: the same window with fuse_ce_batch=False (one pass
+and one backward per CE microbatch).
+
+ce_window: the CE window of chip_smoke.py's train_steps phase (the same
+model, 4 CE microbatches of 16 merged into one pass with per-layer remat, one
+AdamW update). train_step: one CE microbatch of 16 with its own update and no
+remat (the saved (o, lse) go straight to the backward kernels).
 
 decode: the greedy decode of chip_smoke.py's decode phase (410M + EVA-02-L,
 bf16 weights, batch 32, text 64 with 16 left-padded positions, 10 new
@@ -96,20 +102,48 @@ def profile(fn, reps: int, warmup: int = 2) -> dict:
     }
 
 
-def window_units(reps: int) -> dict:
+def window_units(reps: int, fuse: bool = True) -> dict:
     from chip_smoke import window_setup
     from mafed_tpu_torch.core.config import model_config_for_preset
     from mafed_tpu_torch.models.vl_pythia import init_model
 
     cfg = model_config_for_preset("410m")
     model = init_model(cfg, seed=0, device="cuda")
-    step, state, teacher, ce, distill, lang = window_setup(cfg, model, 3, 16, 80, torch.Generator().manual_seed(2), "cuda")
+    step, state, teacher, ce, distill, lang = window_setup(cfg, model, 3, 16, 80, torch.Generator().manual_seed(2), "cuda",
+                                                           fuse_ce_batch=fuse)
     box = [state]
 
     def window():
         box[0], _ = step(box[0], teacher, ce, distill, lang)
 
-    return {"window": profile(window, reps)}
+    return {"window" if fuse else "window_unfused": profile(window, reps)}
+
+
+def ce_units(path: str, reps: int) -> dict:
+    from chip_smoke import example_batch, stack, train_config
+    from mafed_tpu_torch.core.config import model_config_for_preset
+    from mafed_tpu_torch.models.vl_pythia import init_model
+    from mafed_tpu_torch.optim.optimizer import build_optimizer, set_schedule
+    from mafed_tpu_torch.training.step import make_ce_window_step, make_train_step
+    from mafed_tpu_torch.training.train_state import TrainState, trainable_parameters
+
+    cfg = model_config_for_preset("410m")
+    model = init_model(cfg, seed=0, device="cuda")
+    train_cfg = train_config()
+    trainable = trainable_parameters(model)
+    opt = build_optimizer(train_cfg, trainable)
+    box = [TrainState(0, model, set_schedule(opt.init(trainable), 0, 100))]
+    gen = torch.Generator().manual_seed(2)
+    mbs = [{k: v.cuda() for k, v in example_batch(gen, cfg, 16, 80).items()} for _ in range(4)]
+    if path == "ce_window":
+        step, data = make_ce_window_step(cfg, train_cfg, opt), stack(mbs)
+    else:
+        step, data = make_train_step(cfg, train_cfg, opt), mbs[0]
+
+    def unit():
+        box[0], _ = step(box[0], data)
+
+    return {path: profile(unit, reps)}
 
 
 def decode_units(reps: int) -> dict:
@@ -165,7 +199,8 @@ def decode_units(reps: int) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--path", choices=("window", "decode"), default="window")
+    parser.add_argument("--path", choices=("window", "window_unfused", "ce_window", "train_step", "decode"),
+                        default="window")
     parser.add_argument("--reps", type=int, default=2)
     parser.add_argument("--out", help="also write the JSON object to this file")
     args = parser.parse_args()
@@ -179,7 +214,12 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    units = window_units(args.reps) if args.path == "window" else decode_units(args.reps)
+    if args.path in ("window", "window_unfused"):
+        units = window_units(args.reps, fuse=args.path == "window")
+    elif args.path == "decode":
+        units = decode_units(args.reps)
+    else:
+        units = ce_units(args.path, args.reps)
     result = {"card": smi, "path": args.path, "reps": args.reps, "units": units}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -169,3 +169,63 @@ def test_decode_is_cache_invariant_on_card(gpu):
             assert row.max() - row[toks[r, k]] <= 2e-2 * row.abs().max(), (r, k)
             if toks[r, k] == 0:
                 break
+
+
+def _tiny_train_batch(seed, b=4, text_len=24):
+    rng = np.random.default_rng(seed)
+    mask = np.ones((b, text_len), np.int32)
+    mask[:, :5] = 0
+    ids = rng.integers(1, 500, size=(b, text_len)).astype(np.int32)
+    labels = ids.copy()
+    labels[:, :-6] = -100
+    return {"input_ids": torch.from_numpy(ids), "attention_mask": torch.from_numpy(mask),
+            "labels": torch.from_numpy(labels),
+            "patches": torch.from_numpy(rng.normal(size=(b, 16, 128)).astype(np.float32)).to(torch.bfloat16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_on_card_matches_cpu(gpu, remat):
+    """One bf16 train step of the tiny model on the card (kernels) against the
+    CPU (plain versions): loss and grad norm within rtol 3e-2; without remat
+    one launch of each kernel per layer, with remat one more forward."""
+    from mafed_tpu_torch.core.config import TrainConfig
+    from mafed_tpu_torch.optim.optimizer import build_optimizer, set_schedule
+    from mafed_tpu_torch.training.step import make_train_step
+    from mafed_tpu_torch.training.train_state import TrainState, trainable_parameters
+
+    train_cfg = TrainConfig(optim="adamw", remat=remat)
+    got = {}
+    for device in ("cpu", "cuda"):
+        cfg, model = _tiny_eval_model(device)
+        model.float()  # trainable parameters in f32, as the trainer holds them
+        trainable = trainable_parameters(model)
+        opt = build_optimizer(train_cfg, trainable)
+        state = TrainState(0, model, set_schedule(opt.init(trainable), 0, 10))
+        tattn.reset_launches()
+        batch = {k: v.to(device) for k, v in _tiny_train_batch(3).items()}
+        _, m = make_train_step(cfg, train_cfg, opt, device=device)(state, batch)
+        got[device] = (float(m["loss"]), float(m["grad_norm"]))
+    layers = cfg.num_hidden_layers
+    assert tattn.LAUNCHES == {"flash_fwd": layers * (2 if remat else 1), "flash_bwd_dkv": layers, "flash_bwd_dq": layers}
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=3e-2)
+
+
+@pytest.mark.cuda
+def test_adaptive_weights_on_card_match_cpu(gpu):
+    """The adaptive-weight sums (a gradient through both backward kernels with
+    respect to a zero perturbation) on the card against the CPU: relative
+    norm error within 5e-2 in bf16."""
+    from mafed_tpu_torch.core.config import TrainConfig
+    from mafed_tpu_torch.training.step import make_adaptive_weights_fn
+
+    sums = {}
+    for device in ("cpu", "cuda"):
+        cfg, model = _tiny_eval_model(device)
+        fn = make_adaptive_weights_fn(cfg, TrainConfig(), [0, 1], device=device)
+        tattn.reset_launches()
+        out = fn(model, {k: v.to(device) for k, v in _tiny_train_batch(4).items()})
+        sums[device] = torch.cat([out[0], out[1]]).float().cpu()
+    assert tattn.LAUNCHES == {k: cfg.num_hidden_layers for k in tattn.LAUNCHES}
+    err = (sums["cuda"] - sums["cpu"]).norm() / sums["cpu"].norm()
+    assert err <= 5e-2, err

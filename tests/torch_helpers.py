@@ -42,16 +42,27 @@ def torch_model(params, tc, dtype=torch.float32) -> tvl.VLPythia:
     return model.to(dtype)
 
 
-def batch(cfg, b: int, text_len: int, seed: int = 0, pad: int = 3, tail: int = 4):
-    """Left-padded text with an answer suffix, and cached patch features."""
+def batch(cfg, b: int, text_len: int, seed: int = 0, pad: int = 3, tail: int = 4, pixels: bool = False):
+    """Left-padded text with an answer suffix, and cached patch features (or,
+    with `pixels`, uint8 NHWC images for the tower)."""
     rng = np.random.default_rng(seed)
     input_ids = rng.integers(1, cfg.vocab_size - 1, size=(b, text_len)).astype(np.int32)
     attention_mask = np.ones((b, text_len), np.int32)
     attention_mask[:, :pad] = 0
     labels = input_ids.copy()
     labels[:, :-tail] = -100
-    patches = rng.normal(size=(b, cfg.vision.num_patches, cfg.vision.embed_dim)).astype(np.float32)
-    return {"input_ids": input_ids, "attention_mask": attention_mask, "labels": labels, "patches": patches}
+    out = {"input_ids": input_ids, "attention_mask": attention_mask, "labels": labels}
+    if pixels:
+        side = cfg.vision.img_size
+        out["pixels"] = rng.integers(0, 256, size=(b, side, side, 3)).astype(np.uint8)
+    else:
+        out["patches"] = rng.normal(size=(b, cfg.vision.num_patches, cfg.vision.embed_dim)).astype(np.float32)
+    return out
+
+
+def stack(batches):
+    """[n_mb, B, ...] stacks of a list of microbatches."""
+    return {k: np.stack([mb[k] for mb in batches]) for k in batches[0]}
 
 
 def to_torch(batch_np, device="cpu"):
