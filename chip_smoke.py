@@ -4,22 +4,26 @@
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: compiles csrc/flash_attn.cu with nvcc for sm_90a and prints each
-     kernel's registers and spill bytes (-Xptxas -v) and its HGMMA and
-     UTMALDG instruction counts (cuobjdump -sass, where the toolkit has it);
-     all three are TMA + wgmma kernels, and none may spill or lack either;
+  2. build: compiles csrc/flash_attn.cu with nvcc for sm_90a and prints the
+     registers and spill bytes (-Xptxas -v) and the HGMMA and UTMALDG
+     instruction counts (cuobjdump -sass, where the toolkit has it) of each
+     instantiation: the three kernels at head_dim 64 and 256; all six are
+     TMA + wgmma kernels, and none may spill or lack either;
   3. kernels: the three flash kernels against their plain PyTorch versions on
      the card, in bf16, at the shapes of the 410M window and CE window (and
-     EVA-02 shapes, a 129-token case across the tile edge and a small
-     unaligned case with fully-masked rows), and their times at the CE shape beside the plain
+     EVA-02 shapes), at the 1B model's (heads of 256: its CE pass, CE window,
+     student pass and decode prefill), and in a 129-token case across the
+     tile edge and a small unaligned case with fully-masked rows at both
+     head_dims; and their times at each model's CE shape beside the plain
      versions, the bound and torch.nn.functional.scaled_dot_product_attention
      (a yardstick only: its forward for the forward kernel, its whole
      backward, which also computes dq, for each backward kernel);
   4. reference: one window of a tiny model on the card (CUDA kernels) against
      the same window on the CPU (plain versions), and that model's tower
-     features and KV-cache prefill logits (head_dim-64 tower and decoder);
-     then its CE window, EWC window, train step, distill step, Fisher
-     accumulator and adaptive-weight sums, card against CPU;
+     features and KV-cache prefill logits (head_dim-64 tower; a decoder with
+     heads of 64, then one with heads of 256); then the head_dim-64 model's
+     CE window, EWC window, train step, distill step, Fisher accumulator and
+     adaptive-weight sums, card against CPU;
   5. window: three fused MAFED windows of VL-Pythia-410M at full width and
      depth (random seeded weights, cached-patch shapes of the bench), with the
      kernel launch counts of that run;
@@ -38,15 +42,23 @@ Phases, each printing one JSON line:
      per-microbatch cadence under MultiSteps(4) (4 train steps; 3 train steps
      and a distill step), the MAFED window fused, unfused and from pixels, and
      the adaptive-weight sums; each path's times, launches and checks, and two
-     cross-path checks of the first losses.
-Then the kernel summary line, the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero; without
-a CUDA device, or without the package beside it, the script exits non-zero
-before printing anything.
+     cross-path checks of the first losses;
+  8. window_1b, ce_window_1b, decode_1b: VL-Pythia-1B (hidden 2048, 16
+     layers, 8 heads of 256, the trainer's default model) at full width and
+     depth, the 410M models freed first: three fused MAFED windows at phase
+     5's shapes (launches 78 / 32 / 32 a window, all at head_dim 256), three
+     CE windows of 4 x 16 (32 / 16 / 16), and phase 6's decode with the
+     EVA-02-L tower (40 forward launches a batch from pixels, 24 at head_dim
+     64 and 16 at 256; 16 from patches).
+Then the kernel summary line (one entry per kernel and head_dim), the
+nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Any
+failure raises and exits non-zero; without a CUDA device, or without the
+package beside it, the script exits non-zero before printing anything.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -129,18 +141,28 @@ def phase_build() -> None:
     resources = build.kernel_resources(log)
     sass = build.sass_counts()
     warnings = [line.strip() for line in log.splitlines() if "warning" in line.lower()]
-    emit({"phase": "build", "seconds": seconds, "ptxas": resources, "sass": sass, "warnings": warnings})
-    for name in KERNELS:
-        kernel = f"{name}_kernel"
+    emit({"phase": "build", "seconds": seconds, "instantiations": list(build.INSTANTIATIONS), "ptxas": resources,
+          "sass": sass, "warnings": warnings})
+    for kernel in build.INSTANTIATIONS:
         res = resources.get(kernel, {})
         if res.get("spill_store_bytes") != 0 or res.get("spill_load_bytes") != 0:
             raise AssertionError(f"{kernel}: spills or no ptxas report: {res}")
-        if sass is not None and not (sass[kernel]["HGMMA"] and sass[kernel]["UTMALDG"]):
-            raise AssertionError(f"{kernel}: no HGMMA or UTMALDG in its SASS: {sass[kernel]}")
+        if sass is not None and not (kernel in sass and sass[kernel]["HGMMA"] and sass[kernel]["UTMALDG"]):
+            raise AssertionError(f"{kernel}: no HGMMA or UTMALDG in its SASS: {sass.get(kernel)}")
 
 
-def _qkv(gen, b, h, t, pad, empty_sample):
-    q, k, v, do = (torch.randn(b, h, t, 64, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
+def launches_by_dim() -> dict:
+    """{head_dim: {kernel: launches}} since the last reset."""
+    return {d: dict(c) for d, c in A.LAUNCHES_BY_HEAD_DIM.items()}
+
+
+def at_head_dim(d: int, per_kernel: dict) -> dict:
+    """{head_dim: {kernel: launches}} with `per_kernel` at d and none at the other head_dims."""
+    return {dim: dict(per_kernel) if dim == d else _kernels(0, 0) for dim in build.HEAD_DIMS}
+
+
+def _qkv(gen, b, h, t, pad, empty_sample, d=64):
+    q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
     mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
     if pad is not None:
         mask[:, pad[0]:pad[1]] = 0
@@ -153,23 +175,36 @@ def _err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+# (name, batch, heads, seq, head_dim, causal, padded key range, all-masked last sample)
+KERNEL_CASES = [
+    ("ce_410m", 48, 16, 336, 64, True, (256, 276), False),
+    ("ce_window_410m", 64, 16, 336, 64, True, (256, 276), False),  # the CE window's 4 x 16 rows
+    ("student_410m", 16, 16, 336, 64, True, (256, 276), False),
+    ("eva02_noncausal", 16, 16, 257, 64, False, None, False),
+    ("eva02_tower_b32", 32, 16, 257, 64, False, None, False),  # the decode's tower
+    ("eva02_tower_b64", 64, 16, 257, 64, False, None, False),  # a pixels-route window's 48 + 16 images
+    ("decode_prefill_b32", 32, 16, 320, 64, True, (256, 272), False),  # the decode's prefill
+    ("causal_129_padded", 8, 4, 129, 64, True, (0, 7), False),
+    ("small_unaligned_empty_rows", 3, 2, 77, 64, True, (0, 3), True),
+    ("ce_1b", 48, 8, 336, 256, True, (256, 276), False),  # VL-Pythia-1B: 8 heads of 256
+    ("ce_window_1b", 64, 8, 336, 256, True, (256, 276), False),
+    ("student_1b", 16, 8, 336, 256, True, (256, 276), False),
+    ("decode_prefill_1b", 32, 8, 320, 256, True, (256, 272), False),
+    ("causal_129_padded_d256", 8, 4, 129, 256, True, (0, 7), False),
+    ("small_unaligned_empty_rows_d256", 3, 2, 77, 256, True, (0, 3), True),
+]
+# what SDPA's timed call computes beside each kernel's
+LIBRARY_COVERS = {"flash_fwd": "o", "flash_bwd_dkv": "dq+dk+dv", "flash_bwd_dq": "dq+dk+dv"}
+
+
 def phase_kernels(gen):
-    # (name, batch, heads, seq, causal, padded key range, all-masked last sample)
-    cases = [
-        ("ce_410m", 48, 16, 336, True, (256, 276), False),
-        ("ce_window_410m", 64, 16, 336, True, (256, 276), False),  # the CE window's 4 x 16 rows
-        ("student_410m", 16, 16, 336, True, (256, 276), False),
-        ("eva02_noncausal", 16, 16, 257, False, None, False),
-        ("eva02_tower_b32", 32, 16, 257, False, None, False),  # the decode's tower
-        ("eva02_tower_b64", 64, 16, 257, False, None, False),  # a pixels-route window's 48 + 16 images
-        ("decode_prefill_b32", 32, 16, 320, True, (256, 272), False),  # the decode's prefill
-        ("causal_129_padded", 8, 4, 129, True, (0, 7), False),
-        ("small_unaligned_empty_rows", 3, 2, 77, True, (0, 3), True),
-    ]
-    errs = {name: 0.0 for name in KERNELS}
-    scale = 0.125
-    for name, b, h, t, causal, pad, empty in cases:
-        q, k, v, do, mask = _qkv(gen, b, h, t, pad, empty)
+    """Every case, kernel against plain version, at the models' scale
+    head_dim^-0.5; then the times at each model's CE shape. Returns
+    ({(kernel, head_dim): largest error}, {head_dim: timing at its CE shape})."""
+    errs = {(name, d): 0.0 for name in KERNELS for d in build.HEAD_DIMS}
+    for name, b, h, t, d, causal, pad, empty in KERNEL_CASES:
+        scale = d ** -0.5
+        q, k, v, do, mask = _qkv(gen, b, h, t, pad, empty, d)
         o, lse = A.flash_forward(q, k, v, mask, causal, scale)
         o_p, lse_p = A.flash_forward_plain(q, k, v, mask, causal, scale)
         fin = torch.isfinite(lse_p)
@@ -190,13 +225,36 @@ def phase_kernels(gen):
             "flash_bwd_dq": _err(dq, dq_p),
         }
         for kname, e in case_err.items():
-            errs[kname] = max(errs[kname], e)
-        emit({"phase": "kernels", "case": name, "shape": [b, h, t, 64], "causal": causal,
-              "max_abs_err": case_err, "atol": ATOL, "rtol": RTOL})
+            errs[kname, d] = max(errs[kname, d], e)
+        emit({"phase": "kernels", "case": name, "shape": [b, h, t, d], "causal": causal,
+              "empty_rows": int((~fin).sum().item()), "max_abs_err": case_err, "atol": ATOL, "rtol": RTOL})
 
-    # times at the CE shape of the 410M window
-    b, h, t, d = 48, 16, 336, 64
-    q, k, v, do, mask = _qkv(gen, b, h, t, (256, 276), False)
+    timing = {64: kernel_timing(gen, "timing_ce_410m", 48, 16, 336, 64),
+              256: kernel_timing(gen, "timing_ce_1b", 48, 8, 336, 256)}
+    for case, b, h, t, d, causal, pad in (("timing_decode_tower", 32, 16, 257, 64, False, None),
+                                          ("timing_decode_prefill", 32, 16, 320, 64, True, (256, 272)),
+                                          ("timing_ce_window", 64, 16, 336, 64, True, (256, 276)),
+                                          ("timing_window_tower_b64", 64, 16, 257, 64, False, None),
+                                          ("timing_decode_prefill_1b", 32, 8, 320, 256, True, (256, 272)),
+                                          ("timing_ce_window_1b", 64, 8, 336, 256, True, (256, 276))):
+        emit({"phase": "kernels", "case": case, **_fwd_timing(gen, b, h, t, d, causal, pad)})
+    return errs, timing
+
+
+def _bound(nbytes: float, flops: float):
+    """(least ms for this many bytes and operations on the card, which of the two sets it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_timing(gen, case, b, h, t, d) -> dict:
+    """The three kernels' times at one causal shape with 20 padded keys
+    (256..275) beside the plain versions', SDPA's (a yardstick, never called
+    by the port: its forward against the forward kernel, its whole backward,
+    which computes dq, dk and dv, against each backward kernel) and each
+    kernel's bound; emitted, and returned with the bounds' causes."""
+    scale = d ** -0.5
+    q, k, v, do, mask = _qkv(gen, b, h, t, (256, 276), False, d)
     o, lse = A.flash_forward(q, k, v, mask, True, scale)
     delta = (do.float() * o.float()).sum(-1)
     ms = {
@@ -208,60 +266,50 @@ def phase_kernels(gen):
     plain_bwd = time_ms(lambda: A.flash_backward_plain(q, k, v, mask, o, lse, do, True, scale))
     plain_ms = {"flash_fwd": plain_fwd, "flash_bwd_dkv": plain_bwd, "flash_bwd_dq": plain_bwd}
 
-    # yardstick, never called by the port: PyTorch's fused attention on the same inputs
     keep = torch.ones(t, t, dtype=torch.bool, device="cuda").tril()[None, None] & (mask > 0)[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sdpa_fwd = time_ms(lambda: sdpa(q, k, v, attn_mask=keep, scale=scale))
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
     out = sdpa(qg, kg, vg, attn_mask=keep, scale=scale)
     sdpa_bwd = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True))
+    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dkv": sdpa_bwd, "flash_bwd_dq": sdpa_bwd}
 
     # least time for the same work: each input read once, each output written
     # once; products counted over the (query, key) pairs this mask keeps
     pairs = h * int((torch.ones(t, t, device="cuda").tril()[None] * (mask > 0)[:, None, :]).sum().item())
     act, row, msk = b * h * t * d * 2, b * h * t * 4, b * t * 4
-    work = {
-        "flash_fwd": (3 * act + msk + act + row, 4 * d * pairs),
-        "flash_bwd_dkv": (4 * act + 2 * row + msk + 2 * act, 8 * d * pairs),
-        "flash_bwd_dq": (4 * act + 2 * row + msk + act, 6 * d * pairs),
+    bounds = {
+        "flash_fwd": _bound(3 * act + msk + act + row, 4 * d * pairs),
+        "flash_bwd_dkv": _bound(4 * act + 2 * row + msk + 2 * act, 8 * d * pairs),
+        "flash_bwd_dq": _bound(4 * act + 2 * row + msk + act, 6 * d * pairs),
     }
-    bounds = {}
-    for kname, (nbytes, flops) in work.items():
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
-        bounds[kname] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-    emit({"phase": "kernels", "case": "timing_ce_410m", "ms": ms, "plain_ms": plain_ms,
-          "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
-          "bound_ms": {n: v[0] for n, v in bounds.items()}, "kept_pairs": pairs})
-    for case, b2, t2, causal, pad in (("timing_decode_tower", 32, 257, False, None),
-                                      ("timing_decode_prefill", 32, 320, True, (256, 272)),
-                                      ("timing_ce_window", 64, 336, True, (256, 276)),
-                                      ("timing_window_tower_b64", 64, 257, False, None)):
-        emit({"phase": "kernels", "case": case, **_fwd_timing(gen, b2, h, t2, causal, pad, scale)})
-    library = {"flash_fwd": (sdpa_fwd, "o"), "flash_bwd_dkv": (sdpa_bwd, "dq+dk+dv"),
-               "flash_bwd_dq": (sdpa_bwd, "dq+dk+dv")}
-    return errs, ms, plain_ms, bounds, library
+    res = {"ms": ms, "plain_ms": plain_ms, "library_ms": library,
+           "bound_ms": {n: v[0] for n, v in bounds.items()}, "bound_by": {n: v[1] for n, v in bounds.items()}}
+    emit({"phase": "kernels", "case": case, "shape": [b, h, t, d], "ms": ms, "plain_ms": plain_ms,
+          "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd, "bound_ms": res["bound_ms"],
+          "bound_by": res["bound_by"], "kept_pairs": pairs})
+    return res
 
 
-def _fwd_timing(gen, b, h, t, causal, pad, scale) -> dict:
+def _fwd_timing(gen, b, h, t, d, causal, pad) -> dict:
     """The forward kernel at one shape of the decode or the training paths:
     its time beside the plain version's, SDPA's forward and its bound (as at
     the CE shape)."""
-    q, k, v, _, mask = _qkv(gen, b, h, t, pad, False)
+    scale = d ** -0.5
+    q, k, v, _, mask = _qkv(gen, b, h, t, pad, False, d)
     keep = torch.ones(t, t, dtype=torch.bool, device="cuda")
     if causal:
         keep = keep.tril()
     keep = keep[None, None] & ((mask > 0)[:, None, None, :] if mask is not None else True)
     pairs = h * int(keep.expand(b, 1, t, t).sum().item())
-    act, row = b * h * t * 64 * 2, b * h * t * 4
-    nbytes = 4 * act + row + (b * t * 4 if mask is not None else 0)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 4 * 64 * pairs / BF16_FLOPS_PER_S * 1e3
+    act, row = b * h * t * d * 2, b * h * t * 4
+    bound_ms, bound_by = _bound(4 * act + row + (b * t * 4 if mask is not None else 0), 4 * d * pairs)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return {"shape": [b, h, t, 64], "causal": causal,
+    return {"shape": [b, h, t, d], "causal": causal,
             "ms": time_ms(lambda: A.flash_forward(q, k, v, mask, causal, scale)),
             "plain_ms": time_ms(lambda: A.flash_forward_plain(q, k, v, mask, causal, scale)),
             "sdpa_fwd_ms": time_ms(lambda: sdpa(q, k, v, attn_mask=keep, scale=scale)),
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "kept_pairs": pairs}
+            "bound_ms": bound_ms, "bound_by": bound_by, "kept_pairs": pairs}
 
 
 def example_batch(gen, cfg, b: int, text_len: int, device="cpu", pixels: bool = False):
@@ -331,21 +379,27 @@ def tower_and_prefill(model, cfg, pixels, input_ids, attention_mask, device):
         return feats, gpt_neox.logits(model.embed_out, hidden[:, -1], dtype=dtype)
 
 
-def tiny_config() -> ModelConfig:
-    """A tiny VL-Pythia whose decoder and tower both have heads of 64 (16
-    patches + CLS), so every attention call takes the flash kernels."""
-    return ModelConfig(vocab_size=512, hidden_size=128, num_hidden_layers=3, num_attention_heads=2,
-                       intermediate_size=256, vision=VisionConfig(img_size=56, embed_dim=128, depth=2, num_heads=2))
+# tiny decoders: 2 heads of 64, or of 256 as VL-Pythia-1B's
+TINY_DECODERS = {64: dict(hidden_size=128, num_hidden_layers=3, intermediate_size=256),
+                 256: dict(hidden_size=512, num_hidden_layers=2, intermediate_size=1024)}
 
 
-def phase_reference() -> None:
-    """One window of a tiny model (head_dim 64) on the card against the same
-    window on the CPU, both bf16: losses within rtol 3e-2 (bf16 matmul
-    outputs and the tiled softmax round differently on the two devices). The
-    same model with a head_dim-64 tower (16 patches + CLS): its tower features
-    and the KV-cache prefill's last-position logits on the card against the
-    CPU, relative norm error within 3e-2."""
-    cfg = tiny_config()
+def tiny_config(head_dim: int = 64) -> ModelConfig:
+    """A tiny VL-Pythia whose decoder has 2 heads of `head_dim` and whose tower
+    has heads of 64 (16 patches + CLS), so every attention call takes the
+    flash kernels."""
+    return ModelConfig(vocab_size=512, num_attention_heads=2, **TINY_DECODERS[head_dim],
+                       vision=VisionConfig(img_size=56, embed_dim=128, depth=2, num_heads=2))
+
+
+def phase_reference(head_dim: int) -> None:
+    """One window of a tiny model (decoder heads of `head_dim`) on the card
+    against the same window on the CPU, both bf16: losses within rtol 3e-2
+    (bf16 matmul outputs and the tiled softmax round differently on the two
+    devices). The same model with a head_dim-64 tower (16 patches + CLS): its
+    tower features and the KV-cache prefill's last-position logits on the
+    card against the CPU, relative norm error within 3e-2."""
+    cfg = tiny_config(head_dim)
     gen = torch.Generator().manual_seed(3)
     pixels = torch.randint(0, 256, (4, 56, 56, 3), generator=gen, dtype=torch.uint8)
     input_ids = torch.randint(1, 500, (4, 24), generator=gen)
@@ -366,8 +420,8 @@ def phase_reference() -> None:
     errs = {name: _rel_err(got, want) for name, got, want in zip(("tower", "prefill_logits"), evals["cuda"], evals["cpu"])}
     if not all(e <= 3e-2 for e in errs.values()):
         raise AssertionError(f"reference eval: relative errors {errs} on the card vs the CPU, above 3e-2")
-    emit({"phase": "reference", "cpu": metrics["cpu"], "cuda": metrics["cuda"], "rtol": 3e-2,
-          "eval_rel_err": errs})
+    emit({"phase": "reference", "case": f"window_head_dim_{head_dim}", "cpu": metrics["cpu"], "cuda": metrics["cuda"],
+          "rtol": 3e-2, "eval_rel_err": errs})
 
 
 def reference_steps(cfg, device):
@@ -437,8 +491,10 @@ def phase_reference_steps() -> None:
           "rel_err": errs, "rel_err_limit": VECTOR_RTOL})
 
 
-def phase_window(smi: str):
-    cfg = model_config_for_preset("410m")
+def phase_window(smi: str, preset: str, phase: str):
+    """Three fused MAFED windows of VL-Pythia-`preset` at full width and depth
+    (bench.py's shape); returns the launches by head_dim."""
+    cfg = model_config_for_preset(preset)
     n_ce, b, text_len, windows = 3, 16, 80, 3
     model = init_model(cfg, seed=0, device="cuda")
     step, state, teacher, ce, distill, lang = window_setup(
@@ -455,7 +511,7 @@ def phase_window(smi: str):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - start) * 1e3)
         history.append({k: float(m[k]) for k in ("loss", "ce_loss", "distill_loss", "grad_norm")})
-    launches = dict(A.LAUNCHES)
+    launches = launches_by_dim()
 
     for h in history:
         bad = [k for k, v in h.items() if not torch.isfinite(torch.tensor(v))]
@@ -464,22 +520,22 @@ def phase_window(smi: str):
     unchanged = [n for n, p in trainable_parameters(model).items() if torch.equal(p, before[n])]
     if unchanged:
         raise AssertionError(f"parameters that no update moved: {unchanged[:5]} ({len(unchanged)})")
-    # per window: fwd in every layer of the CE (24), student (24) and teacher
-    # (22, early exit) passes, plus the per-layer recompute of the 48
-    # differentiated layers in backward; dK/dV and dQ once per differentiated layer
+    # per window, all at the decoder's head_dim: fwd in every layer of the CE
+    # (L), student (L) and teacher (L - 2, early exit) passes, plus the
+    # per-layer recompute of the 2 L differentiated layers in backward; dK/dV
+    # and dQ once per differentiated layer (410M: 118 / 48 / 48; 1B: 78 / 32 / 32)
     layers = cfg.num_hidden_layers
-    per_window = {"flash_fwd": 2 * layers + (layers - 2) + 2 * layers,
-                  "flash_bwd_dkv": 2 * layers, "flash_bwd_dq": 2 * layers}
-    expected = {k: windows * v for k, v in per_window.items()}
+    expected = at_head_dim(cfg.head_dim, _kernels(windows * (2 * layers + (layers - 2) + 2 * layers),
+                                                  windows * 2 * layers))
     if launches != expected:
-        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+        raise AssertionError(f"{phase}: kernel launches {launches}, expected {expected}")
 
     ms_window = sum(times[1:]) / (windows - 1)  # the first window pays cuBLAS and allocator warm-up
     examples = (n_ce + 1) * b
     ex_per_s = examples / (ms_window / 1e3)
     flops = framework_window_flops(cfg, text_len, n_ce, b) / examples
-    emit({"phase": "window", "card": smi, "preset": "410m", "layers": layers, "hidden": cfg.hidden_size,
-          "n_ce": n_ce, "batch": b, "text_len": text_len, "window_ms": times,
+    emit({"phase": phase, "card": smi, "preset": preset, "layers": layers, "hidden": cfg.hidden_size,
+          "head_dim": cfg.head_dim, "n_ce": n_ce, "batch": b, "text_len": text_len, "window_ms": times,
           "ms_per_window": ms_window, "examples_per_s": ex_per_s, "mfu": mfu(ex_per_s, flops),
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "metrics": history, "launches": launches, "expected_launches": expected})
@@ -490,11 +546,11 @@ def _kernels(fwd: int, bwd: int) -> dict:
     return {"flash_fwd": fwd, "flash_bwd_dkv": bwd, "flash_bwd_dq": bwd}
 
 
-def run_path(name, calls, trainable=None, snapshot=None) -> dict:
+def run_path(name, calls, trainable=None, snapshot=None, head_dim=64) -> dict:
     """Run one path's calls in order, each a (fn, launches, examples, flops)
-    with fn() -> metrics; check finite metrics, the kernel launches and, when
-    a snapshot is given, that every trainable tensor moved. Times exclude the
-    first call (cuBLAS and allocator warm-up)."""
+    with fn() -> metrics; check finite metrics, the kernel launches (all at
+    `head_dim`) and, when a snapshot is given, that every trainable tensor
+    moved. Times exclude the first call (cuBLAS and allocator warm-up)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     A.reset_launches()
@@ -505,8 +561,8 @@ def run_path(name, calls, trainable=None, snapshot=None) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - start) * 1e3)
         history.append({k: v.float().tolist() for k, v in m.items()})
-    launches = dict(A.LAUNCHES)
-    expected = {k: sum(c[1][k] for c in calls) for k in A.LAUNCHES}
+    launches = launches_by_dim()
+    expected = at_head_dim(head_dim, {k: sum(c[1][k] for c in calls) for k in A.LAUNCHES})
     if launches != expected:
         raise AssertionError(f"{name}: kernel launches {launches}, expected {expected}")
     bad = [h for h in history if not all(np.isfinite(v).all() for v in h.values())]
@@ -520,8 +576,16 @@ def run_path(name, calls, trainable=None, snapshot=None) -> dict:
     examples, flops = sum(c[2] for c in calls[1:]), sum(c[3] for c in calls[1:])
     return {"calls": len(calls), "call_ms": times, "ms_per_call": ms / (len(calls) - 1),
             "examples_per_s": examples / (ms / 1e3), "mfu": mfu(examples / (ms / 1e3), flops / examples),
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
-            "metrics": history}
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches[head_dim],
+            "launches_by_head_dim": launches, "metrics": history}
+
+
+def _call(box, step, *args):
+    """fn() that runs step(box[0], *args), keeps the new state in box[0] and returns the metrics."""
+    def fn():
+        box[0], m = step(box[0], *args)
+        return m
+    return fn
 
 
 def phase_train_steps(smi: str):
@@ -558,12 +622,6 @@ def phase_train_steps(smi: str):
             opt = MultiSteps(opt, every_k)
         return opt, [TrainState(0, model, set_schedule(opt.init(trainable), 0, 100))]
 
-    def call(box, step, *args):
-        def fn():
-            box[0], m = step(box[0], *args)
-            return m
-        return fn
-
     ce_ex = ce_example_flops(cfg, text_len)
     memory_ex = framework_window_flops(cfg, text_len, 0, 1)  # one memory example: student + teacher
     train_call = _kernels(layers, layers)  # no remat: the saved (o, lse) go to the backward kernels
@@ -572,7 +630,7 @@ def phase_train_steps(smi: str):
 
     opt, box = fresh()
     step = make_ce_window_step(cfg, train_cfg, opt)
-    paths["ce_window"] = run_path("ce_window", [(call(box, step, stack(mbs)), remat_pass, n_mb * b, n_mb * b * ce_ex)] * 3,
+    paths["ce_window"] = run_path("ce_window", [(_call(box, step, stack(mbs)), remat_pass, n_mb * b, n_mb * b * ce_ex)] * 3,
                                   trainable, snapshot)
 
     fresh()
@@ -591,19 +649,19 @@ def phase_train_steps(smi: str):
     opt, box = fresh()
     step = make_ce_window_step(cfg, train_cfg, opt, with_ewc=True)
     paths["ewc_window"] = run_path(
-        "ewc_window", [(call(box, step, stack(mbs), ewc_state), remat_pass, n_mb * b, n_mb * b * ce_ex)] * 3,
+        "ewc_window", [(_call(box, step, stack(mbs), ewc_state), remat_pass, n_mb * b, n_mb * b * ce_ex)] * 3,
         trainable, snapshot)
     del ewc_state
 
     opt, box = fresh(every_k=n_mb)
     step = make_train_step(cfg, train_cfg, opt)
     paths["train_step_cadence"] = run_path(
-        "train_step_cadence", [(call(box, step, mb), train_call, b, b * ce_ex) for mb in mbs], trainable, snapshot)
+        "train_step_cadence", [(_call(box, step, mb), train_call, b, b * ce_ex) for mb in mbs], trainable, snapshot)
 
     opt, box = fresh(every_k=n_mb)
     step, d_step = make_train_step(cfg, train_cfg, opt), make_distill_step(cfg, train_cfg, opt)
-    calls = [(call(box, step, mb), train_call, b, b * ce_ex) for mb in mbs[:n_ce]]
-    calls.append((call(box, d_step, teacher, mbs[n_ce], lang), _kernels(layers + deepest, layers), b, b * memory_ex))
+    calls = [(_call(box, step, mb), train_call, b, b * ce_ex) for mb in mbs[:n_ce]]
+    calls.append((_call(box, d_step, teacher, mbs[n_ce], lang), _kernels(layers + deepest, layers), b, b * memory_ex))
     paths["mafed_cadence"] = run_path("mafed_cadence", calls, trainable, snapshot)
 
     fused_window = _kernels(2 * 2 * layers + deepest, 2 * layers)  # CE and student remat, teacher forward only
@@ -612,20 +670,20 @@ def phase_train_steps(smi: str):
     opt, box = fresh()
     step = make_mafed_window_step(cfg, train_cfg, opt, n_ce=n_ce)
     paths["mafed_fused"] = run_path(
-        "mafed_fused", [(call(box, step, teacher, ce_stack, memory, lang), fused_window, n_mb * b, window_ex)] * 2,
+        "mafed_fused", [(_call(box, step, teacher, ce_stack, memory, lang), fused_window, n_mb * b, window_ex)] * 2,
         trainable, snapshot)
     opt, box = fresh()
     step = make_mafed_window_step(cfg, train_cfg, opt, n_ce=n_ce, fuse_ce_batch=False)
     unfused = _kernels(n_ce * 2 * layers + 2 * layers + deepest, (n_ce + 1) * layers)
     paths["mafed_unfused"] = run_path(
-        "mafed_unfused", [(call(box, step, teacher, ce_stack, memory, lang), unfused, n_mb * b, window_ex)] * 2,
+        "mafed_unfused", [(_call(box, step, teacher, ce_stack, memory, lang), unfused, n_mb * b, window_ex)] * 2,
         trainable, snapshot)
     opt, box = fresh()
     step = make_mafed_window_step(cfg, train_cfg, opt, n_ce=n_ce)
     pixels_window = dict(fused_window, flash_fwd=fused_window["flash_fwd"] + vis_depth)  # the tower once
     pixels_ex = framework_window_flops(cfg, text_len, n_ce, b, vision_cached=False)
     paths["mafed_pixels"] = run_path(
-        "mafed_pixels", [(call(box, step, teacher, stack(px[:n_ce]), px[n_ce], lang), pixels_window, n_mb * b,
+        "mafed_pixels", [(_call(box, step, teacher, stack(px[:n_ce]), px[n_ce], lang), pixels_window, n_mb * b,
                           pixels_ex)] * 2, trainable, snapshot)
 
     fresh()
@@ -655,7 +713,31 @@ def phase_train_steps(smi: str):
     emit({"phase": "train_steps", "card": smi, "preset": "410m", "layers": layers, "hidden": cfg.hidden_size,
           "n_mb": n_mb, "batch": b, "text_len": text_len, "paths": paths,
           "cross_checks": {k: {"got": g, "want": w, "rtol": 2e-2} for k, (g, w) in checks.items()}})
-    return {p: v["launches"] for p, v in paths.items()}
+    return {p: v["launches_by_head_dim"] for p, v in paths.items()}
+
+
+def phase_ce_window_1b(smi: str):
+    """Three CE windows (4 microbatches of 16 merged, per-layer remat, one
+    AdamW update each) of VL-Pythia-1B at full width and depth: 2 L forward
+    and L of each backward launch a window, all at head_dim 256."""
+    cfg = model_config_for_preset("1b")
+    n_mb, b, text_len = 4, 16, 80
+    layers = cfg.num_hidden_layers
+    model = init_model(cfg, seed=0, device="cuda")
+    train_cfg = train_config()
+    trainable = trainable_parameters(model)
+    snapshot = {k: p.detach().clone() for k, p in trainable.items()}
+    opt = build_optimizer(train_cfg, trainable)
+    box = [TrainState(0, model, set_schedule(opt.init(trainable), 0, 100))]
+    gen = torch.Generator().manual_seed(5)
+    mbs = stack([{k: v.cuda() for k, v in example_batch(gen, cfg, b, text_len).items()} for _ in range(n_mb)])
+    step = make_ce_window_step(cfg, train_cfg, opt)
+    path = run_path("ce_window_1b", [(_call(box, step, mbs), _kernels(2 * layers, layers), n_mb * b,
+                                      n_mb * b * ce_example_flops(cfg, text_len))] * 3,
+                    trainable, snapshot, head_dim=cfg.head_dim)
+    emit({"phase": "ce_window_1b", "card": smi, "preset": "1b", "layers": layers, "hidden": cfg.hidden_size,
+          "head_dim": cfg.head_dim, "n_mb": n_mb, "batch": b, "text_len": text_len, **path})
+    return path["launches_by_head_dim"]
 
 
 def decode_batches(cfg, n: int, b: int, text_len: int, pad: int, seed: int):
@@ -714,9 +796,10 @@ def check_cache_invariance(model, cfg, batch, toks, eos: int) -> dict:
     return {"tokens_checked": checked, "worst_gap_over_max": worst}
 
 
-def phase_decode(smi: str):
-    """Greedy decode of VL-Pythia-410M + EVA-02-L (bench_eval.py's shapes), uncached and cached routes."""
-    cfg = model_config_for_preset("410m")
+def phase_decode(smi: str, preset: str, phase: str):
+    """Greedy decode of VL-Pythia-`preset` + EVA-02-L (bench_eval.py's
+    shapes), uncached and cached routes; returns the launches by head_dim."""
+    cfg = model_config_for_preset(preset)
     b, text_len, pad, max_new, n = 32, 64, 16, 10, 6
     model = init_model(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     decode = make_greedy_decoder(cfg, max_new_tokens=max_new, eos_token_id=0)
@@ -728,21 +811,25 @@ def phase_decode(smi: str):
                    "patches": V.get_patch_embeddings(model, prep_pixels({"pixels": h["pixels"].cuda()}, normalize,
                                                                         torch.bfloat16))}
                   for h in host]
-    layers, vis_layers = cfg.num_hidden_layers, cfg.vision.depth
+    # forward launches a batch: the tower's blocks at its head_dim (pixels
+    # route only), the prefill's layers at the decoder's
+    prefill = at_head_dim(cfg.head_dim, _kernels(cfg.num_hidden_layers, 0))
+    tower = at_head_dim(cfg.vision.head_dim, _kernels(cfg.vision.depth, 0))
     routes, launches, first = {}, {}, {}
-    for route, data, per_batch in (("pixels", host, vis_layers + layers), ("patches", cached, layers)):
+    for route, data, with_tower in (("pixels", host, True), ("patches", cached, False)):
         run_decode(decode, model, data[:1])  # warm-up: cuBLAS, the allocator, the kernel library
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         A.reset_launches()
         toks, ms = run_decode(decode, model, data[1:])
-        launches[route] = dict(A.LAUNCHES)
-        expected = {"flash_fwd": per_batch * n, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+        launches[route] = launches_by_dim()
+        expected = {d: {k: n * (prefill[d][k] + (tower[d][k] if with_tower else 0)) for k in A.LAUNCHES}
+                    for d in build.HEAD_DIMS}
         if launches[route] != expected:
-            raise AssertionError(f"decode ({route}): kernel launches {launches[route]}, expected {expected}")
+            raise AssertionError(f"{phase} ({route}): kernel launches {launches[route]}, expected {expected}")
         if any(t.shape != (b, max_new) or t.dtype != torch.int32 or t.min() < 0 or t.max() >= cfg.vocab_size
                for t in toks):
-            raise AssertionError(f"decode ({route}): tokens of shape {toks[0].shape} {toks[0].dtype} or out of the vocabulary")
+            raise AssertionError(f"{phase} ({route}): tokens of shape {toks[0].shape} {toks[0].dtype} or out of the vocabulary")
         ex_per_s = b / (ms / 1e3)
         flops = framework_decode_flops_per_example(cfg, text_len, max_new, vision_cached=route == "patches")
         routes[route] = {"ms_per_batch": ms, "examples_per_s": ex_per_s, "mfu": mfu(ex_per_s, flops),
@@ -762,10 +849,17 @@ def phase_decode(smi: str):
     val_log, results = validate_vqa(model, decode, loader, tokenizer, batch_size=b)
     if val_log["valid/n_ex"] != 2 * b + 20 or len(results) != 2 * b + 20 or not 0 <= val_log["valid/acc"] <= 1:
         raise AssertionError(f"validate_vqa: {val_log}, {len(results)} results")
-    emit({"phase": "decode", "card": smi, "preset": "410m", "vision": "eva02_large_patch14_224",
-          "batch": b, "text_len": text_len, "left_pad": pad, "max_new_tokens": max_new, "timed_batches": n,
-          "dtype": "bfloat16", "routes": routes, "cache_invariance": invariance, "validate": val_log})
-    return {k: sum(launches[r][k] for r in launches) for k in A.LAUNCHES}
+    emit({"phase": phase, "card": smi, "preset": preset, "head_dim": cfg.head_dim,
+          "vision": "eva02_large_patch14_224", "batch": b, "text_len": text_len, "left_pad": pad,
+          "max_new_tokens": max_new, "timed_batches": n, "dtype": "bfloat16", "routes": routes,
+          "cache_invariance": invariance, "validate": val_log})
+    return {d: {k: sum(launches[r][d][k] for r in launches) for k in A.LAUNCHES} for d in build.HEAD_DIMS}
+
+
+def free_device_memory() -> None:
+    """Drop what earlier phases left cached on the card (their models are out of scope)."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -775,18 +869,27 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs, ms, plain_ms, bounds, library = phase_kernels(gen)
-    phase_reference()
+    errs, timing = phase_kernels(gen)
+    for head_dim in build.HEAD_DIMS:
+        phase_reference(head_dim)
     phase_reference_steps()
-    by_path = {"window": phase_window(smi), "decode": phase_decode(smi), **phase_train_steps(smi)}
+    by_path = {"window": phase_window(smi, "410m", "window"), "decode": phase_decode(smi, "410m", "decode"),
+               **phase_train_steps(smi)}
+    # VL-Pythia-1B, with the 410M models and their caches gone
+    for path, run in (("window_1b", lambda: phase_window(smi, "1b", "window_1b")),
+                      ("ce_window_1b", lambda: phase_ce_window_1b(smi)),
+                      ("decode_1b", lambda: phase_decode(smi, "1b", "decode_1b"))):
+        free_device_memory()
+        by_path[path] = run()
+    # one entry per instantiation: times at its head_dim's CE shape (410M: 64, 1B: 256)
     kernels = [
-        {"name": name, "route": "cuda", "source": "mafed_tpu_torch/csrc/flash_attn.cu", "replaces": replaces,
-         "design": design, "launches": sum(path[name] for path in by_path.values()),
-         "launches_by_path": {p: path[name] for p, path in by_path.items()},
-         "max_abs_err": errs[name], "ms": ms[name],
-         "plain_ms": plain_ms[name], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": library[name][0], "library_covers": library[name][1]}
-        for name, (replaces, design) in KERNELS.items()
+        {"name": f"{name}<{d}>", "head_dim": d, "route": "cuda", "source": "mafed_tpu_torch/csrc/flash_attn.cu",
+         "replaces": replaces, "design": design, "launches": sum(path[d][name] for path in by_path.values()),
+         "launches_by_path": {p: path[d][name] for p, path in by_path.items()},
+         "max_abs_err": errs[name, d], "ms": timing[d]["ms"][name], "plain_ms": timing[d]["plain_ms"][name],
+         "bound_ms": timing[d]["bound_ms"][name], "bound_by": timing[d]["bound_by"][name],
+         "library_ms": timing[d]["library_ms"][name], "library_covers": LIBRARY_COVERS[name]}
+        for name, (replaces, design) in KERNELS.items() for d in build.HEAD_DIMS
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -12,16 +12,28 @@
 // bf16; lse and delta are [batch*heads, q_len] f32; the key-padding mask is
 // [batch, kv_len] int32 (or null). Causal calls need kv_len == q_len.
 //
-// Design. Each CTA is one warpgroup (4 warps, 128 threads) and owns one
-// 64-row tile: of queries for the forward and dQ, of keys for dK/dV. The
-// other operands stream through shared memory in 64-row tiles, loaded by TMA
-// through a 2-stage mbarrier ring. Every product is wgmma; scores, softmax
-// statistics and accumulators stay in registers, and P and dS pass from one
-// product's accumulator to the next product as register A fragments, never
-// through shared memory (sm90.cuh holds the TMA, mbarrier and wgmma
-// wrappers). The ragged end of a sequence is handled in every loop: rows past
-// the end load as zeros, their keys are dropped from the keep bits, and their
-// outputs are never stored.
+// Design. Each CTA owns one 64-row tile: of queries for the forward and dQ,
+// of keys for dK/dV. The other operands stream through shared memory in
+// 64-row tiles, loaded by TMA through a 2-stage mbarrier ring. Every product
+// is wgmma; scores, softmax statistics and accumulators stay in registers,
+// and P and dS pass from one product's accumulator to the next product as
+// register A fragments, never through shared memory (sm90.cuh holds the TMA,
+// mbarrier and wgmma wrappers). The ragged end of a sequence is handled in
+// every loop: rows past the end load as zeros, their keys are dropped from
+// the keep bits, and their outputs are never stored.
+//
+// Head dims. Every kernel is a template over D (64 and 256 are instantiated)
+// and over WG, the number of warpgroups (128 threads each) in the CTA. A
+// thread of a warpgroup holds D/64 x 32 f32 of a 64 x D accumulator, so at
+// D = 256 one accumulator is 128 registers of the 255 a thread may have. With
+// WG > 1 each warpgroup owns D / WG of the output's columns, and every
+// warpgroup computes the whole 64 x 64 score tile (S, and dP in the backward)
+// over the full D itself: the products that make the scores are repeated WG
+// times, but nothing passes between warpgroups (an exchange of scores through
+// shared memory would not fit beside the 192 KB of tiles at D = 256). dK/dV
+// at D = 256 needs it (dK and dV are 256 registers together); the forward
+// takes it too, and dQ keeps one warpgroup (FWD_WG_256, DKV_WG_256,
+// DQ_WG_256 below).
 //
 // Nothing is allocated on the device here: the Python wrapper allocates the
 // outputs, and every launch goes on the stream it is given.
@@ -37,9 +49,18 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 constexpr int BLOCK = 64;               // rows of a query tile and of a key tile
-constexpr int WARPS = 4;                // each warp owns 16 rows of its CTA's tile
-constexpr int THREADS = WARPS * 32;
+constexpr int WARPS = 4;                // each warp owns 16 rows of its warpgroup's tile
+constexpr int THREADS = WARPS * 32;     // one warpgroup
 constexpr float NEG = -3.4028234663852886e38f;  // finfo(float32).min
+
+// Warpgroups of each kernel at head_dim 256 (64 takes one everywhere). At the
+// 1B CE shape [48, 8, 336, 256] on an H100 SXM at 700 W
+// (scripts/flash_variants.py, each pair timed in turns): forward 0.218 ms
+// with two against 0.248 with one; dQ 0.182 with one against 0.200 with two.
+constexpr int FWD_WG_256 = 2, DKV_WG_256 = 2, DQ_WG_256 = 1;
+
+// The warp of this thread within its warpgroup: rows 16 warp .. 16 warp + 15.
+__device__ __forceinline__ int wg_warp() { return (threadIdx.x % THREADS) / 32; }
 
 // Keep bits of key tile k0: bit c = key k0 + c exists and is not padding.
 // Warps 0 and 1 each fetch 32 keys (`keep_key`), then ballot them into one
@@ -59,24 +80,25 @@ __device__ __forceinline__ void store_keep_bits(uint64_t* slot, bool keep) {
 // 8 j + c says whether its accumulator column 8 j + 2 (lane % 4) + c is kept.
 // On the diagonal tile only keys 0..r_i are (causal).
 __device__ __forceinline__ uint64_t row_keep_bits(uint64_t kbits, bool diag, int i) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int row = warp * 16 + lane / 4 + 8 * i;
+  const int lane = threadIdx.x % 32;
+  const int row = wg_warp() * 16 + lane / 4 + 8 * i;
   return (diag ? kbits & ((2ull << row) - 1) : kbits) >> (2 * (lane % 4));
 }
 
-// Store the 64 x D wgmma accumulator of the tile at row0, times `scale`, as
-// bf16 pairs; rows at or past n_rows are never stored.
-template <int D>
-__device__ __forceinline__ void store_acc_rows(bf16* __restrict__ dst, const float (&acc)[D / 64][32], int row0,
-                                               int n_rows, float scale) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+// Store NPW 64-column panels (from panel p0) of a 64 x D wgmma accumulator
+// of the tile at row0, times `scale`, as bf16 pairs; rows at or past n_rows
+// are never stored.
+template <int D, int NPW>
+__device__ __forceinline__ void store_acc_rows(bf16* __restrict__ dst, const float (&acc)[NPW][32], int row0,
+                                               int n_rows, float scale, int p0) {
+  const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = row0 + warp * 16 + lane / 4 + 8 * i;
+    const int row = row0 + wg_warp() * 16 + lane / 4 + 8 * i;
     if (row >= n_rows) continue;
-    bf16* out = dst + (size_t)row * D + 2 * (lane % 4);
+    bf16* out = dst + (size_t)row * D + p0 * 64 + 2 * (lane % 4);
 #pragma unroll
-    for (int n = 0; n < D / 64; ++n)
+    for (int n = 0; n < NPW; ++n)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         *reinterpret_cast<uint32_t*>(out + n * 64 + 8 * j) =
@@ -89,25 +111,28 @@ __device__ __forceinline__ void store_acc_rows(bf16* __restrict__ dst, const flo
 //
 // Bound on the H100: memory. At the 410M CE shape (48x16 heads, 336 tokens,
 // head_dim 64) it moves ~132 MB (q, k, v read, o written) for ~11 GFLOP of
-// causal work: ~40 us at 3.35 TB/s against ~11 us of tensor-core time. The
-// k/v of one head (43 KB) stays in L2 across that head's 6 query tiles, so
+// causal work: ~40 us at 3.35 TB/s against ~11 us of tensor-core time; at the
+// 1B CE shape (48x8 heads of 256) ~265 MB for ~22 GFLOP, ~79 us against
+// ~22 us. The k/v of one head stays in L2 across that head's query tiles, so
 // what counts is that every SM keeps loads in flight and never waits on its
 // own arithmetic.
 //
-// Design. One CTA is one warpgroup (128 threads) and owns one 64-row query
-// tile of one (batch, head). Thread 0 loads Q once and streams 64-key K/V
-// tiles with TMA through a ring of STAGES stages, one mbarrier each, so
-// tile j + 1 is in flight while tile j is computed. S = Q K^T is wgmma with
-// both operands K-major in shared memory; the scores, the online-softmax
-// statistics m and l, and the O accumulator stay in registers: a thread
-// holds two rows of each warp's 16-row slice, so a row reduction is two
-// shuffles within its quad. The softmax runs in the log2 domain (the scale
-// folded into log2(e), exp2 on the special-function unit) and masks only
-// the tiles that need it: the diagonal one, where the loop stops, and those
-// with a dropped key. P, rounded to bf16, goes from the S accumulator
-// straight into the A fragment of O += P V (V read MN-major). About 41 KB of
-// shared memory and under 100 registers a thread: 5 CTAs per SM. (Issuing
-// S of tile j + 1 while P V of tile j runs measured slower on the H100.)
+// Design. One CTA owns one 64-row query tile of one (batch, head). Thread 0
+// loads Q once and streams 64-key K/V tiles with TMA through a ring of
+// STAGES stages, one mbarrier each, so tile j + 1 is in flight while tile j
+// is computed. S = Q K^T is wgmma with both operands K-major in shared
+// memory; the scores, the online-softmax statistics m and l, and the O
+// accumulator stay in registers: a thread holds two rows of each warp's
+// 16-row slice, so a row reduction is two shuffles within its quad. The
+// softmax runs in the log2 domain (the scale folded into log2(e), exp2 on the
+// special-function unit) and masks only the tiles that need it: the diagonal
+// one, where the loop stops, and those with a dropped key. P, rounded to
+// bf16, goes from the S accumulator straight into the A fragment of O += P V
+// (V read MN-major). At D = 64: about 41 KB of shared memory and under 100
+// registers a thread, 5 CTAs per SM. At D = 256: 165 KB (one CTA per SM) and
+// two warpgroups, each with half of O (64 registers) beside its own S, 128
+// registers a thread (one warpgroup with all of O took 202). (Issuing S of
+// tile j + 1 while P V of tile j runs measured slower on the H100.)
 // ---------------------------------------------------------------------------
 constexpr int STAGES = 2;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -189,9 +214,10 @@ template <int D, int ONCE> struct KvRing {
   __device__ __forceinline__ uint64_t* keep_slot(int s) const {
     return reinterpret_cast<uint64_t*>(smem + L::KEEP) + s;
   }
-  __device__ __forceinline__ const unsigned char* once_tile(int i) const { return smem + i * L::TILE; }
-  __device__ __forceinline__ const unsigned char* k_tile(int s) const { return smem + L::K + s * L::TILE; }
-  __device__ __forceinline__ const unsigned char* v_tile(int s) const { return smem + L::V + s * L::TILE; }
+  // shared addresses of the tiles, for wgmma descriptors
+  __device__ __forceinline__ uint32_t once_tile(int i) const { return sm90::smem_addr(smem + i * L::TILE); }
+  __device__ __forceinline__ uint32_t k_tile(int s) const { return sm90::smem_addr(smem + L::K + s * L::TILE); }
+  __device__ __forceinline__ uint32_t v_tile(int s) const { return sm90::smem_addr(smem + L::V + s * L::TILE); }
 
   __device__ __forceinline__ void load_kv(int kt, int s) const {
     sm90::mbar_expect_tx(bar(1 + s), 2 * L::TILE);
@@ -229,15 +255,15 @@ template <int D, int ONCE> struct KvRing {
   }
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+template <int D, int WG>
+__global__ void __launch_bounds__(THREADS * WG)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ mask, bf16* __restrict__ o,
                  float* __restrict__ lse, int heads, int q_len, int kv_len, int causal, float scale) {
-  static_assert(D % 64 == 0, "tiles are stored as 64-column panels");
-  constexpr int NP = D / 64;
+  static_assert(D % 64 == 0 && (D / 64) % WG == 0, "tiles are 64-column panels, split evenly over warpgroups");
+  constexpr int NPW = D / 64 / WG;  // O panels of each warpgroup
   const int qt = blockIdx.x, bh = blockIdx.y, b = bh / heads;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = threadIdx.x / THREADS, lane = threadIdx.x % 32, p0 = wg * NPW;
   const int q0 = qt * BLOCK;
   o += (size_t)bh * q_len * D;
   lse += (size_t)bh * q_len;
@@ -247,12 +273,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   const int n_kt = (kv_len + BLOCK - 1) / BLOCK;
   const KvRing<D, 1> ring{aligned_smem(smem_raw), &tm_k, &tm_v, mask_row, bh, kv_len,
                           causal ? min(qt + 1, n_kt) : n_kt};
-  const unsigned char* sQ = ring.once_tile(0);
   ring.start({&tm_q}, q0);
 
-  float acc[NP][32];
+  float acc[NPW][32];
 #pragma unroll
-  for (int n = 0; n < NP; ++n)
+  for (int n = 0; n < NPW; ++n)
 #pragma unroll
     for (int r = 0; r < 32; ++r) acc[n][r] = 0.0f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};  // row max (log2 domain) and sum
@@ -264,8 +289,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     // the next tile's keep bits: fetched now, stored after this tile's products
     const bool next_keep = ring.next_keep(kt);
     ring.wait(kt);
-    const unsigned char* sK = ring.k_tile(s);
-    const unsigned char* sV = ring.v_tile(s);
+    const uint32_t sQ = sm90::opaque(ring.once_tile(0));
+    const uint32_t sK = ring.k_tile(s);
+    const uint32_t sV = ring.v_tile(s);
 
     float sc[32];
 #pragma unroll
@@ -289,7 +315,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     else
       softmax_tile<false>(sc, m, l, alpha, kbits, false, scale_log2);
 #pragma unroll
-    for (int n = 0; n < NP; ++n)
+    for (int n = 0; n < NPW; ++n)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -298,20 +324,20 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
           acc[n][4 * j + 2 * i + 1] *= alpha[i];
         }
 
-    // O += P V, P (bf16) from registers
+    // O += P V on this warpgroup's panels, P (bf16) from registers
     uint32_t pa[4][4];
     sm90::acc_to_a(sc, pa);
 #pragma unroll
-    for (int n = 0; n < NP; ++n) sm90::fence_regs(acc[n]);
+    for (int n = 0; n < NPW; ++n) sm90::fence_regs(acc[n]);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NP; ++n)
+    for (int n = 0; n < NPW; ++n)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs(acc[n], pa[kk], sm90::desc_mn_major(sV, n, kk));
+      for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs(acc[n], pa[kk], sm90::desc_mn_major(sV, p0 + n, kk));
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
-    for (int n = 0; n < NP; ++n) sm90::fence_regs(acc[n]);
+    for (int n = 0; n < NPW; ++n) sm90::fence_regs(acc[n]);
     ring.advance(kt, next_keep);
   }
 
@@ -320,16 +346,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     const bool empty = l[i] == 0.0f;
     const float l_safe = empty ? 1.0f : l[i];
 #pragma unroll
-    for (int n = 0; n < NP; ++n)
+    for (int n = 0; n < NPW; ++n)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         acc[n][4 * j + 2 * i] /= l_safe;
         acc[n][4 * j + 2 * i + 1] /= l_safe;
       }
-    const int row = q0 + warp * 16 + lane / 4 + 8 * i;
-    if (lane % 4 == 0 && row < q_len) lse[row] = empty ? INFINITY : m[i] * LN2 + logf(l_safe);
+    const int row = q0 + wg_warp() * 16 + lane / 4 + 8 * i;
+    if (wg == 0 && lane % 4 == 0 && row < q_len) lse[row] = empty ? INFINITY : m[i] * LN2 + logf(l_safe);
   }
-  store_acc_rows<D>(o, acc, q0, q_len, 1.0f);
+  store_acc_rows<D, NPW>(o, acc, q0, q_len, 1.0f, p0);
 }
 
 // ---------------------------------------------------------------------------
@@ -337,22 +363,26 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 //
 // Bound on the H100: memory at VQA lengths. Per head it reads q, k, v, do
 // (4 x T x D bf16) plus lse and delta, and writes dk, dv; its ~4 products per
-// kept (q, k) pair are ~22 GFLOP at the CE shape, ~22 us of tensor-core time
-// against ~55 us for the bytes.
+// kept (q, k) pair are ~22 GFLOP at the 410M CE shape, ~22 us of tensor-core
+// time against ~55 us for the bytes (1B: ~44 GFLOP, ~45 us against ~119 us).
 //
-// Design. One CTA is one warpgroup and owns one 64-key tile of one (batch,
-// head). Thread 0 loads K and V once with TMA and streams 64-query Q/dO
-// tiles through a ring of STAGES stages, from the diagonal tile on when
-// causal. Per tile: S^T = K Q^T and dP^T = V dO^T are wgmma with both
-// operands K-major in shared memory, committed as two groups; P^T = keep ?
-// exp(S^T scale - lse) : 0 is formed in registers (log2 domain) as soon as
-// S^T lands, and dV += P^T dO is issued while dP^T still runs; then
-// dS^T = P^T (dP^T - delta), and dK += dS^T Q. P^T and dS^T are rounded to
-// bf16 into the A fragments of those products (dO and Q read MN-major). dK
-// and dV stay in registers for the whole sweep. lse and delta come in with
-// ordinary loads (their rows are T x 4 bytes, which TMA takes only when T is
-// a multiple of 4); rows past q_len read lse = +inf, delta = 0, so their p is
-// 0. About 50 KB of shared memory and ~165 registers a thread: 3 CTAs per SM.
+// Design. One CTA owns one 64-key tile of one (batch, head). Thread 0 loads K
+// and V once with TMA and streams 64-query Q/dO tiles through a ring of
+// STAGES stages, from the diagonal tile on when causal. Per tile: S^T = K Q^T
+// and dP^T = V dO^T are wgmma with both operands K-major in shared memory,
+// committed as two groups; P^T = keep ? exp(S^T scale - lse) : 0 is formed in
+// registers (log2 domain) as soon as S^T lands, and dV += P^T dO is issued
+// while dP^T still runs; then dS^T = P^T (dP^T - delta), and dK += dS^T Q.
+// P^T and dS^T are rounded to bf16 into the A fragments of those products
+// (dO and Q read MN-major). dK and dV stay in registers for the whole sweep.
+// lse and delta come in with ordinary loads (their rows are T x 4 bytes,
+// which TMA takes only when T is a multiple of 4); rows past q_len read
+// lse = +inf, delta = 0, so their p is 0. At D = 64: about 50 KB of shared
+// memory and ~165 registers a thread, 3 CTAs per SM. At D = 256 dK and dV
+// alone would be 256 registers a thread, so the CTA has two warpgroups, each
+// with 128 of the 256 columns of dK and dV (128 registers) and its own S^T
+// and dP^T over the full D: 234 registers a thread, no spill; 199 KB of
+// shared memory, one CTA per SM.
 // ---------------------------------------------------------------------------
 template <int D> struct DkvSmem {  // byte offsets from the 1024-aligned base
   static constexpr uint32_t TILE = 64 * D * 2;
@@ -366,18 +396,18 @@ template <int D> struct DkvSmem {  // byte offsets from the 1024-aligned base
   static constexpr size_t ALLOC = BAR + (1 + STAGES) * 8 + 1024;
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+template <int D, int WG>
+__global__ void __launch_bounds__(THREADS * WG)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                      const float* __restrict__ lse, const float* __restrict__ delta, const int* __restrict__ mask,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int q_len, int kv_len, int causal,
                      float scale) {
-  static_assert(D % 64 == 0, "tiles are stored as 64-column panels");
+  static_assert(D % 64 == 0 && (D / 64) % WG == 0, "tiles are 64-column panels, split evenly over warpgroups");
   using L = DkvSmem<D>;
-  constexpr int NP = D / 64;
+  constexpr int NPW = D / 64 / WG;  // dK and dV panels of each warpgroup
   const int kt = blockIdx.x, bh = blockIdx.y, b = bh / heads;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, warp = wg_warp(), lane = tid % 32, p0 = tid / THREADS * NPW;
   const int k0 = kt * BLOCK;
   dk += (size_t)bh * kv_len * D;
   dv += (size_t)bh * kv_len * D;
@@ -406,16 +436,17 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
     sm90::tma_load_tile<D>(smem + L::Q + s * L::TILE, &tm_q, &bar[1 + s], qt * BLOCK, bh);
     sm90::tma_load_tile<D>(smem + L::DO + s * L::TILE, &tm_do, &bar[1 + s], qt * BLOCK, bh);
   };
-  // lse (threads 0-63) or delta (64-127) of query q0 + tid % 64
+  // lse (threads 0-63) or delta (64-127) of query q0 + tid % 64; other
+  // warpgroups' threads fetch and store nothing
   auto fetch_row_stat = [&](int q0) {
     const int qrow = q0 + tid % 64;
     if (tid < 64) return qrow < q_len ? lse[qrow] : INFINITY;
-    return qrow < q_len ? delta[qrow] : 0.0f;
+    return tid < THREADS && qrow < q_len ? delta[qrow] : 0.0f;
   };
   auto store_row_stat = [&](int s, float x) {
     if (tid < 64)
       s_lse[s * 64 + tid] = x * LOG2E;  // log2 domain, +inf stays +inf
-    else
+    else if (tid < THREADS)
       s_delta[s * 64 + tid - 64] = x;
   };
   const float scale_log2 = scale * LOG2E;
@@ -433,23 +464,23 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
     for (int s = 0; s < STAGES && s < n_it; ++s) load_qdo(first + s, s);
   }
 
-  float dk_acc[NP][32], dv_acc[NP][32], st[32], dpt[32];
+  float dk_acc[NPW][32], dv_acc[NPW][32], st[32], dpt[32];
 #pragma unroll
   for (int r = 0; r < 32; ++r) {
     st[r] = dpt[r] = 0.0f;
 #pragma unroll
-    for (int n = 0; n < NP; ++n) dk_acc[n][r] = dv_acc[n][r] = 0.0f;
+    for (int n = 0; n < NPW; ++n) dk_acc[n][r] = dv_acc[n][r] = 0.0f;
   }
   sm90::mbar_wait(&bar[0], 0);
-  const unsigned char* sK = smem + L::K;
-  const unsigned char* sV = smem + L::V;
 
   for (int it = 0; it < n_it; ++it) {
     const int qt = first + it, s = it % STAGES;
     const float next_stat = it + 1 < n_it ? fetch_row_stat((qt + 1) * BLOCK) : 0.0f;
     sm90::mbar_wait(&bar[1 + s], (it / STAGES) & 1);
-    const unsigned char* sQ = smem + L::Q + s * L::TILE;
-    const unsigned char* sDO = smem + L::DO + s * L::TILE;
+    const uint32_t sK = sm90::opaque(sm90::smem_addr(smem + L::K));
+    const uint32_t sV = sm90::opaque(sm90::smem_addr(smem + L::V));
+    const uint32_t sQ = sm90::smem_addr(smem + L::Q + s * L::TILE);
+    const uint32_t sDO = sm90::smem_addr(smem + L::DO + s * L::TILE);
 
     // S^T and dP^T as two groups; P^T and dV += P^T dO go ahead while dP^T runs,
     // dS^T while dV's product runs
@@ -489,12 +520,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
     uint32_t pa[4][4];
     sm90::acc_to_a(st, pa);
 #pragma unroll
-    for (int n = 0; n < NP; ++n) sm90::fence_regs(dv_acc[n]);
+    for (int n = 0; n < NPW; ++n) sm90::fence_regs(dv_acc[n]);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NP; ++n)
+    for (int n = 0; n < NPW; ++n)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs(dv_acc[n], pa[kk], sm90::desc_mn_major(sDO, n, kk));
+      for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs(dv_acc[n], pa[kk], sm90::desc_mn_major(sDO, p0 + n, kk));
     sm90::wgmma_commit();
 
     // ds^T = p^T (dp^T - delta)
@@ -514,16 +545,16 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
     uint32_t dsa[4][4];
     sm90::acc_to_a(dpt, dsa);
 #pragma unroll
-    for (int n = 0; n < NP; ++n) sm90::fence_regs(dk_acc[n]);
+    for (int n = 0; n < NPW; ++n) sm90::fence_regs(dk_acc[n]);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NP; ++n)
+    for (int n = 0; n < NPW; ++n)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs(dk_acc[n], dsa[kk], sm90::desc_mn_major(sQ, n, kk));
+      for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs(dk_acc[n], dsa[kk], sm90::desc_mn_major(sQ, p0 + n, kk));
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
-    for (int n = 0; n < NP; ++n) {
+    for (int n = 0; n < NPW; ++n) {
       sm90::fence_regs(dv_acc[n]);
       sm90::fence_regs(dk_acc[n]);
     }
@@ -533,8 +564,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
     if (tid == 0 && it + STAGES < n_it) load_qdo(qt + STAGES, s);
   }
 
-  store_acc_rows<D>(dv, dv_acc, k0, kv_len, 1.0f);
-  store_acc_rows<D>(dk, dk_acc, k0, kv_len, scale);
+  store_acc_rows<D, NPW>(dv, dv_acc, k0, kv_len, 1.0f, p0);
+  store_acc_rows<D, NPW>(dk, dk_acc, k0, kv_len, scale, p0);
 }
 
 // ---------------------------------------------------------------------------
@@ -542,26 +573,29 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
 //
 // Bound on the H100: memory. At the 410M CE shape it reads q, k, v, do, lse
 // and delta and writes dq, ~167 MB: ~50 us at 3.35 TB/s, against ~16 GFLOP
-// (three products per kept (query, key) pair), ~17 us of tensor-core time.
-// As in the forward, the k/v of one head stays in L2 across its query tiles,
-// so what counts is keeping loads in flight on every SM.
+// (three products per kept (query, key) pair), ~17 us of tensor-core time
+// (1B: ~331 MB, ~99 us against ~33 us). As in the forward, the k/v of one
+// head stays in L2 across its query tiles, so what counts is keeping loads in
+// flight on every SM.
 //
 // Design. The forward's, with dP and dS where the forward has O and the
-// softmax. One CTA is one warpgroup and owns one 64-row query tile of one
-// (batch, head). Thread 0 loads Q and dO once with TMA and streams 64-key K/V
-// tiles through the forward's ring (KvRing), up to the diagonal when causal.
-// Per tile: S = Q K^T and dP = dO V^T are wgmma with both operands K-major in
-// shared memory, committed as two groups; P = keep ? exp(S scale - lse) : 0
-// is formed in the S registers (log2 domain) while dP still runs, every tile
-// masked with the forward's keep bits (an unmasked path for tiles with no
-// dropped key measured no faster: the select hides behind the loads); then
+// softmax. One CTA owns one 64-row query tile of one (batch, head). Thread 0
+// loads Q and dO once with TMA and streams 64-key K/V tiles through the
+// forward's ring (KvRing), up to the diagonal when causal. Per tile: S = Q K^T
+// and dP = dO V^T are wgmma with both operands K-major in shared memory,
+// committed as two groups; P = keep ? exp(S scale - lse) : 0 is formed in the
+// S registers (log2 domain) while dP still runs, every tile masked with the
+// forward's keep bits (an unmasked path for tiles with no dropped key
+// measured no faster: the select hides behind the loads); then
 // dS = P (dP - delta) in the dP registers, rounded to bf16 straight into the
 // A fragments of dQ += dS K, which reads the K tile MN-major, the same shared
 // tile that S read K-major. dS never goes to shared memory. lse and delta of
 // a thread's two rows are loaded once into registers by ordinary loads
 // (+inf and 0 past q_len, so those rows get p = 0), and dQ stays in registers
-// until it is scaled once and stored. About 49 KB of shared memory and 122
-// registers a thread: 4 CTAs per SM.
+// until it is scaled once and stored. At D = 64: about 49 KB of shared memory
+// and 122 registers a thread, 4 CTAs per SM. At D = 256: 198 KB (one CTA per
+// SM) and one warpgroup, the 128-register dQ beside S and dP: 218 registers,
+// no spill.
 // ---------------------------------------------------------------------------
 // p = keep ? 2^(s scale log2(e) - lse log2(e)) : 0, in place, for this
 // thread's two rows of one 64-key tile.
@@ -581,16 +615,16 @@ __device__ __forceinline__ void probs_tile(float (&sc)[32], const float (&lse_lo
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+template <int D, int WG>
+__global__ void __launch_bounds__(THREADS * WG)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                     const float* __restrict__ lse, const float* __restrict__ delta, const int* __restrict__ mask,
                     bf16* __restrict__ dq, int heads, int q_len, int kv_len, int causal, float scale) {
-  static_assert(D % 64 == 0, "tiles are stored as 64-column panels");
-  constexpr int NP = D / 64;
+  static_assert(D % 64 == 0 && (D / 64) % WG == 0, "tiles are 64-column panels, split evenly over warpgroups");
+  constexpr int NPW = D / 64 / WG;  // dQ panels of each warpgroup
   const int qt = blockIdx.x, bh = blockIdx.y, b = bh / heads;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int warp = wg_warp(), lane = threadIdx.x % 32, p0 = threadIdx.x / THREADS * NPW;
   const int q0 = qt * BLOCK;
   dq += (size_t)bh * q_len * D;
   lse += (size_t)bh * q_len;
@@ -601,8 +635,6 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
   const int n_kt = (kv_len + BLOCK - 1) / BLOCK;
   const KvRing<D, 2> ring{aligned_smem(smem_raw), &tm_k, &tm_v, mask_row, bh, kv_len,
                           causal ? min(qt + 1, n_kt) : n_kt};
-  const unsigned char* sQ = ring.once_tile(0);
-  const unsigned char* sDO = ring.once_tile(1);
   ring.start({&tm_q, &tm_do}, q0);
 
   // lse (log2 domain, +inf stays +inf) and delta of this thread's rows
@@ -613,12 +645,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
     lse_log2[i] = row < q_len ? lse[row] * LOG2E : INFINITY;
     row_delta[i] = row < q_len ? delta[row] : 0.0f;
   }
-  float dq_acc[NP][32], sc[32], dp[32];
+  float dq_acc[NPW][32], sc[32], dp[32];
 #pragma unroll
   for (int r = 0; r < 32; ++r) {
     sc[r] = dp[r] = 0.0f;
 #pragma unroll
-    for (int n = 0; n < NP; ++n) dq_acc[n][r] = 0.0f;
+    for (int n = 0; n < NPW; ++n) dq_acc[n][r] = 0.0f;
   }
   const float scale_log2 = scale * LOG2E;
   ring.wait_once();
@@ -628,8 +660,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
     // the next tile's keep bits: fetched now, stored after this tile's products
     const bool next_keep = ring.next_keep(kt);
     ring.wait(kt);
-    const unsigned char* sK = ring.k_tile(s);
-    const unsigned char* sV = ring.v_tile(s);
+    const uint32_t sQ = sm90::opaque(ring.once_tile(0));
+    const uint32_t sDO = sm90::opaque(ring.once_tile(1));
+    const uint32_t sK = ring.k_tile(s);
+    const uint32_t sV = ring.v_tile(s);
 
     // S and dP as two groups; P is formed while dP still runs
     sm90::fence_regs(sc);
@@ -648,7 +682,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
 
     probs_tile(sc, lse_log2, ring.keep_bits(kt), causal && kt == qt, scale_log2);
 
-    // dS = P (dP - delta); dQ += dS K, dS (bf16) from registers, K read MN-major
+    // dS = P (dP - delta); dQ += dS K on this warpgroup's panels, dS (bf16)
+    // from registers, K read MN-major
     sm90::wgmma_wait<0>();
     sm90::fence_regs(dp);
 #pragma unroll
@@ -663,55 +698,48 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
     uint32_t dsa[4][4];
     sm90::acc_to_a(dp, dsa);
 #pragma unroll
-    for (int n = 0; n < NP; ++n) sm90::fence_regs(dq_acc[n]);
+    for (int n = 0; n < NPW; ++n) sm90::fence_regs(dq_acc[n]);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NP; ++n)
+    for (int n = 0; n < NPW; ++n)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs(dq_acc[n], dsa[kk], sm90::desc_mn_major(sK, n, kk));
+      for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs(dq_acc[n], dsa[kk], sm90::desc_mn_major(sK, p0 + n, kk));
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
-    for (int n = 0; n < NP; ++n) sm90::fence_regs(dq_acc[n]);
+    for (int n = 0; n < NPW; ++n) sm90::fence_regs(dq_acc[n]);
     ring.advance(kt, next_keep);
   }
 
-  store_acc_rows<D>(dq, dq_acc, q0, q_len, scale);
+  store_acc_rows<D, NPW>(dq, dq_acc, q0, q_len, scale, p0);
 }
 
-}  // namespace
-
 // ---------------------------------------------------------------------------
-// C launchers (bound from Python with ctypes). head_dim 64 is instantiated;
-// any other head_dim returns cudaErrorInvalidValue. Each launcher encodes one
-// tensor map per bf16 input on the host, per launch.
+// Launch of one instantiation: one tensor map per bf16 input, encoded on the
+// host per launch; the dynamic shared-memory limit raised for the kernel.
 // ---------------------------------------------------------------------------
-
-extern "C" cudaError_t flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
-                                      void* lse, int batch_heads, int heads, int q_len, int kv_len,
-                                      int head_dim, int causal, float scale, void* stream) {
-  if (head_dim != 64) return cudaErrorInvalidValue;
-  constexpr int D = 64;
+template <int D, int WG>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* mask, void* o, void* lse,
+                       int batch_heads, int heads, int q_len, int kv_len, int causal, float scale,
+                       cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   cudaError_t err;
   if ((err = sm90_host::make_map_3d(&tm_q, q, batch_heads, q_len, D)) != cudaSuccess) return err;
   if ((err = sm90_host::make_map_3d(&tm_k, k, batch_heads, kv_len, D)) != cudaSuccess) return err;
   if ((err = sm90_host::make_map_3d(&tm_v, v, batch_heads, kv_len, D)) != cudaSuccess) return err;
   constexpr size_t smem = QTileSmem<D, 1>::ALLOC;
-  err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(flash_fwd_kernel<D, WG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((q_len + BLOCK - 1) / BLOCK, batch_heads);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  flash_fwd_kernel<D, WG><<<grid, THREADS * WG, smem, stream>>>(
       tm_q, tm_k, tm_v, (const int*)mask, (bf16*)o, (float*)lse, heads, q_len, kv_len, causal, scale);
   return cudaGetLastError();
 }
 
-extern "C" cudaError_t flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                                          const void* lse, const void* delta, const void* mask, void* dk,
-                                          void* dv, int batch_heads, int heads, int q_len, int kv_len,
-                                          int head_dim, int causal, float scale, void* stream) {
-  if (head_dim != 64) return cudaErrorInvalidValue;
-  constexpr int D = 64;
+template <int D, int WG>
+cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                           const void* delta, const void* mask, void* dk, void* dv, int batch_heads, int heads,
+                           int q_len, int kv_len, int causal, float scale, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   cudaError_t err;
   if ((err = sm90_host::make_map_3d(&tm_q, q, batch_heads, q_len, D)) != cudaSuccess) return err;
@@ -719,21 +747,19 @@ extern "C" cudaError_t flash_attn_bwd_dkv(const void* q, const void* k, const vo
   if ((err = sm90_host::make_map_3d(&tm_v, v, batch_heads, kv_len, D)) != cudaSuccess) return err;
   if ((err = sm90_host::make_map_3d(&tm_do, dout, batch_heads, q_len, D)) != cudaSuccess) return err;
   constexpr size_t smem = DkvSmem<D>::ALLOC;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, WG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((kv_len + BLOCK - 1) / BLOCK, batch_heads);
-  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  flash_bwd_dkv_kernel<D, WG><<<grid, THREADS * WG, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)delta, (const int*)mask, (bf16*)dk, (bf16*)dv,
       heads, q_len, kv_len, causal, scale);
   return cudaGetLastError();
 }
 
-extern "C" cudaError_t flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                                         const void* lse, const void* delta, const void* mask, void* dq,
-                                         int batch_heads, int heads, int q_len, int kv_len, int head_dim,
-                                         int causal, float scale, void* stream) {
-  if (head_dim != 64) return cudaErrorInvalidValue;
-  constexpr int D = 64;
+template <int D, int WG>
+cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                          const void* delta, const void* mask, void* dq, int batch_heads, int heads, int q_len,
+                          int kv_len, int causal, float scale, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   cudaError_t err;
   if ((err = sm90_host::make_map_3d(&tm_q, q, batch_heads, q_len, D)) != cudaSuccess) return err;
@@ -741,11 +767,67 @@ extern "C" cudaError_t flash_attn_bwd_dq(const void* q, const void* k, const voi
   if ((err = sm90_host::make_map_3d(&tm_v, v, batch_heads, kv_len, D)) != cudaSuccess) return err;
   if ((err = sm90_host::make_map_3d(&tm_do, dout, batch_heads, q_len, D)) != cudaSuccess) return err;
   constexpr size_t smem = QTileSmem<D, 2>::ALLOC;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, WG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((q_len + BLOCK - 1) / BLOCK, batch_heads);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  flash_bwd_dq_kernel<D, WG><<<grid, THREADS * WG, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)delta, (const int*)mask, (bf16*)dq, heads, q_len,
       kv_len, causal, scale);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// C launchers (bound from Python with ctypes). head_dim 64 and 256 are
+// instantiated; any other head_dim returns cudaErrorInvalidValue.
+// ---------------------------------------------------------------------------
+
+extern "C" cudaError_t flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
+                                      void* lse, int batch_heads, int heads, int q_len, int kv_len,
+                                      int head_dim, int causal, float scale, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (head_dim) {
+    case 64:
+      return launch_fwd<64, 1>(q, k, v, mask, o, lse, batch_heads, heads, q_len, kv_len, causal, scale, st);
+    case 256:
+      return launch_fwd<256, FWD_WG_256>(q, k, v, mask, o, lse, batch_heads, heads, q_len, kv_len, causal, scale,
+                                         st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" cudaError_t flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                                          const void* lse, const void* delta, const void* mask, void* dk,
+                                          void* dv, int batch_heads, int heads, int q_len, int kv_len,
+                                          int head_dim, int causal, float scale, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (head_dim) {
+    case 64:
+      return launch_bwd_dkv<64, 1>(q, k, v, dout, lse, delta, mask, dk, dv, batch_heads, heads, q_len, kv_len,
+                                   causal, scale, st);
+    case 256:
+      return launch_bwd_dkv<256, DKV_WG_256>(q, k, v, dout, lse, delta, mask, dk, dv, batch_heads, heads, q_len,
+                                             kv_len, causal, scale, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" cudaError_t flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                                         const void* lse, const void* delta, const void* mask, void* dq,
+                                         int batch_heads, int heads, int q_len, int kv_len, int head_dim,
+                                         int causal, float scale, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (head_dim) {
+    case 64:
+      return launch_bwd_dq<64, 1>(q, k, v, dout, lse, delta, mask, dq, batch_heads, heads, q_len, kv_len, causal,
+                                  scale, st);
+    case 256:
+      return launch_bwd_dq<256, DQ_WG_256>(q, k, v, dout, lse, delta, mask, dq, batch_heads, heads, q_len, kv_len,
+                                           causal, scale, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

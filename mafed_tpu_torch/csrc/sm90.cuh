@@ -100,21 +100,31 @@ __device__ __forceinline__ void tma_load_tile(unsigned char* dst, const CUtensor
 // wgmma
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo_bytes, uint32_t sbo_bytes) {
-  uint64_t d = (smem_addr(p) & 0x3FFFF) >> 4;
+// Descriptors take the tile's shared-memory address (smem_addr). Inside a
+// loop, pass it through `opaque` first: then the compiler rebuilds each
+// descriptor where a wgmma uses it instead of hoisting all of them out of the
+// loop and holding them in registers (at D = 256 the 16 k-steps of two
+// once-loaded tiles would hold 64 registers).
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes) {
+  uint64_t d = (addr & 0x3FFFF) >> 4;
   d |= (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16;
   d |= (uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32;
   d |= 1ull << 62;  // 128-byte swizzle
   return d;
 }
 
-// K-major operand: k-step kk of a [64][D] tile.
-__device__ __forceinline__ uint64_t desc_k_major(const unsigned char* tile, int kk) {
+// K-major operand: k-step kk of a [64][D] tile at shared address `tile`.
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int kk) {
   return desc_sw128(tile + (kk / 4) * PANEL_BYTES + (kk % 4) * 32, 16, 1024);
 }
 
 // MN-major B operand: rows [16 kk, 16 kk + 16) of panel n of a [64][D] tile.
-__device__ __forceinline__ uint64_t desc_mn_major(const unsigned char* tile, int n, int kk) {
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int n, int kk) {
   return desc_sw128(tile + n * PANEL_BYTES + kk * 2048, PANEL_BYTES, 1024);
 }
 

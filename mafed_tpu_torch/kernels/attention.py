@@ -16,8 +16,11 @@ Counterpart of mafed_tpu/kernels/attention.py. Layout: q, k, v are
     flash path: the training window, the EVA-02 tower (non-causal, unmasked)
     and the KV-cache prefill (causal over its own positions, key-padded).
 
+The kernels take head_dim 64 (the 160M and 410M decoders, the EVA-02
+tower) and 256 (the 1B decoder); other head_dims raise on CUDA tensors.
+
 `LAUNCHES` counts kernel launches, one per launch, for callers that check
-which path ran.
+which path ran; `LAUNCHES_BY_HEAD_DIM[d]` counts the same launches at head_dim d.
 """
 
 from __future__ import annotations
@@ -26,16 +29,23 @@ from typing import Optional, Tuple
 
 import torch
 
-from mafed_tpu_torch.kernels.build import load_library
+from mafed_tpu_torch.kernels.build import HEAD_DIMS, load_library
 
 _NEG = torch.finfo(torch.float32).min
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+LAUNCHES_BY_HEAD_DIM = {d: dict(LAUNCHES) for d in HEAD_DIMS}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, *LAUNCHES_BY_HEAD_DIM.values()):
+        for name in counts:
+            counts[name] = 0
+
+
+def _count(name: str, head_dim: int) -> None:
+    LAUNCHES[name] += 1
+    LAUNCHES_BY_HEAD_DIM[head_dim][name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -146,8 +156,9 @@ def _check_qkv(q, k, v, causal: bool):
     _check_cuda("q", q, q.shape, torch.bfloat16)
     _check_cuda("k", k, (batch, heads, kv_len, d), torch.bfloat16)
     _check_cuda("v", v, (batch, heads, kv_len, d), torch.bfloat16)
-    if d != 64:
-        raise ValueError(f"the CUDA flash kernels are built for head_dim 64, got {d}")
+    if d not in HEAD_DIMS:
+        dims = " and ".join(str(x) for x in HEAD_DIMS)
+        raise ValueError(f"the CUDA flash kernels are built for head_dim {dims}, got {d}")
     if causal and kv_len != q_len:
         raise ValueError("causal flash attention needs kv_len == q_len")
     return batch, heads, q_len, kv_len, d
@@ -165,7 +176,7 @@ def _flash_forward_cuda(q, k, v, mask, causal: bool, scale: float):
             batch * heads, heads, q_len, kv_len, d, int(causal), scale, torch.cuda.current_stream().cuda_stream,
         )
     _check_launch(err, "flash_attn_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    _count("flash_fwd", d)
     return o, lse
 
 
@@ -190,7 +201,7 @@ def flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal: bool, scale: float):
             batch * heads, heads, q_len, kv_len, d, int(causal), scale, torch.cuda.current_stream().cuda_stream,
         )
     _check_launch(err, "flash_attn_bwd_dkv")
-    LAUNCHES["flash_bwd_dkv"] += 1
+    _count("flash_bwd_dkv", d)
     return dk, dv
 
 
@@ -206,7 +217,7 @@ def flash_bwd_dq(q, k, v, mask, do, lse, delta, causal: bool, scale: float):
             batch * heads, heads, q_len, kv_len, d, int(causal), scale, torch.cuda.current_stream().cuda_stream,
         )
     _check_launch(err, "flash_attn_bwd_dq")
-    LAUNCHES["flash_bwd_dq"] += 1
+    _count("flash_bwd_dq", d)
     return dq
 
 
@@ -263,7 +274,8 @@ def dot_product_attention(q, k, v, *, key_padding_mask=None, causal=False, causa
     shapes that the JAX dispatcher sends to its flash kernel (head_dim 64,
     96, 128, 256 or a multiple of 128; q_len >= 8; causal only with
     kv_len == q_len) go through `FlashAttention`; other shapes raise on CUDA
-    and take the plain masked path on the CPU.
+    and take the plain masked path on the CPU. Of those head_dims the CUDA
+    kernels take 64 and 256; the others raise on CUDA tensors (`_check_qkv`).
     """
     head_dim = q.shape[-1]
     scale_f = float((head_dim ** -0.5) if scale is None else scale)

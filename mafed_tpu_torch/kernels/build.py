@@ -9,8 +9,11 @@ one libcuda call it needs (`cuTensorMapEncodeTiled`) is looked up through the
 CUDA runtime.
 
 `kernel_resources()` reads the build's `-Xptxas -v` output (registers and
-spill bytes of each kernel) and `sass_counts()` counts instructions of each
-kernel in the built library's SASS (`cuobjdump -sass`).
+spill bytes) and `sass_counts()` counts instructions in the built library's
+SASS (`cuobjdump -sass`). Both key their results by instantiation, kernel
+and head_dim (`flash_fwd_kernel<256>`), read from the first template
+argument of the mangled name (`...flash_fwd_kernelILi256E...`), so every
+head_dim of a kernel is reported, and checked, on its own.
 """
 
 from __future__ import annotations
@@ -29,6 +32,14 @@ CSRC = _PKG / "csrc"
 SOURCE = CSRC / "flash_attn.cu"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+HEAD_DIMS = (64, 256)  # the head_dims the library instantiates; the launchers refuse any other
+
+
+def instantiation(kernel: str, head_dim: int) -> str:
+    return f"{kernel}<{head_dim}>"
+
+
+INSTANTIATIONS = tuple(instantiation(k, d) for k in KERNELS for d in HEAD_DIMS)
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -99,11 +110,16 @@ def load_library() -> ctypes.CDLL:
 
 
 def _kernel_of(mangled: str) -> Optional[str]:
-    return next((k for k in KERNELS if k in mangled), None)
+    """The instantiation (`flash_fwd_kernel<256>`) that a mangled name is of, or None."""
+    for kernel in KERNELS:
+        found = re.search(rf"{kernel}ILi(\d+)E", mangled)
+        if found:
+            return instantiation(kernel, int(found.group(1)))
+    return None
 
 
 def kernel_resources(log: str) -> Dict[str, Dict[str, int]]:
-    """{kernel: {"registers", "spill_store_bytes", "spill_load_bytes"}} from `-Xptxas -v` output."""
+    """{instantiation: {"registers", "spill_store_bytes", "spill_load_bytes"}} from `-Xptxas -v` output."""
     out: Dict[str, Dict[str, int]] = {}
     current = None
     for line in log.splitlines():
@@ -124,14 +140,19 @@ def kernel_resources(log: str) -> Dict[str, Dict[str, int]]:
 
 
 def sass_counts() -> Optional[Dict[str, Dict[str, int]]]:
-    """{kernel: {"HGMMA": n, "UTMALDG": n}} (wgmma and TMA-load instructions) in
-    the built library's SASS, or None without cuobjdump."""
-    opcodes = ("HGMMA", "UTMALDG")
+    """{instantiation: {"HGMMA": n, "UTMALDG": n}} (wgmma and TMA-load
+    instructions) in the built library's SASS, or None without cuobjdump."""
     try:
         tool = _cuda_tool("cuobjdump")
     except RuntimeError:
         return None
     sass = subprocess.run([tool, "-sass", str(library_path())], capture_output=True, text=True, check=True).stdout
+    return parse_sass(sass)
+
+
+def parse_sass(sass: str) -> Dict[str, Dict[str, int]]:
+    """{instantiation: {"HGMMA": n, "UTMALDG": n}} from `cuobjdump -sass` output."""
+    opcodes = ("HGMMA", "UTMALDG")
     out: Dict[str, Dict[str, int]] = {}
     current = None
     for line in sass.splitlines():

@@ -8,12 +8,13 @@ substitutions applied to mafed_tpu_torch/csrc/flash_attn.cu; a first pair
 parent commit's, unpacked with `git archive`). `{"base": []}` is the source
 as it stands. Every variant is built with nvcc in parallel into its own
 library and held against the plain versions (o, dk, dv and dq at
-chip_smoke's tolerances, lse's empty rows exactly) in a small unaligned
-case with empty rows, a non-causal 100 x 257 case and the 410M CE shape.
-Then the forward, dK/dV and dQ kernels are timed at the CE shape in turns,
-three rounds of 50 launches each, so every variant sees the same card.
-Prints one JSON line per variant; with --out, the list also goes to that
-file.
+chip_smoke's tolerances, lse's empty rows exactly) at head_dim 64 and 256,
+each in a small unaligned case with empty rows, a non-causal 100 x 257 case
+and its model's CE shape (410M: [48, 16, 336, 64]; 1B: [48, 8, 336, 256]).
+Then the forward, dK/dV and dQ kernels are timed at both CE shapes in
+turns, three rounds of 50 launches each, so every variant sees the same
+card. Prints one JSON line per variant (ptxas report, largest errors and
+times by head_dim); with --out, the list also goes to that file.
 """
 
 from __future__ import annotations
@@ -79,34 +80,39 @@ def main() -> int:
             lib = ctypes.CDLL(path)
             build._bind(lib)
             libs[name] = lib
-            results[name] = {"card": smi, "ptxas": build.kernel_resources(log), "max_abs_err": [],
-                             "fwd_ms": [], "dkv_ms": [], "dq_ms": []}
+            results[name] = {"card": smi, "ptxas": build.kernel_resources(log), "max_abs_err": {},
+                             "fwd_ms": {}, "dkv_ms": {}, "dq_ms": {}}
 
         gen = torch.Generator(device="cuda").manual_seed(0)
-        cases = [(3, 2, 77, 77, True, (0, 3), True), (2, 4, 100, 257, False, None, False),
-                 (48, 16, 336, 336, True, (256, 276), False)]
+        # (batch, heads, q_len, kv_len, head_dim, causal, padded keys, all-masked last sample); the last
+        # case of each head_dim is its model's CE shape, where the kernels are timed
+        cases = [(3, 2, 77, 77, 64, True, (0, 3), True), (2, 4, 100, 257, 64, False, None, False),
+                 (48, 16, 336, 336, 64, True, (256, 276), False),
+                 (3, 2, 77, 77, 256, True, (0, 3), True), (2, 4, 100, 257, 256, False, None, False),
+                 (48, 8, 336, 336, 256, True, (256, 276), False)]
         data = []
-        for b, h, tq, tk, causal, pad, empty in cases:
-            q = torch.randn(b, h, tq, 64, generator=gen, device="cuda").bfloat16()
-            k, v = (torch.randn(b, h, tk, 64, generator=gen, device="cuda").bfloat16() for _ in range(2))
-            do = torch.randn(b, h, tq, 64, generator=gen, device="cuda").bfloat16()
+        for b, h, tq, tk, d, causal, pad, empty in cases:
+            q = torch.randn(b, h, tq, d, generator=gen, device="cuda").bfloat16()
+            k, v = (torch.randn(b, h, tk, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
+            do = torch.randn(b, h, tq, d, generator=gen, device="cuda").bfloat16()
             mask = torch.ones(b, tk, dtype=torch.int32, device="cuda")
             if pad:
                 mask[:, pad[0]:pad[1]] = 0
             if empty:
                 mask[-1] = 0
-            o_p, lse_p = A.flash_forward_plain(q, k, v, mask, causal, 0.125)
+            scale = d ** -0.5
+            o_p, lse_p = A.flash_forward_plain(q, k, v, mask, causal, scale)
             delta = (do.float() * o_p.float()).sum(-1)
-            dq_p, dk_p, dv_p = A.flash_backward_plain(q, k, v, mask, o_p, lse_p, do, causal, 0.125)
-            data.append((q, k, v, do, mask, causal, o_p, lse_p, delta, dq_p, dk_p, dv_p))
+            dq_p, dk_p, dv_p = A.flash_backward_plain(q, k, v, mask, o_p, lse_p, do, causal, scale)
+            data.append((q, k, v, do, mask, causal, scale, o_p, lse_p, delta, dq_p, dk_p, dv_p))
 
         try:
             for name, lib in libs.items():
                 A.load_library = lambda lib=lib: lib
-                for q, k, v, do, mask, causal, o_p, lse_p, delta, dq_p, dk_p, dv_p in data:
-                    o, lse = A.flash_forward(q, k, v, mask, causal, 0.125)
-                    dk, dv = A.flash_bwd_dkv(q, k, v, mask, do, lse_p, delta, causal, 0.125)
-                    dq = A.flash_bwd_dq(q, k, v, mask, do, lse_p, delta, causal, 0.125)
+                for q, k, v, do, mask, causal, scale, o_p, lse_p, delta, dq_p, dk_p, dv_p in data:
+                    o, lse = A.flash_forward(q, k, v, mask, causal, scale)
+                    dk, dv = A.flash_bwd_dkv(q, k, v, mask, do, lse_p, delta, causal, scale)
+                    dq = A.flash_bwd_dq(q, k, v, mask, do, lse_p, delta, causal, scale)
                     fin = torch.isfinite(lse_p)
                     if not torch.equal(torch.isinf(lse), ~fin):
                         raise AssertionError(f"variant {name}: empty rows differ from the plain version")
@@ -115,17 +121,18 @@ def main() -> int:
                                                    msg=lambda m: f"variant {name}, {label}: {m}")
                     errs = [chip_smoke._err(o, o_p), (lse[fin] - lse_p[fin]).abs().max().item(),
                             chip_smoke._err(dk, dk_p), chip_smoke._err(dv, dv_p), chip_smoke._err(dq, dq_p)]
-                    results[name]["max_abs_err"].append(errs)
-            q, k, v, do, mask, _, _, lse_p, delta, _, _, _ = data[-1]
+                    results[name]["max_abs_err"].setdefault(q.shape[-1], []).append(errs)
             for _ in range(3):
                 for name, lib in libs.items():
                     A.load_library = lambda lib=lib: lib
-                    results[name]["fwd_ms"].append(
-                        chip_smoke.time_ms(lambda: A.flash_forward(q, k, v, mask, True, 0.125), iters=50))
-                    results[name]["dkv_ms"].append(chip_smoke.time_ms(
-                        lambda: A.flash_bwd_dkv(q, k, v, mask, do, lse_p, delta, True, 0.125), iters=50))
-                    results[name]["dq_ms"].append(chip_smoke.time_ms(
-                        lambda: A.flash_bwd_dq(q, k, v, mask, do, lse_p, delta, True, 0.125), iters=50))
+                    for q, k, v, do, mask, _, scale, _, lse_p, delta, _, _, _ in (data[2], data[5]):
+                        d = q.shape[-1]
+                        results[name]["fwd_ms"].setdefault(d, []).append(
+                            chip_smoke.time_ms(lambda: A.flash_forward(q, k, v, mask, True, scale), iters=50))
+                        results[name]["dkv_ms"].setdefault(d, []).append(chip_smoke.time_ms(
+                            lambda: A.flash_bwd_dkv(q, k, v, mask, do, lse_p, delta, True, scale), iters=50))
+                        results[name]["dq_ms"].setdefault(d, []).append(chip_smoke.time_ms(
+                            lambda: A.flash_bwd_dq(q, k, v, mask, do, lse_p, delta, True, scale), iters=50))
         finally:
             A.load_library = build.load_library
     for name, res in results.items():

@@ -1,6 +1,7 @@
 """Where the time of the port's main paths goes on an NVIDIA GPU.
 
-    python3 scripts/profile_torch.py [--path window|window_unfused|ce_window|train_step|decode] [--reps 2] [--out PATH]
+    python3 scripts/profile_torch.py [--path window|window_unfused|ce_window|train_step|decode]
+                                     [--preset 410m|1b] [--reps 2] [--out PATH]
 
 window: the fused MAFED window of chip_smoke.py (VL-Pythia-410M at full width
 and depth, 3 CE microbatches of 16 + 1 memory microbatch of 16, 256 cached
@@ -17,6 +18,9 @@ decode: the greedy decode of chip_smoke.py's decode phase (410M + EVA-02-L,
 bf16 weights, batch 32, text 64 with 16 left-padded positions, 10 new
 tokens): the whole decode from uint8 pixels and from cached patches, and its
 parts alone: the tower, the KV-cache prefill, and one single-token step.
+
+--preset 1b runs every path with VL-Pythia-1B (hidden 2048, 16 layers, 8
+heads of 256) at the same shapes in place of the 410M model.
 
 For each profiled unit, torch.profiler over `--reps` steady repetitions
 gives the wall ms per repetition (host clock, ending in a synchronise),
@@ -102,12 +106,12 @@ def profile(fn, reps: int, warmup: int = 2) -> dict:
     }
 
 
-def window_units(reps: int, fuse: bool = True) -> dict:
+def window_units(reps: int, preset: str, fuse: bool = True) -> dict:
     from chip_smoke import window_setup
     from mafed_tpu_torch.core.config import model_config_for_preset
     from mafed_tpu_torch.models.vl_pythia import init_model
 
-    cfg = model_config_for_preset("410m")
+    cfg = model_config_for_preset(preset)
     model = init_model(cfg, seed=0, device="cuda")
     step, state, teacher, ce, distill, lang = window_setup(cfg, model, 3, 16, 80, torch.Generator().manual_seed(2), "cuda",
                                                            fuse_ce_batch=fuse)
@@ -119,7 +123,7 @@ def window_units(reps: int, fuse: bool = True) -> dict:
     return {"window" if fuse else "window_unfused": profile(window, reps)}
 
 
-def ce_units(path: str, reps: int) -> dict:
+def ce_units(path: str, reps: int, preset: str) -> dict:
     from chip_smoke import example_batch, stack, train_config
     from mafed_tpu_torch.core.config import model_config_for_preset
     from mafed_tpu_torch.models.vl_pythia import init_model
@@ -127,7 +131,7 @@ def ce_units(path: str, reps: int) -> dict:
     from mafed_tpu_torch.training.step import make_ce_window_step, make_train_step
     from mafed_tpu_torch.training.train_state import TrainState, trainable_parameters
 
-    cfg = model_config_for_preset("410m")
+    cfg = model_config_for_preset(preset)
     model = init_model(cfg, seed=0, device="cuda")
     train_cfg = train_config()
     trainable = trainable_parameters(model)
@@ -146,7 +150,7 @@ def ce_units(path: str, reps: int) -> dict:
     return {path: profile(unit, reps)}
 
 
-def decode_units(reps: int) -> dict:
+def decode_units(reps: int, preset: str) -> dict:
     from chip_smoke import decode_batches
     from mafed_tpu_torch.core.config import model_config_for_preset
     from mafed_tpu_torch.data.images import make_normalizer, prep_pixels
@@ -155,7 +159,7 @@ def decode_units(reps: int) -> dict:
     from mafed_tpu_torch.models import vl_pythia as V
     from mafed_tpu_torch.models.vl_pythia import init_model
 
-    cfg = model_config_for_preset("410m")
+    cfg = model_config_for_preset(preset)
     b, text_len, pad, max_new, dtype = 32, 64, 16, 10, torch.bfloat16
     model = init_model(cfg, seed=0, device="cuda", dtype=dtype)
     decode = make_greedy_decoder(cfg, max_new_tokens=max_new)
@@ -201,6 +205,7 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--path", choices=("window", "window_unfused", "ce_window", "train_step", "decode"),
                         default="window")
+    parser.add_argument("--preset", choices=("410m", "1b"), default="410m")
     parser.add_argument("--reps", type=int, default=2)
     parser.add_argument("--out", help="also write the JSON object to this file")
     args = parser.parse_args()
@@ -215,12 +220,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.path in ("window", "window_unfused"):
-        units = window_units(args.reps, fuse=args.path == "window")
+        units = window_units(args.reps, args.preset, fuse=args.path == "window")
     elif args.path == "decode":
-        units = decode_units(args.reps)
+        units = decode_units(args.reps, args.preset)
     else:
-        units = ce_units(args.path, args.reps)
-    result = {"card": smi, "path": args.path, "reps": args.reps, "units": units}
+        units = ce_units(args.path, args.reps, args.preset)
+    result = {"card": smi, "path": args.path, "preset": args.preset, "reps": args.reps, "units": units}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -7,7 +7,9 @@ against `_flash_forward` / `_flash_backward` in float32 with atol 1e-5,
 rtol 1e-4: both sum f32 products, in different orders (online softmax over
 64-key tiles against one dense softmax), so they differ by float32 rounding
 only. Both forwards are also held, at the same tolerance, against a float64
-dense softmax in numpy, so a disagreement names the side that moved.
+dense softmax in numpy, so a disagreement names the side that moved. Every
+case runs at the head_dim of its name (64, or 256 for the 1B decoder's heads)
+with the models' scale head_dim^-0.5.
 
 The JAX references are compiled in this module's process, never read from
 the persistent compilation cache (`tests/conftest.py` turns it on for the
@@ -52,25 +54,31 @@ def interpret_mode():
     jattn._PALLAS_BWD_MODE = "auto"
 
 
-# (name, batch, heads, q_len, kv_len, causal, masked, all-masked sample 0);
-# 65 and 129 sit one row past the CUDA kernels' 64-row tile edges, and
-# 100 x 257 has query and key lengths that differ
+# (name, batch, heads, q_len, kv_len, causal, masked, all-masked sample 0,
+# head_dim); 65 and 129 sit one row past the CUDA kernels' 64-row tile edges,
+# and 100 x 257 has query and key lengths that differ
 CASES = [
-    ("causal_padded", 2, 2, 64, 64, True, True, False),
-    ("noncausal_unmasked", 2, 2, 48, 48, False, False, False),
-    ("causal_unaligned_20", 2, 2, 20, 20, True, True, False),
-    ("noncausal_unaligned_200", 1, 2, 200, 200, False, True, False),
-    ("noncausal_empty_rows", 2, 2, 40, 40, False, True, True),
-    ("causal_tile_edge_65", 2, 2, 65, 65, True, True, False),
-    ("causal_tile_edge_129", 1, 2, 129, 129, True, True, False),
-    ("noncausal_100x257", 1, 2, 100, 257, False, True, False),
+    ("causal_padded", 2, 2, 64, 64, True, True, False, 64),
+    ("noncausal_unmasked", 2, 2, 48, 48, False, False, False, 64),
+    ("causal_unaligned_20", 2, 2, 20, 20, True, True, False, 64),
+    ("noncausal_unaligned_200", 1, 2, 200, 200, False, True, False, 64),
+    ("noncausal_empty_rows", 2, 2, 40, 40, False, True, True, 64),
+    ("causal_tile_edge_65", 2, 2, 65, 65, True, True, False, 64),
+    ("causal_tile_edge_129", 1, 2, 129, 129, True, True, False, 64),
+    ("noncausal_100x257", 1, 2, 100, 257, False, True, False, 64),
+    ("causal_padded_d256", 2, 2, 64, 64, True, True, False, 256),
+    ("causal_tile_edge_65_d256", 2, 2, 65, 65, True, True, False, 256),
+    ("causal_tile_edge_129_d256", 1, 2, 129, 129, True, True, False, 256),
+    ("noncausal_100x257_d256", 1, 2, 100, 257, False, True, False, 256),
+    ("noncausal_empty_rows_d256", 2, 2, 40, 40, False, True, True, 256),
 ]
+CASE_ARGS = "name,b,h,t,kv_len,causal,masked,empty,d"
 
 
-def _inputs(b, h, t, masked, empty, seed=0, kv_len=None):
+def _inputs(b, h, t, masked, empty, seed=0, kv_len=None, d=64):
     rng = np.random.default_rng(seed)
     kv_len = t if kv_len is None else kv_len
-    q, k, v, g = (rng.normal(size=(b, h, n, 64)).astype(np.float32) for n in (t, kv_len, kv_len, t))
+    q, k, v, g = (rng.normal(size=(b, h, n, d)).astype(np.float32) for n in (t, kv_len, kv_len, t))
     mask = np.ones((b, kv_len), np.int32)
     if masked:
         mask[:, :3] = 0  # left padding: causal rows 0..2 see no valid key
@@ -80,10 +88,14 @@ def _inputs(b, h, t, masked, empty, seed=0, kv_len=None):
     return q, k, v, g, mask
 
 
+def _scale(q):
+    return q.shape[-1] ** -0.5
+
+
 def _jax_fwd(q, k, v, mask, causal, masked):
     o, lse = jattn._flash_forward(
         *(jnp.asarray(x) for x in (q, k, v, mask)),
-        causal=causal, scale=0.125, block_q=64, block_k=64, use_mask=masked,
+        causal=causal, scale=_scale(q), block_q=64, block_k=64, use_mask=masked,
     )
     return np.asarray(o), np.asarray(lse)
 
@@ -99,11 +111,11 @@ def _assert_lse(got, want):
     np.testing.assert_allclose(got[~inf], want[~inf], atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("name,b,h,t,kv_len,causal,masked,empty", CASES, ids=[c[0] for c in CASES])
-def test_plain_forward_matches_pallas(name, b, h, t, kv_len, causal, masked, empty):
-    q, k, v, _, mask = _inputs(b, h, t, masked, empty, kv_len=kv_len)
+@pytest.mark.parametrize(CASE_ARGS, CASES, ids=[c[0] for c in CASES])
+def test_plain_forward_matches_pallas(name, b, h, t, kv_len, causal, masked, empty, d):
+    q, k, v, _, mask = _inputs(b, h, t, masked, empty, kv_len=kv_len, d=d)
     o_ref, lse_ref = _jax_fwd(q, k, v, mask, causal, masked)
-    o, lse = tattn.flash_forward_plain(_t(q), _t(k), _t(v), _t(mask) if masked else None, causal, 0.125)
+    o, lse = tattn.flash_forward_plain(_t(q), _t(k), _t(v), _t(mask) if masked else None, causal, _scale(q))
     np.testing.assert_allclose(o.numpy(), o_ref, atol=ATOL, rtol=RTOL)
     _assert_lse(lse, lse_ref)
     if causal and masked:
@@ -120,19 +132,19 @@ def _dense_f64(q, k, v, mask, causal):
         keep = keep & np.tril(keep[0, 0])
     if mask is not None:
         keep = keep & (mask > 0)[:, None, None, :]
-    s = np.where(keep, np.einsum("bhqd,bhkd->bhqk", q, k) * 0.125, -np.inf)
+    s = np.where(keep, np.einsum("bhqd,bhkd->bhqk", q, k) * q.shape[-1] ** -0.5, -np.inf)
     m = s.max(axis=-1, keepdims=True)
     p = np.exp(s - np.where(np.isfinite(m), m, 0.0)) * keep
     l = p.sum(axis=-1, keepdims=True)
     return np.einsum("bhqk,bhkd->bhqd", p, v) / np.where(l == 0.0, 1.0, l)
 
 
-@pytest.mark.parametrize("name,b,h,t,kv_len,causal,masked,empty", CASES, ids=[c[0] for c in CASES])
-def test_both_forwards_match_float64(name, b, h, t, kv_len, causal, masked, empty):
-    q, k, v, _, mask = _inputs(b, h, t, masked, empty, kv_len=kv_len)
+@pytest.mark.parametrize(CASE_ARGS, CASES, ids=[c[0] for c in CASES])
+def test_both_forwards_match_float64(name, b, h, t, kv_len, causal, masked, empty, d):
+    q, k, v, _, mask = _inputs(b, h, t, masked, empty, kv_len=kv_len, d=d)
     want = _dense_f64(q, k, v, mask if masked else None, causal)
     o_jax, _ = _jax_fwd(q, k, v, mask, causal, masked)
-    o_port, _ = tattn.flash_forward_plain(_t(q), _t(k), _t(v), _t(mask) if masked else None, causal, 0.125)
+    o_port, _ = tattn.flash_forward_plain(_t(q), _t(k), _t(v), _t(mask) if masked else None, causal, _scale(q))
     np.testing.assert_allclose(o_jax, want, atol=ATOL, rtol=RTOL, err_msg="Pallas (interpret) vs float64")
     np.testing.assert_allclose(o_port.numpy(), want, atol=ATOL, rtol=RTOL, err_msg="port plain vs float64")
 
@@ -149,16 +161,16 @@ def test_references_bypass_the_persistent_cache(monkeypatch):
     assert used == []
 
 
-@pytest.mark.parametrize("name,b,h,t,kv_len,causal,masked,empty", CASES, ids=[c[0] for c in CASES])
-def test_plain_backward_matches_pallas(name, b, h, t, kv_len, causal, masked, empty):
-    q, k, v, g, mask = _inputs(b, h, t, masked, empty, kv_len=kv_len)
+@pytest.mark.parametrize(CASE_ARGS, CASES, ids=[c[0] for c in CASES])
+def test_plain_backward_matches_pallas(name, b, h, t, kv_len, causal, masked, empty, d):
+    q, k, v, g, mask = _inputs(b, h, t, masked, empty, kv_len=kv_len, d=d)
     o, lse = _jax_fwd(q, k, v, mask, causal, masked)
     ref = jattn._flash_backward(
         *(jnp.asarray(x) for x in (q, k, v, mask, o, lse, g)),
-        causal=causal, scale=0.125, block_q=64, block_k=64, use_mask=masked,
+        causal=causal, scale=_scale(q), block_q=64, block_k=64, use_mask=masked,
     )
     got = tattn.flash_backward_plain(
-        _t(q), _t(k), _t(v), _t(mask) if masked else None, _t(o), _t(lse), _t(g), causal, 0.125
+        _t(q), _t(k), _t(v), _t(mask) if masked else None, _t(o), _t(lse), _t(g), causal, _scale(q)
     )
     for name_, x, y in zip(("dq", "dk", "dv"), got, ref):
         np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=ATOL, rtol=RTOL, err_msg=name_)

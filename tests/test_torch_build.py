@@ -1,6 +1,7 @@
 """The port's kernel build helpers (mafed_tpu_torch/kernels/build.py) on the CPU:
-the library's name follows every source file, and the ptxas report is read
-per kernel. Nothing here compiles."""
+the library's name follows every source file, and the ptxas report and the
+SASS dump are read per instantiation (kernel and head_dim). Nothing here
+compiles."""
 
 from mafed_tpu_torch.kernels import build
 
@@ -14,6 +15,36 @@ ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_bwd_dkv_kernelI
     8 bytes stack frame, 8 bytes spill stores, 16 bytes spill loads
 ptxas info    : Used 255 registers, used 1 barriers
 """
+
+# nvcc's report of a library with both head_dims of all three kernels, the
+# 256 instantiations of a kernel after its 64 one in one case and before it
+# in another (ptxas orders entries by neither)
+_MANGLED = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}ELi{wg}EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16Pfiiiif"
+_ENTRIES = [("flash_fwd_kernel", 64, 1, 93, 0), ("flash_fwd_kernel", 256, 1, 190, 0),
+            ("flash_bwd_dkv_kernel", 256, 2, 236, 24), ("flash_bwd_dkv_kernel", 64, 1, 165, 0),
+            ("flash_bwd_dq_kernel", 64, 1, 122, 0), ("flash_bwd_dq_kernel", 256, 1, 222, 0)]
+
+
+def _mangled(name, d, wg):
+    return _MANGLED.format(n=len(name), name=name, d=d, wg=wg)
+
+
+PTXAS_BOTH = "".join(
+    f"ptxas info    : Compiling entry function '{_mangled(name, d, wg)}' for 'sm_90a'\n"
+    f"ptxas info    : Function properties for {_mangled(name, d, wg)}\n"
+    f"    0 bytes stack frame, {spill} bytes spill stores, {spill // 2} bytes spill loads\n"
+    f"ptxas info    : Used {regs} registers, used 1 barriers, 944 bytes cmem[0]\n"
+    for name, d, wg, regs, spill in _ENTRIES
+)
+
+SASS_BOTH = "".join(
+    f"\n\tcode for sm_90a\n\t\tFunction : {_mangled(name, d, wg)}\n"
+    "\t.headerflags\t@\"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)\"\n"
+    + "        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;\n" * (d // 64)
+    + "        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24 ;\n" * (d // 16 + regs % 7)
+    + "        /*0300*/                   EXIT ;\n"
+    for name, d, wg, regs, _ in _ENTRIES
+)
 
 
 def test_library_name_follows_every_source_file(tmp_path, monkeypatch):
@@ -29,6 +60,21 @@ def test_library_name_follows_every_source_file(tmp_path, monkeypatch):
 
 def test_kernel_resources_reads_the_ptxas_report():
     assert build.kernel_resources(PTXAS) == {
-        "flash_fwd_kernel": {"spill_store_bytes": 0, "spill_load_bytes": 0, "registers": 93},
-        "flash_bwd_dkv_kernel": {"spill_store_bytes": 8, "spill_load_bytes": 16, "registers": 255},
+        "flash_fwd_kernel<64>": {"spill_store_bytes": 0, "spill_load_bytes": 0, "registers": 93},
+        "flash_bwd_dkv_kernel<64>": {"spill_store_bytes": 8, "spill_load_bytes": 16, "registers": 255},
     }
+
+
+def test_kernel_resources_keeps_every_instantiation_apart():
+    got = build.kernel_resources(PTXAS_BOTH)
+    assert sorted(got) == sorted(build.INSTANTIATIONS) and len(got) == 6
+    for name, d, _, regs, spill in _ENTRIES:
+        assert got[build.instantiation(name, d)] == {
+            "spill_store_bytes": spill, "spill_load_bytes": spill // 2, "registers": regs}
+
+
+def test_sass_counts_keep_every_instantiation_apart():
+    got = build.parse_sass(SASS_BOTH)
+    assert sorted(got) == sorted(build.INSTANTIATIONS)
+    for name, d, _, regs, _ in _ENTRIES:
+        assert got[build.instantiation(name, d)] == {"UTMALDG": d // 64, "HGMMA": d // 16 + regs % 7}

@@ -35,7 +35,7 @@ from mafed_tpu_torch.optim import optimizer as topt
 from mafed_tpu_torch.training import flops as tflops
 from mafed_tpu_torch.training import step as tstep
 from mafed_tpu_torch.training.train_state import TrainState, trainable_parameters
-from tests.torch_helpers import batch, jax_params, stack, tiny_cfgs, to_torch, torch_model
+from tests.torch_helpers import TINY_256, batch, jax_params, stack, tiny_cfgs, to_torch, torch_model
 
 N_MB, B, TEXT = 4, 2, 16
 LR = 5e-5
@@ -50,6 +50,15 @@ def _kw(compute_dtype="float32", **over):
 @pytest.fixture(scope="module")
 def setup():
     jcfg, tc = tiny_cfgs()
+    params = jax_params(jcfg, seed=4)
+    mbs = [batch(tc, B, TEXT, seed=30 + i, pad=1 + i) for i in range(N_MB)]
+    return jcfg, tc, params, mbs
+
+
+@pytest.fixture(scope="module")
+def setup_256():
+    """The tiny model with the 1B decoder's heads (2 of 256)."""
+    jcfg, tc = tiny_cfgs(decoder=TINY_256)
     params = jax_params(jcfg, seed=4)
     mbs = [batch(tc, B, TEXT, seed=30 + i, pad=1 + i) for i in range(N_MB)]
     return jcfg, tc, params, mbs
@@ -99,8 +108,18 @@ CE_WINDOW_CASES = {
 
 @pytest.mark.parametrize("case", list(CE_WINDOW_CASES))
 def test_ce_window_matches_jax_f32(setup, case):
+    _check_ce_window_f32(setup, CE_WINDOW_CASES[case])
+
+
+def test_ce_window_matches_jax_f32_head_dim_256(setup_256):
+    """The CE window of the 1B run (heads of 256, AdamW with a bf16 first
+    moment as the bench runs it) at the tiny width."""
+    _check_ce_window_f32(setup_256, dict(adam_mu_dtype="bfloat16"))
+
+
+def _check_ce_window_f32(setup, train_kw):
     jcfg, tc, params, mbs = setup
-    kw = _kw(**CE_WINDOW_CASES[case])
+    kw = _kw(**train_kw)
     windows = [stack(mbs), stack(mbs[::-1])]
     tx, jstate = _jax_state(params, JTrainConfig(**kw))
     jwin = jstep.make_ce_window_step(jcfg, JTrainConfig(**kw), tx, attn_impl="xla", donate=False)
@@ -253,6 +272,9 @@ def test_flops_match_jax(preset):
     assert window - memory == pytest.approx(3 * 16 * tflops.ce_example_flops(tc, 80), rel=1e-12)
     assert tflops.ce_example_flops(tc, 80, vision_cached=False) - tflops.ce_example_flops(tc, 80) == pytest.approx(
         jflops.vision_flops_per_image(jc), rel=1e-12)
+    for cached in (True, False):  # bench_eval.py's decode: text 64, 10 new tokens
+        assert tflops.framework_decode_flops_per_example(tc, 64, 10, vision_cached=cached) == pytest.approx(
+            jflops.framework_decode_flops_per_example(jc, 64, 10, vision_cached=cached), rel=1e-12)
 
 
 FACTORIES = {

@@ -8,7 +8,9 @@ This file imports no JAX, so it runs where only PyTorch is installed:
 The kernels are held against their dense plain versions in bf16 at atol =
 rtol = 2e-2: the tiled kernels round p to bf16 against a running row maximum,
 the plain versions against the final one, so single elements differ by a few
-bf16 ulps. lse is float32 in both (atol 1e-4).
+bf16 ulps. lse is float32 in both (atol 1e-4). Every kernel check runs at
+both head_dims the kernels take, 64 and 256, with the models' scale
+head_dim^-0.5.
 """
 
 import numpy as np
@@ -18,7 +20,7 @@ import torch
 from mafed_tpu_torch.kernels import attention as tattn
 
 ATOL, RTOL = 2e-2, 2e-2
-SCALE = 0.125
+SCALE = 0.125  # head_dim 64's
 
 
 @pytest.fixture
@@ -27,14 +29,14 @@ def gpu():
         pytest.skip("needs an NVIDIA GPU and nvcc")
 
 
-def _inputs(b, h, t, seed, kv_len=None, masked=None):
-    """bf16 q, k, v, do on the card and an int32 key mask: 3 left-padded keys
-    in every sample, the keys of the range `masked` (start, stop) if given,
-    and sample 0 masked entirely (its rows are empty)."""
+def _inputs(b, h, t, seed, kv_len=None, masked=None, d=64):
+    """bf16 q, k, v, do of head_dim d on the card and an int32 key mask: 3
+    left-padded keys in every sample, the keys of the range `masked` (start,
+    stop) if given, and sample 0 masked entirely (its rows are empty)."""
     rng = np.random.default_rng(seed)
     kv_len = t if kv_len is None else kv_len
     q, k, v, g = (
-        torch.from_numpy(rng.normal(size=(b, h, n, 64)).astype(np.float32)).cuda().to(torch.bfloat16)
+        torch.from_numpy(rng.normal(size=(b, h, n, d)).astype(np.float32)).cuda().to(torch.bfloat16)
         for n in (t, kv_len, kv_len, t)
     )
     mask = np.ones((b, kv_len), np.int32)
@@ -54,36 +56,41 @@ KERNEL_CASES += [(100, 257, False, None), (65, 336, False, None), (200, 200, Tru
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [64, 256])
 @pytest.mark.parametrize("q_len,kv_len,causal,masked", KERNEL_CASES)
-def test_kernels_match_plain(gpu, q_len, kv_len, causal, masked):
-    q, k, v, g, mask = _inputs(2, 4, q_len, seed=11, kv_len=kv_len, masked=masked)
-    o, lse = tattn.flash_forward(q, k, v, mask, causal, SCALE)
-    o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, causal, SCALE)
+def test_kernels_match_plain(gpu, q_len, kv_len, causal, masked, head_dim):
+    q, k, v, g, mask = _inputs(2, 4, q_len, seed=11, kv_len=kv_len, masked=masked, d=head_dim)
+    scale = head_dim ** -0.5
+    o, lse = tattn.flash_forward(q, k, v, mask, causal, scale)
+    o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, causal, scale)
     torch.testing.assert_close(o.float(), o_p.float(), atol=ATOL, rtol=RTOL)
     fin = torch.isfinite(lse_p)
     assert torch.equal(torch.isinf(lse), ~fin)
     assert not fin[0].any() and (o[0] == 0).all()
     torch.testing.assert_close(lse[fin], lse_p[fin], atol=1e-4, rtol=0)
-    got = tattn.flash_backward(q, k, v, mask, o_p, lse_p, g, causal, SCALE)
-    want = tattn.flash_backward_plain(q, k, v, mask, o_p, lse_p, g, causal, SCALE)
+    got = tattn.flash_backward(q, k, v, mask, o_p, lse_p, g, causal, scale)
+    want = tattn.flash_backward_plain(q, k, v, mask, o_p, lse_p, g, causal, scale)
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         torch.testing.assert_close(x.float(), y.float(), atol=ATOL, rtol=RTOL, msg=name)
     torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
-def test_autograd_goes_through_the_kernels(gpu):
-    """dot_product_attention on the card: one launch of each kernel for one
-    forward and backward, on the non-contiguous q/k/v views that the decoder
-    hands it, with the plain versions' gradients."""
-    q, k, v, g, mask = _inputs(2, 4, 96, seed=12)
+@pytest.mark.parametrize("head_dim", [64, 256])
+def test_autograd_goes_through_the_kernels(gpu, head_dim):
+    """dot_product_attention on the card: one launch of each kernel, at this
+    head_dim, for one forward and backward, on the non-contiguous q/k/v views
+    that the decoder hands it, with the plain versions' gradients."""
+    q, k, v, g, mask = _inputs(2, 4, 96, seed=12, d=head_dim)
+    scale = head_dim ** -0.5
     leaves = [x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v)]  # [B, T, H, D]
     tattn.reset_launches()
     out = tattn.dot_product_attention(*(x.transpose(1, 2) for x in leaves), key_padding_mask=mask, causal=True)
     out.backward(g)
     assert tattn.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
-    o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, True, SCALE)
-    want = tattn.flash_backward_plain(q, k, v, mask, o_p, lse_p, g, True, SCALE)
+    assert tattn.LAUNCHES_BY_HEAD_DIM[head_dim] == tattn.LAUNCHES
+    o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, True, scale)
+    want = tattn.flash_backward_plain(q, k, v, mask, o_p, lse_p, g, True, scale)
     torch.testing.assert_close(out.float(), o_p.float(), atol=ATOL, rtol=RTOL)
     for leaf, y in zip(leaves, want):
         torch.testing.assert_close(leaf.grad.transpose(1, 2).float(), y.float(), atol=ATOL, rtol=RTOL)
@@ -95,7 +102,7 @@ def test_cuda_calls_the_kernels_cannot_take_raise(gpu):
     with pytest.raises(TypeError, match="bfloat16"):
         tattn.flash_forward(q.float(), k.float(), v.float(), mask, True, SCALE)
     wide = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="head_dim 64"):
+    with pytest.raises(ValueError, match="head_dim 64 and 256, got 128"):
         tattn.flash_forward(wide, wide, wide, None, True, SCALE)
     with pytest.raises(ValueError, match="contiguous"):
         tattn.flash_forward(q.transpose(2, 3), k, v, None, False, SCALE)
@@ -104,14 +111,20 @@ def test_cuda_calls_the_kernels_cannot_take_raise(gpu):
         tattn.dot_product_attention(narrow, narrow, narrow, causal=True)
 
 
-def _tiny_eval_model(device):
-    """A tiny VL-Pythia whose tower and decoder both have heads of 64
-    (16 patches + CLS), seeded on the CPU, then moved; bf16 throughout."""
+# tiny decoders: heads of 64, and of 256 as the 1B preset's
+DECODERS = {64: dict(hidden_size=128, num_hidden_layers=3, intermediate_size=256),
+            256: dict(hidden_size=512, num_hidden_layers=2, intermediate_size=1024)}
+
+
+def _tiny_eval_model(device, head_dim=64):
+    """A tiny VL-Pythia whose tower has heads of 64 (16 patches + CLS) and
+    whose decoder has 2 heads of `head_dim`, seeded on the CPU, then moved;
+    bf16 throughout."""
     from mafed_tpu_torch.core.config import ModelConfig, VisionConfig
     from mafed_tpu_torch.models.vl_pythia import init_model
 
-    cfg = ModelConfig(vocab_size=512, hidden_size=128, num_hidden_layers=3, num_attention_heads=2,
-                      intermediate_size=256, vision=VisionConfig(img_size=56, embed_dim=128, depth=2, num_heads=2))
+    cfg = ModelConfig(vocab_size=512, num_attention_heads=2, **DECODERS[head_dim],
+                      vision=VisionConfig(img_size=56, embed_dim=128, depth=2, num_heads=2))
     return cfg, init_model(cfg, seed=0, device="cpu", dtype=torch.bfloat16).to(device)
 
 
@@ -184,11 +197,13 @@ def _tiny_train_batch(seed, b=4, text_len=24):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [64, 256])
 @pytest.mark.parametrize("remat", [False, True])
-def test_train_step_on_card_matches_cpu(gpu, remat):
-    """One bf16 train step of the tiny model on the card (kernels) against the
-    CPU (plain versions): loss and grad norm within rtol 3e-2; without remat
-    one launch of each kernel per layer, with remat one more forward."""
+def test_train_step_on_card_matches_cpu(gpu, remat, head_dim):
+    """One bf16 train step of the tiny model (decoder heads of 64 or 256) on
+    the card (kernels) against the CPU (plain versions): loss and grad norm
+    within rtol 3e-2; without remat one launch of each kernel per layer, with
+    remat one more forward, all at the decoder's head_dim."""
     from mafed_tpu_torch.core.config import TrainConfig
     from mafed_tpu_torch.optim.optimizer import build_optimizer, set_schedule
     from mafed_tpu_torch.training.step import make_train_step
@@ -197,7 +212,7 @@ def test_train_step_on_card_matches_cpu(gpu, remat):
     train_cfg = TrainConfig(optim="adamw", remat=remat)
     got = {}
     for device in ("cpu", "cuda"):
-        cfg, model = _tiny_eval_model(device)
+        cfg, model = _tiny_eval_model(device, head_dim)
         model.float()  # trainable parameters in f32, as the trainer holds them
         trainable = trainable_parameters(model)
         opt = build_optimizer(train_cfg, trainable)
@@ -208,6 +223,7 @@ def test_train_step_on_card_matches_cpu(gpu, remat):
         got[device] = (float(m["loss"]), float(m["grad_norm"]))
     layers = cfg.num_hidden_layers
     assert tattn.LAUNCHES == {"flash_fwd": layers * (2 if remat else 1), "flash_bwd_dkv": layers, "flash_bwd_dq": layers}
+    assert tattn.LAUNCHES_BY_HEAD_DIM[head_dim] == tattn.LAUNCHES
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=3e-2)
 
 

@@ -37,7 +37,7 @@ from mafed_tpu_torch.evaluation.validate import validate_vqa
 from mafed_tpu_torch.kernels import attention as tattn
 from mafed_tpu_torch.models import eva02 as teva
 from mafed_tpu_torch.models import vl_pythia as tvl
-from tests.torch_helpers import TINY_VISION_64, jax_params, tiny_cfgs, to_torch, torch_model
+from tests.torch_helpers import TINY_256, TINY_VISION_64, jax_params, tiny_cfgs, to_torch, torch_model
 
 F32 = torch.float32
 
@@ -52,6 +52,14 @@ def interpret_mode():
 @pytest.fixture(scope="module")
 def setup():
     jcfg, tc = tiny_cfgs(TINY_VISION_64)
+    params = jax_params(jcfg, seed=2)
+    return jcfg, tc, params, torch_model(params, tc)
+
+
+@pytest.fixture(scope="module")
+def setup_256():
+    """The 1B decoder's heads (2 of 256) behind the same head_dim-64 tower."""
+    jcfg, tc = tiny_cfgs(TINY_VISION_64, decoder=TINY_256)
     params = jax_params(jcfg, seed=2)
     return jcfg, tc, params, torch_model(params, tc)
 
@@ -164,6 +172,18 @@ def test_greedy_tokens_equal_jax(setup, route, max_new, seed):
     np.testing.assert_array_equal(_port_tokens(tc, model, b_np, max_new), want)
 
 
+@pytest.mark.parametrize("route", ["pixels", "patches"])
+def test_greedy_tokens_equal_jax_head_dim_256(setup_256, route):
+    """The 1B decoder's heads: a KV cache of [B, 2, T, 256], rotary over 64 of
+    the 256 dims; 10 tokens (bench_eval.py's count) from each route."""
+    jcfg, tc, params, model = setup_256
+    b_np = _decode_batch(tc, 4, 8, seed=7, route=route)
+    want = _jax_tokens(jcfg, params, b_np, 10)
+    got = _port_tokens(tc, model, b_np, 10)
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(got)) > 1  # not a degenerate row of one token
+
+
 def test_forced_eos_tokens_equal_jax(setup):
     """EOS = the token row 0 emits at step 2: that row turns to EOS from step
     2 on, on both sides, and rows that never emit it are untouched."""
@@ -205,8 +225,18 @@ def test_cached_decode_equals_recompute(setup):
 
 @pytest.mark.parametrize("route", ["pixels", "patches"])
 def test_flash_forward_calls_per_decode(setup, monkeypatch, route):
-    """The tower (one call per block) and the prefill (one per layer) go
-    through the flash forward; the single-token steps do not."""
+    _check_flash_forward_calls(setup, monkeypatch, route)
+
+
+@pytest.mark.parametrize("route", ["pixels", "patches"])
+def test_flash_forward_calls_per_decode_head_dim_256(setup_256, monkeypatch, route):
+    _check_flash_forward_calls(setup_256, monkeypatch, route)
+
+
+def _check_flash_forward_calls(setup, monkeypatch, route):
+    """The tower (one call per block, heads of 64) and the prefill (one per
+    layer, the decoder's heads) go through the flash forward; the
+    single-token steps do not."""
     _, tc, _, model = setup
     calls = []
     real = tattn.flash_forward
@@ -219,7 +249,7 @@ def test_flash_forward_calls_per_decode(setup, monkeypatch, route):
     _port_tokens(tc, model, _decode_batch(tc, 2, 8, seed=0, route=route), 5)
     vis, dec = tc.vision.depth, tc.num_hidden_layers
     tower = [((2, 2, 17, 64), False, False)] * vis if route == "pixels" else []
-    assert calls == tower + [((2, 2, 16 + 8, 64), True, True)] * dec
+    assert calls == tower + [((2, tc.num_attention_heads, 16 + 8, tc.head_dim), True, True)] * dec
 
 
 # --- (h) the VQA-v2 metric ------------------------------------------------------

@@ -24,7 +24,7 @@ from mafed_tpu_torch.kernels import attention as tattn
 from mafed_tpu_torch.models import vl_pythia as tvl
 from mafed_tpu_torch.models.weights import params_from_jax
 from mafed_tpu_torch.training.train_state import trainable_parameters
-from tests.torch_helpers import batch, jax_params, tiny_cfgs, to_jax, to_torch, torch_model
+from tests.torch_helpers import TINY_256, batch, jax_params, tiny_cfgs, to_jax, to_torch, torch_model
 
 ATOL, RTOL = 1e-5, 1e-4
 
@@ -44,7 +44,23 @@ def setup():
     return jcfg, tc, jax_params(jcfg, seed=1)
 
 
+@pytest.fixture(scope="module")
+def setup_256():
+    """The tiny model with the 1B decoder's heads: 2 of 256, rotary over 64."""
+    jcfg, tc = tiny_cfgs(decoder=TINY_256)
+    assert tc.head_dim == 256 and tc.rotary_ndims == 64
+    return jcfg, tc, jax_params(jcfg, seed=1)
+
+
 def test_params_from_jax_matches_reference_names(setup):
+    _check_reference_names(setup)
+
+
+def test_params_from_jax_matches_reference_names_head_dim_256(setup_256):
+    _check_reference_names(setup_256)
+
+
+def _check_reference_names(setup):
     """Every entry of the JAX package's own export, the EVA-02 tower's
     `vision_encoder.*` included, is a port parameter under the same name with
     the same values (bf16 tower leaves compared in f32), and loads strictly."""
@@ -83,6 +99,15 @@ def _embeds(tc, seed=2):
 
 @pytest.mark.parametrize("num_layers", [None, 2], ids=["full_stack", "truncated"])
 def test_decoder_hidden_states_f32(setup, num_layers):
+    _check_decoder_hidden_states(setup, num_layers)
+
+
+@pytest.mark.parametrize("num_layers", [None, 1], ids=["full_stack", "truncated"])
+def test_decoder_hidden_states_f32_head_dim_256(setup_256, num_layers):
+    _check_decoder_hidden_states(setup_256, num_layers)
+
+
+def _check_decoder_hidden_states(setup, num_layers):
     jcfg, tc, params = setup
     embeds, mask = _embeds(tc)
     ref = jneox.apply(
@@ -138,6 +163,14 @@ def test_vl_pythia_loss_bf16(setup):
 
 
 def test_vl_pythia_grads_f32_with_remat(setup):
+    _check_grads_with_remat(setup)
+
+
+def test_vl_pythia_grads_f32_with_remat_head_dim_256(setup_256):
+    _check_grads_with_remat(setup_256)
+
+
+def _check_grads_with_remat(setup):
     """Gradients of the loss w.r.t. every parameter, autograd through the
     flash autograd function and per-layer recompute, against jax.grad."""
     jcfg, tc, params = setup

@@ -35,7 +35,7 @@ from mafed_tpu_torch.optim import optimizer as topt
 from mafed_tpu_torch.optim.sched import linear_warmup_schedule
 from mafed_tpu_torch.training import step as tstep
 from mafed_tpu_torch.training.train_state import TrainState, make_teacher, trainable_parameters
-from tests.torch_helpers import batch, jax_params, tiny_cfgs, to_torch, torch_model
+from tests.torch_helpers import TINY_256, batch, jax_params, tiny_cfgs, to_torch, torch_model
 
 N_CE, B, TEXT = 3, 2, 16
 LR = 5e-5
@@ -101,6 +101,14 @@ def setup():
     return jcfg, tc, params, _batches(tc)
 
 
+@pytest.fixture(scope="module")
+def setup_256():
+    """The tiny model with the 1B decoder's heads (2 of 256)."""
+    jcfg, tc = tiny_cfgs(decoder=TINY_256)
+    params = jax_params(jcfg, seed=3)
+    return jcfg, tc, params, _batches(tc)
+
+
 # the bench's settings, then the other distillation branches of make_distill_loss_fn
 WINDOW_CASES = {
     "bench_mu_f32": dict(mu_dtype=None),
@@ -114,8 +122,18 @@ WINDOW_CASES = {
 
 @pytest.mark.parametrize("case", list(WINDOW_CASES))
 def test_window_matches_jax_f32(setup, case):
+    _check_window_f32(setup, WINDOW_CASES[case])
+
+
+@pytest.mark.parametrize("case", ["bench_mu_f32", "bench_mu_bf16"])
+def test_window_matches_jax_f32_head_dim_256(setup_256, case):
+    """The window of the 1B run (its heads of 256, the bench's settings) at the tiny width."""
+    _check_window_f32(setup_256, WINDOW_CASES[case])
+
+
+def _check_window_f32(setup, train_kw):
     jcfg, tc, params, (ce_stack, distill) = setup
-    kw = _train_kwargs("float32", **WINDOW_CASES[case])
+    kw = _train_kwargs("float32", **train_kw)
     j_trainable, j_hist = _run_jax(jcfg, params, kw, ce_stack, distill, windows=2)
     model, t_hist = _run_torch(tc, params, kw, ce_stack, distill, windows=2)
     for jm, tm in zip(j_hist, t_hist):

@@ -1,6 +1,7 @@
-"""Shared fixtures of the port's parity tests: one tiny VL-Pythia config built
-in both packages (head_dim 64, which the flash dispatch rules accept), JAX
-parameters carried into the port, and seeded numpy batches."""
+"""Shared fixtures of the port's parity tests: tiny VL-Pythia configs built
+in both packages (head_dim 64, and with `TINY_256` the 1B decoder's heads of
+256; the flash kernels take both), JAX parameters carried into the port, and
+seeded numpy batches."""
 
 from __future__ import annotations
 
@@ -18,16 +19,19 @@ from mafed_tpu_torch.models import vl_pythia as tvl
 from mafed_tpu_torch.models.weights import params_from_jax
 
 TINY = dict(vocab_size=512, hidden_size=128, num_hidden_layers=3, num_attention_heads=2, intermediate_size=256, rotary_pct=0.25)
+# the 1B preset's head shape (heads of 256, rotary over 64 of them) at a tiny width and depth
+TINY_256 = dict(vocab_size=512, hidden_size=512, num_hidden_layers=2, num_attention_heads=2, intermediate_size=1024, rotary_pct=0.25)
 TINY_VISION = dict(img_size=28, patch_size=14, embed_dim=32, depth=2, num_heads=2, mlp_ratio=2.0)
 # a tower whose attention the flash dispatch takes: 16 patches + CLS, 2 heads of 64
 TINY_VISION_64 = dict(img_size=56, patch_size=14, embed_dim=128, depth=2, num_heads=2)
 
 
-def tiny_cfgs(vision=TINY_VISION):
-    """(JAX ModelConfig, port ModelConfig) of the same tiny model: hidden 128,
-    2 heads of 64, 3 layers; by default a tower of 4 patches of width 32."""
-    jcfg = ModelConfig(**TINY, vision=VisionConfig(**vision), vision_encoder_name="tiny-eva")
-    tc = tcfg.ModelConfig(**TINY, vision=tcfg.VisionConfig(**vision), vision_encoder_name="tiny-eva")
+def tiny_cfgs(vision=TINY_VISION, decoder=TINY):
+    """(JAX ModelConfig, port ModelConfig) of the same tiny model: by default
+    hidden 128, 2 heads of 64, 3 layers (`decoder=TINY_256`: hidden 512, 2
+    heads of 256, 2 layers), and a tower of 4 patches of width 32."""
+    jcfg = ModelConfig(**decoder, vision=VisionConfig(**vision), vision_encoder_name="tiny-eva")
+    tc = tcfg.ModelConfig(**decoder, vision=tcfg.VisionConfig(**vision), vision_encoder_name="tiny-eva")
     return jcfg, tc
 
 
