@@ -49,7 +49,18 @@ Phases, each printing one JSON line:
      5's shapes (launches 78 / 32 / 32 a window, all at head_dim 256), three
      CE windows of 4 x 16 (32 / 16 / 16), and phase 6's decode with the
      EVA-02-L tower (40 forward launches a batch from pixels, 24 at head_dim
-     64 and 16 at 256; 16 from patches).
+     64 and 16 at 256; 16 from patches);
+  9. cl_sequence: the port's continual-learning trainer through its entry
+     points (parse_with_config over config/train-vqa-base-cl-vlpythia.json,
+     ContinualLearningTrainer.main) on the shipped config's model,
+     config/vlpythia-base.json (VL-Pythia-410M + EVA-02-L, full width and
+     depth, random weights from the seed): two tasks of 128 train and 32 val
+     synthetic questions, one epoch each, featdistill (MAFED) with fused
+     windows of 4 x 16 and a replay batch every 4th, the vision cache primed
+     through the port's tower; asserts the accuracy matrix and BWT, the run's
+     files, a bit-for-bit checkpoint reload, an unchanged teacher, the
+     windows each task ran and the flash launches computed from the config;
+     prints the seconds of each stage and each task's train examples/s.
 Then the kernel summary line (one entry per kernel and head_dim), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a CUDA device, or without the
@@ -60,14 +71,19 @@ from __future__ import annotations
 
 import gc
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from mafed_tpu_torch.core.config import ModelConfig, TrainConfig, VisionConfig, model_config_for_preset
+from mafed_tpu_torch.core.config import (
+    ModelConfig, TrainConfig, VisionConfig, build_arg_parser, model_config_for_preset, parse_with_config,
+)
 from mafed_tpu_torch.data.images import make_normalizer, prep_pixels, synthetic_image
 from mafed_tpu_torch.data.tokenizer import ByteTokenizer
 from mafed_tpu_torch.evaluation.decode import make_greedy_decoder
@@ -78,6 +94,7 @@ from mafed_tpu_torch.models import gpt_neox
 from mafed_tpu_torch.models import vl_pythia as V
 from mafed_tpu_torch.models.vl_pythia import init_model
 from mafed_tpu_torch.optim.optimizer import MultiSteps, build_optimizer, set_schedule
+from mafed_tpu_torch.trainer import continual
 from mafed_tpu_torch.training.flops import (
     ce_example_flops, framework_decode_flops_per_example, framework_window_flops, mfu,
 )
@@ -86,6 +103,7 @@ from mafed_tpu_torch.training.step import (
     make_mafed_window_step, make_train_step,
 )
 from mafed_tpu_torch.training.train_state import TrainState, make_teacher, trainable_parameters
+from mafed_tpu_torch.utils.checkpoint import load_task_checkpoint
 
 # Tolerances of the kernel checks (bf16): the tiled kernels round p to bf16
 # relative to a running row maximum, the dense plain versions relative to the
@@ -856,6 +874,147 @@ def phase_decode(smi: str, preset: str, phase: str):
     return {d: {k: sum(launches[r][d][k] for r in launches) for k in A.LAUNCHES} for d in build.HEAD_DIMS}
 
 
+def write_synthetic_vqa(root: str, tasks, n_train: int, n_val: int) -> None:
+    """The synthetic ContVQA layout the trainer reads: {split}_annotations.json
+    and contvqa/tiny/{train,valid}_question_ids.json; question i of every task
+    and split asks about synthetic image i."""
+    questions = [("what color is the ball", "red"), ("how many dogs are there", "two"),
+                 ("what is the person doing", "running"), ("is it raining", "yes"),
+                 ("what animal is shown", "cat"), ("what room is this", "kitchen")]
+    os.makedirs(os.path.join(root, "contvqa", "tiny"), exist_ok=True)
+    records, splits = {"train": {}, "val": {}}, {"train": {}, "valid": {}}
+    for task in tasks:
+        for split, key, n, suffix in (("train", "train", n_train, "tr"), ("val", "valid", n_val, "va")):
+            splits[key][task] = []
+            for i in range(n):
+                q, a = questions[i % len(questions)]
+                qid = f"{task}_{suffix}{i}"
+                records[split][qid] = {"image_id": i, "id": qid, "question_id": qid, "question": q,
+                                       "img_fname": f"synthetic_{i}", "multiple_choice_answer": a,
+                                       "answers": [{"answer": a, "answer_confidence": "yes", "answer_id": j}
+                                                   for j in range(10)], "answer_type": "other"}
+                splits[key][task].append(qid)
+    for split in ("train", "val"):
+        with open(os.path.join(root, f"{split}_annotations.json"), "w") as f:
+            json.dump(records[split], f)
+    for key in ("train", "valid"):
+        with open(os.path.join(root, "contvqa", "tiny", f"{key}_question_ids.json"), "w") as f:
+            json.dump(splits[key], f)
+
+
+SHIPPED_CONFIG = "config/train-vqa-base-cl-vlpythia.json"
+
+
+def cl_sequence_argv(root: str) -> list:
+    """The command line of the sequence: the shipped config, cut to two
+    small tasks of one epoch, MAFED with balanced modality weights and
+    discounted layers (gamma 0.5), the settings the port lacks switched off."""
+    return ["--config", SHIPPED_CONFIG, "--output_dir", os.path.join(root, "out"), "--data_dir", root,
+            "--question_task_ids", os.path.join(root, "contvqa"), "--exp", "tiny",
+            "--train_img_dirs", "unused", "--val_img_dirs", "unused", "--tasks", "taskA", "taskB",
+            "--epochs", "1", "1", "--batch_size", "16", "--accumulate_grad_batches", "4", "--replay_interval", "4",
+            "--cl_memory", "32", "--cl_method", "featdistill",
+            "--distillation_modality_weighing_strategy", "balanced",
+            "--distillation_layer_weighing_strategy", "discounted", "--distillation_layer_discount", "0.5",
+            "--device_vision_table_mb", "0", "--teacher_state_cache", "off", "--allow_tokenizer_fallback",
+            "--log_every", "1"]
+
+
+def phase_cl_sequence(smi: str, device: str = "cuda", model_cfg=None, n_train: int = 128, n_val: int = 32):
+    """A two-task MAFED sequence through the trainer's entry points; returns
+    the launches by head_dim. `model_cfg` replaces the shipped config's
+    model and `device` the card, for a rehearsal at a tiny size on the CPU
+    (where no kernel launches, so launches are not checked)."""
+    saved = {}
+    save = continual.save_task_checkpoint
+
+    def save_and_keep(state_dict, path):
+        """The trainer's save, keeping a host copy of the first checkpoint written."""
+        if not saved:
+            saved[path] = {k: v.detach().float().cpu().clone() for k, v in state_dict.items()}
+        save(state_dict, path)
+
+    with tempfile.TemporaryDirectory(prefix="cl_sequence_") as root:
+        write_synthetic_vqa(root, ("taskA", "taskB"), n_train, n_val)
+        cfg = parse_with_config(build_arg_parser(), cl_sequence_argv(root))
+        model_cfg = model_cfg or ModelConfig.from_json(cfg.model_config)
+        continual.save_task_checkpoint = save_and_keep
+        try:
+            A.reset_launches()
+            start = time.perf_counter()
+            trainer = continual.ContinualLearningTrainer(cfg, model_cfg=model_cfg, synthetic_images=True,
+                                                         device=device)
+            result = trainer.main()
+            wall = time.perf_counter() - start
+        finally:
+            continual.save_task_checkpoint = save
+        launches = launches_by_dim()
+
+        acc = np.asarray(result["accuracy_matrix"])
+        if acc.shape != (2, 2) or not np.isfinite(acc).all() or not ((acc >= 0) & (acc <= 1)).all():
+            raise AssertionError(f"cl_sequence: accuracy matrix {acc}")
+        if abs(result["bwt"] - (acc[0, 1] - acc[0, 0])) > 1e-12:
+            raise AssertionError(f"cl_sequence: bwt {result['bwt']} != A[0,1] - A[0,0] of {acc}")
+        out = cfg.output_dir
+        files = [os.path.join(out, "log", "results.json"), os.path.join(out, "log", "hps.json")] + [
+            os.path.join(out, "ckpt", f"{t}_best.safetensors") for t in cfg.tasks]
+        missing = [f for f in files if not os.path.exists(f)]
+        if missing:
+            raise AssertionError(f"cl_sequence: missing {missing}")
+        (path0, want), = saved.items()
+        start = time.perf_counter()
+        got = load_task_checkpoint(path0)
+        load_s = time.perf_counter() - start
+        if set(got) != set(want) or not all(torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError("cl_sequence: the reloaded task-0 checkpoint differs from the one saved")
+        # the teacher is the bf16 of task 0's best model, untouched by task 1's training
+        teacher = trainer.strategy.teacher.state_dict()
+        moved = [k for k, v in teacher.items()
+                 if not k.startswith("vision_encoder.") and not torch.equal(v.cpu(), want[k].to(torch.bfloat16))]
+        if moved:
+            raise AssertionError(f"cl_sequence: teacher tensors that differ from task 0's best: {moved[:5]}")
+
+        # what the config makes the run do
+        batches = n_train // cfg.batch_size
+        windows = batches // cfg.accumulate_grad_batches
+        steps = [{"ce_window": windows * cfg.epochs[0]}, {"mafed_window": windows * cfg.epochs[1]}]
+        if [log["steps"] for log in trainer.fit_logs] != steps:
+            raise AssertionError(f"cl_sequence: steps by task {[log['steps'] for log in trainer.fit_logs]}, "
+                                 f"expected {steps}")
+        # synthetic image i is the same image in every task and split: the val
+        # sets prime n_val images, task 0's train set the rest, task 1's none
+        primed = [n_val, n_train - n_val, 0]
+        if trainer.primed != primed:
+            raise AssertionError(f"cl_sequence: images primed {trainer.primed}, expected {primed}")
+        tower_batches = sum(math.ceil(n / 32) for n in primed)
+        val_batches = math.ceil(n_val / cfg.val_batch_size)
+        decode_batches = val_batches * (sum(cfg.epochs) + len(cfg.tasks) ** 2)  # each epoch, each eval round
+        layers = model_cfg.num_hidden_layers
+        deepest = max(distillation_layers(cfg.distillation_layer_weighing_strategy, layers - 1,
+                                          cfg.distillation_layer))
+        ce, mafed = steps[0]["ce_window"], steps[1]["mafed_window"]
+        decoder = _kernels(ce * 2 * layers + mafed * (4 * layers + deepest) + decode_batches * layers,
+                           ce * layers + mafed * 2 * layers)
+        tower = _kernels(tower_batches * model_cfg.vision.depth, 0)
+        expected = {d: {k: (decoder[k] if d == model_cfg.head_dim else 0)
+                        + (tower[k] if d == model_cfg.vision.head_dim else 0) for k in A.LAUNCHES}
+                    for d in build.HEAD_DIMS}
+        if device == "cuda" and launches != expected:
+            raise AssertionError(f"cl_sequence: kernel launches {launches}, expected {expected}")
+
+    emit({"phase": "cl_sequence", "card": smi, "config": SHIPPED_CONFIG, "model_config": cfg.model_config,
+          "layers": layers, "hidden": model_cfg.hidden_size, "tasks": cfg.tasks, "train_questions": n_train,
+          "val_questions": n_val, "batch": cfg.batch_size, "accumulate": cfg.accumulate_grad_batches,
+          "text_len": [trainer.runner.train_text_len, trainer.runner.val_text_len],
+          "accuracy_matrix": result["accuracy_matrix"], "bwt": result["bwt"],
+          "seconds": {"sequence": wall, **{k: v for k, v in trainer.timings.items()}, "load": load_s},
+          "train_ex_per_s": [[h["train_ex_per_s"] for h in log["history"]] for log in trainer.fit_logs],
+          "images_primed": trainer.primed, "steps": [log["steps"] for log in trainer.fit_logs],
+          "decode_batches": decode_batches, "tower_batches": tower_batches,
+          "launches": launches, "expected_launches": expected})
+    return launches
+
+
 def free_device_memory() -> None:
     """Drop what earlier phases left cached on the card (their models are out of scope)."""
     gc.collect()
@@ -881,6 +1040,8 @@ def main() -> int:
                       ("decode_1b", lambda: phase_decode(smi, "1b", "decode_1b"))):
         free_device_memory()
         by_path[path] = run()
+    free_device_memory()
+    by_path["cl_sequence"] = phase_cl_sequence(smi)
     # one entry per instantiation: times at its head_dim's CE shape (410M: 64, 1B: 256)
     kernels = [
         {"name": f"{name}<{d}>", "head_dim": d, "route": "cuda", "source": "mafed_tpu_torch/csrc/flash_attn.cu",

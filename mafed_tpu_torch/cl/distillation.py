@@ -1,0 +1,102 @@
+"""Feature distillation, MAFED (counterpart of mafed_tpu/cl/distillation.py).
+
+On every replay_interval-th batch: the replay CE (x replay_coeff) plus the
+per-layer hidden-state distillation of the student against the previous
+task's best model (the teacher), with gamma-discounted layer weights and
+equal / balanced / adaptive modality weights. The adaptive weights are
+gradient-based modality importances averaged over the task's loader and
+running-averaged across tasks (reference dl_weights.py:62-69). Teacher and
+student run in one step (training/step.py).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from mafed_tpu_torch.cl.base import CLStrategy
+from mafed_tpu_torch.cl.replay import choose_memory
+from mafed_tpu_torch.core.logging import LOGGER
+from mafed_tpu_torch.data.vqa_dataset import ConcatDataset
+from mafed_tpu_torch.training.step import distillation_layers
+from mafed_tpu_torch.training.train_state import make_teacher
+
+
+class FeatureDistillation(CLStrategy):
+    name = "featdistill"
+    needs_replay = True
+
+    def __init__(self, config, model_cfg, **kwargs) -> None:
+        super().__init__(config, model_cfg)
+        self.memory_per_task = int(config.cl_memory / max(1, len(config.tasks or []) - 1))
+        self.rng = np.random.default_rng(config.seed)
+        self.datasets: List = []
+        self.teacher = None
+        self.strategy = config.distillation_modality_weighing_strategy
+        self.layers = distillation_layers(
+            config.distillation_layer_weighing_strategy, model_cfg.num_hidden_layers - 1, config.distillation_layer
+        )
+        # balanced: a fixed 0.5 / 0.5 (dl_weights.py:30-31); adaptive: set at each update
+        fill = 0.5 if self.strategy == "balanced" else 1.0
+        self.lang_coeff = np.full((len(self.layers),), fill, np.float32)
+        self._lang_dev = None  # lang_coeff on the runner's device
+
+    def _lang_coeffs(self, runner) -> torch.Tensor:
+        if self._lang_dev is None:
+            self._lang_dev = torch.from_numpy(self.lang_coeff).to(runner.device)
+        return self._lang_dev
+
+    # -- steps -------------------------------------------------------------------
+    def replay_step(self, runner, state):
+        return runner.distill_step(state, self.teacher, self.next_memory_batch(), self._lang_coeffs(runner))
+
+    def supports_fused_window(self, window: int) -> bool:
+        """The fused MAFED window holds window - 1 CE microbatches and one
+        distill microbatch, so a window may hold one replay position at most."""
+        return self.config.replay_interval >= window
+
+    def window_step(self, runner, state, idx_batches):
+        replay_positions = [j for j, (i, _) in enumerate(idx_batches) if self.is_replay_batch(i)]
+        if not replay_positions:  # the first task, or an off-cadence window
+            return runner.ce_window_step(state, runner.stack_window([b for _, b in idx_batches]))
+        ce_batches = [b for j, (_, b) in enumerate(idx_batches) if j not in replay_positions]
+        return runner.mafed_window_step(
+            state, self.teacher, runner.stack_window(ce_batches), self.next_memory_batch(), self._lang_coeffs(runner)
+        )
+
+    # -- task transitions ----------------------------------------------------------
+    def update(self, runner, state, dataset, loader) -> None:
+        """Teacher <- a bfloat16 copy of the finished task's best model;
+        memory += a seeded subset of its data; the adaptive weights."""
+        self.teacher = make_teacher(state.model)
+        self.datasets.append(choose_memory(self.rng, dataset, self.memory_per_task))
+        mem_dataset = ConcatDataset(self.datasets)
+        self.set_memory(runner, mem_dataset)
+        LOGGER.info("featdistill memory: %d samples", len(mem_dataset))
+
+        if self.strategy == "adaptive":
+            importances = self._compute_adaptive_weights(runner, state, loader)
+            if self.task_id < 1:
+                self.lang_coeff = importances
+            else:  # running average across tasks (dl_weights.py:62-69)
+                self.lang_coeff = (importances + self.task_id * self.lang_coeff) / (self.task_id + 1)
+            self._lang_dev = None
+            LOGGER.info("adaptive lang coefficients: %s", np.round(self.lang_coeff, 4))
+        self.task_id += 1
+
+    def _compute_adaptive_weights(self, runner, state, loader) -> np.ndarray:
+        """Dataset-level modality importances (dl_weights.py:91-146)."""
+        lang_sums = np.zeros((len(self.layers),), np.float64)
+        image_sums = np.zeros((len(self.layers),), np.float64)
+        n_lang = n_image = 0.0
+        for batch in runner.device_batches(loader):
+            ls, ims, nl, ni = runner.adaptive_weights_step(state.model, batch)
+            lang_sums += ls.cpu().double().numpy()
+            image_sums += ims.cpu().double().numpy()
+            n_lang += float(nl)
+            n_image += float(ni)
+        lang_imp = lang_sums / max(n_lang, 1e-9)
+        image_imp = image_sums / max(n_image, 1e-9)
+        return (lang_imp / (lang_imp + image_imp)).astype(np.float32)

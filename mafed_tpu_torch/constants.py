@@ -10,3 +10,6 @@ IGNORE_INDEX = -100
 
 # Generation budget for VQA answers (greedy decode).
 MAX_NEW_TOKENS = 10
+
+# Early-stopping min-delta on generative VQA accuracy.
+PATIENCE_THRESHOLD = 5e-5

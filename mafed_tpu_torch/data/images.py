@@ -1,17 +1,58 @@
-"""Device-side image normalisation (counterpart of mafed_tpu/data/images.py).
+"""Image pipeline (counterpart of mafed_tpu/data/images.py).
 
-Images travel as uint8 NHWC [B, 224, 224, 3] (a quarter of the bytes of
-float32) and are normalised on the device, as the first op of the eval
-step: float32 arithmetic ((x - 255 * mean) / (255 * std)), NHWC -> NCHW,
-then the compute dtype.
+  host:   decode + bicubic short-side resize + center crop -> uint8 [224, 224, 3]
+          (PIL; `load_and_resize`)
+  device: uint8 -> float32, (x - 255 * mean) / (255 * std), NHWC -> NCHW,
+          then the compute dtype (`make_normalizer`), as the first op of a step
+
+Images travel as uint8, a quarter of the bytes of float32.
 """
 
 from __future__ import annotations
+
+import math
+import os
 
 import numpy as np
 import torch
 
 from mafed_tpu_torch.core.config import VisionConfig
+
+
+def get_image_path(image_dir: str, image_name: str) -> str:
+    """Image-db fname -> on-disk path (reference vl_pythia_vqa_dataset.py:15-27)."""
+    if image_name.startswith("coco"):
+        fields = os.path.splitext(image_name)[0].split("_")
+        image_path = f"COCO_{fields[1]}_{fields[2]}.jpg"
+    elif "abstract" in image_name:
+        image_path = f"{image_name.split('.npz')[0]}.png"
+    elif "VizWiz" in image_name:
+        image_path = f"{image_name.split('.npz')[0]}.jpg"
+    else:
+        image_path = image_name
+    return os.path.join(image_dir, image_path)
+
+
+def load_and_resize(path: str, cfg: VisionConfig) -> np.ndarray:
+    """Decode + bicubic resize of the short side to floor(img_size / crop_pct)
+    + center crop -> uint8 HWC, with PIL (the JAX package's PIL path; its
+    C++ engine is not ported)."""
+    try:
+        from PIL import Image
+    except ImportError as exc:
+        raise RuntimeError("load_and_resize needs PIL (pillow) to decode images") from exc
+    img = Image.open(path).convert("RGB")
+    target = cfg.img_size
+    scale_size = int(math.floor(target / cfg.crop_pct))
+    w, h = img.size
+    short, long = (w, h) if w <= h else (h, w)
+    new_long = int(round(long * scale_size / short))
+    size = (scale_size, new_long) if w <= h else (new_long, scale_size)
+    img = img.resize(size, Image.BICUBIC)
+    w, h = img.size
+    left, top = (w - target) // 2, (h - target) // 2
+    img = img.crop((left, top, left + target, top + target))
+    return np.asarray(img, dtype=np.uint8)
 
 
 def make_normalizer(cfg: VisionConfig):

@@ -1,0 +1,128 @@
+"""Threaded batch loader (copy of mafed_tpu/data/loader.py, one process).
+
+Items are loaded on a thread pool (image decode in PIL's C core releases
+the GIL) and collated batches queue ahead of the consumer. The epoch order
+is a numpy Generator's shuffle seeded with seed + epoch, so it is the same
+in both packages. Device transfer is data/prefetch.py's.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Iterator, List
+
+import numpy as np
+
+
+class BatchLoader:
+    """Iterable over collated batches, made by background workers."""
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        collate: Callable[[List[Dict]], Dict],
+        shuffle: bool = False,
+        seed: int = 0,
+        num_workers: int = 4,
+        drop_last: bool = False,
+        prefetch_batches: int = 4,
+        infinite: bool = False,
+    ) -> None:
+        """infinite: an endless stream of full batches, batch_size-chunks of
+        the concatenated epoch orders (each epoch's remainder carries into
+        the next, so a dataset smaller than a batch still fills batches)."""
+        if infinite and len(dataset) < 1:
+            raise ValueError("an infinite BatchLoader needs a non-empty dataset")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.collate = collate
+        self.shuffle = shuffle
+        self.seed = seed
+        self.num_workers = max(1, num_workers)
+        self.drop_last = drop_last
+        self.prefetch_batches = prefetch_batches
+        self.infinite = infinite
+        self._epoch = 0
+        self._start_batch = 0
+
+    def set_epoch(self, epoch: int, start_batch: int = 0) -> None:
+        """The epoch whose seeded order the next iteration walks, skipping its
+        first start_batch batches (at the index level: nothing is loaded for
+        them)."""
+        self._epoch = epoch
+        self._start_batch = start_batch
+
+    def _epoch_order(self, epoch: int) -> np.ndarray:
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + epoch).shuffle(order)
+        return order
+
+    def _index_batches(self, epoch: int) -> List[np.ndarray]:
+        order = self._epoch_order(epoch)
+        batches = []
+        for start in range(0, len(order), self.batch_size):
+            idx = order[start : start + self.batch_size]
+            if len(idx) < self.batch_size and self.drop_last:
+                continue
+            batches.append(idx)
+        return batches
+
+    def _infinite_batches(self, stop: threading.Event) -> Iterator[np.ndarray]:
+        epoch, buf = self._epoch, np.empty((0,), dtype=np.int64)
+        while not stop.is_set():
+            buf = np.concatenate([buf, self._epoch_order(epoch)])
+            epoch += 1
+            while len(buf) >= self.batch_size:
+                idx, buf = buf[: self.batch_size], buf[self.batch_size :]
+                yield idx
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self) -> Iterator[Dict]:
+        out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_batches)
+        stop = threading.Event()
+        error: List[BaseException] = []
+        if self.infinite:
+            index_batches = self._infinite_batches(stop)
+        else:
+            index_batches = iter(self._index_batches(self._epoch)[self._start_batch :])
+
+        def produce():
+            try:
+                with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+                    for idx in index_batches:
+                        if stop.is_set():
+                            return
+                        items = list(pool.map(self.dataset.__getitem__, idx))
+                        out_q.put(self.collate(items))
+            except BaseException as exc:  # handed to the consumer, which raises it:
+                # a swallowed collate error (the label_tail guard) would end the epoch early
+                error.append(exc)
+            finally:
+                out_q.put(None)
+
+        thread = threading.Thread(target=produce, daemon=True)
+        thread.start()
+        try:
+            while True:
+                batch = out_q.get()
+                if batch is None:
+                    if error:
+                        raise error[0]
+                    break
+                yield batch
+        finally:
+            stop.set()
+            while True:  # drain so the producer can exit
+                try:
+                    out_q.get_nowait()
+                except queue.Empty:
+                    break

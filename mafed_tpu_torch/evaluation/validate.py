@@ -5,6 +5,8 @@ Greedy generation of up to 10 tokens, the decoded answers scored with the
 VQA-v2 soft metric; returns valid/acc, valid/ex_per_s, valid/n_ex and the
 per-question results. A short last batch is padded to the batch size by
 repeating its last row, and the padding rows are dropped before scoring.
+Batches are a loader's: numpy arrays, and cached features as a bfloat16
+tensor.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from mafed_tpu_torch.data.prefetch import as_tensor
 from mafed_tpu_torch.evaluation.vqa_metrics import VQAGenerativeAccuracy, normalize_answer, vqa_v2_score
 
 LOGGER = logging.getLogger(__name__)
@@ -32,7 +35,10 @@ def _pad_batch(batch: Dict, batch_size: int) -> Tuple[Dict, int]:
     for k in _DECODE_KEYS:
         if k in batch:
             v = batch[k]
-            out[k] = np.concatenate([v, np.repeat(v[-1:], batch_size - n, axis=0)], axis=0)
+            if isinstance(v, torch.Tensor):
+                out[k] = torch.cat([v, v[-1:].expand((batch_size - n,) + tuple(v.shape[1:]))])
+            else:
+                out[k] = np.concatenate([v, np.repeat(v[-1:], batch_size - n, axis=0)], axis=0)
     return out, n
 
 
@@ -69,7 +75,7 @@ def validate_vqa(
         if max_batches is not None and i >= max_batches:
             break
         padded, n_valid = _pad_batch(batch, batch_size)
-        dec_batch = {k: torch.from_numpy(np.ascontiguousarray(padded[k])) for k in _DECODE_KEYS if k in padded}
+        dec_batch = {k: as_tensor(padded[k]) for k in _DECODE_KEYS if k in padded}
         toks_dev = decoder(model, dec_batch)
         if pending is not None:
             score(*pending)

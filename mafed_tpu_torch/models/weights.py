@@ -1,4 +1,4 @@
-"""Parameters carried across from the JAX package.
+"""Parameters carried across from the JAX package, and safetensors I/O.
 
 `params_from_jax` turns a VL-Pythia parameter pytree of numpy arrays (the
 JAX package's `vl_pythia.init_params` after `jax.tree.map(np.asarray, ...)`,
@@ -6,10 +6,19 @@ or a checkpoint restored to numpy) into this package's state_dict: stacked
 `[L, ...]` layer leaves are un-stacked, `[in, out]` matrices transposed to
 torch's `[out, in]`, the HWIO patch-embed conv to OIHW, and the names are the
 reference's torch names (timm's under `vision_encoder.` for the EVA-02 tower).
+
+`save_safetensors` / `load_safetensors` write and read the safetensors
+format by hand (the `safetensors` package is not needed): an 8-byte
+little-endian header length, a JSON header of
+{name: {"dtype", "shape", "data_offsets"}} padded with spaces to a multiple
+of 8 bytes, then the tensors' raw little-endian bytes.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import struct
 from typing import Any, Dict
 
 import numpy as np
@@ -84,4 +93,53 @@ def _vision_from_jax(vis: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.T
         for group in ("attn", "mlp"):  # the sub-LNs
             out[base + f"{group}.norm.weight"] = _tensor(bp[group]["norm"]["weight"][i])
             out[base + f"{group}.norm.bias"] = _tensor(bp[group]["norm"]["bias"][i])
+    return out
+
+
+_ST_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool,
+}
+_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def save_safetensors(tensors: Dict[str, torch.Tensor], path: str) -> None:
+    """Write `tensors` (any device; names in sorted order) to a safetensors
+    file at `path`, atomically."""
+    host = {k: tensors[k].detach().to("cpu").contiguous() for k in sorted(tensors)}
+    header, offset = {}, 0
+    for name, t in host.items():
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in host.values():
+            f.write(t.reshape(-1).view(torch.uint8).numpy())
+    os.replace(tmp, path)
+
+
+def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of a safetensors file, on the CPU, in file order."""
+    out: Dict[str, torch.Tensor] = {}
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        header.pop("__metadata__", None)
+        start = 8 + n
+        for name, meta in sorted(header.items(), key=lambda kv: kv[1]["data_offsets"][0]):
+            begin, end = meta["data_offsets"]
+            dtype = _ST_DTYPES[meta["dtype"]]
+            f.seek(start + begin)
+            raw = bytearray(f.read(end - begin))
+            if len(raw) != end - begin:
+                raise ValueError(f"{path}: tensor {name} is truncated")
+            t = torch.frombuffer(raw, dtype=torch.uint8) if raw else torch.empty(0, dtype=torch.uint8)
+            out[name] = t.view(dtype).reshape(meta["shape"])
     return out

@@ -1,0 +1,339 @@
+"""TaskRunner: the step registry and the per-task fit loop (counterpart of
+mafed_tpu/trainer/runner.py, one device).
+
+The reference trains each task with a PyTorch Lightning Trainer
+(mafed/train.py:284-301): epochs, gradient accumulation with the replay
+cadence kept inside accumulation windows, gradient clipping, generative
+validation after each epoch driving EarlyStopping(patience, min_delta 5e-5)
+and top-1 best-checkpoint selection (train.py:243-263).
+
+The runner owns the one VLPythia of the run on its device: trainable
+decoder and projector in float32, the frozen tower in bfloat16. A parameter
+state_dict (reference names) goes in with `load_params`; the steps are the
+factories of training/step.py. With fused windows (the default), each
+accumulation window is one step: its microbatches stay on the host until
+the window is full, then go over as one stacked, pinned, non-blocking copy.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from collections import Counter
+from functools import partial
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mafed_tpu_torch.constants import PATIENCE_THRESHOLD
+from mafed_tpu_torch.core.config import ModelConfig, TrainConfig
+from mafed_tpu_torch.core.device import resolve_device
+from mafed_tpu_torch.core.logging import LOGGER, MetricsLogger
+from mafed_tpu_torch.data.collate import collate_train
+from mafed_tpu_torch.data.loader import BatchLoader
+from mafed_tpu_torch.data.prefetch import DevicePrefetcher, as_tensor, to_device
+from mafed_tpu_torch.evaluation.decode import make_greedy_decoder
+from mafed_tpu_torch.evaluation.validate import validate_vqa
+from mafed_tpu_torch.models.vl_pythia import VLPythia
+from mafed_tpu_torch.optim.optimizer import MultiSteps, build_optimizer, set_schedule
+from mafed_tpu_torch.training.step import (
+    distillation_layers,
+    make_adaptive_weights_fn,
+    make_ce_window_step,
+    make_distill_step,
+    make_ewc_fisher_fn,
+    make_mafed_window_step,
+    make_train_step,
+)
+from mafed_tpu_torch.training.train_state import FROZEN_PREFIX, TrainState, trainable_parameters
+
+# the reference's schedule horizon: ceil(batches / accum) * 60, whatever the
+# real number of epochs (vqa_cont_learner.py:62-63)
+SCHEDULE_EPOCHS = 60
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class TaskRunner:
+    def __init__(
+        self,
+        model_cfg: ModelConfig,
+        config: TrainConfig,
+        tokenizer,
+        metrics: Optional[MetricsLogger] = None,
+        device="cuda",
+    ) -> None:
+        self.model_cfg = model_cfg
+        self.config = config
+        self.tokenizer = tokenizer
+        self.metrics = metrics
+        self.device = resolve_device(device)
+        pad_m = max(1, config.text_pad_multiple)
+        # question + answer + eos; one length for the whole run
+        self.train_text_len = _round_up(config.max_txt_len + 20, pad_m)
+        self.val_text_len = _round_up(config.max_txt_len + 4, pad_m)
+        self.model = VLPythia(model_cfg, device=self.device)
+        self.model.vision_encoder.to(torch.bfloat16)
+        self.decoder = make_greedy_decoder(
+            model_cfg, eos_token_id=getattr(tokenizer, "eos_token_id", 0), device=self.device
+        )
+        self.fisher_step = make_ewc_fisher_fn(model_cfg, config, device=self.device)
+        try:  # tap ids for the per-layer distill-loss keys (distillation configs only)
+            self._distill_layer_ids = tuple(distillation_layers(
+                config.distillation_layer_weighing_strategy, model_cfg.num_hidden_layers - 1, config.distillation_layer
+            ))
+        except ValueError:
+            self._distill_layer_ids = ()
+        self._steps: Dict[str, Callable] = {}
+        self.step_counts: Counter = Counter()  # optimizer steps taken, by kind
+        self.window = 1  # microbatches per step (1 = the per-microbatch MultiSteps path)
+        self.tx = None
+        self.ce_step: Optional[Callable] = None
+
+    # -- parameters --------------------------------------------------------------
+    def load_params(self, params: Dict[str, torch.Tensor]) -> None:
+        """Copy a full state_dict (reference names, any device and float
+        dtype) into the model, in the model's dtypes."""
+        self.model.load_state_dict(params, strict=True)
+
+    def host_trainable(self) -> Dict[str, torch.Tensor]:
+        """A CPU copy of the trainable parameters."""
+        return {k: p.detach().to("cpu", copy=True) for k, p in trainable_parameters(self.model).items()}
+
+    def frozen_params(self) -> Dict[str, torch.Tensor]:
+        """The frozen tower's entries of the state_dict (the live tensors)."""
+        return {k: v for k, v in self.model.state_dict().items() if k.startswith(FROZEN_PREFIX)}
+
+    # -- loaders -------------------------------------------------------------------
+    def make_train_loader(self, dataset, shuffle: bool = True, seed: Optional[int] = None,
+                          infinite: bool = False) -> BatchLoader:
+        return BatchLoader(
+            dataset,
+            batch_size=self.config.batch_size,
+            collate=partial(collate_train, text_len=self.train_text_len, label_tail=self.config.label_tail or None),
+            shuffle=shuffle or infinite,
+            seed=self.config.seed if seed is None else seed,
+            num_workers=self.config.n_workers,
+            drop_last=True,
+            infinite=infinite,
+        )
+
+    def device_batches(self, loader):
+        return DevicePrefetcher(loader, self.device, depth=self.config.prefetch_depth)
+
+    @property
+    def host_window(self) -> bool:
+        """Fused windows keep microbatches on the host; stack_window ships
+        each window as one copy."""
+        return self.window > 1
+
+    def fit_batches(self, loader):
+        return iter(loader) if self.host_window else iter(self.device_batches(loader))
+
+    def memory_batches(self, loader):
+        """The memory stream takes the layout of fit_batches, so a window
+        never mixes host and device batches."""
+        return self.fit_batches(loader)
+
+    # -- optimizer and state ---------------------------------------------------------
+    def ensure_window_policy(self, strategy) -> None:
+        """Fix the fused-window size before any memory stream exists."""
+        if self.tx is not None:
+            return
+        accum = max(1, self.config.accumulate_grad_batches)
+        fused = self.config.fused_window and accum > 1 and strategy is not None and strategy.supports_fused_window(accum)
+        self.window = accum if fused else 1
+
+    def setup_task_optimizer(self, dataset_size: int, strategy=None) -> None:
+        """Set the task's schedule horizon; build the optimizer once for the run.
+
+        The horizon is ceil(batches / accum) * 60 with warmup_perc of it
+        (the reference's quirk). Fused windows run the optimizer directly;
+        otherwise microbatch steps run under MultiSteps(accum). Either way
+        the optimizer applies once per window."""
+        batches_per_epoch = dataset_size // self.config.batch_size
+        accum = max(1, self.config.accumulate_grad_batches)
+        total_steps = math.ceil(batches_per_epoch / accum) * SCHEDULE_EPOCHS
+        warmup_steps = int(self.config.warmup_perc * total_steps)
+        LOGGER.info("schedule: total=%d warmup=%d", total_steps, warmup_steps)
+        self._sched = (warmup_steps, total_steps)
+        if self.tx is None:
+            self.ensure_window_policy(strategy)
+            tx = build_optimizer(self.config, trainable_parameters(self.model))
+            if accum > 1 and self.window == 1:
+                tx = MultiSteps(tx, accum)
+            self.tx = tx
+            self.ce_step = self._counted("ce_step", make_train_step(
+                self.model_cfg, self.config, tx, device=self.device))
+            if self.window > 1:
+                LOGGER.info("fused accumulation windows: %d microbatches/step", accum)
+        if self.window > 1 and batches_per_epoch < self.window:
+            LOGGER.warning(
+                "epoch has %d batches < window %d: accumulation windows span "
+                "epochs (an optimizer step fires once a window fills)", batches_per_epoch, self.window,
+            )
+
+    def init_state(self, params: Dict[str, torch.Tensor]) -> TrainState:
+        """Load `params` into the model; a fresh optimizer state on this task's schedule."""
+        if self.tx is None:
+            raise RuntimeError("call setup_task_optimizer first")
+        self.load_params(params)
+        opt_state = set_schedule(self.tx.init(trainable_parameters(self.model)), *self._sched)
+        return TrainState(0, self.model, opt_state)
+
+    # -- steps -----------------------------------------------------------------------
+    def _counted(self, kind: str, step: Callable) -> Callable:
+        def run(*args):
+            self.step_counts[kind] += 1
+            return step(*args)
+        return run
+
+    def _step(self, kind: str, make: Callable) -> Callable:
+        if kind not in self._steps:
+            self._steps[kind] = self._counted(kind, make())
+        return self._steps[kind]
+
+    def ewc_step(self, state, batch, ewc_state):
+        step = self._step("ewc_step", lambda: make_train_step(
+            self.model_cfg, self.config, self.tx, with_ewc=True, device=self.device))
+        return step(state, batch, ewc_state)
+
+    def distill_step(self, state, teacher, batch, lang_coeffs):
+        step = self._step("distill_step", lambda: make_distill_step(
+            self.model_cfg, self.config, self.tx, device=self.device))
+        return step(state, teacher, batch, lang_coeffs)
+
+    def stack_window(self, batches) -> Dict[str, torch.Tensor]:
+        """[n_mb, B, ...] tensors on the device of a window's microbatches.
+        Host batches are stacked straight into pinned memory and go over as
+        one non-blocking copy per field; device batches stack on the device."""
+        keys = [k for k in batches[0] if isinstance(batches[0][k], (np.ndarray, torch.Tensor))]
+        if isinstance(batches[0]["input_ids"], torch.Tensor) and batches[0]["input_ids"].device == self.device:
+            return {k: torch.stack([b[k] for b in batches]) for k in keys}
+        out = {}
+        for k in keys:
+            parts = [as_tensor(b[k]) for b in batches]
+            pin = self.device.type == "cuda"
+            buf = torch.empty((len(parts),) + tuple(parts[0].shape), dtype=parts[0].dtype, pin_memory=pin)
+            torch.stack(parts, out=buf)
+            out[k] = buf.to(self.device, non_blocking=pin)
+        return out
+
+    def ce_window_step(self, state, stacked):
+        step = self._step("ce_window", lambda: make_ce_window_step(
+            self.model_cfg, self.config, self.tx, device=self.device))
+        return step(state, stacked)
+
+    def ewc_window_step(self, state, stacked, ewc_state):
+        step = self._step("ewc_window", lambda: make_ce_window_step(
+            self.model_cfg, self.config, self.tx, with_ewc=True, device=self.device))
+        return step(state, stacked, ewc_state)
+
+    def mafed_window_step(self, state, teacher, ce_stacked, distill_batch, lang_coeffs):
+        step = self._step("mafed_window", lambda: make_mafed_window_step(
+            self.model_cfg, self.config, self.tx, n_ce=self.window - 1, device=self.device))
+        if not isinstance(distill_batch["input_ids"], torch.Tensor):  # a host memory batch
+            distill_batch = to_device(distill_batch, self.device)
+        return step(state, teacher, ce_stacked, distill_batch, lang_coeffs)
+
+    def adaptive_weights_step(self, model, batch):
+        fn = self._steps.get("adaptive")
+        if fn is None:
+            fn = self._steps["adaptive"] = make_adaptive_weights_fn(
+                self.model_cfg, self.config, self._distill_layer_ids, device=self.device)
+        return fn(model, batch)
+
+    def validate(self, val_loader) -> Tuple[Dict, Dict]:
+        return validate_vqa(self.model, self.decoder, val_loader, self.tokenizer, self.config.val_batch_size,
+                            max_batches=self.config.val_max_batches)
+
+    def synchronize(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- fit -----------------------------------------------------------------------------
+    def fit(self, state: TrainState, strategy, train_dataset, val_loader, task_id: int,
+            epochs: int) -> Tuple[TrainState, Dict[str, torch.Tensor], Dict]:
+        """Train one task with early stopping: (state, a CPU copy of the best
+        trainable parameters, the fit log)."""
+        loader = self.make_train_loader(train_dataset, shuffle=True, seed=self.config.seed + task_id)
+        counts_before = Counter(self.step_counts)
+        best_acc = -float("inf")
+        best_trainable = None
+        wait = 0
+        global_step = 0
+        history = []
+        # a partial window carries into the next epoch, as gradient
+        # accumulation (and MultiSteps) does
+        window_buf = []
+        for epoch in range(epochs):
+            epoch_start = time.time()
+            n_seen = 0
+            loader.set_epoch(epoch)
+            last_logged = global_step
+            for batch_idx, batch in enumerate(self.fit_batches(loader)):
+                if self.window > 1:
+                    window_buf.append((batch_idx, batch))
+                    if len(window_buf) < self.window:
+                        continue
+                    state, m = strategy.window_step(self, state, window_buf)
+                    window_buf = []
+                    n_seen += self.config.batch_size * self.window
+                    global_step += self.window
+                elif strategy.is_replay_batch(batch_idx):
+                    state, m = strategy.replay_step(self, state)
+                    n_seen += self.config.batch_size
+                    global_step += 1
+                else:
+                    state, m = strategy.train_step(self, state, batch)
+                    n_seen += self.config.batch_size
+                    global_step += 1
+                if self.metrics is not None and global_step - last_logged >= self.config.log_every:
+                    last_logged = global_step
+                    payload = {
+                        f"task_{task_id}/train_loss": float(m["loss"]),
+                        f"task_{task_id}/grad_norm": float(m["grad_norm"]),
+                    }
+                    dl = m.get("distill_layer_losses")
+                    if dl is not None:
+                        for layer, v in zip(self._distill_layer_ids, dl.tolist()):
+                            payload[f"task_{task_id}/distill_loss_{layer}"] = float(v)
+                    self.metrics.log_metrics(payload, step=global_step)
+            # the steps run asynchronously: without this the epoch time would
+            # measure their dispatch, and validation would absorb their work
+            self.synchronize()
+            ex_per_s = n_seen / max(time.time() - epoch_start, 1e-9)
+
+            val_log, _ = self.validate(val_loader)
+            acc = float(val_log["valid/acc"])
+            history.append({"epoch": epoch, "acc": acc, "train_ex_per_s": ex_per_s})
+            LOGGER.info("task %d epoch %d: acc=%.4f train_ex/s=%.1f", task_id, epoch, acc, ex_per_s)
+            if self.metrics is not None:
+                self.metrics.log_metrics(
+                    {f"task_{task_id}/valid_acc": acc, f"task_{task_id}/train_ex_per_s": ex_per_s}, step=global_step
+                )
+            # EarlyStopping + ModelCheckpoint(top-1)
+            if acc > best_acc + PATIENCE_THRESHOLD:
+                wait = 0
+            elif math.isfinite(best_acc):
+                wait += 1
+            if acc > best_acc:
+                best_acc = acc
+                best_trainable = self.host_trainable()
+            if wait >= self.config.patience:
+                LOGGER.info("early stopping at epoch %d (patience %d)", epoch, self.config.patience)
+                break
+
+        if window_buf:
+            LOGGER.info(
+                "fit end: %d trailing microbatches did not fill an accumulation window (window=%d) "
+                "and were not applied", len(window_buf), self.window,
+            )
+        if best_trainable is None:
+            best_trainable = self.host_trainable()
+        fit_log = {"best_acc": best_acc, "epochs_run": len(history), "history": history, "global_step": global_step,
+                   "steps": dict(self.step_counts - counts_before)}
+        return state, best_trainable, fit_log

@@ -1,7 +1,7 @@
 """Where the time of the port's main paths goes on an NVIDIA GPU.
 
-    python3 scripts/profile_torch.py [--path window|window_unfused|ce_window|train_step|decode]
-                                     [--preset 410m|1b] [--reps 2] [--out PATH]
+    python3 scripts/profile_torch.py [--path window|window_unfused|ce_window|train_step|decode|cl_sequence]
+                                     [--preset 410m|1b] [--reps 2] [--train-questions 1024] [--out PATH]
 
 window: the fused MAFED window of chip_smoke.py (VL-Pythia-410M at full width
 and depth, 3 CE microbatches of 16 + 1 memory microbatch of 16, 256 cached
@@ -19,7 +19,16 @@ bf16 weights, batch 32, text 64 with 16 left-padded positions, 10 new
 tokens): the whole decode from uint8 pixels and from cached patches, and its
 parts alone: the tower, the KV-cache prefill, and one single-token step.
 
---preset 1b runs every path with VL-Pythia-1B (hidden 2048, 16 layers, 8
+cl_sequence: chip_smoke.py's two-task MAFED sequence through the trainer's
+entry points (the shipped config and its 410M model, synthetic data), with
+`--train-questions` a task (1024: 16 windows a task) and 32 val questions.
+It runs three times in one process: a warm-up sequence at 128 questions
+(the kernels' build and every first use in the process land there); then
+unprofiled, for the trainer's own stage times and `train_ex_per_s`; then
+with each task's fit (its epoch and the epoch's validation) profiled as one
+unit. `--preset` does not apply to it.
+
+--preset 1b runs every other path with VL-Pythia-1B (hidden 2048, 16 layers, 8
 heads of 256) at the same shapes in place of the 410M model.
 
 For each profiled unit, torch.profiler over `--reps` steady repetitions
@@ -201,12 +210,51 @@ def decode_units(reps: int, preset: str) -> dict:
     }
 
 
+def cl_sequence_units(train_questions: int) -> dict:
+    import tempfile
+
+    from chip_smoke import cl_sequence_argv, write_synthetic_vqa
+    from mafed_tpu_torch.core.config import ModelConfig, build_arg_parser, parse_with_config
+    from mafed_tpu_torch.trainer.continual import ContinualLearningTrainer
+
+    units = {}
+    for name, n_train, profiled in (("warmup", 128, False), ("sequence", train_questions, False),
+                                    ("profiled", train_questions, True)):
+        with tempfile.TemporaryDirectory(prefix="cl_sequence_") as root:
+            write_synthetic_vqa(root, ("taskA", "taskB"), n_train, 32)
+            cfg = parse_with_config(build_arg_parser(), cl_sequence_argv(root))
+            trainer = ContinualLearningTrainer(cfg, model_cfg=ModelConfig.from_json(cfg.model_config),
+                                               synthetic_images=True)
+            if profiled:
+                fit = trainer.runner.fit
+
+                def profiled_fit(*args):
+                    out = []
+                    units[f"fit_task{args[4]}"] = profile(lambda: out.append(fit(*args)), reps=1, warmup=0)
+                    return out[0]
+
+                trainer.runner.fit = profiled_fit
+            start = time.perf_counter()
+            trainer.main()
+            if not profiled:
+                units[name] = {
+                    "wall_s": time.perf_counter() - start, "seconds": trainer.timings,
+                    "train_ex_per_s": [[h["train_ex_per_s"] for h in log["history"]] for log in trainer.fit_logs],
+                    "steps": [log["steps"] for log in trainer.fit_logs], "images_primed": trainer.primed,
+                }
+            del trainer
+            torch.cuda.empty_cache()
+    return units
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--path", choices=("window", "window_unfused", "ce_window", "train_step", "decode"),
+    parser.add_argument("--path", choices=("window", "window_unfused", "ce_window", "train_step", "decode",
+                                           "cl_sequence"),
                         default="window")
     parser.add_argument("--preset", choices=("410m", "1b"), default="410m")
     parser.add_argument("--reps", type=int, default=2)
+    parser.add_argument("--train-questions", type=int, default=1024, help="cl_sequence: train questions a task")
     parser.add_argument("--out", help="also write the JSON object to this file")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -223,6 +271,8 @@ def main() -> int:
         units = window_units(args.reps, args.preset, fuse=args.path == "window")
     elif args.path == "decode":
         units = decode_units(args.reps, args.preset)
+    elif args.path == "cl_sequence":
+        units = cl_sequence_units(args.train_questions)
     else:
         units = ce_units(args.path, args.reps, args.preset)
     result = {"card": smi, "path": args.path, "preset": args.preset, "reps": args.reps, "units": units}

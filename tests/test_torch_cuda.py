@@ -245,3 +245,70 @@ def test_adaptive_weights_on_card_match_cpu(gpu):
     assert tattn.LAUNCHES == {k: cfg.num_hidden_layers for k in tattn.LAUNCHES}
     err = (sums["cuda"] - sums["cpu"]).norm() / sums["cpu"].norm()
     assert err <= 5e-2, err
+
+
+@pytest.mark.cuda
+def test_prefetcher_copies_on_a_side_stream(gpu):
+    """DevicePrefetcher (depth 3, pinned copies on a side stream): every
+    batch arrives on the card equal to its host arrays and in order, while
+    the consumer reads each batch and drops it with later copies in flight."""
+    from mafed_tpu_torch.data.prefetch import DevicePrefetcher
+
+    rng = np.random.default_rng(0)
+    host = [{"input_ids": rng.integers(0, 100, size=(16, 80)).astype(np.int32),
+             "patches": torch.from_numpy(rng.normal(size=(16, 256, 64)).astype(np.float32)).to(torch.bfloat16),
+             "qids": [i]} for i in range(12)]
+    sums = []
+    for i, batch in enumerate(DevicePrefetcher(iter(host), "cuda", depth=3)):
+        assert batch["input_ids"].is_cuda and batch["patches"].is_cuda and batch["qids"] == [i]
+        sums.append((batch["input_ids"].long().sum(), batch["patches"].float().sum()))
+        del batch
+    torch.cuda.synchronize()
+    for (ids, patches), h in zip(sums, host):
+        assert int(ids) == int(h["input_ids"].astype(np.int64).sum())
+        assert float(patches) == pytest.approx(float(h["patches"].float().sum()), rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_window", [True, False])
+def test_cl_sequence_on_card_matches_cpu(gpu, tmp_path, fused_window):
+    """A tiny two-task featdistill sequence (bf16) on the card and on the CPU
+    from the same weights: the same steps by task, and every logged train
+    loss and grad norm within rtol 5e-2. Without fused windows the batches
+    reach the card through DevicePrefetcher."""
+    import json
+    import os
+
+    import chip_smoke  # its synthetic data writer (it imports the port only)
+    from mafed_tpu_torch.core.config import ModelConfig, TrainConfig, VisionConfig
+    from mafed_tpu_torch.models.vl_pythia import init_model
+    from mafed_tpu_torch.trainer.continual import ContinualLearningTrainer
+
+    model_cfg = ModelConfig(vocab_size=512, num_attention_heads=2, **DECODERS[64],
+                            vision=VisionConfig(img_size=56, embed_dim=128, depth=2, num_heads=2))
+    params = init_model(model_cfg, seed=0, device="cpu").state_dict()
+    steps, logged = {}, {}
+    for device in ("cpu", "cuda"):
+        root = str(tmp_path / device)
+        chip_smoke.write_synthetic_vqa(root, ("taskA", "taskB"), 32, 8)
+        cfg = TrainConfig(
+            output_dir=os.path.join(root, "out"), data_dir=root, question_task_ids=os.path.join(root, "contvqa"),
+            exp="tiny", tasks=["taskA", "taskB"], train_img_dirs=["unused"], val_img_dirs=["unused"],
+            batch_size=4, val_batch_size=4, accumulate_grad_batches=4, replay_interval=4, cl_memory=8,
+            cl_method="featdistill", distillation_modality_weighing_strategy="balanced",
+            distillation_layer_weighing_strategy="discounted", distillation_layer_discount=0.5,
+            fused_window=fused_window, epochs=[1, 1], max_txt_len=24, text_pad_multiple=8, learning_rate=1e-3,
+            optim="adamw", log_every=1, n_workers=2, val_num_workers=2, allow_tokenizer_fallback=True,
+            device_vision_table_mb=0, teacher_state_cache="off", mesh_shape=[1, 1],
+        )
+        trainer = ContinualLearningTrainer(cfg, model_cfg=model_cfg, synthetic_images=True, init_params=params,
+                                           device=device)
+        result = trainer.main()
+        assert np.isfinite(result["accuracy_matrix"]).all()
+        steps[device] = [log["steps"] for log in trainer.fit_logs]
+        with open(os.path.join(cfg.output_dir, "log", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        logged[device] = [r[k] for r in records for k in sorted(r) if k.endswith(("train_loss", "grad_norm"))]
+    assert steps["cuda"] == steps["cpu"]
+    assert len(logged["cuda"]) == len(logged["cpu"]) > 0
+    np.testing.assert_allclose(logged["cuda"], logged["cpu"], rtol=5e-2)

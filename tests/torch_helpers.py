@@ -75,3 +75,52 @@ def to_torch(batch_np, device="cpu"):
 
 def to_jax(batch_np):
     return {k: jnp.asarray(v) for k, v in batch_np.items()}
+
+
+QUESTIONS = [
+    ("what color is the ball", "red"),
+    ("how many dogs are there", "two"),
+    ("what is the person doing", "running"),
+    ("is it raining", "yes"),
+    ("what animal is shown", "cat"),
+    ("what room is this", "kitchen"),
+]
+
+
+def write_synthetic_vqa(root: str, tasks=("taskA", "taskB"), n_train: int = 24, n_val: int = 8) -> "tcfg.TrainConfig":
+    """The port's writer of the synthetic ContVQA layout of
+    tests/helpers.py::write_synthetic_vqa ({split}_annotations.json and the
+    split files under contvqa/tiny), and the port's TrainConfig over it."""
+    import json
+    import os
+
+    os.makedirs(os.path.join(root, "contvqa", "tiny"), exist_ok=True)
+    records, splits = {"train": {}, "val": {}}, {"train": {}, "valid": {}}
+    for task in tasks:
+        for split, key, n, suffix in (("train", "train", n_train, "tr"), ("val", "valid", n_val, "va")):
+            ids = []
+            for i in range(n):
+                q, a = QUESTIONS[i % len(QUESTIONS)]
+                qid = f"{task}_{suffix}{i}"
+                records[split][qid] = {
+                    "image_id": i, "id": qid, "question_id": qid, "question": q, "img_fname": f"synthetic_{i}",
+                    "multiple_choice_answer": a,
+                    "answers": [{"answer": a, "answer_confidence": "yes", "answer_id": j} for j in range(10)],
+                    "answer_type": "other",
+                }
+                ids.append(qid)
+            splits[key][task] = ids
+    for split in ("train", "val"):
+        with open(os.path.join(root, f"{split}_annotations.json"), "w") as f:
+            json.dump(records[split], f)
+    for key in ("train", "valid"):
+        with open(os.path.join(root, "contvqa", "tiny", f"{key}_question_ids.json"), "w") as f:
+            json.dump(splits[key], f)
+    return tcfg.TrainConfig(
+        output_dir=os.path.join(root, "out"), data_dir=root, question_task_ids=os.path.join(root, "contvqa"),
+        exp="tiny", tasks=list(tasks), train_img_dirs=["unused"], val_img_dirs=["unused"],
+        batch_size=4, val_batch_size=4, accumulate_grad_batches=1, epochs=[1, 1], max_txt_len=24,
+        n_workers=2, val_num_workers=2, learning_rate=1e-3, optim="adamw", weight_decay=0.01,
+        text_pad_multiple=8, mesh_shape=[1, 1], log_every=1, seed=42, allow_tokenizer_fallback=True,
+        device_vision_table_mb=0, teacher_state_cache="off",
+    )
