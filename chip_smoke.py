@@ -23,7 +23,9 @@ Phases, each printing one JSON line:
      features and KV-cache prefill logits (head_dim-64 tower; a decoder with
      heads of 64, then one with heads of 256); then the head_dim-64 model's
      CE window, EWC window, train step, distill step, Fisher accumulator and
-     adaptive-weight sums, card against CPU;
+     adaptive-weight sums, card against CPU; and the rows the device vision
+     table (bfloat16 and int8) and the teacher table gather, card against
+     CPU, bit for bit;
   5. window: three fused MAFED windows of VL-Pythia-410M at full width and
      depth (random seeded weights, cached-patch shapes of the bench), with the
      kernel launch counts of that run;
@@ -57,10 +59,24 @@ Phases, each printing one JSON line:
      depth, random weights from the seed): two tasks of 128 train and 32 val
      synthetic questions, one epoch each, featdistill (MAFED) with fused
      windows of 4 x 16 and a replay batch every 4th, the vision cache primed
-     through the port's tower; asserts the accuracy matrix and BWT, the run's
-     files, a bit-for-bit checkpoint reload, an unchanged teacher, the
-     windows each task ran and the flash launches computed from the config;
-     prints the seconds of each stage and each task's train examples/s.
+     through the port's tower, with --device_vision_table_mb 0
+     --teacher_state_cache off (streamed features, the in-step teacher);
+     asserts the accuracy matrix and BWT, the run's files, a resume bundle
+     after each task, a bit-for-bit checkpoint reload, an unchanged teacher,
+     the windows each task ran and the flash launches computed from the
+     config; prints the seconds of each stage and each task's train
+     examples/s;
+ 10. cl_sequence_default: the same command line without those two switches,
+     the shipped config's defaults: the features in a device table (tier,
+     rows and MB asserted), the teacher's states primed after task 0 into a
+     device table (examples and MB asserted), the MAFED windows without
+     their teacher pass and priming's forwards in the launches; its accuracy
+     matrix equal to cl_sequence's and its losses within SEQUENCE_LOSS_RTOL;
+ 11. cl_resume: the default sequence preempted after task 1's first window
+     (Preempted, exit code 143, a mid-epoch bundle), then restarted with
+     --resume_from_checkpoint: its {task}_best checkpoints and accuracy
+     matrix equal to cl_sequence_default's bit for bit, the launches of each
+     half as computed; the seconds of each half and of each bundle saved.
 Then the kernel summary line (one entry per kernel and head_dim), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a CUDA device, or without the
@@ -81,9 +97,12 @@ import time
 import numpy as np
 import torch
 
+from mafed_tpu_torch.core import preempt
 from mafed_tpu_torch.core.config import (
     ModelConfig, TrainConfig, VisionConfig, build_arg_parser, model_config_for_preset, parse_with_config,
 )
+from mafed_tpu_torch.data import teacher_cache as ttc
+from mafed_tpu_torch.data import vision_table as vt
 from mafed_tpu_torch.data.images import make_normalizer, prep_pixels, synthetic_image
 from mafed_tpu_torch.data.tokenizer import ByteTokenizer
 from mafed_tpu_torch.evaluation.decode import make_greedy_decoder
@@ -509,6 +528,33 @@ def phase_reference_steps() -> None:
           "rel_err": errs, "rel_err_limit": VECTOR_RTOL})
 
 
+def phase_reference_tables() -> None:
+    """The device tables gather on the card the rows they gather on the CPU,
+    bit for bit: the vision table in bfloat16 and in int8 (its dequantizing
+    multiply in bfloat16 on both devices) at the 410M features' shape
+    [64, 256, 1024], and the teacher table at the 410M sequence's states
+    [8, 23, 336, 1024]; a window's [4, 16] rows and a batch's 16."""
+    gen = torch.Generator().manual_seed(9)
+    feats = (torch.randn(64, 256, 1024, generator=gen) * torch.rand(64, 256, 1, generator=gen) * 8).to(torch.bfloat16)
+    rows = torch.randint(0, 64, (4, 16), generator=gen, dtype=torch.int32).numpy()
+    checked = {}
+    for dtype in ("bfloat16", "int8"):
+        got = {dev: vt.DeviceVisionTable(feats, {f"k{i}": i for i in range(64)}, dtype=dtype, device=dev)
+               for dev in ("cpu", "cuda")}
+        card, cpu = (got[dev].resolve({"patch_idx": rows})["patches"] for dev in ("cuda", "cpu"))
+        if card.device.type != "cuda" or not torch.equal(card.cpu(), cpu):
+            raise AssertionError(f"reference tables: the {dtype} vision table's rows on the card != on the CPU")
+        checked[f"vision_{dtype}"] = list(card.shape)
+    states = torch.randn(8, 23, 336, 1024, generator=gen).to(torch.bfloat16)
+    idx = torch.randint(0, 8, (16,), generator=gen, dtype=torch.int32).numpy()
+    tables = {dev: ttc.DeviceTeacherTable(states, {f"q{i}": i for i in range(8)}, device=dev) for dev in ("cpu", "cuda")}
+    card, cpu = (tables[dev].resolve({"t_idx": idx})["t_hs"] for dev in ("cuda", "cpu"))
+    if card.device.type != "cuda" or not torch.equal(card.cpu(), cpu):
+        raise AssertionError("reference tables: the teacher table's rows on the card != on the CPU")
+    checked["teacher"] = list(card.shape)
+    emit({"phase": "reference", "case": "tables", "bit_equal": checked})
+
+
 def phase_window(smi: str, preset: str, phase: str):
     """Three fused MAFED windows of VL-Pythia-`preset` at full width and depth
     (bench.py's shape); returns the launches by head_dim."""
@@ -903,12 +949,18 @@ def write_synthetic_vqa(root: str, tasks, n_train: int, n_val: int) -> None:
 
 
 SHIPPED_CONFIG = "config/train-vqa-base-cl-vlpythia.json"
+# the settings phase cl_sequence keeps from before the port had the device tables
+STREAMING_SWITCHES = ["--device_vision_table_mb", "0", "--teacher_state_cache", "off"]
+# task-1 losses of the default sequence (the teacher's states and the features from
+# the tables) against cl_sequence's (the in-step teacher, streamed features): bf16 on
+# both sides, the states primed in batches other than the windows' memory batches
+SEQUENCE_LOSS_RTOL = 1e-2
 
 
 def cl_sequence_argv(root: str) -> list:
     """The command line of the sequence: the shipped config, cut to two
     small tasks of one epoch, MAFED with balanced modality weights and
-    discounted layers (gamma 0.5), the settings the port lacks switched off."""
+    discounted layers (gamma 0.5); every other setting the trainer's default."""
     return ["--config", SHIPPED_CONFIG, "--output_dir", os.path.join(root, "out"), "--data_dir", root,
             "--question_task_ids", os.path.join(root, "contvqa"), "--exp", "tiny",
             "--train_img_dirs", "unused", "--val_img_dirs", "unused", "--tasks", "taskA", "taskB",
@@ -916,54 +968,149 @@ def cl_sequence_argv(root: str) -> list:
             "--cl_memory", "32", "--cl_method", "featdistill",
             "--distillation_modality_weighing_strategy", "balanced",
             "--distillation_layer_weighing_strategy", "discounted", "--distillation_layer_discount", "0.5",
-            "--device_vision_table_mb", "0", "--teacher_state_cache", "off", "--allow_tokenizer_fallback",
-            "--log_every", "1"]
+            "--allow_tokenizer_fallback", "--log_every", "1"]
 
 
-def phase_cl_sequence(smi: str, device: str = "cuda", model_cfg=None, n_train: int = 128, n_val: int = 32):
-    """A two-task MAFED sequence through the trainer's entry points; returns
-    the launches by head_dim. `model_cfg` replaces the shipped config's
-    model and `device` the card, for a rehearsal at a tiny size on the CPU
-    (where no kernel launches, so launches are not checked)."""
-    saved = {}
+def drive_sequence(argv, device, model_cfg, keep_checkpoints: str = "first", preempt_after=None) -> dict:
+    """parse_with_config over `argv`, then ContinualLearningTrainer.main, with
+    the launch counts set to 0 just before and read just after. Keeps host
+    copies of the checkpoints written ("first" or "all", by file name) and
+    the (task, epoch) of the resume bundle each fit leaves. With
+    `preempt_after`, a preemption is requested after that many updates and
+    only Preempted with code 143 ends the run."""
+    cfg = parse_with_config(build_arg_parser(), argv)
+    model_cfg = model_cfg or ModelConfig.from_json(cfg.model_config)
+    saved, bundles = {}, []
     save = continual.save_task_checkpoint
 
     def save_and_keep(state_dict, path):
-        """The trainer's save, keeping a host copy of the first checkpoint written."""
-        if not saved:
-            saved[path] = {k: v.detach().float().cpu().clone() for k, v in state_dict.items()}
+        if keep_checkpoints == "all" or not saved:
+            saved[os.path.basename(path)] = {k: v.detach().float().cpu().clone() for k, v in state_dict.items()}
         save(state_dict, path)
 
+    continual.save_task_checkpoint = save_and_keep
+    preempted = None
+    try:
+        A.reset_launches()
+        start = time.perf_counter()
+        trainer = continual.ContinualLearningTrainer(cfg, model_cfg=model_cfg, synthetic_images=True, device=device)
+        fit = trainer.runner.fit
+
+        def fit_and_read_bundle(*args, **kwargs):
+            out = fit(*args, **kwargs)
+            with open(os.path.join(cfg.output_dir, "resume", "fit_state.json")) as f:
+                meta = json.load(f)
+            bundles.append([meta["task_id"], meta["epoch"]])
+            return out
+
+        trainer.runner.fit = fit_and_read_bundle
+        if preempt_after is not None:
+            preempt.request_preemption_after(preempt_after)
+        try:
+            result = trainer.main()
+        except preempt.Preempted as exc:
+            if preempt_after is None or exc.code != 143:
+                raise
+            result, preempted = None, exc
+        wall = time.perf_counter() - start
+    finally:
+        continual.save_task_checkpoint = save
+        preempt.clear()
+    if preempt_after is not None and preempted is None:
+        raise AssertionError(f"no preemption after {preempt_after} updates")
+    return {"cfg": cfg, "model_cfg": model_cfg, "trainer": trainer, "result": result, "wall": wall,
+            "launches": launches_by_dim(), "saved": saved, "bundles": bundles,
+            "losses": logged_losses(cfg.output_dir), "bundle_save_s": trainer.runner.bundle_save_s,
+            "train_ex_per_s": [[h["train_ex_per_s"] for h in log["history"]] for log in trainer.fit_logs]}
+
+
+def logged_losses(out: str) -> dict:
+    """{task: [train_loss of each logged update]} of a run's metrics.jsonl."""
+    losses = {}
+    with open(os.path.join(out, "log", "metrics.jsonl")) as f:
+        for rec in map(json.loads, f):
+            for k, v in rec.items():
+                if k.endswith("/train_loss"):
+                    losses.setdefault(k.split("/")[0], []).append(v)
+    return losses
+
+
+def sequence_launches(cfg, model_cfg, ce: int, mafed: int, decode_batches: int, tower_batches: int,
+                      teacher_batches: int, in_step_teacher: bool) -> dict:
+    """The flash launches by head_dim of a sequence's run: each CE window a
+    forward and its recompute per layer and one backward; each MAFED window
+    the same for its CE and student passes, plus the in-step teacher's
+    forward through the deepest tap (or none, the teacher's states cached);
+    a forward per layer for each decode batch and each tower batch; the
+    teacher-cache priming a forward through the deepest tap per batch."""
+    layers = model_cfg.num_hidden_layers
+    deepest = max(distillation_layers(cfg.distillation_layer_weighing_strategy, layers - 1, cfg.distillation_layer))
+    fwd = (ce * 2 * layers + mafed * (4 * layers + (deepest if in_step_teacher else 0))
+           + decode_batches * layers + teacher_batches * deepest)
+    decoder = _kernels(fwd, ce * layers + mafed * 2 * layers)
+    tower = _kernels(tower_batches * model_cfg.vision.depth, 0)
+    return {d: {k: (decoder[k] if d == model_cfg.head_dim else 0)
+                + (tower[k] if d == model_cfg.vision.head_dim else 0) for k in A.LAUNCHES}
+            for d in build.HEAD_DIMS}
+
+
+def check_sequence(phase: str, run: dict, n_train: int, n_val: int, device: str, tables: bool) -> dict:
+    """The checks every full sequence passes: the accuracy matrix and BWT,
+    the run's files, a resume bundle after each task, the windows each task
+    ran, the images primed, and the launches computed from the config
+    (checked on the card). Returns the computed counts."""
+    cfg, model_cfg, trainer, result = run["cfg"], run["model_cfg"], run["trainer"], run["result"]
+    acc = np.asarray(result["accuracy_matrix"])
+    if acc.shape != (2, 2) or not np.isfinite(acc).all() or not ((acc >= 0) & (acc <= 1)).all():
+        raise AssertionError(f"{phase}: accuracy matrix {acc}")
+    if abs(result["bwt"] - (acc[0, 1] - acc[0, 0])) > 1e-12:
+        raise AssertionError(f"{phase}: bwt {result['bwt']} != A[0,1] - A[0,0] of {acc}")
+    out = cfg.output_dir
+    files = [os.path.join(out, "log", "results.json"), os.path.join(out, "log", "hps.json")] + [
+        os.path.join(out, "ckpt", f"{t}_best.safetensors") for t in cfg.tasks]
+    missing = [f for f in files if not os.path.exists(f)]
+    if missing:
+        raise AssertionError(f"{phase}: missing {missing}")
+    if run["bundles"] != [[0, 0], [1, 0]]:
+        raise AssertionError(f"{phase}: resume bundles (task, epoch) after each fit {run['bundles']}")
+    batches = n_train // cfg.batch_size
+    windows = batches // cfg.accumulate_grad_batches
+    steps = [{"ce_window": windows * cfg.epochs[0]}, {"mafed_window": windows * cfg.epochs[1]}]
+    if [log["steps"] for log in trainer.fit_logs] != steps:
+        raise AssertionError(f"{phase}: steps by task {[log['steps'] for log in trainer.fit_logs]}, expected {steps}")
+    # synthetic image i is the same image in every task and split: the val
+    # sets prime n_val images, task 0's train set the rest, task 1's none
+    primed = [n_val, n_train - n_val, 0]
+    if trainer.primed != primed:
+        raise AssertionError(f"{phase}: images primed {trainer.primed}, expected {primed}")
+    tower_batches = sum(math.ceil(n / 32) for n in primed)
+    val_batches = math.ceil(n_val / cfg.val_batch_size)
+    decode_batches = val_batches * (sum(cfg.epochs) + len(cfg.tasks) ** 2)  # each epoch, each eval round
+    teacher_batches = math.ceil(cfg.cl_memory / cfg.batch_size) if tables else 0
+    expected = sequence_launches(cfg, model_cfg, steps[0]["ce_window"], steps[1]["mafed_window"], decode_batches,
+                                 tower_batches, teacher_batches, in_step_teacher=not tables)
+    if device == "cuda" and run["launches"] != expected:
+        raise AssertionError(f"{phase}: kernel launches {run['launches']}, expected {expected}")
+    return {"decode_batches": decode_batches, "tower_batches": tower_batches, "teacher_batches": teacher_batches,
+            "val_batches": val_batches, "expected_launches": expected}
+
+
+def phase_cl_sequence(smi: str, device: str = "cuda", model_cfg=None, n_train: int = 128, n_val: int = 32):
+    """A two-task MAFED sequence through the trainer's entry points with the
+    features streamed and the in-step teacher (STREAMING_SWITCHES); returns
+    the run. `model_cfg` replaces the shipped config's model and `device`
+    the card, for a rehearsal at a tiny size on the CPU (where no kernel
+    launches, so launches are not checked)."""
     with tempfile.TemporaryDirectory(prefix="cl_sequence_") as root:
         write_synthetic_vqa(root, ("taskA", "taskB"), n_train, n_val)
-        cfg = parse_with_config(build_arg_parser(), cl_sequence_argv(root))
-        model_cfg = model_cfg or ModelConfig.from_json(cfg.model_config)
-        continual.save_task_checkpoint = save_and_keep
-        try:
-            A.reset_launches()
-            start = time.perf_counter()
-            trainer = continual.ContinualLearningTrainer(cfg, model_cfg=model_cfg, synthetic_images=True,
-                                                         device=device)
-            result = trainer.main()
-            wall = time.perf_counter() - start
-        finally:
-            continual.save_task_checkpoint = save
-        launches = launches_by_dim()
-
-        acc = np.asarray(result["accuracy_matrix"])
-        if acc.shape != (2, 2) or not np.isfinite(acc).all() or not ((acc >= 0) & (acc <= 1)).all():
-            raise AssertionError(f"cl_sequence: accuracy matrix {acc}")
-        if abs(result["bwt"] - (acc[0, 1] - acc[0, 0])) > 1e-12:
-            raise AssertionError(f"cl_sequence: bwt {result['bwt']} != A[0,1] - A[0,0] of {acc}")
-        out = cfg.output_dir
-        files = [os.path.join(out, "log", "results.json"), os.path.join(out, "log", "hps.json")] + [
-            os.path.join(out, "ckpt", f"{t}_best.safetensors") for t in cfg.tasks]
-        missing = [f for f in files if not os.path.exists(f)]
-        if missing:
-            raise AssertionError(f"cl_sequence: missing {missing}")
-        (path0, want), = saved.items()
+        run = drive_sequence(cl_sequence_argv(root) + STREAMING_SWITCHES, device, model_cfg)
+        cfg, model_cfg, trainer = run["cfg"], run["model_cfg"], run["trainer"]
+        counts = check_sequence("cl_sequence", run, n_train, n_val, device, tables=False)
+        if trainer.vision_tables or trainer.runner.vision_table is not None or trainer.strategy.teacher_cache_log:
+            raise AssertionError("cl_sequence: a device table engaged with the streaming switches")
+        (path0, want), = run["saved"].items()
         start = time.perf_counter()
-        got = load_task_checkpoint(path0)
+        got = load_task_checkpoint(os.path.join(cfg.output_dir, "ckpt", path0))
         load_s = time.perf_counter() - start
         if set(got) != set(want) or not all(torch.equal(got[k], want[k]) for k in want):
             raise AssertionError("cl_sequence: the reloaded task-0 checkpoint differs from the one saved")
@@ -974,45 +1121,132 @@ def phase_cl_sequence(smi: str, device: str = "cuda", model_cfg=None, n_train: i
         if moved:
             raise AssertionError(f"cl_sequence: teacher tensors that differ from task 0's best: {moved[:5]}")
 
-        # what the config makes the run do
-        batches = n_train // cfg.batch_size
-        windows = batches // cfg.accumulate_grad_batches
-        steps = [{"ce_window": windows * cfg.epochs[0]}, {"mafed_window": windows * cfg.epochs[1]}]
-        if [log["steps"] for log in trainer.fit_logs] != steps:
-            raise AssertionError(f"cl_sequence: steps by task {[log['steps'] for log in trainer.fit_logs]}, "
-                                 f"expected {steps}")
-        # synthetic image i is the same image in every task and split: the val
-        # sets prime n_val images, task 0's train set the rest, task 1's none
-        primed = [n_val, n_train - n_val, 0]
-        if trainer.primed != primed:
-            raise AssertionError(f"cl_sequence: images primed {trainer.primed}, expected {primed}")
-        tower_batches = sum(math.ceil(n / 32) for n in primed)
-        val_batches = math.ceil(n_val / cfg.val_batch_size)
-        decode_batches = val_batches * (sum(cfg.epochs) + len(cfg.tasks) ** 2)  # each epoch, each eval round
-        layers = model_cfg.num_hidden_layers
-        deepest = max(distillation_layers(cfg.distillation_layer_weighing_strategy, layers - 1,
-                                          cfg.distillation_layer))
-        ce, mafed = steps[0]["ce_window"], steps[1]["mafed_window"]
-        decoder = _kernels(ce * 2 * layers + mafed * (4 * layers + deepest) + decode_batches * layers,
-                           ce * layers + mafed * 2 * layers)
-        tower = _kernels(tower_batches * model_cfg.vision.depth, 0)
-        expected = {d: {k: (decoder[k] if d == model_cfg.head_dim else 0)
-                        + (tower[k] if d == model_cfg.vision.head_dim else 0) for k in A.LAUNCHES}
-                    for d in build.HEAD_DIMS}
-        if device == "cuda" and launches != expected:
-            raise AssertionError(f"cl_sequence: kernel launches {launches}, expected {expected}")
-
-    emit({"phase": "cl_sequence", "card": smi, "config": SHIPPED_CONFIG, "model_config": cfg.model_config,
-          "layers": layers, "hidden": model_cfg.hidden_size, "tasks": cfg.tasks, "train_questions": n_train,
-          "val_questions": n_val, "batch": cfg.batch_size, "accumulate": cfg.accumulate_grad_batches,
+    emit({"phase": "cl_sequence", "card": smi, "config": SHIPPED_CONFIG, "switches": STREAMING_SWITCHES,
+          "model_config": cfg.model_config, "layers": model_cfg.num_hidden_layers, "hidden": model_cfg.hidden_size,
+          "tasks": cfg.tasks, "train_questions": n_train, "val_questions": n_val, "batch": cfg.batch_size,
+          "accumulate": cfg.accumulate_grad_batches,
           "text_len": [trainer.runner.train_text_len, trainer.runner.val_text_len],
-          "accuracy_matrix": result["accuracy_matrix"], "bwt": result["bwt"],
-          "seconds": {"sequence": wall, **{k: v for k, v in trainer.timings.items()}, "load": load_s},
-          "train_ex_per_s": [[h["train_ex_per_s"] for h in log["history"]] for log in trainer.fit_logs],
-          "images_primed": trainer.primed, "steps": [log["steps"] for log in trainer.fit_logs],
-          "decode_batches": decode_batches, "tower_batches": tower_batches,
+          "accuracy_matrix": run["result"]["accuracy_matrix"], "bwt": run["result"]["bwt"],
+          "seconds": {"sequence": run["wall"], **trainer.timings, "load": load_s,
+                      "bundle_save": trainer.runner.bundle_save_s},
+          "train_ex_per_s": run["train_ex_per_s"], "images_primed": trainer.primed,
+          "steps": [log["steps"] for log in trainer.fit_logs], "bundles": run["bundles"], "losses": run["losses"],
+          **counts, "launches": run["launches"]})
+    del run["trainer"]  # its model and optimizer leave the card
+    return run
+
+
+def _max_rel(got: list, want: list) -> float:
+    return max(abs(g - w) / max(abs(w), 1e-12) for g, w in zip(got, want))
+
+
+def phase_cl_sequence_default(smi: str, streaming: dict, device: str = "cuda", model_cfg=None, n_train: int = 128,
+                              n_val: int = 32):
+    """The same sequence, the same command line without STREAMING_SWITCHES:
+    the shipped config with no switch. Both device tables engage: the
+    vision table over every image (tier train+memory+val), and after task
+    0 the teacher table over the 32-example memory; the MAFED windows run
+    no teacher and priming adds its forwards. Its accuracy matrix equals
+    cl_sequence's (`streaming`), its losses within SEQUENCE_LOSS_RTOL.
+    Returns the run, its checkpoints kept on the host."""
+    with tempfile.TemporaryDirectory(prefix="cl_default_") as root:
+        write_synthetic_vqa(root, ("taskA", "taskB"), n_train, n_val)
+        run = drive_sequence(cl_sequence_argv(root), device, model_cfg, keep_checkpoints="all")
+        counts = check_sequence("cl_sequence_default", run, n_train, n_val, device, tables=True)
+    cfg, model_cfg, trainer = run["cfg"], run["model_cfg"], run["trainer"]
+    row_mb = V.n_vision_tokens(model_cfg) * model_cfg.vision.embed_dim * 2 / (1 << 20)
+    want_vt = [{"tier": "train+memory+val", "rows": n_train, "mb": n_train * row_mb}] * 2
+    if trainer.vision_tables != want_vt:
+        raise AssertionError(f"cl_sequence_default: vision tables {trainer.vision_tables}, expected {want_vt}")
+    deepest = max(trainer.strategy.layers)
+    table_mb = (cfg.cl_memory * (deepest + 1) * (V.n_vision_tokens(model_cfg) + trainer.runner.train_text_len)
+                * model_cfg.hidden_size * 2 / (1 << 20))
+    (log,) = trainer.strategy.teacher_cache_log
+    if (log["tier"], log["examples"], log["primed"], log["table_mb"]) != ("table", cfg.cl_memory, cfg.cl_memory, table_mb):
+        raise AssertionError(f"cl_sequence_default: teacher cache {log}, expected a table of {table_mb} MB")
+    if run["result"]["accuracy_matrix"] != streaming["result"]["accuracy_matrix"]:
+        raise AssertionError(f"cl_sequence_default: accuracy {run['result']['accuracy_matrix']} against "
+                             f"cl_sequence's {streaming['result']['accuracy_matrix']}")
+    loss_err = {task: _max_rel(run["losses"][task], streaming["losses"][task]) for task in streaming["losses"]}
+    if not all(e <= SEQUENCE_LOSS_RTOL for e in loss_err.values()):
+        raise AssertionError(f"cl_sequence_default: losses against cl_sequence's, relative errors {loss_err}")
+    emit({"phase": "cl_sequence_default", "card": smi, "config": SHIPPED_CONFIG, "switches": [],
+          "vision_tables": trainer.vision_tables, "teacher_cache": log,
+          "accuracy_matrix": run["result"]["accuracy_matrix"], "bwt": run["result"]["bwt"],
+          "seconds": {"sequence": run["wall"], **trainer.timings, "bundle_save": run["bundle_save_s"]},
+          "train_ex_per_s": run["train_ex_per_s"], "cl_sequence_train_ex_per_s": streaming["train_ex_per_s"],
+          "losses": run["losses"], "loss_rel_err_vs_cl_sequence": loss_err, "loss_rtol": SEQUENCE_LOSS_RTOL,
+          "bundles": run["bundles"], "steps": [log_["steps"] for log_ in trainer.fit_logs], **counts,
+          "launches": run["launches"], "cl_sequence_launches": streaming["launches"]})
+    del run["trainer"]
+    return run
+
+
+def phase_cl_resume(smi: str, uninterrupted: dict, device: str = "cuda", model_cfg=None, n_train: int = 128,
+                    n_val: int = 32):
+    """The default sequence preempted after task 1's first window (a
+    preemption requested after task 0's windows + 1 updates; only Preempted
+    with code 143 ends it), then the same command with
+    --resume_from_checkpoint: task 0 loads, task 1 resumes from the
+    mid-epoch bundle. Its {task}_best checkpoints and accuracy matrix equal
+    cl_sequence_default's (`uninterrupted`) bit for bit. Launches: each half
+    as computed; together the uninterrupted run's and the restart's second
+    eval round after task 0. Returns the launches of both halves."""
+    with tempfile.TemporaryDirectory(prefix="cl_resume_") as root:
+        write_synthetic_vqa(root, ("taskA", "taskB"), n_train, n_val)
+        argv = cl_sequence_argv(root)
+        cfg = uninterrupted["cfg"]
+        windows = n_train // cfg.batch_size // cfg.accumulate_grad_batches
+        first = drive_sequence(argv, device, model_cfg, keep_checkpoints="all", preempt_after=windows + 1)
+        del first["trainer"]
+        gc.collect()
+        resume_dir = os.path.join(first["cfg"].output_dir, "resume")
+        with open(os.path.join(resume_dir, "fit_state.json")) as f:
+            meta = json.load(f)
+        want_meta = {"task_id": 1, "epoch": 0, "batches_done": cfg.accumulate_grad_batches, "mem_draws": 1}
+        if {k: meta[k] for k in want_meta} != want_meta:
+            raise AssertionError(f"cl_resume: bundle {meta}, expected {want_meta}")
+        second = drive_sequence(argv + ["--resume_from_checkpoint", resume_dir], device, model_cfg,
+                                keep_checkpoints="all")
+    trainer = second["trainer"]
+    if [log["steps"] for log in trainer.fit_logs] != [{"mafed_window": windows - 1}]:
+        raise AssertionError(f"cl_resume: the restart's steps {[log['steps'] for log in trainer.fit_logs]}")
+    if second["result"]["accuracy_matrix"] != uninterrupted["result"]["accuracy_matrix"]:
+        raise AssertionError(f"cl_resume: accuracy {second['result']['accuracy_matrix']} against "
+                             f"{uninterrupted['result']['accuracy_matrix']} uninterrupted")
+    ckpt_err = {}
+    for name, want in uninterrupted["saved"].items():
+        got = {**first["saved"], **second["saved"]}[name]
+        if set(got) != set(want):
+            raise AssertionError(f"cl_resume: {name} has other tensors than the uninterrupted run's")
+        ckpt_err[name] = max((got[k] - want[k]).abs().max().item() for k in want)
+        if not all(torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"cl_resume: {name} differs from the uninterrupted run's by up to {ckpt_err[name]}")
+    if [log["primed"] for log in trainer.strategy.teacher_cache_log] != [0]:
+        raise AssertionError(f"cl_resume: the restart primed {trainer.strategy.teacher_cache_log}")
+    # launches: the first half primes and trains task 0 and one MAFED window;
+    # the second trains the rest of task 1; every eval round runs where it ran
+    ucfg, umodel = uninterrupted["cfg"], uninterrupted["model_cfg"]
+    vb = math.ceil(n_val / ucfg.val_batch_size)
+    tower_batches = sum(math.ceil(n / 32) for n in (n_val, n_train - n_val))
+    expected = {
+        "first": sequence_launches(ucfg, umodel, windows, 1, vb * 3, tower_batches,
+                                   math.ceil(ucfg.cl_memory / ucfg.batch_size), in_step_teacher=False),
+        "second": sequence_launches(ucfg, umodel, 0, windows - 1, vb * 5, 0, 0, in_step_teacher=False),
+    }
+    launches = {"first": first["launches"], "second": second["launches"]}
+    if device == "cuda" and launches != expected:
+        raise AssertionError(f"cl_resume: kernel launches {launches}, expected {expected}")
+    emit({"phase": "cl_resume", "card": smi, "preempt_after_updates": windows + 1, "exit_code": 143,
+          "bundle": {k: meta[k] for k in ("task_id", "epoch", "batches_done", "global_step", "mem_draws")},
+          "seconds": {"preempted_run": first["wall"], "resumed_run": second["wall"],
+                      "uninterrupted_run": uninterrupted["wall"],
+                      "round_trip_overhead": first["wall"] + second["wall"] - uninterrupted["wall"],
+                      "bundle_save": [first["bundle_save_s"], second["bundle_save_s"]]},
+          "train_ex_per_s": [first["train_ex_per_s"], second["train_ex_per_s"]],
+          "accuracy_matrix": second["result"]["accuracy_matrix"], "checkpoint_max_abs_diff": ckpt_err,
           "launches": launches, "expected_launches": expected})
-    return launches
+    return {d: {k: launches["first"][d][k] + launches["second"][d][k] for k in A.LAUNCHES} for d in build.HEAD_DIMS}
 
 
 def free_device_memory() -> None:
@@ -1032,6 +1266,7 @@ def main() -> int:
     for head_dim in build.HEAD_DIMS:
         phase_reference(head_dim)
     phase_reference_steps()
+    phase_reference_tables()
     by_path = {"window": phase_window(smi, "410m", "window"), "decode": phase_decode(smi, "410m", "decode"),
                **phase_train_steps(smi)}
     # VL-Pythia-1B, with the 410M models and their caches gone
@@ -1041,7 +1276,14 @@ def main() -> int:
         free_device_memory()
         by_path[path] = run()
     free_device_memory()
-    by_path["cl_sequence"] = phase_cl_sequence(smi)
+    streaming = phase_cl_sequence(smi)
+    by_path["cl_sequence"] = streaming["launches"]
+    free_device_memory()
+    default = phase_cl_sequence_default(smi, streaming)
+    by_path["cl_sequence_default"] = default["launches"]
+    del streaming
+    free_device_memory()
+    by_path["cl_resume"] = phase_cl_resume(smi, default)
     # one entry per instantiation: times at its head_dim's CE shape (410M: 64, 1B: 256)
     kernels = [
         {"name": f"{name}<{d}>", "head_dim": d, "route": "cuda", "source": "mafed_tpu_torch/csrc/flash_attn.cu",

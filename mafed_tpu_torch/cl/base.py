@@ -16,7 +16,12 @@ class CLStrategy:
 
     name = "naive"
     needs_replay = False
-    _mem_iter = None  # the infinite memory stream of replay strategies
+    # the infinite memory stream of replay strategies, its loader, and the
+    # batches drawn from it since it was set (a resume bundle fast-forwards
+    # the seeded stream by this count)
+    _mem_iter = None
+    _mem_loader = None
+    mem_draws = 0
 
     def __init__(self, config, model_cfg, **kwargs) -> None:
         self.config = config
@@ -54,13 +59,27 @@ class CLStrategy:
     def next_memory_batch(self):
         if self._mem_iter is None:
             raise NotImplementedError(f"{self.name} has no memory stream")
+        self.mem_draws += 1
         return next(self._mem_iter)
 
     def set_memory(self, runner, mem_dataset) -> None:
         """Replace the memory stream with an infinite shuffled one over
         `mem_dataset` (seed 1), stopping the previous stream's loader."""
         self.close()
-        self._mem_iter = iter(runner.memory_batches(runner.make_train_loader(mem_dataset, infinite=True, seed=1)))
+        self._mem_loader = runner.make_train_loader(mem_dataset, infinite=True, seed=1)
+        self._mem_iter = iter(runner.memory_batches(self._mem_loader))
+        self.mem_draws = 0
+
+    def fast_forward_memory(self, runner, n_draws: int) -> None:
+        """Mid-task resume: restart the memory stream past its first n_draws
+        batches (skipped by index: nothing is loaded for them), so the
+        batches after the resume are the uninterrupted run's."""
+        if n_draws <= 0 or self._mem_loader is None:
+            return
+        self.close()
+        self._mem_loader.set_draws(n_draws)
+        self._mem_iter = iter(runner.memory_batches(self._mem_loader))
+        self.mem_draws = n_draws
 
     def close(self) -> None:
         """Stop the memory stream's loader thread."""

@@ -127,10 +127,9 @@ class TrainConfig:
 
     Some settings select features the port does not have yet; the trainer
     raises NotImplementedError on them rather than running something else
-    (trainer/continual.check_supported): device_vision_table_mb > 0 with the
-    vision cache on, teacher_state_cache other than "off", resume bundles,
-    profile_dir, more than one process or device, and a pretrained model
-    directory. `remat_policy` takes "" or "full" only (training/step.py).
+    (trainer/continual.check_supported): profile_dir, more than one process
+    or device, and a pretrained model directory. `remat_policy` takes "" or
+    "full" only (training/step.py).
     """
 
     # Required-ish paths

@@ -1,9 +1,10 @@
 """Batch collation with one fixed text length (copy of mafed_tpu/data/collate.py).
 
 Every batch is left-padded to the same text length: padding ids 0,
-attention 0, labels -100. Cached vision features ("patches") arrive as
-bfloat16 tensors (numpy has no bfloat16) and are stacked with torch; every
-other field is numpy.
+attention 0, labels -100. Cached vision features ("patches") and cached
+teacher states ("t_hs") arrive as bfloat16 tensors (numpy has no bfloat16)
+and are stacked with torch; every other field is numpy, the device tables'
+rows ("patch_idx", "t_idx") int32.
 """
 
 from __future__ import annotations
@@ -47,20 +48,33 @@ def collate_train(items: List[Dict], text_len: int, label_tail: Optional[int] = 
             )
     out = {"input_ids": input_ids, "attention_mask": _attention_mask(items, text_len), "labels": labels}
     out.update(_collate_vision(items))
+    # the teacher-state cache (data/teacher_cache.py): streamed states
+    # [B, n_states, seq, hidden], or the rows of the device teacher table
+    if _all_or_none(items, "t_hs", "cached teacher states and misses; prime the teacher cache over the memory set"):
+        out["t_hs"] = torch.stack([it["t_hs"] for it in items])
+    if _all_or_none(items, "t_idx", "teacher-table rows and misses; the table must cover the memory set"):
+        out["t_idx"] = np.asarray([it["t_idx"] for it in items], np.int32)
     return out
 
 
+def _all_or_none(items: List[Dict], key: str, mixed: str) -> bool:
+    """Whether every item has `key`; raises if only some have it."""
+    has = [key in it for it in items]
+    if any(has) and not all(has):
+        raise ValueError(f"batch mixes {mixed}")
+    return all(has)
+
+
 def _collate_vision(items: List[Dict]) -> Dict:
-    """Cached features when every item has them, else uint8 pixels; a batch
-    that mixes the two means a partly primed cache and raises."""
-    has_patches = ["patches" in it for it in items]
-    if all(has_patches):
+    """Vision-table rows when the items carry them, else cached features
+    when every item has them, else uint8 pixels. A batch that mixes them
+    means a table that misses images or a partly primed cache, and raises."""
+    if _all_or_none(items, "patch_idx", "vision-table indices and streamed vision input; "
+                    "the vision table must cover every dataset the task draws from"):
+        return {"patch_idx": np.asarray([it["patch_idx"] for it in items], np.int32)}
+    if _all_or_none(items, "patches", "cached vision features and raw pixels; "
+                    "prime the vision cache over the full dataset before training"):
         return {"patches": torch.stack([it["patches"] for it in items])}
-    if any(has_patches):
-        raise ValueError(
-            "batch mixes cached vision features and raw pixels; prime the "
-            "vision cache over the full dataset before training"
-        )
     return {"pixels": np.stack([it["pixels"] for it in items])}
 
 

@@ -47,6 +47,7 @@ class BatchLoader:
         self.infinite = infinite
         self._epoch = 0
         self._start_batch = 0
+        self._start_index = 0  # infinite streams: the offset into the first epoch's order
 
     def set_epoch(self, epoch: int, start_batch: int = 0) -> None:
         """The epoch whose seeded order the next iteration walks, skipping its
@@ -54,6 +55,18 @@ class BatchLoader:
         them)."""
         self._epoch = epoch
         self._start_batch = start_batch
+        self._start_index = 0
+
+    def set_draws(self, n_draws: int) -> None:
+        """Start an infinite stream just past its first n_draws batches (the
+        memory stream of a resumed task). The stream is batch_size-chunks of
+        the concatenated epoch orders, so draw n starts at flat index
+        n * batch_size."""
+        if not self.infinite:
+            raise ValueError("set_draws positions infinite streams; use set_epoch")
+        flat = n_draws * self.batch_size
+        self._epoch, self._start_index = divmod(flat, len(self.dataset))
+        self._start_batch = 0
 
     def _epoch_order(self, epoch: int) -> np.ndarray:
         order = np.arange(len(self.dataset))
@@ -72,10 +85,10 @@ class BatchLoader:
         return batches
 
     def _infinite_batches(self, stop: threading.Event) -> Iterator[np.ndarray]:
-        epoch, buf = self._epoch, np.empty((0,), dtype=np.int64)
+        epoch, start, buf = self._epoch, self._start_index, np.empty((0,), dtype=np.int64)
         while not stop.is_set():
-            buf = np.concatenate([buf, self._epoch_order(epoch)])
-            epoch += 1
+            buf = np.concatenate([buf, self._epoch_order(epoch)[start:]])
+            epoch, start = epoch + 1, 0
             while len(buf) >= self.batch_size:
                 idx, buf = buf[: self.batch_size], buf[self.batch_size :]
                 yield idx

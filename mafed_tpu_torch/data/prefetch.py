@@ -18,7 +18,7 @@ from typing import Dict, Iterable, Iterator, Union
 import numpy as np
 import torch
 
-DEVICE_KEYS = ("input_ids", "attention_mask", "labels", "pixels", "patches")
+DEVICE_KEYS = ("input_ids", "attention_mask", "labels", "pixels", "patches", "patch_idx", "t_hs", "t_idx")
 
 
 def as_tensor(x) -> torch.Tensor:

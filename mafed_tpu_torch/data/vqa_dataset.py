@@ -10,7 +10,9 @@ answer formatting, tokenization, image loading.
   * every item carries the 10 normalised ground-truth answers.
 
 Items are numpy, but for cached vision features, which are a bfloat16
-tensor; batching and padding happen in collate.
+tensor; batching and padding happen in collate. With a device vision table
+attached (data/vision_table.py), an item carries its table row
+("patch_idx", np.int32) instead of features or pixels.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ def format_text(text: str, strip: bool = True, capitalize: bool = True, punctuat
 class VQADataset:
     """Map-style VQA dataset over one task's annotations. With a
     `vision_cache` (data/vision_cache.py), an item whose image is cached
-    carries its "patches" instead of "pixels"."""
+    carries its "patches" instead of "pixels"; with a `vision_table`, its
+    "patch_idx"."""
 
     def __init__(
         self,
@@ -62,6 +65,7 @@ class VQADataset:
         self.max_txt_len = max_txt_len
         self.synthetic_images = synthetic_images
         self.vision_cache = vision_cache
+        self.vision_table = None  # set per task by the trainer (vision_table.attach)
         self._resolved: Dict[str, str] = {}  # img_fname -> absolute path
         self.store = AnnotationStore(data_path=data_path, split=split, split_file=split_file, task=task)
 
@@ -87,6 +91,10 @@ class VQADataset:
             self._resolved[fname] = path
         return f"img:{path}"
 
+    def question_id(self, index: int):
+        """An example's id from its annotation alone: no image or feature load."""
+        return self.store[index].get("question_id")
+
     def load_pixels(self, index: int) -> np.ndarray:
         """uint8 HWC pixels of an example's image, bypassing the cache."""
         if self.synthetic_images:
@@ -100,7 +108,15 @@ class VQADataset:
 
     def __getitem__(self, index: int) -> Dict:
         ex = self.store[index]
-        patches = self.vision_cache.load(self.image_key(index)) if self.vision_cache is not None else None
+        patch_idx = patches = None
+        if self.vision_table is not None:
+            patch_idx = self.vision_table.index(self.image_key(index))
+            if patch_idx is None:
+                # the table covers every image the task draws (all or nothing):
+                # streamed features here would make a batch collate refuses
+                raise KeyError(f"image {self.image_key(index)!r} missing from the attached vision table")
+        elif self.vision_cache is not None:
+            patches = self.vision_cache.load(self.image_key(index))
         question = format_text(ex["question"])
         answers = [normalize_answer(a["answer"]) for a in ex.get("answers", [])]
         answer = format_text(normalize_answer(ex.get("multiple_choice_answer", "")), capitalize=False)
@@ -111,7 +127,9 @@ class VQADataset:
             "question_id": ex.get("question_id"),
             "raw": {"question": question, "answer": answer},
         }
-        if patches is not None:
+        if patch_idx is not None:
+            item["patch_idx"] = np.int32(patch_idx)
+        elif patches is not None:
             item["patches"] = patches
         else:
             item["pixels"] = self.load_pixels(index)
@@ -140,6 +158,10 @@ class ConcatDataset:
         ds_idx = int(np.searchsorted(self._offsets, index, side="right") - 1)
         return self.datasets[ds_idx][index - int(self._offsets[ds_idx])]
 
+    def question_id(self, index: int):
+        ds_idx = int(np.searchsorted(self._offsets, index, side="right") - 1)
+        return question_id_of(self.datasets[ds_idx], index - int(self._offsets[ds_idx]))
+
 
 class Subset:
     def __init__(self, dataset, indices: Sequence[int]) -> None:
@@ -151,3 +173,15 @@ class Subset:
 
     def __getitem__(self, i: int):
         return self.dataset[self.indices[i]]
+
+    def question_id(self, i: int):
+        return question_id_of(self.dataset, self.indices[i])
+
+
+def question_id_of(dataset, index: int):
+    """An example's id: the metadata-only accessor where the dataset has one,
+    else a full item."""
+    fn = getattr(dataset, "question_id", None)
+    if fn is not None:
+        return fn(index)
+    return dataset[index].get("question_id")

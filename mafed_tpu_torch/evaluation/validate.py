@@ -6,7 +6,9 @@ VQA-v2 soft metric; returns valid/acc, valid/ex_per_s, valid/n_ex and the
 per-question results. A short last batch is padded to the batch size by
 repeating its last row, and the padding rows are dropped before scoring.
 Batches are a loader's: numpy arrays, and cached features as a bfloat16
-tensor.
+tensor; a batch of device vision-table rows ("patch_idx") goes through the
+`resolve` hook (the runner's `resolve_tables`), which gathers its features on
+the card.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from mafed_tpu_torch.evaluation.vqa_metrics import VQAGenerativeAccuracy, normal
 
 LOGGER = logging.getLogger(__name__)
 
-_DECODE_KEYS = ("input_ids", "attention_mask", "pixels", "patches")
+_DECODE_KEYS = ("input_ids", "attention_mask", "pixels", "patches", "patch_idx")
 
 
 def _pad_batch(batch: Dict, batch_size: int) -> Tuple[Dict, int]:
@@ -49,10 +51,12 @@ def validate_vqa(
     tokenizer,
     batch_size: int,
     max_batches: Optional[int] = None,
+    resolve: Optional[Callable] = None,
 ) -> Tuple[Dict, Dict]:
     """Generative VQA eval of `model` with `decoder` (make_greedy_decoder)
-    over a loader of numpy batches ("input_ids", "attention_mask", "pixels" or
-    "patches", "answers", "qids").
+    over a loader of numpy batches ("input_ids", "attention_mask", "pixels",
+    "patches" or "patch_idx", "answers", "qids"); `resolve` maps a decode
+    batch's table rows to features.
 
     The decode of batch i+1 is enqueued on the device before batch i's tokens
     are copied to the host and scored, so the tokenizer and the metric run
@@ -76,6 +80,8 @@ def validate_vqa(
             break
         padded, n_valid = _pad_batch(batch, batch_size)
         dec_batch = {k: as_tensor(padded[k]) for k in _DECODE_KEYS if k in padded}
+        if resolve is not None:
+            dec_batch = resolve(dec_batch)
         toks_dev = decoder(model, dec_batch)
         if pending is not None:
             score(*pending)

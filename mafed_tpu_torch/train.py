@@ -2,22 +2,31 @@
 mafed_tpu/train.py):
 
     python -m mafed_tpu_torch.train --config config/train-vqa-base-cl-vlpythia.json \
-        --output_dir out --cl_method featdistill --tasks action count ... \
-        --device_vision_table_mb 0 --teacher_state_cache off
+        --output_dir out --cl_method featdistill --tasks action count ...
 
 Flags are TrainConfig's fields; the JSON config fills every flag not given
 on the command line. Runs on the CUDA device; --device cpu runs on the CPU.
+
+SIGTERM makes the run save a resume bundle at the next optimizer update and
+exit with 143; the same command with --resume_from_checkpoint
+<output_dir>/resume continues it. MAFED_PREEMPT_AFTER=N requests that exit
+after N applied updates (a drill).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 from mafed_tpu_torch.core.config import build_arg_parser, parse_with_config
+from mafed_tpu_torch.core.preempt import install_handlers, request_preemption_after
 from mafed_tpu_torch.trainer.continual import ContinualLearningTrainer
 
 
 def main(argv=None):
+    install_handlers()
+    if os.environ.get("MAFED_PREEMPT_AFTER"):
+        request_preemption_after(int(os.environ["MAFED_PREEMPT_AFTER"]))
     device_parser = argparse.ArgumentParser(add_help=False)
     device_parser.add_argument("--device", default="cuda")
     known, rest = device_parser.parse_known_args(argv)

@@ -8,6 +8,12 @@ then evaluate every task to fill column task_id of the accuracy matrix.
 At the end: the average accuracy and BWT = mean(A[i, T-1] - A[i, i]) over
 the earlier tasks (train.py:61-67), written to log/results.json.
 
+The port's defaults are the JAX package's: the vision cache with its
+features in a table on the device (`_refresh_vision_table`), the teacher's
+states primed per transition when they fit their table (cl/distillation.py),
+a resume bundle every epoch; a run restarted with resume_from_checkpoint
+loads the tasks finished before the bundle's task and resumes that one.
+
 Runs on one CUDA device unless given device="cpu". Settings that select a
 feature the port does not have raise NotImplementedError (`check_supported`).
 """
@@ -27,6 +33,7 @@ from mafed_tpu_torch.core.config import ModelConfig, TrainConfig
 from mafed_tpu_torch.core.device import resolve_device
 from mafed_tpu_torch.core.logging import LOGGER, MetricsLogger, add_log_to_file
 from mafed_tpu_torch.core.prng import seed_everything
+from mafed_tpu_torch.data import vision_table as vt
 from mafed_tpu_torch.data.factory import get_val_loaders, prepare_train_dataset
 from mafed_tpu_torch.data.tokenizer import build_tokenizer
 from mafed_tpu_torch.data.vision_cache import VisionFeatureCache, prime_vision_cache
@@ -49,13 +56,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def check_supported(config: TrainConfig) -> None:
     """Raise on settings whose feature the port lacks, instead of running
-    something else."""
-    if config.vision_cache and config.device_vision_table_mb > 0:
-        raise _not_ported("the device vision table (device_vision_table_mb > 0)", "vision_table; pass 0")
-    if config.cl_method == "featdistill" and config.teacher_state_cache not in ("off", False):
-        raise _not_ported(f"teacher_state_cache={config.teacher_state_cache!r}", "teacher_cache; pass off")
-    if config.resume_from_checkpoint:
-        raise _not_ported("resume_from_checkpoint (resume bundles)", "resume bundles and preemption")
+    something else: profile_dir, and more than one process or device."""
     if config.profile_dir:
         raise _not_ported("profile_dir", "profiling")
     devices = int(np.prod([d for d in config.mesh_shape if d > 0])) if config.mesh_shape else 1
@@ -111,9 +112,11 @@ class ContinualLearningTrainer:
             )
         self.val_loaders = {}  # built once in main()
         self.strategy = None
+        self._vt_attached: List = []  # the leaf datasets holding the current vision table
         # seconds by stage, a list per stage: "prime", "fit", "save", "eval"
         self.timings: Dict[str, List[float]] = {"prime": [], "fit": [], "save": [], "eval": []}
         self.primed: List[int] = []  # images computed by each priming pass
+        self.vision_tables: List[Dict[str, Any]] = []  # each task's table: tier, rows, MB (tier None: streaming)
         self.fit_logs: List[Dict[str, Any]] = []
 
     # ------------------------------------------------------------------
@@ -160,6 +163,46 @@ class ContinualLearningTrainer:
         if n:
             LOGGER.info("vision cache: computed %d image features in %.1fs", n, self.timings["prime"][-1])
 
+    def _refresh_vision_table(self, strategy, train_dataset, task=None) -> None:
+        """The task's device vision table (data/vision_table.py): every image
+        its batches can draw, the train set and the replay memory (drawn
+        from earlier train sets, primed into the same cache), and the
+        validation sets as the budget allows, in tiers: all tasks' val sets,
+        then the current task's, then none. The previous task's leaves are
+        detached first (memory leaves recur across tasks). Over budget, the
+        task streams its features."""
+        cfg = self.config
+        if self.vision_cache is None or cfg.device_vision_table_mb <= 0:
+            return
+        base = [train_dataset] + list(getattr(strategy, "datasets", []))
+        all_val = [loader.dataset for loader in self.val_loaders.values()]
+        cur_val = [self.val_loaders[task].dataset] if task in self.val_loaders else []
+        tiers = [("train+memory+val", base + all_val)]
+        if cur_val and len(all_val) > 1:
+            tiers.append(("train+memory+current-val", base + cur_val))
+        tiers.append(("train+memory", base))
+
+        vt.attach(self._vt_attached, None)
+        self._vt_attached = []
+        self.runner.vision_table = None
+        dtype = cfg.vision_table_dtype
+        row_bytes = vt.table_nbytes(1, n_vision_tokens(self.model_cfg), self.model_cfg.vision.embed_dim, dtype=dtype)
+        budget = cfg.device_vision_table_mb * (1 << 20)
+        for tier, datasets in tiers:
+            keys = list(dict.fromkeys(vt.iter_image_keys(datasets)))
+            if len(keys) * row_bytes > budget:
+                continue
+            table = vt.build_table(self.vision_cache, keys, dtype=dtype, device=self.device)
+            self._vt_attached = vt.attach(datasets, table)
+            self.runner.vision_table = table
+            self.vision_tables.append({"tier": tier, "rows": len(keys), "mb": table.nbytes / (1 << 20)})
+            LOGGER.info("vision table [%s, %s]: %d unique images (%.0f MB) on the device",
+                        tier, dtype, len(keys), len(keys) * row_bytes / (1 << 20))
+            return
+        self.vision_tables.append({"tier": None, "rows": 0, "mb": 0.0})
+        LOGGER.info("vision table: train+memory image set over the %d MB budget; streaming patches this task",
+                    cfg.device_vision_table_mb)
+
     # ------------------------------------------------------------------
     def validate_all_tasks(self, params, task_id: int, accuracy: np.ndarray) -> np.ndarray:
         start = time.time()
@@ -193,6 +236,13 @@ class ContinualLearningTrainer:
         self.runner.ensure_window_policy(strategy)
         n_tasks = len(cfg.tasks)
         accuracy = np.zeros((n_tasks, n_tasks))
+        resume_dir = os.path.join(cfg.output_dir, "resume")
+        # a restart with the same command: the bundle names the task it
+        # belongs to, and the tasks before it finished in the run that saved it
+        resume_task = -1
+        if cfg.resume_from_checkpoint and os.path.exists(os.path.join(resume_dir, "fit_state.json")):
+            with open(os.path.join(resume_dir, "fit_state.json")) as f:
+                resume_task = int(json.load(f).get("task_id", -1))
 
         for task_id, task in enumerate(cfg.tasks):
             LOGGER.info("Task %d: %s", task_id, task)
@@ -201,15 +251,22 @@ class ContinualLearningTrainer:
                 synthetic_images=self.synthetic_images, vision_cache=self.vision_cache,
             )
             self._prime_vision_cache(params, [train_dataset])
+            self._refresh_vision_table(strategy, train_dataset, task)
             best_path = self._prev_best_path(task_id, task)
 
-            if task_id >= cfg.start_task_idx:
+            train_this = task_id >= cfg.start_task_idx
+            if train_this and task_id < resume_task and os.path.exists(best_path):
+                LOGGER.info("task %d finished before the resume bundle (task %d): loading %s instead of retraining",
+                            task_id, resume_task, best_path)
+                train_this = False
+            if train_this:
                 start = time.time()
                 self.runner.setup_task_optimizer(len(train_dataset), strategy=strategy)
                 state = self.runner.init_state(params)
                 strategy.update_after_new_task(self.runner, state, train_dataset)
                 state, best_trainable, fit_log = self.runner.fit(
                     state, strategy, train_dataset, self.val_loaders[task], task_id, self._epochs_for(task_id),
+                    resume_dir=resume_dir, resume=bool(cfg.resume_from_checkpoint),
                 )
                 self.timings["fit"].append(time.time() - start)
                 self.fit_logs.append(fit_log)

@@ -13,11 +13,25 @@ state_dict (reference names) goes in with `load_params`; the steps are the
 factories of training/step.py. With fused windows (the default), each
 accumulation window is one step: its microbatches stay on the host until
 the window is full, then go over as one stacked, pinned, non-blocking copy.
+
+Device tables: with a vision table (data/vision_table.py) or a teacher table
+(data/teacher_cache.py) attached, batches carry int32 rows and the runner
+gathers their features or teacher states on the card, on the stream that
+runs the step, after the batch's copy.
+
+Resume bundles: at the end of every `resume_bundle_every`-th epoch, and at
+the update boundary where a preemption was requested (core/preempt.py), fit
+saves <output_dir>/resume: model.safetensors, best.safetensors,
+opt_state.safetensors and, last, fit_state.json; a run with
+resume_from_checkpoint continues from it exactly.
 """
 
 from __future__ import annotations
 
+import itertools
+import json
 import math
+import os
 import time
 from collections import Counter
 from functools import partial
@@ -27,6 +41,7 @@ import numpy as np
 import torch
 
 from mafed_tpu_torch.constants import PATIENCE_THRESHOLD
+from mafed_tpu_torch.core import preempt
 from mafed_tpu_torch.core.config import ModelConfig, TrainConfig
 from mafed_tpu_torch.core.device import resolve_device
 from mafed_tpu_torch.core.logging import LOGGER, MetricsLogger
@@ -47,6 +62,9 @@ from mafed_tpu_torch.training.step import (
     make_train_step,
 )
 from mafed_tpu_torch.training.train_state import FROZEN_PREFIX, TrainState, trainable_parameters
+from mafed_tpu_torch.utils.checkpoint import (
+    atomic_json_commit, load_opt_state, load_task_checkpoint, save_opt_state, save_task_checkpoint,
+)
 
 # the reference's schedule horizon: ceil(batches / accum) * 60, whatever the
 # real number of epochs (vqa_cont_learner.py:62-63)
@@ -92,6 +110,14 @@ class TaskRunner:
         self.window = 1  # microbatches per step (1 = the per-microbatch MultiSteps path)
         self.tx = None
         self.ce_step: Optional[Callable] = None
+        # the device tables, swapped between tasks (None: batches carry features / the in-step teacher)
+        self.vision_table = None
+        self.teacher_table = None
+        # a host copy of the frozen tower for this task's bundles, and the
+        # (task, best_acc) whose best.safetensors the bundle holds
+        self._bundle_frozen: Optional[Tuple[int, Dict[str, torch.Tensor]]] = None
+        self._bundle_best_key = None
+        self.bundle_save_s: list = []  # seconds of each bundle saved
 
     # -- parameters --------------------------------------------------------------
     def load_params(self, params: Dict[str, torch.Tensor]) -> None:
@@ -122,7 +148,29 @@ class TaskRunner:
         )
 
     def device_batches(self, loader):
-        return DevicePrefetcher(loader, self.device, depth=self.config.prefetch_depth)
+        return self._resolving_iter(DevicePrefetcher(loader, self.device, depth=self.config.prefetch_depth))
+
+    def _resolving_iter(self, iterable):
+        """The batches with their table rows gathered; closing it closes the
+        producer. DevicePrefetcher hands a batch over after the current
+        stream waits on its copy, so the gathers are ordered after it."""
+        it = iter(iterable)
+        try:
+            for batch in it:
+                yield self.resolve_tables(batch)
+        finally:
+            it.close()
+
+    def resolve_tables(self, batch):
+        """patch_idx -> patches through the vision table and t_idx -> t_hs
+        through the teacher table, gathered on the card (no-ops without them).
+        Validation's decode batches go through it too: the JAX package's
+        separate `eval_resolve` differs from it only on multi-process pods."""
+        if self.vision_table is not None and "patch_idx" in batch:
+            batch = self.vision_table.resolve(batch)
+        if self.teacher_table is not None and "t_idx" in batch:
+            batch = self.teacher_table.resolve(batch)
+        return batch
 
     @property
     def host_window(self) -> bool:
@@ -209,7 +257,9 @@ class TaskRunner:
     def stack_window(self, batches) -> Dict[str, torch.Tensor]:
         """[n_mb, B, ...] tensors on the device of a window's microbatches.
         Host batches are stacked straight into pinned memory and go over as
-        one non-blocking copy per field; device batches stack on the device."""
+        one non-blocking copy per field (table rows as [n_mb, B] int32, then
+        gathered on the card, on the stream of the copy); device batches
+        stack on the device."""
         keys = [k for k in batches[0] if isinstance(batches[0][k], (np.ndarray, torch.Tensor))]
         if isinstance(batches[0]["input_ids"], torch.Tensor) and batches[0]["input_ids"].device == self.device:
             return {k: torch.stack([b[k] for b in batches]) for k in keys}
@@ -220,7 +270,7 @@ class TaskRunner:
             buf = torch.empty((len(parts),) + tuple(parts[0].shape), dtype=parts[0].dtype, pin_memory=pin)
             torch.stack(parts, out=buf)
             out[k] = buf.to(self.device, non_blocking=pin)
-        return out
+        return self.resolve_tables(out)
 
     def ce_window_step(self, state, stacked):
         step = self._step("ce_window", lambda: make_ce_window_step(
@@ -236,7 +286,7 @@ class TaskRunner:
         step = self._step("mafed_window", lambda: make_mafed_window_step(
             self.model_cfg, self.config, self.tx, n_ce=self.window - 1, device=self.device))
         if not isinstance(distill_batch["input_ids"], torch.Tensor):  # a host memory batch
-            distill_batch = to_device(distill_batch, self.device)
+            distill_batch = self.resolve_tables(to_device(distill_batch, self.device))
         return step(state, teacher, ce_stacked, distill_batch, lang_coeffs)
 
     def adaptive_weights_step(self, model, batch):
@@ -248,39 +298,118 @@ class TaskRunner:
 
     def validate(self, val_loader) -> Tuple[Dict, Dict]:
         return validate_vqa(self.model, self.decoder, val_loader, self.tokenizer, self.config.val_batch_size,
-                            max_batches=self.config.val_max_batches)
+                            max_batches=self.config.val_max_batches, resolve=self.resolve_tables)
 
     def synchronize(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- resume bundles ------------------------------------------------------------------
+    def _save_resume_bundle(self, resume_dir: str, state: TrainState, meta: Dict, best_trainable) -> None:
+        """The parameters (model.safetensors), the best ones so far
+        (best.safetensors, written when they change), the optimizer state,
+        then the commit marker fit_state.json with `meta` and the optimizer's
+        counters."""
+        start = time.time()
+        os.makedirs(resume_dir, exist_ok=True)
+        task_id = meta["task_id"]
+        if self._bundle_frozen is None or self._bundle_frozen[0] != task_id:
+            # the frozen tower never changes within a task: one host copy serves its bundles
+            self._bundle_frozen = (task_id, {k: v.to("cpu", copy=True) for k, v in self.frozen_params().items()})
+        frozen = self._bundle_frozen[1]
+        save_task_checkpoint({**trainable_parameters(self.model), **frozen}, os.path.join(resume_dir, "model.safetensors"))
+        best_key, best_path = (task_id, meta["best_acc"]), os.path.join(resume_dir, "best.safetensors")
+        if best_trainable is not None and not (self._bundle_best_key == best_key and os.path.exists(best_path)):
+            save_task_checkpoint({**best_trainable, **frozen}, best_path)
+            self._bundle_best_key = best_key
+        meta = {**meta, "opt_counters": save_opt_state(state.opt_state, os.path.join(resume_dir, "opt_state.safetensors"))}
+        atomic_json_commit(os.path.join(resume_dir, "fit_state.json"), meta)
+        seconds = time.time() - start
+        self.bundle_save_s.append(seconds)
+        LOGGER.info("resume bundle (task %s epoch %s) saved in %.1fs", task_id, meta["epoch"], seconds)
+        if self.metrics is not None:
+            self.metrics.log_metrics({f"task_{task_id}/bundle_save_s": round(seconds, 2)}, step=meta["global_step"])
+
+    def _load_resume_bundle(self, resume_dir: str, state: TrainState):
+        """(state, meta, best trainable parameters or None) of a bundle."""
+        with open(os.path.join(resume_dir, "fit_state.json")) as f:
+            meta = json.load(f)
+        self.load_params(load_task_checkpoint(os.path.join(resume_dir, "model.safetensors")))
+        opt_state = load_opt_state(state.opt_state, os.path.join(resume_dir, "opt_state.safetensors"),
+                                   meta["opt_counters"])
+        best_trainable = None
+        best_path = os.path.join(resume_dir, "best.safetensors")
+        if os.path.exists(best_path):
+            names = trainable_parameters(self.model)
+            best_trainable = {k: v for k, v in load_task_checkpoint(best_path).items() if k in names}
+        return TrainState(meta["global_step"], self.model, opt_state), meta, best_trainable
+
     # -- fit -----------------------------------------------------------------------------
-    def fit(self, state: TrainState, strategy, train_dataset, val_loader, task_id: int,
-            epochs: int) -> Tuple[TrainState, Dict[str, torch.Tensor], Dict]:
+    def fit(self, state: TrainState, strategy, train_dataset, val_loader, task_id: int, epochs: int,
+            resume_dir: Optional[str] = None, resume: bool = False) -> Tuple[TrainState, Dict[str, torch.Tensor], Dict]:
         """Train one task with early stopping: (state, a CPU copy of the best
-        trainable parameters, the fit log)."""
+        trainable parameters, the fit log). With `resume_dir`, bundles are
+        saved there; with `resume` too, a bundle of this task is loaded first."""
         loader = self.make_train_loader(train_dataset, shuffle=True, seed=self.config.seed + task_id)
         counts_before = Counter(self.step_counts)
+        self._bundle_frozen = self._bundle_best_key = None
         best_acc = -float("inf")
         best_trainable = None
         wait = 0
         global_step = 0
         history = []
+        start_epoch = start_batch = 0
+        carry = None
+        fit_state = os.path.join(resume_dir, "fit_state.json") if resume_dir else None
+        if resume and fit_state and os.path.exists(fit_state):
+            with open(fit_state) as f:  # a bundle belongs to one task: peek before loading
+                peek = json.load(f)
+            if peek.get("task_id") == task_id:
+                state, meta, best_trainable = self._load_resume_bundle(resume_dir, state)
+                if meta.get("batches_done", 0) > 0:  # a preemption bundle: resume inside its epoch
+                    start_epoch, start_batch = meta["epoch"], int(meta["batches_done"])
+                else:
+                    start_epoch = meta["epoch"] + 1
+                best_acc, wait, global_step = meta["best_acc"], meta["wait"], meta["global_step"]
+                history = meta.get("history", [])
+                if self.metrics is not None and "metrics_offset" in meta:
+                    self.metrics.set_global_step_offset(int(meta["metrics_offset"]))
+                strategy.fast_forward_memory(self, int(meta.get("mem_draws", 0)))
+                carry = meta.get("window_carry")
+                LOGGER.info("resuming task %d at epoch %d batch %d", task_id, start_epoch, start_batch)
+                if start_batch == 0 and wait >= self.config.patience:
+                    # the epoch-end bundle is saved before the early-stop check:
+                    # the run it came from trained no further epoch, nor does this one
+                    LOGGER.info("resume: patience already exhausted (wait=%d >= %d); skipping training",
+                                wait, self.config.patience)
+                    start_epoch, carry = epochs, None
+
         # a partial window carries into the next epoch, as gradient
         # accumulation (and MultiSteps) does
-        window_buf = []
-        for epoch in range(epochs):
+        window_buf, window_meta = [], []  # (batch_idx, batch) and (epoch, batch_idx) per microbatch
+        for ep, group in itertools.groupby(carry or [], key=lambda p: p[0]):
+            # an epoch-end bundle's carried microbatches, replayed from their epoch's seeded order
+            idxs = [int(p[1]) for p in group]
+            loader.set_epoch(int(ep), start_batch=idxs[0])
+            refill = self.fit_batches(loader)
+            for i, b in zip(idxs, itertools.islice(refill, len(idxs))):
+                window_buf.append((i, b))
+                window_meta.append((int(ep), i))
+            refill.close()
+        for epoch in range(start_epoch, epochs):
             epoch_start = time.time()
             n_seen = 0
-            loader.set_epoch(epoch)
+            skip = start_batch if epoch == start_epoch else 0
+            loader.set_epoch(epoch, start_batch=skip)
             last_logged = global_step
-            for batch_idx, batch in enumerate(self.fit_batches(loader)):
+            for batch_idx, batch in enumerate(self.fit_batches(loader), start=skip):
                 if self.window > 1:
                     window_buf.append((batch_idx, batch))
+                    window_meta.append((epoch, batch_idx))
                     if len(window_buf) < self.window:
                         continue
                     state, m = strategy.window_step(self, state, window_buf)
-                    window_buf = []
+                    window_buf, window_meta = [], []
                     n_seen += self.config.batch_size * self.window
                     global_step += self.window
                 elif strategy.is_replay_batch(batch_idx):
@@ -291,6 +420,19 @@ class TaskRunner:
                     state, m = strategy.train_step(self, state, batch)
                     n_seen += self.config.batch_size
                     global_step += 1
+                # an update boundary (no window is part-filled here): on a
+                # preemption request, a mid-epoch bundle and exit 143
+                preempt.tick_update()
+                if resume_dir and preempt.preemption_requested():
+                    self._save_resume_bundle(resume_dir, state, {
+                        "task_id": task_id, "epoch": epoch, "batches_done": batch_idx + 1, "best_acc": best_acc,
+                        "wait": wait, "global_step": global_step, "history": history,
+                        "mem_draws": strategy.mem_draws,
+                        "metrics_offset": self.metrics.global_step_offset if self.metrics else 0,
+                    }, best_trainable)
+                    LOGGER.warning("preempted: resume bundle saved at task %d epoch %d batch %d; exiting 143",
+                                   task_id, epoch, batch_idx + 1)
+                    raise preempt.Preempted(f"preempted at task {task_id} epoch {epoch}")
                 if self.metrics is not None and global_step - last_logged >= self.config.log_every:
                     last_logged = global_step
                     payload = {
@@ -323,6 +465,15 @@ class TaskRunner:
             if acc > best_acc:
                 best_acc = acc
                 best_trainable = self.host_trainable()
+            every = max(0, self.config.resume_bundle_every)
+            if resume_dir and every > 0 and ((epoch + 1) % every == 0 or epoch == epochs - 1):
+                self._save_resume_bundle(resume_dir, state, {
+                    "task_id": task_id, "epoch": epoch, "best_acc": best_acc, "wait": wait,
+                    "global_step": global_step, "history": history, "mem_draws": strategy.mem_draws,
+                    "metrics_offset": self.metrics.global_step_offset if self.metrics else 0,
+                    # a partial window carried into the next epoch, as (epoch, batch_idx) pairs
+                    "window_carry": [[e, i] for e, i in window_meta] or None,
+                }, best_trainable)
             if wait >= self.config.patience:
                 LOGGER.info("early stopping at epoch %d (patience %d)", epoch, self.config.patience)
                 break

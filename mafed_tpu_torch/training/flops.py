@@ -73,16 +73,18 @@ def framework_window_flops(
     batch: int,
     *,
     vision_cached: bool = True,
+    teacher_cached: bool = False,
 ) -> float:
     """Model FLOPs of one MAFED window (n_ce CE microbatches + 1 memory
     microbatch of `batch` rows): every example a CE example (`ce_example_flops`),
     plus, for the memory microbatch, the teacher early-exited after
-    num_hidden_layers - 2 blocks with no lm_head and its projector forward.
+    num_hidden_layers - 2 blocks with no lm_head and its projector forward,
+    unless its states come from the teacher-state cache (`teacher_cached`).
     Uncached, one tower forward per image, shared by student and teacher."""
     seq = cfg.vision.num_patches + text_len
     dec_fwd = decoder_flops_per_token(cfg) * seq + attention_flops(cfg, seq)
     deepest = cfg.num_hidden_layers - 2
-    teacher_ex = dec_fwd * deepest / cfg.num_hidden_layers + projector_flops(cfg)
+    teacher_ex = 0.0 if teacher_cached else dec_fwd * deepest / cfg.num_hidden_layers + projector_flops(cfg)
     return batch * ((n_ce + 1) * ce_example_flops(cfg, text_len, vision_cached=vision_cached) + teacher_ex)
 
 

@@ -253,7 +253,8 @@ def make_distill_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *, rema
 
     Returns loss_fn(model, teacher, batch, lang_coeffs, patches) ->
     (loss, per_layer): patches are the batch's vision features in the
-    compute dtype; lang_coeffs holds the language-modality weight per
+    compute dtype; a batch with cached teacher states ("t_hs") skips the
+    teacher forward; lang_coeffs holds the language-modality weight per
     distilled layer (ignored by the 'equal' strategy, which weights by token
     counts); per_layer is the modality-weighted distill loss per tap before
     the layer coefficients. remat_student recomputes each of the student's
@@ -293,13 +294,19 @@ def make_distill_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *, rema
             num_layers=None if replay_coeff > 0 else deepest_tap,
             remat_layers=remat_student, label_tail=tail,
         )
-        # the frozen teacher, early-exited after the deepest distilled tap
-        with torch.no_grad():
-            t_hs = vl_pythia.forward(
-                teacher, batch["input_ids"], batch["attention_mask"], None,
-                patch_embeddings=patches, output_hidden_states=True,
-                dtype=dtype, need_logits=False, num_layers=deepest_tap,
-            ).hidden_states
+        if "t_hs" in batch:
+            # the teacher-state cache (data/teacher_cache.py): the states of
+            # the frozen teacher come with the batch, [B, L, T, H] -> [L, B, T, H],
+            # and the teacher forward leaves the step
+            t_hs = batch["t_hs"].transpose(0, 1).to(dtype)
+        else:
+            # the frozen teacher, early-exited after the deepest distilled tap
+            with torch.no_grad():
+                t_hs = vl_pythia.forward(
+                    teacher, batch["input_ids"], batch["attention_mask"], None,
+                    patch_embeddings=patches, output_hidden_states=True,
+                    dtype=dtype, need_logits=False, num_layers=deepest_tap,
+                ).hidden_states
 
         device = patches.device
         loss = torch.zeros((), dtype=torch.float32, device=device)

@@ -5,12 +5,20 @@ Weights only, top-1 on a task's generative VQA accuracy, at
 ``<output_dir>/ckpt/{task}_best<ext>``: a safetensors file whose keys are
 the reference's torch names (a VLPythia state_dict) and whose values are
 float32, as the JAX package writes them, so each package reads the other's.
+
+A resume bundle's optimizer state (the JAX package saves it with orbax) is
+`save_opt_state`'s: the tensors of the OptState / MultiStepsState tuples in
+one safetensors file by path ("adam.mu.<param>", ...), and their integer
+counters returned for the bundle's fit_state.json, which is written last
+(`atomic_json_commit`) and so marks the bundle complete. The JAX package
+cannot read these files, and has no need to.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -39,6 +47,61 @@ def load_task_checkpoint(path: str) -> Dict[str, torch.Tensor]:
         )
     LOGGER.info("loading checkpoint %s", path)
     return load_safetensors(path)
+
+
+def atomic_json_commit(path: str, meta: Dict[str, Any], **dump_kwargs) -> None:
+    """Write a checkpoint's commit marker atomically (a temporary file, then
+    os.replace), after every other file of the checkpoint: a kill mid-save
+    leaves no marker or a whole one, never a truncated one."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(meta, f, **dump_kwargs)
+    os.replace(tmp, path)
+
+
+def _flatten(node, prefix: str, tensors: Dict[str, torch.Tensor], counters: Dict[str, Any]) -> None:
+    if isinstance(node, torch.Tensor):
+        tensors[prefix] = node
+    elif isinstance(node, tuple) and hasattr(node, "_fields"):  # the optimizer's NamedTuples
+        for name in node._fields:
+            _flatten(getattr(node, name), f"{prefix}.{name}" if prefix else name, tensors, counters)
+    elif isinstance(node, dict):
+        for name, value in node.items():
+            _flatten(value, f"{prefix}.{name}", tensors, counters)
+    elif node is None or isinstance(node, int):
+        counters[prefix] = node
+    else:
+        raise TypeError(f"optimizer state leaf {prefix!r} of type {type(node).__name__}")
+
+
+def _restore(node, prefix: str, tensors: Dict[str, torch.Tensor], counters: Dict[str, Any]):
+    """`node`'s structure with its tensors overwritten in place from `tensors`
+    and its counters taken from `counters`."""
+    if isinstance(node, torch.Tensor):
+        return node.copy_(tensors[prefix])
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_restore(getattr(node, n), f"{prefix}.{n}" if prefix else n, tensors, counters)
+                            for n in node._fields))
+    if isinstance(node, dict):
+        return {k: _restore(v, f"{prefix}.{k}", tensors, counters) for k, v in node.items()}
+    return counters[prefix]
+
+
+def save_opt_state(opt_state, path: str) -> Dict[str, Any]:
+    """Write the optimizer state's tensors to `path` (safetensors, their
+    dtypes kept); returns its counters, which the caller commits."""
+    tensors: Dict[str, torch.Tensor] = {}
+    counters: Dict[str, Any] = {}
+    _flatten(opt_state, "", tensors, counters)
+    save_safetensors(tensors, path)
+    return counters
+
+
+def load_opt_state(template, path: str, counters: Dict[str, Any]):
+    """An optimizer state of `template`'s structure, devices and dtypes (a
+    fresh `init`), its tensors read from `path` and its counters from
+    `counters`."""
+    return _restore(template, "", load_safetensors(path), counters)
 
 
 def get_initialization_checkpoint(config: TrainConfig, task_id: int = 0) -> Optional[str]:

@@ -21,12 +21,16 @@ parts alone: the tower, the KV-cache prefill, and one single-token step.
 
 cl_sequence: chip_smoke.py's two-task MAFED sequence through the trainer's
 entry points (the shipped config and its 410M model, synthetic data), with
-`--train-questions` a task (1024: 16 windows a task) and 32 val questions.
-It runs three times in one process: a warm-up sequence at 128 questions
-(the kernels' build and every first use in the process land there); then
-unprofiled, for the trainer's own stage times and `train_ex_per_s`; then
-with each task's fit (its epoch and the epoch's validation) profiled as one
-unit. `--preset` does not apply to it.
+`--train-questions` a task (1024: 16 windows a task) and 32 val questions,
+in two variants: "streaming" (chip_smoke.STREAMING_SWITCHES: the features
+streamed, the in-step teacher; phase cl_sequence) and "default" (the
+shipped config with no switch: both device tables; phase
+cl_sequence_default). One process runs a warm-up sequence at 128 questions
+(the kernels' build and every first use in the process land there); then,
+unprofiled, streaming, default, default, streaming, for the trainer's own
+stage times, `train_ex_per_s`, bundle saves and teacher priming; then each
+variant once with each task's fit (its epoch and the epoch's validation)
+profiled as one unit. `--preset` does not apply to it.
 
 --preset 1b runs every other path with VL-Pythia-1B (hidden 2048, 16 layers, 8
 heads of 256) at the same shapes in place of the 410M model.
@@ -213,24 +217,29 @@ def decode_units(reps: int, preset: str) -> dict:
 def cl_sequence_units(train_questions: int) -> dict:
     import tempfile
 
-    from chip_smoke import cl_sequence_argv, write_synthetic_vqa
+    from chip_smoke import STREAMING_SWITCHES, cl_sequence_argv, write_synthetic_vqa
     from mafed_tpu_torch.core.config import ModelConfig, build_arg_parser, parse_with_config
     from mafed_tpu_torch.trainer.continual import ContinualLearningTrainer
 
+    switches = {"streaming": STREAMING_SWITCHES, "default": []}
+    runs = [("warmup", "default", 128, False)]
+    runs += [(f"{v}_{i}", v, train_questions, False)
+             for i, v in enumerate(("streaming", "default", "default", "streaming"), start=1)]
+    runs += [(f"profiled_{v}", v, train_questions, True) for v in ("streaming", "default")]
     units = {}
-    for name, n_train, profiled in (("warmup", 128, False), ("sequence", train_questions, False),
-                                    ("profiled", train_questions, True)):
+    for name, variant, n_train, profiled in runs:
         with tempfile.TemporaryDirectory(prefix="cl_sequence_") as root:
             write_synthetic_vqa(root, ("taskA", "taskB"), n_train, 32)
-            cfg = parse_with_config(build_arg_parser(), cl_sequence_argv(root))
+            cfg = parse_with_config(build_arg_parser(), cl_sequence_argv(root) + switches[variant])
             trainer = ContinualLearningTrainer(cfg, model_cfg=ModelConfig.from_json(cfg.model_config),
                                                synthetic_images=True)
             if profiled:
                 fit = trainer.runner.fit
 
-                def profiled_fit(*args):
+                def profiled_fit(*args, **kwargs):
                     out = []
-                    units[f"fit_task{args[4]}"] = profile(lambda: out.append(fit(*args)), reps=1, warmup=0)
+                    units[f"{name}_fit_task{args[4]}"] = profile(lambda: out.append(fit(*args, **kwargs)), reps=1,
+                                                                 warmup=0)
                     return out[0]
 
                 trainer.runner.fit = profiled_fit
@@ -238,9 +247,11 @@ def cl_sequence_units(train_questions: int) -> dict:
             trainer.main()
             if not profiled:
                 units[name] = {
-                    "wall_s": time.perf_counter() - start, "seconds": trainer.timings,
+                    "variant": variant, "wall_s": time.perf_counter() - start, "seconds": trainer.timings,
                     "train_ex_per_s": [[h["train_ex_per_s"] for h in log["history"]] for log in trainer.fit_logs],
                     "steps": [log["steps"] for log in trainer.fit_logs], "images_primed": trainer.primed,
+                    "bundle_save_s": trainer.runner.bundle_save_s, "vision_tables": trainer.vision_tables,
+                    "teacher_cache": trainer.strategy.teacher_cache_log,
                 }
             del trainer
             torch.cuda.empty_cache()

@@ -38,7 +38,7 @@ from mafed_tpu_torch.trainer.continual import ContinualLearningTrainer
 from mafed_tpu_torch.trainer.runner import TaskRunner
 from mafed_tpu_torch.train import main as train_main
 from tests.helpers import write_synthetic_vqa as jax_write_synthetic_vqa
-from tests.torch_helpers import jax_params, tiny_cfgs, torch_model, write_synthetic_vqa
+from tests.torch_helpers import one_torch_thread, jax_params, tiny_cfgs, torch_model, write_synthetic_vqa  # noqa: F401 (a fixture)
 
 LOSS_RTOL = 1e-4
 PARAM_ATOL = 1e-6
@@ -47,7 +47,6 @@ MAFED = dict(
     cl_method="featdistill", accumulate_grad_batches=4, replay_interval=4, cl_memory=8, compute_dtype="float32",
     distillation_modality_weighing_strategy="balanced", distillation_layer_weighing_strategy="discounted",
     distillation_layer_discount=0.5, device_vision_table_mb=0, teacher_state_cache="off",
-    resume_bundle_every=0,  # the port writes no resume bundles
 )
 
 
@@ -217,13 +216,10 @@ def test_model_config_from_json_matches_jax():
 
 
 @pytest.mark.parametrize("overrides", [
-    {"device_vision_table_mb": 1024},
-    {"teacher_state_cache": "auto"},
-    {"resume_from_checkpoint": "out/resume"},
     {"profile_dir": "trace"},
     {"distributed_init": True},
     {"mesh_shape": [2, 1]},
-], ids=["vision_table", "teacher_cache", "resume", "profile", "distributed", "mesh"])
+], ids=["profile", "distributed", "mesh"])
 def test_settings_left_out_raise(tmp_path, overrides):
     cfg = write_synthetic_vqa(str(tmp_path)).replace(cl_method="featdistill", **overrides)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

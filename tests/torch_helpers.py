@@ -6,6 +6,7 @@ seeded numpy batches."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -33,6 +34,17 @@ def tiny_cfgs(vision=TINY_VISION, decoder=TINY):
     jcfg = ModelConfig(**decoder, vision=VisionConfig(**vision), vision_encoder_name="tiny-eva")
     tc = tcfg.ModelConfig(**decoder, vision=tcfg.VisionConfig(**vision), vision_encoder_name="tiny-eva")
     return jcfg, tc
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Imported by a test module: its tests run torch on one CPU thread. The
+    tiny models are no slower so, and the suite's parallel workers do not
+    oversubscribe the cores; the previous count comes back after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def jax_params(jcfg, seed: int = 0, vision_dtype=jnp.bfloat16):
@@ -90,7 +102,9 @@ QUESTIONS = [
 def write_synthetic_vqa(root: str, tasks=("taskA", "taskB"), n_train: int = 24, n_val: int = 8) -> "tcfg.TrainConfig":
     """The port's writer of the synthetic ContVQA layout of
     tests/helpers.py::write_synthetic_vqa ({split}_annotations.json and the
-    split files under contvqa/tiny), and the port's TrainConfig over it."""
+    split files under contvqa/tiny), and the port's TrainConfig over it
+    (that of tests/helpers.py::synthetic_config: the trainer's defaults for
+    the device tables, the teacher-state cache and the resume bundles)."""
     import json
     import os
 
@@ -122,5 +136,4 @@ def write_synthetic_vqa(root: str, tasks=("taskA", "taskB"), n_train: int = 24, 
         batch_size=4, val_batch_size=4, accumulate_grad_batches=1, epochs=[1, 1], max_txt_len=24,
         n_workers=2, val_num_workers=2, learning_rate=1e-3, optim="adamw", weight_decay=0.01,
         text_pad_multiple=8, mesh_shape=[1, 1], log_every=1, seed=42, allow_tokenizer_fallback=True,
-        device_vision_table_mb=0, teacher_state_cache="off",
     )
