@@ -11,10 +11,13 @@ Phases, each printing one JSON line:
      TMA + wgmma kernels, and none may spill or lack either;
   3. kernels: the three flash kernels against their plain PyTorch versions on
      the card, in bf16, at the shapes of the 410M window and CE window (and
-     EVA-02 shapes), at the 1B model's (heads of 256: its CE pass, CE window,
-     student pass and decode prefill), and in a 129-token case across the
-     tile edge and a small unaligned case with fully-masked rows at both
-     head_dims; and their times at each model's CE shape beside the plain
+     EVA-02 shapes), at pretraining's ([128, 16, 356, 64], right padding of
+     a different length in each row, and its tower at 128 images), at the
+     1B model's (heads of 256: its CE pass, CE window, student pass and
+     decode prefill), and in a 129-token case across the tile edge, a small
+     unaligned case with fully-masked rows at both head_dims and a small
+     unaligned right-padded one; and their times at each model's CE shape
+     and at pretraining's beside the plain
      versions, the bound and torch.nn.functional.scaled_dot_product_attention
      (a yardstick only: its forward for the forward kernel, its whole
      backward, which also computes dq, for each backward kernel);
@@ -26,17 +29,31 @@ Phases, each printing one JSON line:
      adaptive-weight sums, card against CPU; and the rows the device vision
      table (bfloat16 and int8) and the teacher table gather, card against
      CPU, bit for bit;
-  5. window: three fused MAFED windows of VL-Pythia-410M at full width and
+  5. pretrain, pretrain_resume, pretrain_to_cl (the first model phases: an
+     update at batch 128 takes ~75 of the card's 80 GB): captioning
+     pretraining through mafed_tpu_torch.pretrain_vlpythia.train(argv) at
+     full width and depth (the defaults of ModelArguments and
+     PretrainConfig: 410M + EVA-02-L from the seed, batch 128, text 100,
+     AdamW, bf16) over 512 + 128 captions of PNG images it writes (every
+     4th a Visual-Genome region): 4 updates, evals and checkpoints at 2 and
+     4, and checkpoint-final; launches 288 / 96 / 96, the logged losses,
+     the checkpoints' files and their rotation asserted; the update's ms,
+     examples/s, MFU, peak memory and seconds per checkpoint. Then a fresh
+     trainer resumed from checkpoint-2: its checkpoint-final equal to the
+     first run's bit for bit. Then cl_sequence_default's command line with
+     --model_name <pretrain out>/checkpoint-final: the trainer's initial
+     model equal to the checkpoint bit for bit, launches 572 / 144 / 144;
+  6. window: three fused MAFED windows of VL-Pythia-410M at full width and
      depth (random seeded weights, cached-patch shapes of the bench), with the
      kernel launch counts of that run;
-  6. decode: greedy KV-cache decode of VL-Pythia-410M + EVA-02-L at full width
+  7. decode: greedy KV-cache decode of VL-Pythia-410M + EVA-02-L at full width
      and depth (bf16 weights from a seed; batch 32, text 64 with 16 left-padded
      positions, 10 new tokens), from uint8 pixels through the tower and from
      the tower's cached patch features, each timed over 6 batches after a
      warm-up with batch i+1 dispatched before batch i is read, with the kernel
      launch counts of each route; the emitted tokens checked against a
      no-cache forward; then validate_vqa over 3 synthetic batches;
-  7. train_steps: the other training paths of VL-Pythia-410M at full width and
+  8. train_steps: the other training paths of VL-Pythia-410M at full width and
      depth, each from the same seeded weights and microbatches of 16 (text 80,
      20 left-padded positions, an 8-token answer, uint8 pixels and the tower's
      features of them): CE and EWC windows of 4 microbatches (the EWC
@@ -45,14 +62,14 @@ Phases, each printing one JSON line:
      and a distill step), the MAFED window fused, unfused and from pixels, and
      the adaptive-weight sums; each path's times, launches and checks, and two
      cross-path checks of the first losses;
-  8. window_1b, ce_window_1b, decode_1b: VL-Pythia-1B (hidden 2048, 16
+  9. window_1b, ce_window_1b, decode_1b: VL-Pythia-1B (hidden 2048, 16
      layers, 8 heads of 256, the trainer's default model) at full width and
      depth, the 410M models freed first: three fused MAFED windows at phase
-     5's shapes (launches 78 / 32 / 32 a window, all at head_dim 256), three
-     CE windows of 4 x 16 (32 / 16 / 16), and phase 6's decode with the
+     6's shapes (launches 78 / 32 / 32 a window, all at head_dim 256), three
+     CE windows of 4 x 16 (32 / 16 / 16), and phase 7's decode with the
      EVA-02-L tower (40 forward launches a batch from pixels, 24 at head_dim
      64 and 16 at 256; 16 from patches);
-  9. cl_sequence: the port's continual-learning trainer through its entry
+ 10. cl_sequence: the port's continual-learning trainer through its entry
      points (parse_with_config over config/train-vqa-base-cl-vlpythia.json,
      ContinualLearningTrainer.main) on the shipped config's model,
      config/vlpythia-base.json (VL-Pythia-410M + EVA-02-L, full width and
@@ -66,13 +83,13 @@ Phases, each printing one JSON line:
      the windows each task ran and the flash launches computed from the
      config; prints the seconds of each stage and each task's train
      examples/s;
- 10. cl_sequence_default: the same command line without those two switches,
+ 11. cl_sequence_default: the same command line without those two switches,
      the shipped config's defaults: the features in a device table (tier,
      rows and MB asserted), the teacher's states primed after task 0 into a
      device table (examples and MB asserted), the MAFED windows without
      their teacher pass and priming's forwards in the launches; its accuracy
      matrix equal to cl_sequence's and its losses within SEQUENCE_LOSS_RTOL;
- 11. cl_resume: the default sequence preempted after task 1's first window
+ 12. cl_resume: the default sequence preempted after task 1's first window
      (Preempted, exit code 143, a mid-epoch bundle), then restarted with
      --resume_from_checkpoint: its {task}_best checkpoints and accuracy
      matrix equal to cl_sequence_default's bit for bit, the launches of each
@@ -89,6 +106,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -198,10 +216,22 @@ def at_head_dim(d: int, per_kernel: dict) -> dict:
     return {dim: dict(per_kernel) if dim == d else _kernels(0, 0) for dim in build.HEAD_DIMS}
 
 
+def _row_lengths(b: int, t: int, low: int) -> torch.Tensor:
+    """Kept keys per row for ragged right padding: t, then lengths spread
+    over [low, t] (row i keeps t - (37 i mod (t - low + 1)))."""
+    return t - (torch.arange(b, device="cuda") * 37) % (t - low + 1)
+
+
 def _qkv(gen, b, h, t, pad, empty_sample, d=64):
+    """q, k, v, do and the key mask of a case: `pad` is a key range (start,
+    end) masked in every row, or ("right", low) for right padding of a
+    different length in each row (a caption batch: keys past the row's
+    length masked, at least `low` kept)."""
     q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
     mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
-    if pad is not None:
+    if pad is not None and pad[0] == "right":
+        mask = (torch.arange(t, device="cuda")[None] < _row_lengths(b, t, pad[1])[:, None]).to(torch.int32)
+    elif pad is not None:
         mask[:, pad[0]:pad[1]] = 0
     if empty_sample:
         mask[-1] = 0
@@ -212,8 +242,12 @@ def _err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-# (name, batch, heads, seq, head_dim, causal, padded key range, all-masked last sample)
+# (name, batch, heads, seq, head_dim, causal, padded key range or ("right", least kept keys), all-masked last sample)
 KERNEL_CASES = [
+    # pretraining's decoder: 256 vision + 100 caption tokens, right-padded per row (356 = 5 x 64 + 36)
+    ("pretrain_410m", 128, 16, 356, 64, True, ("right", 257), False),
+    ("small_unaligned_right_padded", 3, 2, 77, 64, True, ("right", 1), False),
+    ("eva02_tower_b128", 128, 16, 257, 64, False, None, False),  # pretraining's tower
     ("ce_410m", 48, 16, 336, 64, True, (256, 276), False),
     ("ce_window_410m", 64, 16, 336, 64, True, (256, 276), False),  # the CE window's 4 x 16 rows
     ("student_410m", 16, 16, 336, 64, True, (256, 276), False),
@@ -267,7 +301,8 @@ def phase_kernels(gen):
               "empty_rows": int((~fin).sum().item()), "max_abs_err": case_err, "atol": ATOL, "rtol": RTOL})
 
     timing = {64: kernel_timing(gen, "timing_ce_410m", 48, 16, 336, 64),
-              256: kernel_timing(gen, "timing_ce_1b", 48, 8, 336, 256)}
+              256: kernel_timing(gen, "timing_ce_1b", 48, 8, 336, 256),
+              "pretrain": kernel_timing(gen, "timing_pretrain_410m", 128, 16, 356, 64, pad=("right", 257))}
     for case, b, h, t, d, causal, pad in (("timing_decode_tower", 32, 16, 257, 64, False, None),
                                           ("timing_decode_prefill", 32, 16, 320, 64, True, (256, 272)),
                                           ("timing_ce_window", 64, 16, 336, 64, True, (256, 276)),
@@ -284,14 +319,15 @@ def _bound(nbytes: float, flops: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def kernel_timing(gen, case, b, h, t, d) -> dict:
-    """The three kernels' times at one causal shape with 20 padded keys
-    (256..275) beside the plain versions', SDPA's (a yardstick, never called
-    by the port: its forward against the forward kernel, its whole backward,
-    which computes dq, dk and dv, against each backward kernel) and each
-    kernel's bound; emitted, and returned with the bounds' causes."""
+def kernel_timing(gen, case, b, h, t, d, pad=(256, 276)) -> dict:
+    """The three kernels' times at one causal shape with the keys `pad`
+    masks (by default 256..275, 20 padded keys) beside the plain versions',
+    SDPA's (a yardstick, never called by the port: its forward against the
+    forward kernel, its whole backward, which computes dq, dk and dv,
+    against each backward kernel) and each kernel's bound; emitted, and
+    returned with the bounds' causes."""
     scale = d ** -0.5
-    q, k, v, do, mask = _qkv(gen, b, h, t, (256, 276), False, d)
+    q, k, v, do, mask = _qkv(gen, b, h, t, pad, False, d)
     o, lse = A.flash_forward(q, k, v, mask, True, scale)
     delta = (do.float() * o.float()).sum(-1)
     ms = {
@@ -1249,6 +1285,245 @@ def phase_cl_resume(smi: str, uninterrupted: dict, device: str = "cuda", model_c
     return {d: {k: launches["first"][d][k] + launches["second"][d][k] for k in A.LAUNCHES} for d in build.HEAD_DIMS}
 
 
+CAPTION_WORDS = ("a", "the", "red", "small", "dog", "cat", "runs", "sits", "on", "green", "grass", "beside",
+                 "wooden", "table", "with", "two", "people", "near", "bright", "window", "in", "old", "city")
+
+
+def write_caption_manifests(root: str, n_train: int, n_eval: int, n_images: int = 64) -> tuple:
+    """(train, eval) JSONL manifests over `n_images` PNG photos of three
+    sizes written under `root`; captions of 2 to 30 words (so that byte
+    tokens run from ~10 past the 100 kept), every 4th record a
+    Visual-Genome region with a bbox (the object-centre crop)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(11)
+    paths = []
+    for i in range(n_images):
+        w, h = ((320, 240), (240, 320), (256, 256))[i % 3]
+        ramp = np.linspace(0, 255, w, dtype=np.float32)[None, :, None] * np.ones((h, 1, 3), np.float32)
+        img = (ramp * 0.5 + rng.integers(0, 128, size=(h, w, 3))).astype(np.uint8)
+        paths.append(os.path.join(root, "images", f"{i}.png"))
+        os.makedirs(os.path.dirname(paths[-1]), exist_ok=True)
+        Image.fromarray(img).save(paths[-1])
+    manifests = []
+    for split, n in (("train", n_train), ("eval", n_eval)):
+        manifests.append(os.path.join(root, f"{split}.jsonl"))
+        with open(manifests[-1], "w") as f:
+            for i in range(n):
+                caption = " ".join(rng.choice(CAPTION_WORDS, size=int(rng.integers(2, 31))))
+                row = {"image": paths[i % n_images], "caption": caption, "source": "coco", "metadata": {}}
+                if i % 4 == 3:
+                    x, y = (int(v) for v in rng.integers(0, 200, size=2))
+                    row.update(source="visual_genome", metadata={"bbox": [x, y, 40, 30]})
+                f.write(json.dumps(row) + "\n")
+    return tuple(manifests)
+
+
+def pretrain_argv(root: str) -> list:
+    """The pretrain command line: the defaults of ModelArguments and
+    PretrainConfig (VL-Pythia-410M + EVA-02-L from the seed, batch 128, text
+    100, lr 2e-5, warmup 0.03, clip 1.0, AdamW (0.9, 0.999), bf16), one epoch
+    over 512 captions with a save and an eval every 2 of its 4 updates."""
+    train, evaluation = write_caption_manifests(root, 512, 128)
+    return ["--manifest", train, "--eval_manifest", evaluation, "--output_dir", os.path.join(root, "out"),
+            "--allow_tokenizer_fallback", "--per_device_train_batch_size", "128", "--model_max_length", "100",
+            "--num_train_epochs", "1", "--save_steps", "0.5", "--eval_steps", "0.5"]
+
+
+def drive_pretrain(run_trainer, device: str = "cuda") -> dict:
+    """Run `run_trainer(cls)` with `cls` a PretrainTrainer that records
+    itself and the host-clock ms of each step (ending in a synchronise), the
+    launch counts set to 0 just before and read just after, the peak memory
+    reset before."""
+    from mafed_tpu_torch.pretrain.trainer import PretrainTrainer
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    trainers, step_ms = [], []
+
+    class Recorded(PretrainTrainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trainers.append(self)
+            inner = self.step_fn
+
+            def timed(state, batch):
+                sync()
+                start = time.perf_counter()
+                out = inner(state, batch)
+                sync()
+                step_ms.append((time.perf_counter() - start) * 1e3)
+                return out
+
+            self.step_fn = timed
+
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    start = time.perf_counter()
+    state = run_trainer(Recorded)
+    wall = time.perf_counter() - start
+    return {"state": state, "trainer": trainers[0], "step_ms": step_ms, "wall": wall, "launches": launches_by_dim(),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
+
+
+def pretrain_launches(cfg, steps: int, eval_batches: int) -> dict:
+    """Each step: the tower's blocks forward (no graph) and each decoder
+    layer forward and backward (no remat); each eval batch: the tower and
+    the decoder forward. All at head_dim 64 (410M and EVA-02-L)."""
+    per_image_pass = cfg.vision.depth + cfg.num_hidden_layers
+    return at_head_dim(64, _kernels(steps * per_image_pass + eval_batches * per_image_pass,
+                                    steps * cfg.num_hidden_layers))
+
+
+def _logged(out: str) -> dict:
+    logged = {"train/loss": [], "eval/loss": []}
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        for rec in map(json.loads, f):
+            for key in logged:
+                if key in rec:
+                    logged[key].append([rec["_step"], rec[key]])
+    return logged
+
+
+def phase_pretrain(smi: str, root: str, device: str = "cuda", model_dir=None) -> dict:
+    """Captioning pretraining through its entry point,
+    mafed_tpu_torch.pretrain_vlpythia.train(argv), at full width and depth:
+    4 updates of 128 captions, evals and checkpoints at 2 and 4, then
+    checkpoint-final. Asserts the launches computed from the config (on the
+    card), finite logged losses, each checkpoint's files and the rotation.
+    Returns the run. `model_dir` (a model directory as --model_name) and
+    `device` rehearse it at a tiny size on the CPU."""
+    from mafed_tpu_torch import pretrain_vlpythia as cli
+
+    argv = pretrain_argv(root) + ["--device", device] + (["--model_name", model_dir] if model_dir else [])
+
+    def run_cli(cls):
+        saved = cli.PretrainTrainer
+        cli.PretrainTrainer = cls
+        try:
+            return cli.train(argv)
+        finally:
+            cli.PretrainTrainer = saved
+
+    run = drive_pretrain(run_cli, device)
+    trainer, out = run["trainer"], os.path.join(root, "out")
+    cfg, args = trainer.model_cfg, trainer.args
+    steps, evals = trainer.total_steps, 2
+    if (steps, trainer.global_batch, run["state"].step) != (4, 128, 4):
+        raise AssertionError(f"pretrain: {steps} updates of {trainer.global_batch}, state at {run['state'].step}")
+    expected = pretrain_launches(cfg, steps, evals * (128 // args.per_device_eval_batch_size))
+    if device == "cuda" and run["launches"] != expected:
+        raise AssertionError(f"pretrain: kernel launches {run['launches']}, expected {expected}")
+    logged = _logged(out)
+    if [s for s, _ in logged["train/loss"]] != [1, 2, 3, 4] or [s for s, _ in logged["eval/loss"]] != [2, 4] or \
+            not all(np.isfinite(v) for key in logged for _, v in logged[key]):
+        raise AssertionError(f"pretrain: logged {logged}")
+    # rotation (save_total_limit 2): both numbered checkpoints stay; the best is one of them
+    names = sorted(d for d in os.listdir(out) if d.startswith("checkpoint-"))
+    files = ["model.safetensors", "opt_state.safetensors", "trainer_state.json"]
+    if names != ["checkpoint-2", "checkpoint-4", "checkpoint-final"] or \
+            not all(os.path.exists(os.path.join(out, n, f)) for n in names for f in files):
+        raise AssertionError(f"pretrain: checkpoints {names} or their files")
+    best_step = min(logged["eval/loss"], key=lambda sv: sv[1])[0]
+    if trainer.best_path != os.path.join(out, f"checkpoint-{best_step}"):
+        raise AssertionError(f"pretrain: best {trainer.best_path}, eval losses {logged['eval/loss']}")
+    ms = sum(run["step_ms"][1:]) / (len(run["step_ms"]) - 1)  # the first step pays cuBLAS and allocator warm-up
+    ex_per_s = trainer.global_batch / (ms / 1e3)
+    flops = ce_example_flops(cfg, args.model_max_length, vision_cached=False)
+    emit({"phase": "pretrain", "card": smi, "argv": argv[4:], "layers": cfg.num_hidden_layers,
+          "hidden": cfg.hidden_size, "vision_depth": cfg.vision.depth, "batch": trainer.global_batch,
+          "text_len": args.model_max_length, "updates": steps, "step_ms": run["step_ms"], "ms_per_step": ms,
+          "examples_per_s": ex_per_s, "mfu": mfu(ex_per_s, flops), "flops_per_example": flops,
+          "end_to_end_examples_per_s": steps * trainer.global_batch / run["wall"], "seconds": run["wall"],
+          "peak_memory_gb": run["peak_memory_gb"], "checkpoint_s": trainer.checkpoint_seconds,
+          "checkpoint_gb": {n: sum(os.path.getsize(os.path.join(out, n, f)) for f in files) / 1e9 for n in names},
+          "logged": logged, "best": os.path.basename(trainer.best_path), "checkpoints": names,
+          "launches": run["launches"], "expected_launches": expected,
+          "disk_free_gb": shutil.disk_usage(root).free / 1e9})
+    return {"argv": argv, "out": out, "trainer": trainer, "launches": run["launches"], "device": device}
+
+
+def phase_pretrain_resume(smi: str, uninterrupted: dict) -> dict:
+    """A fresh PretrainTrainer on the same command line's settings, resumed
+    from the uninterrupted run's checkpoint-2 (mid-epoch: updates 3 and 4 and
+    the eval at 4 remain): its checkpoint-final/model.safetensors equal to
+    the uninterrupted run's bit for bit, its launches as computed."""
+    from mafed_tpu_torch.pretrain_vlpythia import parse_args
+    from mafed_tpu_torch.pretrain.dataset import PretrainDataset
+
+    first = uninterrupted["trainer"]
+    out = uninterrupted["out"] + "_resumed"
+    _, data_args, args, _ = parse_args(uninterrupted["argv"] + ["--output_dir", out])
+    tokenizer = ByteTokenizer(model_max_length=args.model_max_length, padding_side="right")
+    datasets = [PretrainDataset(tokenizer, first.model_cfg.vision, manifest_path=m,
+                                model_max_length=args.model_max_length)
+                for m in (data_args.manifest, data_args.eval_manifest)]
+    device = uninterrupted["device"]
+    run = drive_pretrain(
+        lambda cls: cls(first.model_cfg, args, *datasets, tokenizer, device=device).train(
+            resume_from_checkpoint=os.path.join(uninterrupted["out"], "checkpoint-2")), device)
+    expected = pretrain_launches(first.model_cfg, 2, 1)
+    if device == "cuda" and run["launches"] != expected:
+        raise AssertionError(f"pretrain_resume: kernel launches {run['launches']}, expected {expected}")
+    from mafed_tpu_torch.models.weights import load_safetensors
+
+    got, want = (load_safetensors(os.path.join(d, "checkpoint-final", "model.safetensors"))
+                 for d in (out, uninterrupted["out"]))
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    if set(got) != set(want) or differ:
+        raise AssertionError(f"pretrain_resume: checkpoint-final differs from the uninterrupted run's in {differ[:5]}")
+    logged, first_logged = _logged(out), _logged(uninterrupted["out"])
+    if logged["train/loss"] != first_logged["train/loss"][2:] or logged["eval/loss"] != first_logged["eval/loss"][1:]:
+        raise AssertionError(f"pretrain_resume: logged {logged} against {first_logged}")
+    emit({"phase": "pretrain_resume", "card": smi, "from": "checkpoint-2", "step_ms": run["step_ms"],
+          "seconds": run["wall"], "checkpoint_s": run["trainer"].checkpoint_seconds,
+          "checkpoint_final_bit_equal": True, "tensors": len(want), "logged": logged,
+          "launches": run["launches"], "expected_launches": expected})
+    shutil.rmtree(out)
+    return run["launches"]
+
+
+def phase_pretrain_to_cl(smi: str, pretrain: dict, root: str, model_cfg=None) -> dict:
+    """cl_sequence_default's command line with --model_name
+    <pretrain out>/checkpoint-final: the model the trainer starts from (its
+    first load_params, on the card) equal to the checkpoint's tensors bit for
+    bit, and the sequence's checks and launches (572 / 144 / 144) as in
+    cl_sequence_default."""
+    from mafed_tpu_torch.models.weights import load_safetensors
+    from mafed_tpu_torch.trainer.runner import TaskRunner
+
+    ckpt = os.path.join(pretrain["out"], "checkpoint-final")
+    loaded = []
+    load_params = TaskRunner.load_params
+
+    def record_first(self, params):
+        load_params(self, params)
+        if not loaded:
+            loaded.append({k: v.detach().to("cpu", torch.float32, copy=True) for k, v in self.model.state_dict().items()})
+
+    TaskRunner.load_params = record_first
+    try:
+        with tempfile.TemporaryDirectory(prefix="pretrain_to_cl_", dir=root) as data:
+            write_synthetic_vqa(data, ("taskA", "taskB"), 128, 32)
+            run = drive_sequence(cl_sequence_argv(data) + ["--model_name", ckpt], pretrain["device"], model_cfg)
+            counts = check_sequence("pretrain_to_cl", run, 128, 32, pretrain["device"], tables=True)
+    finally:
+        TaskRunner.load_params = load_params
+    want = load_safetensors(os.path.join(ckpt, "model.safetensors"))
+    (got,) = loaded
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    if set(got) != set(want) or differ:
+        raise AssertionError(f"pretrain_to_cl: the trainer's initial model differs from {ckpt} in {differ[:5]}")
+    emit({"phase": "pretrain_to_cl", "card": smi, "model_name": "<pretrain out>/checkpoint-final",
+          "initial_state_bit_equal": True, "tensors": len(want),
+          "accuracy_matrix": run["result"]["accuracy_matrix"], "bwt": run["result"]["bwt"],
+          "seconds": {"sequence": run["wall"], **run["trainer"].timings}, "losses": run["losses"],
+          "train_ex_per_s": run["train_ex_per_s"], **counts, "launches": run["launches"]})
+    return run["launches"]
+
+
 def free_device_memory() -> None:
     """Drop what earlier phases left cached on the card (their models are out of scope)."""
     gc.collect()
@@ -1267,8 +1542,23 @@ def main() -> int:
         phase_reference(head_dim)
     phase_reference_steps()
     phase_reference_tables()
-    by_path = {"window": phase_window(smi, "410m", "window"), "decode": phase_decode(smi, "410m", "decode"),
-               **phase_train_steps(smi)}
+    # pretraining first: its update at batch 128 peaks at ~75 of the card's 80 GB, best met before
+    # the other phases have fragmented the allocator's pool
+    free_device_memory()
+    by_path = {}
+    with tempfile.TemporaryDirectory(prefix="pretrain_") as root:
+        pretrain = phase_pretrain(smi, root)
+        by_path["pretrain"] = pretrain.pop("launches")
+        shutil.rmtree(os.path.join(pretrain["out"], "checkpoint-4"))  # the later phases read 2 and final
+        del pretrain["trainer"].model
+        free_device_memory()
+        by_path["pretrain_resume"] = phase_pretrain_resume(smi, pretrain)
+        free_device_memory()
+        by_path["pretrain_to_cl"] = phase_pretrain_to_cl(smi, pretrain, root)
+        del pretrain
+    free_device_memory()
+    by_path.update({"window": phase_window(smi, "410m", "window"), "decode": phase_decode(smi, "410m", "decode"),
+                    **phase_train_steps(smi)})
     # VL-Pythia-1B, with the 410M models and their caches gone
     for path, run in (("window_1b", lambda: phase_window(smi, "1b", "window_1b")),
                       ("ce_window_1b", lambda: phase_ce_window_1b(smi)),
@@ -1291,7 +1581,9 @@ def main() -> int:
          "launches_by_path": {p: path[d][name] for p, path in by_path.items()},
          "max_abs_err": errs[name, d], "ms": timing[d]["ms"][name], "plain_ms": timing[d]["plain_ms"][name],
          "bound_ms": timing[d]["bound_ms"][name], "bound_by": timing[d]["bound_by"][name],
-         "library_ms": timing[d]["library_ms"][name], "library_covers": LIBRARY_COVERS[name]}
+         "library_ms": timing[d]["library_ms"][name], "library_covers": LIBRARY_COVERS[name],
+         **({"at_pretrain_shape": {key: timing["pretrain"][key][name] for key in
+                                   ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} if d == 64 else {})}
         for name, (replaces, design) in KERNELS.items() for d in build.HEAD_DIMS
     ]
     emit({"kernels": kernels})

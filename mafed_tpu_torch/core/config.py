@@ -127,8 +127,8 @@ class TrainConfig:
 
     Some settings select features the port does not have yet; the trainer
     raises NotImplementedError on them rather than running something else
-    (trainer/continual.check_supported): profile_dir, more than one process
-    or device, and a pretrained model directory. `remat_policy` takes "" or
+    (trainer/continual.check_supported): profile_dir, and more than one
+    process or device. `remat_policy` takes "" or
     "full" only (training/step.py).
     """
 

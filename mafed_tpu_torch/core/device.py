@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from typing import Union
+import os
+from typing import Sequence, Union
 
 import torch
 
@@ -19,3 +20,13 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
         if device.index is None:  # "cuda" means the current card, as tensors report it
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def asks_for_several_devices(mesh_shape: Sequence[int], distributed_init: bool) -> bool:
+    """Whether the settings (the JAX package's mesh shape, where -1 infers
+    an axis, and distributed_init) or WORLD_SIZE ask for more than one
+    process or device; the port runs on one."""
+    devices = 1
+    for d in mesh_shape or ():
+        devices *= d if d > 0 else 1
+    return bool(distributed_init) or devices > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1

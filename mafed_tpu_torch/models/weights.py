@@ -12,6 +12,10 @@ format by hand (the `safetensors` package is not needed): an 8-byte
 little-endian header length, a JSON header of
 {name: {"dtype", "shape", "data_offsets"}} padded with spaces to a multiple
 of 8 bytes, then the tensors' raw little-endian bytes.
+
+`load_pretrained` reads a reference-format model directory (config.json and
+model.safetensors, sharded *.safetensors or pytorch_model.bin) into a
+state_dict of the port's names (`normalize_state_dict`).
 """
 
 from __future__ import annotations
@@ -19,12 +23,13 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mafed_tpu_torch.core.config import ModelConfig
+from mafed_tpu_torch.models.vl_pythia import VLPythia
 
 
 def _tensor(x: Any, transpose: bool = False, axes=None) -> torch.Tensor:
@@ -143,3 +148,62 @@ def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
             t = torch.frombuffer(raw, dtype=torch.uint8) if raw else torch.empty(0, dtype=torch.uint8)
             out[name] = t.view(dtype).reshape(meta["shape"])
     return out
+
+
+def _candidates(name: str):
+    """The names a reference-format file may give the model's tensor `name`:
+    the decoder's with or without the `gpt_neox.` prefix, `embed_out.weight`
+    also inside it, the tower's with or without `vision_encoder.` (the JAX
+    package's converters, mafed_tpu/models/weights.py:58-199, take the same)."""
+    for prefix in ("gpt_neox.", "vision_encoder."):
+        if name.startswith(prefix):
+            return (name, name[len(prefix):])
+    if name == "embed_out.weight":
+        return (name, "gpt_neox.embed_out.weight")
+    return (name,)
+
+
+def normalize_state_dict(state_dict: Dict[str, torch.Tensor], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """A reference-format state_dict under exactly VLPythia's names (the
+    first candidate name present wins; other entries are dropped). The
+    layouts are torch's already, so nothing is transposed or stacked."""
+    out: Dict[str, torch.Tensor] = {}
+    for name in VLPythia(cfg, device="meta").state_dict():
+        found = next((k for k in _candidates(name) if k in state_dict), None)
+        if found is None:
+            raise KeyError(f"{name} not in the state dict (tried {list(_candidates(name))})")
+        out[name] = state_dict[found]
+    return out
+
+
+def load_torch_pickle(path: str) -> Dict[str, torch.Tensor]:
+    """A torch.save'd state_dict (`.bin`, or a Lightning `.ckpt`), read with
+    weights_only=True: a pickle that holds anything but tensors and plain
+    containers is refused (pickle.UnpicklingError)."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_pretrained(model_dir: str, cfg: Optional[ModelConfig] = None) -> Tuple[Dict[str, torch.Tensor], ModelConfig]:
+    """(state_dict on the CPU, config) of a reference-format model directory,
+    with the fallback chain of the JAX package's load_pretrained: a single
+    model.safetensors, then the sharded *.safetensors, then
+    pytorch_model.bin. The config is `cfg`, else config.json, else
+    ModelConfig()."""
+    cfg_path = os.path.join(model_dir, "config.json")
+    if cfg is None:
+        cfg = ModelConfig.from_json(cfg_path) if os.path.exists(cfg_path) else ModelConfig()
+    single = os.path.join(model_dir, "model.safetensors")
+    shards = sorted(
+        f for f in os.listdir(model_dir) if f.endswith(".safetensors") and f != "model.safetensors"
+    ) if os.path.isdir(model_dir) else []
+    if os.path.exists(single):
+        sd = load_safetensors(single)
+    elif shards:
+        sd = {}
+        for shard in shards:
+            sd.update(load_safetensors(os.path.join(model_dir, shard)))
+    elif os.path.exists(os.path.join(model_dir, "pytorch_model.bin")):
+        sd = load_torch_pickle(os.path.join(model_dir, "pytorch_model.bin"))
+    else:
+        raise FileNotFoundError(f"no weights found under {model_dir}")
+    return normalize_state_dict(sd, cfg), cfg

@@ -30,7 +30,7 @@ import torch
 
 from mafed_tpu_torch.cl import CLMethod
 from mafed_tpu_torch.core.config import ModelConfig, TrainConfig
-from mafed_tpu_torch.core.device import resolve_device
+from mafed_tpu_torch.core.device import asks_for_several_devices, resolve_device
 from mafed_tpu_torch.core.logging import LOGGER, MetricsLogger, add_log_to_file
 from mafed_tpu_torch.core.prng import seed_everything
 from mafed_tpu_torch.data import vision_table as vt
@@ -38,6 +38,7 @@ from mafed_tpu_torch.data.factory import get_val_loaders, prepare_train_dataset
 from mafed_tpu_torch.data.tokenizer import build_tokenizer
 from mafed_tpu_torch.data.vision_cache import VisionFeatureCache, prime_vision_cache
 from mafed_tpu_torch.models.vl_pythia import init_model, n_vision_tokens
+from mafed_tpu_torch.models.weights import load_pretrained, normalize_state_dict
 from mafed_tpu_torch.trainer.runner import TaskRunner
 from mafed_tpu_torch.training.train_state import TrainState
 from mafed_tpu_torch.utils.checkpoint import (
@@ -59,8 +60,7 @@ def check_supported(config: TrainConfig) -> None:
     something else: profile_dir, and more than one process or device."""
     if config.profile_dir:
         raise _not_ported("profile_dir", "profiling")
-    devices = int(np.prod([d for d in config.mesh_shape if d > 0])) if config.mesh_shape else 1
-    if config.distributed_init or devices > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+    if asks_for_several_devices(config.mesh_shape, config.distributed_init):
         raise _not_ported("more than one process or device", "multi-process")
 
 
@@ -136,10 +136,9 @@ class ContinualLearningTrainer:
             return self._init_params
         init_ckpt = get_initialization_checkpoint(self.config)
         if init_ckpt and os.path.exists(init_ckpt):
-            return load_task_checkpoint(init_ckpt)
+            return normalize_state_dict(load_task_checkpoint(init_ckpt), self.model_cfg)
         if os.path.isdir(self.config.model_name):
-            raise _not_ported(f"loading the pretrained model directory {self.config.model_name}",
-                              "load_pretrained / bin_reader")
+            return load_pretrained(self.config.model_name, self.model_cfg)[0]
         LOGGER.warning("no pretrained weights found; random init (%s)", self.config.model_name)
         return init_model(self.model_cfg, seed=self.config.seed, device=self.device).state_dict()
 

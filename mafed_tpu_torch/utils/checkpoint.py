@@ -24,7 +24,7 @@ import torch
 
 from mafed_tpu_torch.core.config import TrainConfig
 from mafed_tpu_torch.core.logging import LOGGER
-from mafed_tpu_torch.models.weights import load_safetensors, save_safetensors
+from mafed_tpu_torch.models.weights import load_safetensors, load_torch_pickle, save_safetensors
 
 
 def task_checkpoint_path(output_dir: str, task: str, extension: str = ".safetensors") -> str:
@@ -39,14 +39,18 @@ def save_task_checkpoint(state_dict: Dict[str, torch.Tensor], path: str) -> None
 
 
 def load_task_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A {task}_best checkpoint as a state_dict on the CPU."""
-    if not path.endswith(".safetensors"):
-        raise NotImplementedError(
-            f"{path}: the port reads safetensors checkpoints only; torch pickles "
-            "(.ckpt, .bin) come with load_pretrained (ROADMAP queue 1 item 5)"
-        )
+    """A {task}_best checkpoint as a state_dict on the CPU: safetensors, or a
+    torch pickle (.ckpt / .bin) whose state_dict (a Lightning checkpoint's
+    `state_dict` field) has its `model.` prefixes stripped, as the JAX
+    package reads it (mafed_tpu/utils/checkpoint.py:87-102). Pickles are read
+    with weights_only=True."""
     LOGGER.info("loading checkpoint %s", path)
-    return load_safetensors(path)
+    if path.endswith(".safetensors"):
+        return load_safetensors(path)
+    sd = load_torch_pickle(path)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k[len("model."):] if k.startswith("model.") else k: v for k, v in sd.items()}
 
 
 def atomic_json_commit(path: str, meta: Dict[str, Any], **dump_kwargs) -> None:

@@ -1,6 +1,6 @@
 """Where the time of the port's main paths goes on an NVIDIA GPU.
 
-    python3 scripts/profile_torch.py [--path window|window_unfused|ce_window|train_step|decode|cl_sequence]
+    python3 scripts/profile_torch.py [--path window|window_unfused|ce_window|train_step|decode|cl_sequence|pretrain_step]
                                      [--preset 410m|1b] [--reps 2] [--train-questions 1024] [--out PATH]
 
 window: the fused MAFED window of chip_smoke.py (VL-Pythia-410M at full width
@@ -31,6 +31,12 @@ unprofiled, streaming, default, default, streaming, for the trainer's own
 stage times, `train_ex_per_s`, bundle saves and teacher priming; then each
 variant once with each task's fit (its epoch and the epoch's validation)
 profiled as one unit. `--preset` does not apply to it.
+
+pretrain_step: one update of captioning pretraining as PretrainTrainer
+runs it (chip_smoke.py's pretrain phase: VL-Pythia-410M + EVA-02-L, batch
+128 of uint8 pixels through the frozen tower, 100 caption tokens
+right-padded per row, AdamW, bf16), from a batch of the trainer's own
+loader on the card; and one batch of its eval loss (forward only).
 
 --preset 1b runs every other path with VL-Pythia-1B (hidden 2048, 16 layers, 8
 heads of 256) at the same shapes in place of the 410M model.
@@ -258,10 +264,50 @@ def cl_sequence_units(train_questions: int) -> dict:
     return units
 
 
+def pretrain_units(reps: int) -> dict:
+    import tempfile
+
+    from chip_smoke import pretrain_argv
+    from mafed_tpu_torch.data.prefetch import to_device
+    from mafed_tpu_torch.data.tokenizer import ByteTokenizer
+    from mafed_tpu_torch.pretrain.dataset import PretrainDataset
+    from mafed_tpu_torch.pretrain.trainer import PretrainTrainer
+    from mafed_tpu_torch.pretrain_vlpythia import parse_args
+    from mafed_tpu_torch.core.config import ModelConfig
+    from mafed_tpu_torch.training.step import _ce_loss, _vision_features
+    from mafed_tpu_torch.training.train_state import TrainState, trainable_parameters
+
+    with tempfile.TemporaryDirectory(prefix="profile_pretrain_") as root:
+        _, data_args, args, _ = parse_args(pretrain_argv(root))
+        cfg = ModelConfig()
+        tok = ByteTokenizer(model_max_length=args.model_max_length, padding_side="right")
+        train = PretrainDataset(tok, cfg.vision, manifest_path=data_args.manifest, model_max_length=args.model_max_length)
+        trainer = PretrainTrainer(cfg, args, train, None, tok)
+        batch = to_device(next(iter(trainer._loader(train, trainer.global_batch, args.model_max_length, shuffle=True))),
+                          trainer.device)
+    box = [TrainState(0, trainer.model, trainer.tx.init(trainable_parameters(trainer.model)))]
+
+    def step():
+        box[0], _ = trainer.step_fn(box[0], batch)
+
+    def eval_batch():
+        with torch.no_grad():
+            patches = _vision_features(trainer.model, batch, trainer._normalize, torch.bfloat16)
+            _ce_loss(trainer.model, batch, patches, torch.bfloat16, None, remat=False)
+
+    units = {"pretrain_step": profile(step, reps)}
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    units["pretrain_step"]["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    units["pretrain_eval_batch"] = profile(eval_batch, reps)
+    return units
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--path", choices=("window", "window_unfused", "ce_window", "train_step", "decode",
-                                           "cl_sequence"),
+                                           "cl_sequence", "pretrain_step"),
                         default="window")
     parser.add_argument("--preset", choices=("410m", "1b"), default="410m")
     parser.add_argument("--reps", type=int, default=2)
@@ -284,6 +330,8 @@ def main() -> int:
         units = decode_units(args.reps, args.preset)
     elif args.path == "cl_sequence":
         units = cl_sequence_units(args.train_questions)
+    elif args.path == "pretrain_step":
+        units = pretrain_units(args.reps)
     else:
         units = ce_units(args.path, args.reps, args.preset)
     result = {"card": smi, "path": args.path, "preset": args.preset, "reps": args.reps, "units": units}

@@ -313,8 +313,13 @@ def test_checkpoints_cross_read(tmp_path):
     # and loads into a model
     fresh = torch_model(jax.tree.map(np.asarray, jax_params(jcfg_model, seed=6)), tc)
     fresh.load_state_dict(params_from_jax(jax_read, tc))
-    with pytest.raises(NotImplementedError, match="safetensors"):
-        load_task_checkpoint(str(tmp_path / "x.ckpt"))
+    # a Lightning checkpoint of the same weights ('state_dict', 'model.' prefixes), as the JAX package reads it
+    ckpt = str(tmp_path / "x.ckpt")
+    torch.save({"state_dict": {f"model.{k}": torch.from_numpy(np.asarray(v, np.float32).copy())
+                               for k, v in want.items()}}, ckpt)
+    by_ckpt = load_task_checkpoint(ckpt)
+    assert set(by_ckpt) == set(want)
+    assert all(torch.equal(by_ckpt[k], back[k]) for k in want)
 
 
 # --- small utilities ------------------------------------------------------------------------------

@@ -227,10 +227,12 @@ def test_settings_left_out_raise(tmp_path, overrides):
 
 
 def test_pretrained_directory_raises(tmp_path):
+    """A model directory as model_name goes through load_pretrained
+    (tests/test_torch_pretrained.py loads real ones); one without weights raises."""
     _, tc = tiny_cfgs()
     cfg = write_synthetic_vqa(str(tmp_path)).replace(model_name=str(tmp_path))
     trainer = ContinualLearningTrainer(cfg, model_cfg=tc, synthetic_images=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="load_pretrained"):
+    with pytest.raises(FileNotFoundError, match="no weights found"):
         trainer.main()
 
 
