@@ -94,6 +94,27 @@ Phases, each printing one JSON line:
      --resume_from_checkpoint: its {task}_best checkpoints and accuracy
      matrix equal to cl_sequence_default's bit for bit, the launches of each
      half as computed; the seconds of each half and of each bundle saved.
+ 13. image_engine (host only, before the model phases): whether the C++
+     image engine built (and why not), 1,000 COCO-sized JPEG and PNG files
+     decoded through it and through PIL (seconds, largest and mean pixel
+     difference), and a pretrain batch of 128 captions through the loader
+     with MAFED_NATIVE_IMAGES=1 and =0;
+ 14. remat_policies (after train_steps): five 410M MAFED windows under ""
+     and each named remat policy from one snapshot of the weights: losses
+     and grad norms against full recompute's, ms, peak GB, launches;
+ 15. clip_eval: VL-Pythia-410M + CLIP-L/14-336 (577 tokens) at full width
+     and depth: greedy decode at batch 32 from uint8 pixels (24 non-causal
+     forwards at 577 + 24 causal a batch), the tower's hidden_states[-2]
+     against the port's float32 CPU run, validate_vqa, and the tower's flash
+     forward at [32, 16, 577, 64] timed;
+ 16. cka_sweep (inside cl_sequence_default's directory): analysis.sweep.main
+     over that run at --max_batches 2: 25 layers, values in [0, 1], launches,
+     CKA(a, a) = 1 on the card;
+ 17. profile (last): the shipped config on one task of 384 questions, plain,
+     with --profile_dir and plain again: the trace names the three kernels;
+     the profiled fit's seconds against the plain ones.
+The kernel cases include the CLIP tower's [32, 16, 577, 64] (non-causal,
+577 = 9 x 64 + 1) and its decode prefill (640, causal, 16 padded keys).
 Then the kernel summary line (one entry per kernel and head_dim), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a CUDA device, or without the
@@ -127,7 +148,7 @@ from mafed_tpu_torch.evaluation.decode import make_greedy_decoder
 from mafed_tpu_torch.evaluation.validate import validate_vqa
 from mafed_tpu_torch.kernels import attention as A
 from mafed_tpu_torch.kernels import build
-from mafed_tpu_torch.models import gpt_neox
+from mafed_tpu_torch.models import clip_vit, gpt_neox
 from mafed_tpu_torch.models import vl_pythia as V
 from mafed_tpu_torch.models.vl_pythia import init_model
 from mafed_tpu_torch.optim.optimizer import MultiSteps, build_optimizer, set_schedule
@@ -255,6 +276,8 @@ KERNEL_CASES = [
     ("eva02_tower_b32", 32, 16, 257, 64, False, None, False),  # the decode's tower
     ("eva02_tower_b64", 64, 16, 257, 64, False, None, False),  # a pixels-route window's 48 + 16 images
     ("decode_prefill_b32", 32, 16, 320, 64, True, (256, 272), False),  # the decode's prefill
+    ("clip_tower_b32", 32, 16, 577, 64, False, None, False),  # CLIP-L/14-336: 577 = 9 x 64 + 1 tokens
+    ("clip_decode_prefill_b32", 32, 16, 640, 64, True, (576, 592), False),  # 576 patches + 64 text, 16 padded
     ("causal_129_padded", 8, 4, 129, 64, True, (0, 7), False),
     ("small_unaligned_empty_rows", 3, 2, 77, 64, True, (0, 3), True),
     ("ce_1b", 48, 8, 336, 256, True, (256, 276), False),  # VL-Pythia-1B: 8 heads of 256
@@ -1176,19 +1199,19 @@ def _max_rel(got: list, want: list) -> float:
     return max(abs(g - w) / max(abs(w), 1e-12) for g, w in zip(got, want))
 
 
-def phase_cl_sequence_default(smi: str, streaming: dict, device: str = "cuda", model_cfg=None, n_train: int = 128,
-                              n_val: int = 32):
+def phase_cl_sequence_default(smi: str, streaming: dict, root: str, device: str = "cuda", model_cfg=None,
+                              n_train: int = 128, n_val: int = 32):
     """The same sequence, the same command line without STREAMING_SWITCHES:
     the shipped config with no switch. Both device tables engage: the
     vision table over every image (tier train+memory+val), and after task
     0 the teacher table over the 32-example memory; the MAFED windows run
     no teacher and priming adds its forwards. Its accuracy matrix equals
     cl_sequence's (`streaming`), its losses within SEQUENCE_LOSS_RTOL.
-    Returns the run, its checkpoints kept on the host."""
-    with tempfile.TemporaryDirectory(prefix="cl_default_") as root:
-        write_synthetic_vqa(root, ("taskA", "taskB"), n_train, n_val)
-        run = drive_sequence(cl_sequence_argv(root), device, model_cfg, keep_checkpoints="all")
-        counts = check_sequence("cl_sequence_default", run, n_train, n_val, device, tables=True)
+    Its data and experiment directory are written under `root` (phase
+    cka_sweep reads them). Returns the run, its checkpoints kept on the host."""
+    write_synthetic_vqa(root, ("taskA", "taskB"), n_train, n_val)
+    run = drive_sequence(cl_sequence_argv(root), device, model_cfg, keep_checkpoints="all")
+    counts = check_sequence("cl_sequence_default", run, n_train, n_val, device, tables=True)
     cfg, model_cfg, trainer = run["cfg"], run["model_cfg"], run["trainer"]
     row_mb = V.n_vision_tokens(model_cfg) * model_cfg.vision.embed_dim * 2 / (1 << 20)
     want_vt = [{"tier": "train+memory+val", "rows": n_train, "mb": n_train * row_mb}] * 2
@@ -1524,6 +1547,381 @@ def phase_pretrain_to_cl(smi: str, pretrain: dict, root: str, model_cfg=None) ->
     return run["launches"]
 
 
+# --- the host's image decoder ---------------------------------------------------------
+
+def write_photos(root: str, n: int, size=(640, 480)) -> list:
+    """`n` COCO-sized photos (640 x 480 landscape, every 3rd 480 x 640
+    portrait), half JPEG (quality 90) and half PNG: a gradient, coloured
+    blocks and mild noise; written on a thread pool."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+
+    def write(i):
+        rng = np.random.default_rng(100 + i)
+        w, h = size if i % 3 else size[::-1]
+        y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+        img = np.stack([x / w * 200, y / h * 200, (x + y) / (w + h) * 200], -1)
+        for _ in range(6):
+            x0, y0 = int(rng.integers(0, w - 64)), int(rng.integers(0, h - 64))
+            img[y0:y0 + int(rng.integers(32, 200)), x0:x0 + int(rng.integers(32, 200))] = rng.integers(0, 256, 3)
+        img = np.clip(img + rng.normal(0, 8, size=img.shape), 0, 255).astype(np.uint8)
+        path = os.path.join(root, f"{i}.{'jpg' if i % 2 else 'png'}")
+        Image.fromarray(img).save(path, **({"quality": 90} if i % 2 else {}))
+        return path
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(write, range(n)))
+
+
+def _loader_batch_ms(manifest: str, vision_cfg, native: str, batch: int = 128) -> float:
+    """Host ms of one pretrain batch of `batch` captions through the
+    pretrain trainer's loader (BatchLoader, its 4 workers, collate_pretrain)
+    with MAFED_NATIVE_IMAGES=`native`."""
+    from mafed_tpu_torch.data.loader import BatchLoader
+    from mafed_tpu_torch.pretrain.dataset import PretrainDataset, collate_pretrain
+
+    before = os.environ.get("MAFED_NATIVE_IMAGES")
+    os.environ["MAFED_NATIVE_IMAGES"] = native
+    try:
+        dataset = PretrainDataset(ByteTokenizer(model_max_length=100, padding_side="right"), vision_cfg,
+                                  manifest_path=manifest, model_max_length=100)
+        loader = BatchLoader(dataset, batch_size=batch, collate=lambda items: collate_pretrain(items, text_len=100),
+                             drop_last=True)
+        start = time.perf_counter()
+        (out,) = list(loader)
+        ms = (time.perf_counter() - start) * 1e3
+    finally:
+        if before is None:
+            del os.environ["MAFED_NATIVE_IMAGES"]
+        else:
+            os.environ["MAFED_NATIVE_IMAGES"] = before
+    if out["pixels"].shape != (batch, vision_cfg.img_size, vision_cfg.img_size, 3):
+        raise AssertionError(f"image_engine: a pretrain batch of pixels {out['pixels'].shape}")
+    return ms
+
+
+def phase_image_engine(smi: str, n_files: int = 1000) -> dict:
+    """The C++ image engine (mafed_tpu_torch/native) on the card's host:
+    whether it built, and why not if not; `n_files` COCO-sized JPEG and PNG
+    files decoded to 224 x 224 through it and through PIL (each decoder's
+    seconds, the largest and mean difference of their pixels); and one
+    pretrain batch of 128 captions (phase pretrain's images) through the
+    trainer's loader with MAFED_NATIVE_IMAGES=1 and =0, in turns. Without
+    the engine, PIL's numbers alone."""
+    from mafed_tpu_torch.data.images import load_and_resize
+    from mafed_tpu_torch.native import engine as native
+
+    start = time.perf_counter()
+    eng = native.get_engine()
+    build_s = time.perf_counter() - start
+    out = {"phase": "image_engine", "card": smi, "built": eng is not None, "failure": native.failure(),
+           "build_s": build_s, "files": n_files}
+    cfg = VisionConfig()
+    with tempfile.TemporaryDirectory(prefix="image_engine_") as root:
+        start = time.perf_counter()
+        paths = write_photos(os.path.join(root, "photos"), n_files)
+        out["write_s"] = time.perf_counter() - start
+        decoded = {}
+        for name, decode in (("pil", lambda p: load_and_resize(p, cfg, use_native=False)),
+                             ("engine", (lambda p: eng.decode(p, cfg.img_size, cfg.crop_pct)) if eng else None)):
+            if decode is None:
+                continue
+            start = time.perf_counter()
+            decoded[name] = [decode(p) for p in paths]
+            seconds = time.perf_counter() - start
+            out[f"{name}_s"] = seconds
+            out[f"{name}_images_per_s"] = n_files / seconds
+        if eng is not None:
+            diffs = [np.abs(a.astype(np.int16) - b.astype(np.int16)) for a, b in zip(decoded["engine"], decoded["pil"])]
+            out["engine_vs_pil"] = {
+                "max": int(max(d.max() for d in diffs)), "mean": float(np.mean([d.mean() for d in diffs])),
+                "max_jpeg": int(max(d.max() for d, p in zip(diffs, paths) if p.endswith(".jpg"))),
+                "max_png": int(max(d.max() for d, p in zip(diffs, paths) if p.endswith(".png"))),
+                "equal_files": int(sum(not d.any() for d in diffs))}
+        manifest, _ = write_caption_manifests(os.path.join(root, "captions"), 128, 0)
+        turns = ["1", "0", "0", "1"] if eng is not None else ["0", "0"]
+        batch_ms = {"1": [], "0": []}
+        for native_flag in turns:
+            batch_ms[native_flag].append(_loader_batch_ms(manifest, cfg, native_flag))
+        out["pretrain_batch_128_loader_ms"] = {"engine" if k == "1" else "pil": v for k, v in batch_ms.items() if v}
+    emit(out)
+    return out
+
+
+# --- named remat policies ------------------------------------------------------------------
+
+REMAT_POLICIES = ("", "attn", "attn_qkv", "attn_mlp", "attn_qkv_mlp", "dots")
+# loss and grad norm of each policy's windows against full recompute's (bf16 on the
+# card): a policy keeps tensors the recompute would produce from the same inputs
+# with the same kernels, so the numbers should agree to the last bit
+REMAT_RTOL = 1e-3
+
+
+def phase_remat_policies(smi: str, windows: int = 5, device: str = "cuda", cfg=None):
+    """Five fused MAFED windows of VL-Pythia-410M at phase window's shapes
+    under each remat policy, every policy from one snapshot of the weights
+    (a fresh optimizer each time); per policy: losses and grad norms against
+    full recompute's, ms per window (the mean of the last three), peak GB,
+    the flash launches per window (asserted: the forward's recompute drops
+    out under the attn policies).
+    Returns the launches by head_dim over all policies. `cfg` and `device`
+    rehearse it at a tiny size on the CPU (launches unchecked there)."""
+    cfg = cfg or model_config_for_preset("410m")
+    cuda = device == "cuda"
+    n_ce, b, text_len = 3, 16, 80
+    model = init_model(cfg, seed=0, device=device)
+    snapshot = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    layers = cfg.num_hidden_layers
+    results, total = {}, {d: _kernels(0, 0) for d in build.HEAD_DIMS}
+    for policy in REMAT_POLICIES:
+        model.load_state_dict(snapshot)
+        train_cfg = train_config()
+        train_cfg.remat_policy = policy
+        teacher = make_teacher(model)
+        trainable = trainable_parameters(model)
+        opt = build_optimizer(train_cfg, trainable)
+        state = TrainState(0, model, set_schedule(opt.init(trainable), 0, 100))
+        step = make_mafed_window_step(cfg, train_cfg, opt, n_ce=n_ce, device=device)
+        gen = torch.Generator().manual_seed(2)
+        mbs = [example_batch(gen, cfg, b, text_len) for _ in range(n_ce + 1)]
+        ce = {k: torch.stack([mb[k] for mb in mbs[:n_ce]]).to(device) for k in mbs[0]}
+        distill = {k: v.to(device) for k, v in mbs[n_ce].items()}
+        lang = torch.full((layers - 1,), 0.5, device=device)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        A.reset_launches()
+        times, history = [], []
+        for _ in range(windows):
+            start = time.perf_counter()
+            state, m = step(state, teacher, ce, distill, lang)
+            if cuda:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+            history.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+        launches = launches_by_dim()
+        # a window: forward in the CE (L), student (L) and teacher (L - 2) passes, the
+        # forward's recompute in backward for the 2 L differentiated layers unless the
+        # policy keeps the attention; the backward kernels once per differentiated layer
+        recompute = 0 if policy.startswith("attn") else 2 * layers
+        expected = at_head_dim(cfg.head_dim, _kernels(windows * (2 * layers + layers - 2 + recompute),
+                                                      windows * 2 * layers))
+        if cuda and launches != expected:
+            raise AssertionError(f"remat_policies ({policy!r}): kernel launches {launches}, expected {expected}")
+        for d in build.HEAD_DIMS:
+            for k in A.LAUNCHES:
+                total[d][k] += launches[d][k]
+        results[policy] = {"window_ms": times, "ms_per_window": sum(times[2:]) / (windows - 2),
+                           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+                           "metrics": history,
+                           "launches_per_window": {k: v // windows for k, v in launches[cfg.head_dim].items()}}
+        del step, state, opt, teacher
+        if cuda:
+            free_device_memory()
+    base = results[""]["metrics"]
+    for policy, res in results.items():
+        err = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(res["metrics"], base) for k in w)
+        res["max_rel_err_vs_full"] = err
+        if not all(np.isfinite(v) for h in res["metrics"] for v in h.values()) or err > REMAT_RTOL:
+            raise AssertionError(f"remat_policies ({policy!r}): {res['metrics']} against full recompute's {base}")
+    emit({"phase": "remat_policies", "card": smi, "preset": "410m", "n_ce": n_ce, "batch": b, "text_len": text_len,
+          "rtol": REMAT_RTOL, "policies": results})
+    del model, snapshot
+    return total
+
+
+# --- CLIP ViT-L/14-336 tower: greedy decode and validate_vqa ------------------------------
+
+def clip_l336_config() -> ModelConfig:
+    """VL-Pythia-410M with the CLIP ViT-L/14-336 tower (openai/clip-vit-large-patch14-336's
+    geometry: hidden 1024, 24 layers, 16 heads of 64, MLP 4096, patch 14, image 336,
+    577 tokens) and the reference's feature select: hidden_states[-2], CLS dropped."""
+    vision = VisionConfig(name="openai/clip-vit-large-patch14-336", backbone="clip", img_size=336, patch_size=14,
+                          embed_dim=1024, depth=24, num_heads=16, mlp_ratio=4.0, use_rot_pos_emb=False,
+                          swiglu_mlp=False, scale_mlp=False, scale_attn_inner=False, layer_norm_eps=1e-5,
+                          crop_pct=1.0)
+    return model_config_for_preset("410m", vision=vision, vision_encoder_name=vision.name, select_layer=-2,
+                                   select_feature="patch")
+
+
+# the tower's selected hidden state on the card (bf16, the flash kernel) against
+# the port on the CPU (float32, the plain version), relative norm error
+CLIP_TOWER_RTOL = 3e-2
+
+
+def phase_clip_eval(smi: str, gen) -> dict:
+    """Greedy decode and validate_vqa of VL-Pythia-410M + CLIP-L/14-336 at full
+    width and depth (bf16 weights from a seed; batch 32 of uint8 pixels at
+    336, text 64 with 16 left-padded positions, 10 new tokens), the launches
+    a batch asserted (24 non-causal forwards at 577 tokens, 24 causal at 576
+    + 64); the tower's hidden_states[-2] on 2 images against the port's
+    float32 CPU run; the tower's flash forward at [32, 16, 577, 64] against
+    its plain version (atol = rtol = 2e-2) and timed beside it, SDPA and its
+    bound. Returns the launches by head_dim."""
+    cfg = clip_l336_config()
+    b, text_len, pad, max_new, n = 32, 64, 16, 10, 4
+    model = init_model(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    decode = make_greedy_decoder(cfg, max_new_tokens=max_new, eos_token_id=0)
+    batches = decode_batches(cfg, n + 1, b, text_len, pad, seed=4)
+    host = [{k: torch.from_numpy(v) for k, v in bt.items()} for bt in batches]
+    run_decode(decode, model, host[:1])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    toks, ms = run_decode(decode, model, host[1:])
+    launches = launches_by_dim()
+    expected = at_head_dim(64, _kernels(n * (cfg.vision.depth + cfg.num_hidden_layers), 0))
+    if launches != expected:
+        raise AssertionError(f"clip_eval: kernel launches {launches}, expected {expected}")
+    if any(t.shape != (b, max_new) or t.min() < 0 or t.max() >= cfg.vocab_size for t in toks):
+        raise AssertionError(f"clip_eval: tokens of shape {toks[0].shape} or out of the vocabulary")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    invariance = check_cache_invariance(model, cfg, batches[1], toks[0], eos=0)
+
+    # the selected hidden state: card (bf16) against the port on the CPU (float32)
+    pixels = torch.from_numpy(batches[1]["pixels"][:2])
+    normalize = make_normalizer(cfg.vision)
+    with torch.inference_mode():
+        card = V.get_patch_embeddings(model, prep_pixels({"pixels": pixels.cuda()}, normalize, torch.bfloat16))
+        tower = clip_vit.CLIPVisionModel(cfg.vision, device="cpu")
+        tower.load_state_dict({k: v.float().cpu() for k, v in model.vision_encoder.state_dict().items()})
+        hidden = tower.hidden_states(prep_pixels({"pixels": pixels}, normalize, torch.float32), dtype=torch.float32)
+        want = hidden[cfg.select_layer][:, 1:]  # select_feature "patch": CLS dropped
+        del tower, hidden
+    tower_err = _rel_err(card, want)
+    if card.shape != (2, 576, 1024) or not tower_err <= CLIP_TOWER_RTOL:
+        raise AssertionError(f"clip_eval: tower features {tuple(card.shape)}, relative error {tower_err} vs the CPU")
+
+    tokenizer = ByteTokenizer()
+    loader = decode_batches(cfg, 3, b, text_len, pad, seed=5)
+    loader[-1] = {k: v[:20] for k, v in loader[-1].items()}
+    for i, batch in enumerate(loader):
+        batch["qids"] = [f"q{i}_{j}" for j in range(len(batch["input_ids"]))]
+        batch["answers"] = [["yes", "no", "2"]] * len(batch["input_ids"])
+    val_log, results = validate_vqa(model, decode, loader, tokenizer, batch_size=b)
+    if val_log["valid/n_ex"] != 2 * b + 20 or len(results) != 2 * b + 20 or not 0 <= val_log["valid/acc"] <= 1:
+        raise AssertionError(f"clip_eval validate_vqa: {val_log}, {len(results)} results")
+    del model
+    free_device_memory()
+    tower_kernel = _fwd_timing(gen, 32, 16, 577, 64, False, None)
+    emit({"phase": "clip_eval", "card": smi, "vision": cfg.vision.name, "tower_tokens": cfg.vision.num_patches + 1,
+          "select_layer": cfg.select_layer, "batch": b, "text_len": text_len, "left_pad": pad,
+          "max_new_tokens": max_new, "timed_batches": n, "ms_per_batch": ms, "examples_per_s": b / (ms / 1e3),
+          "peak_memory_gb": peak, "launches": launches, "expected_launches": expected,
+          "tokens_row0": toks[0][0].tolist(), "cache_invariance": invariance,
+          "tower_rel_err_vs_cpu_f32": tower_err, "tower_rtol": CLIP_TOWER_RTOL, "validate": val_log,
+          "tower_flash_fwd": tower_kernel})
+    return launches
+
+
+# --- profiling: a traced fit of the shipped config --------------------------------------------
+
+PROFILE_QUESTIONS = 384  # task 0 of 24 batches of 16: 6 windows, the trace over batches 10-23
+
+
+def drive_fit(argv, device, model_cfg) -> dict:
+    """parse_with_config + ContinualLearningTrainer.main over `argv`, the
+    launch counts set to 0 just before and read just after."""
+    cfg = parse_with_config(build_arg_parser(), argv)
+    model_cfg = model_cfg or ModelConfig.from_json(cfg.model_config)
+    A.reset_launches()
+    start = time.perf_counter()
+    trainer = continual.ContinualLearningTrainer(cfg, model_cfg=model_cfg, synthetic_images=True, device=device)
+    result = trainer.main()
+    wall = time.perf_counter() - start
+    return {"cfg": cfg, "result": result, "wall": wall, "fit_s": trainer.timings["fit"][0],
+            "steps": trainer.fit_logs[0]["steps"], "launches": launches_by_dim()}
+
+
+def phase_profile(smi: str, device: str = "cuda", model_cfg=None, n_train: int = PROFILE_QUESTIONS) -> dict:
+    """The shipped config through ContinualLearningTrainer.main on one task of
+    `n_train` questions (no resume bundles), without and with --profile_dir:
+    the trace file exists and names the three flash kernels; the two runs
+    take the same steps and launches; the profiled fit's seconds against
+    the unprofiled one's. `model_cfg` and `device` rehearse it on the CPU.
+    Returns the profiled run's launches by head_dim."""
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="profile_") as root:
+        write_synthetic_vqa(root, ("taskA",), n_train, 32)
+        argv = cl_sequence_argv(root) + ["--tasks", "taskA", "--epochs", "1", "--resume_bundle_every", "0"]
+        # in turns: plain, profiled, plain
+        for name, extra in (("plain", []), ("profiled", ["--profile_dir", os.path.join(root, "prof")]),
+                            ("plain_again", [])):
+            runs[name] = drive_fit(argv + ["--output_dir", os.path.join(root, name)] + extra, device, model_cfg)
+            if device == "cuda":
+                free_device_memory()
+        trace = os.path.join(root, "prof", "trace.json")
+        if not os.path.exists(trace):
+            raise AssertionError("profile: no trace file under --profile_dir")
+        with open(trace) as f:
+            text = f.read()
+    names = {k: text.count(k) for k in ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")}
+    if device == "cuda" and not all(names.values()):
+        raise AssertionError(f"profile: the trace names the flash kernels {names} times")
+    prof = runs["profiled"]
+    for name in ("plain", "plain_again"):
+        if runs[name]["steps"] != prof["steps"] or runs[name]["launches"] != prof["launches"]:
+            raise AssertionError(f"profile: the profiled run took {prof['steps']} / {prof['launches']}, "
+                                 f"the {name} one {runs[name]['steps']} / {runs[name]['launches']}")
+    plain_fit = (runs["plain"]["fit_s"] + runs["plain_again"]["fit_s"]) / 2
+    emit({"phase": "profile", "card": smi, "config": SHIPPED_CONFIG, "train_questions": n_train,
+          "steps": prof["steps"], "trace_mb": len(text) / 1e6, "trace_kernel_mentions": names,
+          "fit_s": {name: run["fit_s"] for name, run in runs.items()},
+          "profiled_over_plain": prof["fit_s"] / plain_fit,
+          "wall_s": {name: run["wall"] for name, run in runs.items()}, "launches": prof["launches"]})
+    return prof["launches"]
+
+
+# --- the CKA sweep over a finished sequence ---------------------------------------------------
+
+def phase_cka_sweep(smi: str, default_run: dict, device: str = "cuda", n_val: int = 32) -> dict:
+    """analysis.sweep.main over cl_sequence_default's experiment directory at
+    --max_batches 2: L + 1 layers, values in [0, 1], launches as computed
+    (both checkpoints' tower and decoder forwards on the probe task's val
+    batches); and CKA(a, a) = 1 within 1e-5 on one layer's text features on
+    the card. Returns the sweep's launches by head_dim."""
+    from mafed_tpu_torch.analysis import cka as tcka
+    from mafed_tpu_torch.analysis import sweep as tsweep
+    from mafed_tpu_torch.analysis.representation_similarity import collect_hidden_states
+
+    cfg, model_cfg = default_run["cfg"], default_run["model_cfg"]
+    out = os.path.join(cfg.output_dir, "log", "cka_report.json")
+    A.reset_launches()
+    start = time.perf_counter()
+    report = tsweep.main(["--experiment_dir", cfg.output_dir, "--max_batches", "2", "--synthetic_images",
+                          "--device", device])
+    seconds = time.perf_counter() - start
+    launches = launches_by_dim()
+    layers = model_cfg.num_hidden_layers + 1
+    values = report["avg_text_cka"] + report["avg_image_cka"]
+    if report["layers"] != list(range(layers)) or not all(0.0 <= v <= 1.0 + 1e-6 for v in values) or \
+            not os.path.exists(out):
+        raise AssertionError(f"cka_sweep: layers {report['layers']}, values {values}")
+    val_batches = min(2, math.ceil(n_val / cfg.val_batch_size))
+    expected = at_head_dim(64, _kernels(2 * val_batches * (model_cfg.vision.depth + model_cfg.num_hidden_layers), 0))
+    if device == "cuda" and launches != expected:
+        raise AssertionError(f"cka_sweep: kernel launches {launches}, expected {expected}")
+    # CKA of a representation with itself, on the card
+    model = V.VLPythia(model_cfg, device=device)
+    model.vision_encoder.to(torch.bfloat16)
+    model.load_state_dict(load_task_checkpoint(os.path.join(cfg.output_dir, "ckpt", f"{cfg.tasks[-1]}_best.safetensors")))
+    feats = collect_hidden_states(model, model_cfg, tsweep._batches_factory(cfg, model_cfg, cfg.tasks[0], True)(), 1)
+    layer = model_cfg.num_hidden_layers // 2
+    self_cka = tcka.feature_space_linear_cka(feats[layer]["text"], feats[layer]["text"])
+    if abs(self_cka - 1.0) > 1e-5 or feats[layer]["text"].device.type != device:
+        raise AssertionError(f"cka_sweep: CKA(a, a) = {self_cka} on layer {layer}")
+    del model, feats
+    emit({"phase": "cka_sweep", "card": smi, "experiment": "cl_sequence_default", "pairs": report["pairs"],
+          "layers": len(report["layers"]), "seconds": seconds, "avg_text_cka": report["avg_text_cka"],
+          "avg_image_cka": report["avg_image_cka"], "avg_ti_ratio": report["avg_ti_ratio"],
+          "self_cka": {"layer": layer, "value": self_cka}, "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "launches": launches, "expected_launches": expected})
+    return launches
+
+
 def free_device_memory() -> None:
     """Drop what earlier phases left cached on the card (their models are out of scope)."""
     gc.collect()
@@ -1542,6 +1940,7 @@ def main() -> int:
         phase_reference(head_dim)
     phase_reference_steps()
     phase_reference_tables()
+    phase_image_engine(smi)  # host only; the pretrain phases decode through the engine it built
     # pretraining first: its update at batch 128 peaks at ~75 of the card's 80 GB, best met before
     # the other phases have fragmented the allocator's pool
     free_device_memory()
@@ -1559,6 +1958,10 @@ def main() -> int:
     free_device_memory()
     by_path.update({"window": phase_window(smi, "410m", "window"), "decode": phase_decode(smi, "410m", "decode"),
                     **phase_train_steps(smi)})
+    free_device_memory()
+    by_path["remat_policies"] = phase_remat_policies(smi)
+    free_device_memory()
+    by_path["clip_eval"] = phase_clip_eval(smi, gen)
     # VL-Pythia-1B, with the 410M models and their caches gone
     for path, run in (("window_1b", lambda: phase_window(smi, "1b", "window_1b")),
                       ("ce_window_1b", lambda: phase_ce_window_1b(smi)),
@@ -1569,11 +1972,16 @@ def main() -> int:
     streaming = phase_cl_sequence(smi)
     by_path["cl_sequence"] = streaming["launches"]
     free_device_memory()
-    default = phase_cl_sequence_default(smi, streaming)
-    by_path["cl_sequence_default"] = default["launches"]
-    del streaming
+    with tempfile.TemporaryDirectory(prefix="cl_default_") as root:
+        default = phase_cl_sequence_default(smi, streaming, root)
+        by_path["cl_sequence_default"] = default["launches"]
+        del streaming
+        free_device_memory()
+        by_path["cka_sweep"] = phase_cka_sweep(smi, default)
     free_device_memory()
     by_path["cl_resume"] = phase_cl_resume(smi, default)
+    free_device_memory()
+    by_path["profile"] = phase_profile(smi)
     # one entry per instantiation: times at its head_dim's CE shape (410M: 64, 1B: 256)
     kernels = [
         {"name": f"{name}<{d}>", "head_dim": d, "route": "cuda", "source": "mafed_tpu_torch/csrc/flash_attn.cu",

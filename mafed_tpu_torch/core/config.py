@@ -127,9 +127,7 @@ class TrainConfig:
 
     Some settings select features the port does not have yet; the trainer
     raises NotImplementedError on them rather than running something else
-    (trainer/continual.check_supported): profile_dir, and more than one
-    process or device. `remat_policy` takes "" or
-    "full" only (training/step.py).
+    (trainer/continual.check_supported): more than one process or device.
     """
 
     # Required-ish paths

@@ -51,13 +51,17 @@ class MetricsLogger:
         if use_wandb:
             try:
                 import wandb  # type: ignore
-            except ImportError as exc:
+
+                run = wandb.init(project=project, entity=entity, group=group, name=name)
+            except Exception as exc:  # no package, no network, no login: the JSONL stream goes on alone
                 LOGGER.warning("wandb unavailable (%s); logging to %s", exc, self._jsonl_path)
             else:
-                self._wandb = wandb.init(project=project, entity=entity, group=group, name=name)
-                self._wandb.define_metric("trainer/global_step")
-                self._wandb.define_metric("*", step_metric="trainer/global_step", step_sync=True)
-                self._wandb.define_metric("validation/*", step_metric="trainer/valid_step", step_sync=True)
+                # train metrics plot against the offset global step; the CL
+                # summary metrics (validation/*) against the task index
+                run.define_metric("trainer/global_step")
+                run.define_metric("*", step_metric="trainer/global_step", step_sync=True)
+                run.define_metric("validation/*", step_metric="trainer/valid_step", step_sync=True)
+                self._wandb = run
 
     def set_global_step_offset(self, offset: int) -> None:
         self._offset = int(offset)

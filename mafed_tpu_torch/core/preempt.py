@@ -13,7 +13,7 @@ epoch order).
 One process: the check is the local flag (the JAX package's
 `sync_preemption_requested` reduces to it, and its
 `reinstall_after_dist_init` has nothing to re-arm; both come with the
-multi-process work, ROADMAP queue 1 item 5).
+multi-process work, ROADMAP queue 1 item 1).
 """
 
 from __future__ import annotations

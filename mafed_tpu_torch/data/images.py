@@ -1,7 +1,7 @@
 """Image pipeline (counterpart of mafed_tpu/data/images.py).
 
   host:   decode + bicubic short-side resize + center crop -> uint8 [224, 224, 3]
-          (PIL; `load_and_resize`)
+          (`load_and_resize`: the C++ engine of native/, else PIL)
   device: uint8 -> float32, (x - 255 * mean) / (255 * std), NHWC -> NCHW,
           then the compute dtype (`make_normalizer`), as the first op of a step
 
@@ -33,10 +33,23 @@ def get_image_path(image_dir: str, image_name: str) -> str:
     return os.path.join(image_dir, image_path)
 
 
-def load_and_resize(path: str, cfg: VisionConfig) -> np.ndarray:
+def load_and_resize(path: str, cfg: VisionConfig, use_native: bool = True) -> np.ndarray:
     """Decode + bicubic resize of the short side to floor(img_size / crop_pct)
-    + center crop -> uint8 HWC, with PIL (the JAX package's PIL path; its
-    C++ engine is not ported)."""
+    + center crop -> uint8 HWC.
+
+    As in the JAX package: the C++ image engine (native/engine.py) unless
+    `use_native` is False or MAFED_NATIVE_IMAGES is "0"; PIL where the
+    engine cannot be built (the reason is logged once, at WARNING) or
+    cannot decode the file."""
+    if use_native and os.environ.get("MAFED_NATIVE_IMAGES", "1") != "0":
+        from mafed_tpu_torch.native.engine import get_engine
+
+        engine = get_engine()
+        if engine is not None:
+            try:
+                return engine.decode(path, cfg.img_size, cfg.crop_pct)
+            except OSError:
+                pass  # a file the engine cannot read: PIL's turn, as in the JAX package
     try:
         from PIL import Image
     except ImportError as exc:

@@ -1,0 +1,52 @@
+"""Legacy classifier-VQA evaluation path (counterpart of
+mafed_tpu/evaluation/classifier.py).
+
+The reference's classifier-head metrics (mafed/utils/eval_utils.py:29-68,
+107-158): the soft score of the argmax answer and a streaming accuracy, on
+torch tensors on their own device. `all_reduce_metrics` is the identity on
+one process; more than one is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from mafed_tpu_torch.core.device import asks_for_several_devices
+
+
+def compute_score_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-sample soft score of the argmax answer (eval_utils.py:29-42):
+    logits [B, A], targets [B, A] -> [B]."""
+    pred = torch.argmax(logits, dim=-1)
+    return torch.gather(targets, -1, pred[:, None])[:, 0]
+
+
+class VQAAccuracy:
+    """Streaming argmax-vs-soft-target accuracy (eval_utils.py:45-68)."""
+
+    def __init__(self) -> None:
+        self.total_score = 0.0
+        self.total = 0
+
+    def update(self, logits: torch.Tensor, targets: torch.Tensor) -> None:
+        if logits.shape[0] == 0:
+            return
+        self.total_score += float(torch.sum(compute_score_with_logits(logits, targets)))
+        self.total += int(logits.shape[0])
+
+    __call__ = update
+
+    def compute(self) -> float:
+        return self.total_score / max(self.total, 1)
+
+
+def all_reduce_metrics(n_ex: float, loss_sum: float, score_sum: float, mesh_shape=None,
+                       distributed_init: bool = False) -> Tuple[float, float, float]:
+    """Sum the metrics over the processes (eval_utils.py:135-138): the
+    identity on one process and device; more raises."""
+    if asks_for_several_devices(mesh_shape, distributed_init):
+        raise NotImplementedError("all_reduce_metrics over more than one process or device is not ported to "
+                                  "mafed_tpu_torch yet (ROADMAP queue 1 item 1: multi-process)")
+    return n_ex, loss_sum, score_sum

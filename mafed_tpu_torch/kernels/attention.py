@@ -9,7 +9,10 @@ Counterpart of mafed_tpu/kernels/attention.py. Layout: q, k, v are
     call the kernels cannot take raises; there is no fallback.
   * `FlashAttention` is the autograd function: its forward saves
     (q, k, v, mask, o, lse) and its backward computes delta = rowsum(do * o)
-    and launches the dK/dV and dQ kernels.
+    and launches the dK/dV and dQ kernels. Inside a layer under a named
+    remat policy (`REMAT_STASH`, models/gpt_neox.py) the policy may keep
+    (o, lse) from the forward and hand them back to the recompute, which
+    then launches no forward.
   * `dot_product_attention` dispatches as the JAX package's does, minus its
     TPU routing choices: a call with `causal_offset` (a KV-cache decode step)
     takes the plain masked path, every other call with supported shapes the
@@ -25,6 +28,7 @@ which path ran; `LAUNCHES_BY_HEAD_DIM[d]` counts the same launches at head_dim d
 
 from __future__ import annotations
 
+import contextvars
 from typing import Optional, Tuple
 
 import torch
@@ -35,6 +39,9 @@ _NEG = torch.finfo(torch.float32).min
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 LAUNCHES_BY_HEAD_DIM = {d: dict(LAUNCHES) for d in HEAD_DIMS}
+# the stash of the remat policy of the decoder layer being run (models/gpt_neox.py
+# RematPolicy), or None: FlashAttention's forward asks it for (o, lse)
+REMAT_STASH: contextvars.ContextVar = contextvars.ContextVar("mafed_torch_remat_stash", default=None)
 
 
 def reset_launches() -> None:
@@ -254,7 +261,11 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask, causal: bool, scale: float):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = flash_forward(q, k, v, mask, causal, scale)
+        stash = REMAT_STASH.get()
+        if stash is None:
+            o, lse = flash_forward(q, k, v, mask, causal, scale)
+        else:  # under a remat policy: its stash may keep (o, lse), and hand them back in the recompute
+            o, lse = stash.flash(lambda: flash_forward(q, k, v, mask, causal, scale))
         ctx.save_for_backward(q, k, v, mask, o, lse)
         ctx.causal = causal
         ctx.scale = scale

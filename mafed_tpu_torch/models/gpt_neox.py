@@ -19,8 +19,9 @@ the counterpart of the JAX package's `xla_attention`.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, FrozenSet, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -28,7 +29,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from mafed_tpu_torch.core.config import ModelConfig
-from mafed_tpu_torch.kernels.attention import dot_product_attention
+from mafed_tpu_torch.kernels.attention import REMAT_STASH, dot_product_attention
 
 
 @dataclass
@@ -50,9 +51,92 @@ class KVCache:
         )
 
 
-def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """x @ W^T + b with the parameters cast to the compute dtype."""
-    out = x @ layer.weight.to(dtype).t()
+class _Stash:
+    """What a RematPolicy keeps of one checkpointed layer call: the tagged
+    products and the flash forward's (o, lse), in call order. The forward
+    records them; the recompute in backward takes them back in the same
+    order instead of computing them."""
+
+    def __init__(self, keep: FrozenSet[str]) -> None:
+        self.keep = keep
+        self.kept: List = []
+        self.replay = False
+
+    def value(self, name: str, compute):
+        if self.replay:
+            kept_name, out = self.kept.pop(0)
+            if kept_name != name:
+                raise RuntimeError(f"remat recompute asked for {name!r} where the forward kept {kept_name!r}")
+            return out
+        out = compute()
+        # detached: the autograd history the caller gives `out` stays off the kept copy
+        self.kept.append((name, tuple(t.detach() for t in out) if isinstance(out, tuple) else out.detach()))
+        return out
+
+    def flash(self, compute):
+        return self.value("flash", compute) if "flash" in self.keep else compute()
+
+
+@contextlib.contextmanager
+def _stashing(stash: _Stash, replay: bool):
+    stash.replay = replay
+    token = REMAT_STASH.set(stash)
+    try:
+        yield
+    finally:
+        REMAT_STASH.reset(token)
+
+
+class _KeptProduct(torch.autograd.Function):
+    """x @ w_t whose output a stash keeps (a tagged product under a
+    RematPolicy). The backward is autograd's own for the matmul of a
+    row-major x by a column-major w_t (mm_mat1_backward, mm_mat2_backward),
+    so the gradients are those of plain recompute bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, w_t, stash, name):
+        ctx.save_for_backward(x, w_t)
+        return stash.value(name, lambda: x @ w_t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w_t = ctx.saved_tensors
+        g2 = grad.reshape(-1, grad.shape[-1])
+        dx = g2.mm(w_t.t()).view(x.shape)
+        dw_t = g2.t().mm(x.reshape(-1, x.shape[-1])).t()
+        return dx, dw_t, None, None
+
+
+@dataclass(frozen=True)
+class RematPolicy:
+    """A named remat policy (training/step.py resolve_remat_policy): under
+    per-layer remat, what a decoder layer keeps between forward and
+    backward besides its input; the rest is recomputed in backward.
+
+    `keep` names the products of the layer's projections (the tags of
+    `dense`: "qkv", "attn_out", "mlp_up", "mlp_down"), each kept before its
+    bias add, which the recompute redoes while it skips the matmul, and
+    "flash": the flash forward's (o, lse), so that the backward launches no
+    flash forward. Each layer call under torch.utils.checkpoint gets its own
+    stash, recorded in the forward and taken back, in order, by the
+    recompute (`context_fn`)."""
+
+    keep: FrozenSet[str] = frozenset()
+
+    def context_fn(self):
+        stash = _Stash(self.keep)
+        return _stashing(stash, replay=False), _stashing(stash, replay=True)
+
+
+def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, name: Optional[str] = None) -> torch.Tensor:
+    """x @ W^T + b with the parameters cast to the compute dtype; `name`
+    tags the product for a RematPolicy."""
+    w_t = layer.weight.to(dtype).t()
+    stash = REMAT_STASH.get() if name is not None else None
+    if stash is not None and name in stash.keep:
+        out = _KeptProduct.apply(x, w_t, stash, name)
+    else:
+        out = x @ w_t
     if layer.bias is not None:
         out = out + layer.bias.to(dtype)
     return out
@@ -124,7 +208,7 @@ class GPTNeoXLayer(nn.Module):
         cfg = self.cfg
         batch, t, hidden = h.shape
         n_heads, head_dim = cfg.num_attention_heads, cfg.head_dim
-        qkv = dense(layer_norm(h, self.input_layernorm), self.attention.query_key_value, dtype)
+        qkv = dense(layer_norm(h, self.input_layernorm), self.attention.query_key_value, dtype, "qkv")
         # HF fused layout: [..., heads, 3 * head_dim]
         qkv = qkv.view(batch, t, n_heads, 3 * head_dim)
         q = qkv[..., :head_dim].transpose(1, 2)
@@ -142,11 +226,11 @@ class GPTNeoXLayer(nn.Module):
             else:
                 attn = dot_product_attention(q, ck, cv, key_padding_mask=key_mask, causal=True, causal_offset=past)
         attn = attn.transpose(1, 2).reshape(batch, t, hidden)
-        attn = dense(attn, self.attention.dense, dtype)
+        attn = dense(attn, self.attention.dense, dtype, "attn_out")
         if not cfg.use_parallel_residual:
             h = h + attn
-        up = dense(layer_norm(h, self.post_attention_layernorm), self.mlp.dense_h_to_4h, dtype)
-        down = dense(F.gelu(up), self.mlp.dense_4h_to_h, dtype)
+        up = dense(layer_norm(h, self.post_attention_layernorm), self.mlp.dense_h_to_4h, dtype, "mlp_up")
+        down = dense(F.gelu(up), self.mlp.dense_4h_to_h, dtype, "mlp_down")
         if cfg.use_parallel_residual:
             return h + attn + down
         return h + down
@@ -169,6 +253,7 @@ class GPTNeoXModel(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         num_layers: Optional[int] = None,
         remat: bool = False,
+        remat_policy: Optional[RematPolicy] = None,
         cache: Optional[KVCache] = None,
         layer_perturbation: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
@@ -187,7 +272,8 @@ class GPTNeoXModel(nn.Module):
         and last_hidden_state is the un-normalised carry.
 
         remat: recompute each layer in backward (torch.utils.checkpoint), so
-        only the layer inputs are kept between forward and backward.
+        only the layer inputs are kept between forward and backward;
+        `remat_policy` (a RematPolicy) keeps some of each layer's tensors too.
 
         layer_perturbation ([L-1, B, T, H], no-cache path only): entry i is
         added to layer i's output, i.e. to hidden_states[i+1]; the last
@@ -227,7 +313,8 @@ class GPTNeoXModel(nn.Module):
             if cache is not None:
                 h = layer(h, cos, sin, key_mask, dtype, (cache.k[i], cache.v[i]), past)
             elif remat and torch.is_grad_enabled():
-                h = checkpoint(layer, h, cos, sin, key_mask, dtype, use_reentrant=False, preserve_rng_state=False)
+                kw = {} if remat_policy is None else {"context_fn": remat_policy.context_fn}
+                h = checkpoint(layer, h, cos, sin, key_mask, dtype, use_reentrant=False, preserve_rng_state=False, **kw)
             else:
                 h = layer(h, cos, sin, key_mask, dtype)
             if layer_perturbation is not None and i < len(layers) - 1:

@@ -1,8 +1,10 @@
-"""VL-Pythia in PyTorch: frozen EVA-02 tower + MLP projector + GPT-NeoX
+"""VL-Pythia in PyTorch: frozen vision tower + MLP projector + GPT-NeoX
 decoder (counterpart of mafed_tpu/models/vl_pythia.py).
 
-  * vision features = the EVA-02 tower's forward_features with CLS dropped
-    ("patch" feature select), or cached patch features of the same shape;
+  * vision features = the tower's output with CLS dropped ("patch" feature
+    select) or kept ("cls_patch"), or cached features of the same shape:
+    EVA-02's forward_features, or CLIP's hidden_states[select_layer]
+    (`cfg.vision.backbone`);
   * they go through the 2-layer projector Linear-GELU-Linear
     (`vision_embed_tokens`);
   * inputs_embeds = [projected vision, embed_in(input_ids)], vision first;
@@ -26,17 +28,20 @@ from torch import nn
 from mafed_tpu_torch.constants import IGNORE_INDEX
 from mafed_tpu_torch.core.config import ModelConfig
 from mafed_tpu_torch.core.device import resolve_device
-from mafed_tpu_torch.models import eva02, gpt_neox
+from mafed_tpu_torch.models import clip_vit, eva02, gpt_neox
+
+TOWERS = {"eva02": (eva02.EVA02, eva02.init_weights), "clip": (clip_vit.CLIPVisionModel, clip_vit.init_weights)}
 
 
 class VLPythia(nn.Module):
     """Parameters under the reference's torch names: `gpt_neox.*`,
-    `embed_out.weight`, `vision_embed_tokens.{0,2}.*`, `vision_encoder.*`."""
+    `embed_out.weight`, `vision_embed_tokens.{0,2}.*`, `vision_encoder.*`
+    (timm's names for EVA-02, HF's `vision_model.*` for CLIP)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.vision.backbone != "eva02":
-            raise NotImplementedError(f"vision backbone {cfg.vision.backbone!r}: the port has the EVA-02 tower only")
+        if cfg.vision.backbone not in TOWERS:
+            raise ValueError(f"vision backbone {cfg.vision.backbone!r}: expected one of {sorted(TOWERS)}")
         self.cfg = cfg
         h = cfg.hidden_size
         self.gpt_neox = gpt_neox.GPTNeoXModel(cfg, device=device)
@@ -44,7 +49,7 @@ class VLPythia(nn.Module):
         self.vision_embed_tokens = nn.Sequential(
             nn.Linear(cfg.vision.embed_dim, h, device=device), nn.GELU(), nn.Linear(h, h, device=device)
         )
-        self.vision_encoder = eva02.EVA02(cfg.vision, device=device)
+        self.vision_encoder = TOWERS[cfg.vision.backbone][0](cfg.vision, device=device)
         self.vision_encoder.requires_grad_(False)
 
 
@@ -64,7 +69,7 @@ def init_weights(model: VLPythia, generator: torch.Generator) -> None:
         elif isinstance(module, nn.LayerNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
-    eva02.init_weights(model.vision_encoder, generator)
+    TOWERS[model.cfg.vision.backbone][1](model.vision_encoder, generator)
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda", dtype=torch.float32) -> VLPythia:
@@ -111,9 +116,13 @@ class VLPythiaOutput(NamedTuple):
 
 
 def get_patch_embeddings(model: VLPythia, pixel_values: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    """Frozen vision features [B, n_vision_tokens, d_vis]: forward_features,
-    CLS dropped for select_feature == "patch"."""
-    feats = model.vision_encoder.forward_features(pixel_values, dtype=dtype)
+    """Frozen vision features [B, n_vision_tokens, d_vis]: EVA-02's
+    forward_features or CLIP's hidden_states[select_layer], CLS dropped for
+    select_feature == "patch"."""
+    if model.cfg.vision.backbone == "clip":
+        feats = model.vision_encoder.hidden_states(pixel_values, dtype=dtype)[model.cfg.select_layer]
+    else:
+        feats = model.vision_encoder.forward_features(pixel_values, dtype=dtype)
     if model.cfg.select_feature == "patch":
         feats = feats[:, 1:]
     elif model.cfg.select_feature != "cls_patch":
@@ -165,6 +174,7 @@ def forward(
     need_logits: bool = True,
     num_layers: Optional[int] = None,
     remat_layers: bool = False,
+    remat_policy: Optional[gpt_neox.RematPolicy] = None,
     label_tail: Optional[int] = None,
 ) -> VLPythiaOutput:
     """Training/eval forward (no KV cache) over cached vision features
@@ -176,6 +186,8 @@ def forward(
     last `label_tail` positions, where the answer suffix lives.
     num_layers: early-exit the decoder after this many blocks (teacher path);
     needs need_logits=False and labels=None.
+    remat_layers: recompute each decoder layer in backward, keeping what
+    `remat_policy` (training/step.py resolve_remat_policy) names.
     hidden_perturbation ([L, B, n_vis + T, H]): entry 0 is added to the input
     embeddings, entries 1.. to the decoder layers' outputs (see
     GPTNeoXModel.forward's layer_perturbation).
@@ -196,6 +208,7 @@ def forward(
         dtype=dtype,
         num_layers=num_layers,
         remat=remat_layers,
+        remat_policy=remat_policy,
         layer_perturbation=layer_pert,
     )
     hidden = dec["last_hidden_state"]

@@ -5,7 +5,8 @@ JAX package's `vl_pythia.init_params` after `jax.tree.map(np.asarray, ...)`,
 or a checkpoint restored to numpy) into this package's state_dict: stacked
 `[L, ...]` layer leaves are un-stacked, `[in, out]` matrices transposed to
 torch's `[out, in]`, the HWIO patch-embed conv to OIHW, and the names are the
-reference's torch names (timm's under `vision_encoder.` for the EVA-02 tower).
+reference's torch names (timm's under `vision_encoder.` for the EVA-02 tower,
+HF's under `vision_encoder.vision_model.` for CLIP).
 
 `save_safetensors` / `load_safetensors` write and read the safetensors
 format by hand (the `safetensors` package is not needed): an 8-byte
@@ -70,7 +71,33 @@ def params_from_jax(params_np: Dict[str, Any], cfg: ModelConfig) -> Dict[str, to
         out[f"vision_embed_tokens.{idx}.weight"] = _tensor(proj[name]["weight"], transpose=True)
         out[f"vision_embed_tokens.{idx}.bias"] = _tensor(proj[name]["bias"])
     if "vision" in params_np:
-        out.update(_vision_from_jax(params_np["vision"], cfg))
+        tower = _clip_from_jax if cfg.vision.backbone == "clip" else _vision_from_jax
+        out.update(tower(params_np["vision"], cfg))
+    return out
+
+
+def _clip_from_jax(vis: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The JAX package's CLIP tree (mafed_tpu/models/clip_vit.py) -> HF's
+    CLIPVisionModel names under `vision_encoder.vision_model.`."""
+    pre = "vision_encoder.vision_model."
+    out = {
+        pre + "embeddings.class_embedding": _tensor(vis["class_embedding"]),
+        pre + "embeddings.patch_embedding.weight": _tensor(vis["patch_embedding"]["weight"], axes=(3, 2, 0, 1)),
+        pre + "embeddings.position_embedding.weight": _tensor(vis["position_embedding"]),
+    }
+    for norm in ("pre_layrnorm", "post_layernorm"):
+        out[pre + f"{norm}.weight"] = _tensor(vis[norm]["weight"])
+        out[pre + f"{norm}.bias"] = _tensor(vis[norm]["bias"])
+    lp = vis["layers"]
+    for i in range(cfg.vision.depth):
+        base = pre + f"encoder.layers.{i}."
+        for norm in ("layer_norm1", "layer_norm2"):
+            out[base + f"{norm}.weight"] = _tensor(lp[norm]["weight"][i])
+            out[base + f"{norm}.bias"] = _tensor(lp[norm]["bias"][i])
+        for group, names in (("self_attn", ("q_proj", "k_proj", "v_proj", "out_proj")), ("mlp", ("fc1", "fc2"))):
+            for name in names:
+                out[base + f"{group}.{name}.weight"] = _tensor(lp[group][name]["weight"][i], transpose=True)
+                out[base + f"{group}.{name}.bias"] = _tensor(lp[group][name]["bias"][i])
     return out
 
 

@@ -94,7 +94,7 @@ def check_supported(args: PretrainConfig) -> None:
     if asks_for_several_devices(args.mesh_shape, args.distributed_init):
         raise NotImplementedError(
             "pretraining on more than one process or device is not ported to mafed_tpu_torch yet "
-            "(ROADMAP queue 1 item 8: DDP)")
+            "(ROADMAP queue 1 item 1: multi-process)")
 
 
 class PretrainTrainer:

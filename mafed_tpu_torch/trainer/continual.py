@@ -51,17 +51,12 @@ from mafed_tpu_torch.utils.cl_utils import random_task_order
 from mafed_tpu_torch.utils.save import save_configs
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to mafed_tpu_torch yet (ROADMAP queue 1 item 5: {item})")
-
-
 def check_supported(config: TrainConfig) -> None:
     """Raise on settings whose feature the port lacks, instead of running
-    something else: profile_dir, and more than one process or device."""
-    if config.profile_dir:
-        raise _not_ported("profile_dir", "profiling")
+    something else: more than one process or device."""
     if asks_for_several_devices(config.mesh_shape, config.distributed_init):
-        raise _not_ported("more than one process or device", "multi-process")
+        raise NotImplementedError("more than one process or device is not ported to mafed_tpu_torch yet "
+                                  "(ROADMAP queue 1 item 1: multi-process)")
 
 
 class ContinualLearningTrainer:

@@ -19,6 +19,9 @@ Device tables: with a vision table (data/vision_table.py) or a teacher table
 gathers their features or teacher states on the card, on the stream that
 runs the step, after the batch's copy.
 
+Profiling: with `profile_dir`, a torch.profiler trace (core/profiling.py)
+covers batches 10-20 of task 0, epoch 0, as in the JAX package.
+
 Resume bundles: at the end of every `resume_bundle_every`-th epoch, and at
 the update boundary where a preemption was requested (core/preempt.py), fit
 saves <output_dir>/resume: model.safetensors, best.safetensors,
@@ -45,6 +48,7 @@ from mafed_tpu_torch.core import preempt
 from mafed_tpu_torch.core.config import ModelConfig, TrainConfig
 from mafed_tpu_torch.core.device import resolve_device
 from mafed_tpu_torch.core.logging import LOGGER, MetricsLogger
+from mafed_tpu_torch.core.profiling import Trace
 from mafed_tpu_torch.data.collate import collate_train
 from mafed_tpu_torch.data.loader import BatchLoader
 from mafed_tpu_torch.data.prefetch import DevicePrefetcher, as_tensor, to_device
@@ -69,6 +73,9 @@ from mafed_tpu_torch.utils.checkpoint import (
 # the reference's schedule horizon: ceil(batches / accum) * 60, whatever the
 # real number of epochs (vqa_cont_learner.py:62-63)
 SCHEDULE_EPOCHS = 60
+# with profile_dir: the trace starts at batch 10 of task 0, epoch 0, and stops
+# at the first update boundary at or after batch 20 (or at the epoch's end)
+PROFILE_BATCHES = (10, 20)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -402,7 +409,10 @@ class TaskRunner:
             skip = start_batch if epoch == start_epoch else 0
             loader.set_epoch(epoch, start_batch=skip)
             last_logged = global_step
+            trace = None
             for batch_idx, batch in enumerate(self.fit_batches(loader), start=skip):
+                if self.config.profile_dir and task_id == 0 and epoch == 0 and batch_idx == PROFILE_BATCHES[0]:
+                    trace = Trace(self.config.profile_dir).start()
                 if self.window > 1:
                     window_buf.append((batch_idx, batch))
                     window_meta.append((epoch, batch_idx))
@@ -433,6 +443,10 @@ class TaskRunner:
                     LOGGER.warning("preempted: resume bundle saved at task %d epoch %d batch %d; exiting 143",
                                    task_id, epoch, batch_idx + 1)
                     raise preempt.Preempted(f"preempted at task {task_id} epoch {epoch}")
+                # in window mode this runs after a full window only (the continue above skips it)
+                if trace is not None and batch_idx >= PROFILE_BATCHES[1]:
+                    trace.stop()
+                    trace = None
                 if self.metrics is not None and global_step - last_logged >= self.config.log_every:
                     last_logged = global_step
                     payload = {
@@ -444,6 +458,8 @@ class TaskRunner:
                         for layer, v in zip(self._distill_layer_ids, dl.tolist()):
                             payload[f"task_{task_id}/distill_loss_{layer}"] = float(v)
                     self.metrics.log_metrics(payload, step=global_step)
+            if trace is not None:  # the epoch ended inside the trace's batches
+                trace.stop()
             # the steps run asynchronously: without this the epoch time would
             # measure their dispatch, and validation would absorb their work
             self.synchronize()

@@ -6,6 +6,7 @@ recompute excluded."""
 from __future__ import annotations
 
 from mafed_tpu_torch.core.config import ModelConfig
+from mafed_tpu_torch.models.vl_pythia import n_vision_tokens
 
 # NVIDIA H100 SXM, dense bf16 tensor-core peak (data sheet, 700 W)
 H100_BF16_PEAK = 989e12
@@ -40,7 +41,7 @@ def lm_head_flops(cfg: ModelConfig, positions: int) -> float:
 
 def projector_flops(cfg: ModelConfig) -> float:
     """Forward FLOPs of the two-layer projector over one example's patches."""
-    return 2 * cfg.vision.num_patches * (cfg.vision.embed_dim * cfg.hidden_size + cfg.hidden_size ** 2)
+    return 2 * n_vision_tokens(cfg) * (cfg.vision.embed_dim * cfg.hidden_size + cfg.hidden_size ** 2)
 
 
 def ce_example_flops(cfg: ModelConfig, text_len: int, *, vision_cached: bool = True) -> float:
@@ -48,7 +49,7 @@ def ce_example_flops(cfg: ModelConfig, text_len: int, *, vision_cached: bool = T
     label_len (= text_len) positions and projector, fwd + bwd, plus one tower
     forward unless the features are cached. A CE window of n_mb microbatches
     of B is n_mb * B of these; a train step, B."""
-    seq = cfg.vision.num_patches + text_len
+    seq = n_vision_tokens(cfg) + text_len
     dec_fwd = decoder_flops_per_token(cfg) * seq + attention_flops(cfg, seq)
     student = 3 * (dec_fwd + lm_head_flops(cfg, text_len) + projector_flops(cfg))
     return student + (0.0 if vision_cached else vision_flops_per_image(cfg))
@@ -60,7 +61,7 @@ def distill_step_flops_per_example(cfg: ModelConfig, text_len: int) -> float:
     fwd and the projector fwd (an upper bound of the early-exited,
     cached-feature step; `framework_window_flops(cfg, t, 0, 1)` is the exact
     count of that one)."""
-    seq = cfg.vision.num_patches + text_len
+    seq = n_vision_tokens(cfg) + text_len
     dec_fwd = decoder_flops_per_token(cfg) * seq + attention_flops(cfg, seq)
     head = lm_head_flops(cfg, text_len)
     return 3 * (dec_fwd + head) + dec_fwd + vision_flops_per_image(cfg) + projector_flops(cfg)
@@ -81,7 +82,7 @@ def framework_window_flops(
     num_hidden_layers - 2 blocks with no lm_head and its projector forward,
     unless its states come from the teacher-state cache (`teacher_cached`).
     Uncached, one tower forward per image, shared by student and teacher."""
-    seq = cfg.vision.num_patches + text_len
+    seq = n_vision_tokens(cfg) + text_len
     dec_fwd = decoder_flops_per_token(cfg) * seq + attention_flops(cfg, seq)
     deepest = cfg.num_hidden_layers - 2
     teacher_ex = 0.0 if teacher_cached else dec_fwd * deepest / cfg.num_hidden_layers + projector_flops(cfg)
@@ -93,7 +94,7 @@ def framework_decode_flops_per_example(cfg: ModelConfig, text_len: int, max_new:
     projector, the tower unless the features are cached, one prefill over
     vision + text with logits at the last position, then max_new - 1 cached
     single-token steps against the growing prefix."""
-    seq0 = cfg.vision.num_patches + text_len
+    seq0 = n_vision_tokens(cfg) + text_len
     total = projector_flops(cfg) + (0.0 if vision_cached else vision_flops_per_image(cfg))
     total += decoder_flops_per_token(cfg) * seq0 + attention_flops(cfg, seq0) + lm_head_flops(cfg, 1)
     for k in range(1, max_new):

@@ -33,24 +33,44 @@ from mafed_tpu_torch.core.config import ModelConfig, TrainConfig
 from mafed_tpu_torch.core.device import resolve_device
 from mafed_tpu_torch.data.images import make_normalizer, prep_pixels
 from mafed_tpu_torch.models import vl_pythia
+from mafed_tpu_torch.models.gpt_neox import RematPolicy
 from mafed_tpu_torch.optim.optimizer import global_norm, last_grad_norm
 from mafed_tpu_torch.training.train_state import TrainState, trainable_parameters
 
-_NAMED_REMAT_POLICIES = ("attn", "attn_qkv", "attn_mlp", "attn_qkv_mlp", "dots")
+# what each of the JAX package's named policies keeps (gpt_neox.RematPolicy):
+# the tagged products of gpt_neox.dense, and the flash forward's (o, lse)
+_NAMED_REMAT_POLICIES = {
+    "attn": ("attn_out", "flash"),
+    "attn_qkv": ("attn_out", "qkv", "flash"),
+    "attn_mlp": ("attn_out", "mlp_up", "flash"),
+    "attn_qkv_mlp": ("attn_out", "qkv", "mlp_up", "flash"),
+    # every matmul product without batch dimensions: the layer's four projections
+    "dots": ("qkv", "attn_out", "mlp_up", "mlp_down"),
+}
 
 
 def compute_dtype(train_cfg: TrainConfig) -> torch.dtype:
     return torch.bfloat16 if train_cfg.compute_dtype == "bfloat16" else torch.float32
 
 
-def resolve_remat_policy(name: str) -> None:
-    """'' / 'full': plain per-layer remat (keep only the layer inputs), the
-    one policy the port has. The JAX package's named policies, which save
-    chosen layer intermediates through jax.checkpoint, are not ported."""
+def resolve_remat_policy(name: str) -> Optional[RematPolicy]:
+    """Map TrainConfig.remat_policy to what per-layer remat keeps.
+
+    '' / 'full': None, plain per-layer remat (keep only the layer inputs;
+    recompute everything in backward). The named policies keep chosen layer
+    tensors too (gpt_neox.RematPolicy), trading device memory for recompute:
+      'attn'         - the attention output projection, and the flash
+                       forward's (o, lse): backward reruns no flash forward
+      'attn_qkv'     - + the QKV projection
+      'attn_mlp'     - + the MLP up-projection
+      'attn_qkv_mlp' - all three
+      'dots'         - every matmul product without batch dimensions
+    Whatever a policy keeps, the numbers are those of full recompute.
+    """
     if not name or name == "full":
         return None
     if name in _NAMED_REMAT_POLICIES:
-        raise NotImplementedError(f"remat_policy {name!r} is not ported: resolve_remat_policy takes '' or 'full'")
+        return RematPolicy(keep=frozenset(_NAMED_REMAT_POLICIES[name]))
     raise ValueError(f"unknown remat_policy '{name}'")
 
 
@@ -68,13 +88,13 @@ def _vision_features(model, batch, normalize, dtype) -> torch.Tensor:
         return vl_pythia.get_patch_embeddings(model, prep_pixels(batch, normalize, dtype), dtype=dtype)
 
 
-def _ce_loss(model, batch, patches, dtype, label_tail, *, remat: bool) -> torch.Tensor:
+def _ce_loss(model, batch, patches, dtype, label_tail, *, remat: bool, policy: Optional[RematPolicy] = None) -> torch.Tensor:
     """Length-normalised CE of one (merged) batch over its vision features;
-    remat recomputes each decoder layer in backward."""
+    remat recomputes each decoder layer in backward, keeping what `policy` names."""
     return vl_pythia.forward(
         model, batch["input_ids"], batch["attention_mask"], batch["labels"],
         patch_embeddings=patches, dtype=dtype, loss_only=True,
-        remat_layers=remat, label_tail=label_tail,
+        remat_layers=remat, remat_policy=policy, label_tail=label_tail,
     ).loss
 
 
@@ -137,7 +157,7 @@ def make_train_step(
     device = resolve_device(device)
     dtype = compute_dtype(train_cfg)
     tail = train_cfg.label_tail or None
-    resolve_remat_policy(train_cfg.remat_policy)
+    policy = resolve_remat_policy(train_cfg.remat_policy)
     normalize = make_normalizer(model_cfg.vision)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], ewc_state=None):
@@ -145,7 +165,7 @@ def make_train_step(
         model = state.model
         params = _cleared(model)
         loss = _ce_loss(model, batch, _vision_features(model, batch, normalize, dtype), dtype, tail,
-                        remat=train_cfg.remat)
+                        remat=train_cfg.remat, policy=policy)
         if with_ewc and ewc_state is not None:
             loss = loss + ewc_penalty(params, ewc_state, train_cfg.reg_lambda)
         loss.backward()
@@ -173,7 +193,7 @@ def make_ce_window_step(
     device = resolve_device(device)
     dtype = compute_dtype(train_cfg)
     tail = train_cfg.label_tail or None
-    resolve_remat_policy(train_cfg.remat_policy)
+    policy = resolve_remat_policy(train_cfg.remat_policy)
     normalize = make_normalizer(model_cfg.vision)
 
     def step(state: TrainState, batches: Dict[str, torch.Tensor], ewc_state=None):
@@ -181,7 +201,8 @@ def make_ce_window_step(
         model = state.model
         params = _cleared(model)
         merged = {k: _merge_window(v) for k, v in batches.items()}
-        loss = _ce_loss(model, merged, _vision_features(model, merged, normalize, dtype), dtype, tail, remat=True)
+        loss = _ce_loss(model, merged, _vision_features(model, merged, normalize, dtype), dtype, tail, remat=True,
+                        policy=policy)
         if with_ewc and ewc_state is not None:
             loss = loss + ewc_penalty(params, ewc_state, train_cfg.reg_lambda)
         loss.backward()
@@ -261,7 +282,7 @@ def make_distill_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *, rema
     decoder layers in backward.
     """
     dtype = compute_dtype(train_cfg)
-    resolve_remat_policy(train_cfg.remat_policy)
+    policy = resolve_remat_policy(train_cfg.remat_policy)
     num_hl = model_cfg.num_hidden_layers - 1
     layers = tuple(distillation_layers(
         train_cfg.distillation_layer_weighing_strategy, num_hl, train_cfg.distillation_layer,
@@ -280,7 +301,7 @@ def make_distill_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *, rema
     replay_coeff = train_cfg.replay_coeff
     distill_coeff = train_cfg.distillation_coeff
     cls_distill = train_cfg.cls_distillation
-    n_vis = model_cfg.vision.num_patches
+    n_vis = vl_pythia.n_vision_tokens(model_cfg)
     tail = train_cfg.label_tail or None
 
     def loss_fn(model, teacher, batch, lang_coeffs, patches):
@@ -292,7 +313,7 @@ def make_distill_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *, rema
             patch_embeddings=patches, output_hidden_states=True,
             dtype=dtype, loss_only=True, need_logits=replay_coeff > 0,
             num_layers=None if replay_coeff > 0 else deepest_tap,
-            remat_layers=remat_student, label_tail=tail,
+            remat_layers=remat_student, remat_policy=policy, label_tail=tail,
         )
         if "t_hs" in batch:
             # the teacher-state cache (data/teacher_cache.py): the states of
@@ -409,7 +430,8 @@ def make_mafed_window_step(
     """
     device = resolve_device(device)
     dtype = compute_dtype(train_cfg)
-    distill_loss_fn = make_distill_loss_fn(model_cfg, train_cfg, remat_student=True)  # checks remat_policy
+    distill_loss_fn = make_distill_loss_fn(model_cfg, train_cfg, remat_student=True)
+    policy = resolve_remat_policy(train_cfg.remat_policy)
     denom = float(n_ce + 1)
     tail = train_cfg.label_tail or None
     normalize = make_normalizer(model_cfg.vision)
@@ -431,7 +453,7 @@ def make_mafed_window_step(
                 pixels = torch.cat([_merge_window(ce_batches["pixels"]), distill_batch["pixels"]])
                 all_patches = _vision_features(model, {"pixels": pixels}, normalize, dtype)
                 ce_patches, d_patches = all_patches[:n_merged], all_patches[n_merged:]
-            ce_loss = _ce_loss(model, merged, ce_patches, dtype, tail, remat=True)
+            ce_loss = _ce_loss(model, merged, ce_patches, dtype, tail, remat=True, policy=policy)
             d_loss, per_layer = distill_loss_fn(model, teacher, distill_batch, lang_coeffs, d_patches)
             # ONE loss, ONE backward into a single set of gradients
             total = (n_ce * ce_loss + d_loss) / denom
@@ -440,7 +462,8 @@ def make_mafed_window_step(
             ce_sum = torch.zeros((), dtype=torch.float32, device=device)
             for i in range(n_ce):
                 mb = {k: v[i] for k, v in ce_batches.items()}
-                ce_i = _ce_loss(model, mb, _vision_features(model, mb, normalize, dtype), dtype, tail, remat=True)
+                ce_i = _ce_loss(model, mb, _vision_features(model, mb, normalize, dtype), dtype, tail, remat=True,
+                                policy=policy)
                 (ce_i / denom).backward()
                 ce_sum = ce_sum + ce_i.detach()
             ce_loss = ce_sum / n_ce
@@ -512,7 +535,7 @@ def make_adaptive_weights_fn(
     device = resolve_device(device)
     dtype = compute_dtype(train_cfg)
     layers = list(layers)
-    n_vis = model_cfg.vision.num_patches
+    n_vis = vl_pythia.n_vision_tokens(model_cfg)
     normalize = make_normalizer(model_cfg.vision)
 
     def fn(model, batch: Dict[str, torch.Tensor]):

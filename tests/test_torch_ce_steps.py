@@ -30,6 +30,7 @@ from mafed_tpu.training import flops as jflops
 from mafed_tpu.training import step as jstep
 from mafed_tpu.training.train_state import TrainState as JTrainState, split_params
 from mafed_tpu_torch.core.config import TrainConfig as TTrainConfig
+from mafed_tpu_torch.models.gpt_neox import RematPolicy
 from mafed_tpu_torch.models.weights import params_from_jax
 from mafed_tpu_torch.optim import optimizer as topt
 from mafed_tpu_torch.training import flops as tflops
@@ -240,20 +241,22 @@ def test_multisteps_matches_optax(optim):
 @pytest.mark.parametrize("policy", ["", "full", "attn", "attn_qkv", "attn_mlp", "attn_qkv_mlp", "dots", "bogus"])
 def test_remat_policy_rule(setup, policy):
     """'' and 'full' are plain per-layer remat; the JAX package's named
-    policies raise NotImplementedError naming resolve_remat_policy, unknown
-    names raise ValueError as in the JAX package."""
+    policies resolve to a RematPolicy (tests/test_torch_remat.py holds their
+    windows against the JAX package's); unknown names raise ValueError, as in
+    the JAX package."""
     _, tc, _, _ = setup
     cfg = TTrainConfig(**_kw(remat=True, remat_policy=policy))
     if policy in ("", "full"):
         assert jstep.resolve_remat_policy(policy) is None and tstep.resolve_remat_policy(policy) is None
         tstep.make_train_step(tc, cfg, None, device="cpu")
         return
-    with pytest.raises(ValueError if policy == "bogus" else NotImplementedError, match="remat_policy"):
-        tstep.make_train_step(tc, cfg, None, device="cpu")
-    if policy != "bogus":
-        assert jstep.resolve_remat_policy(policy) is not None
-        with pytest.raises(NotImplementedError, match="resolve_remat_policy"):
-            tstep.resolve_remat_policy(policy)
+    if policy == "bogus":
+        with pytest.raises(ValueError, match="remat_policy"):
+            tstep.make_train_step(tc, cfg, None, device="cpu")
+        return
+    assert jstep.resolve_remat_policy(policy) is not None
+    assert isinstance(tstep.resolve_remat_policy(policy), RematPolicy)
+    tstep.make_train_step(tc, cfg, None, device="cpu")
 
 
 @pytest.mark.parametrize("preset", ["160m", "410m", "1b"])

@@ -214,8 +214,11 @@ def test_prefetcher_on_the_cpu_keeps_order_and_closes_the_loader():
 
 # --- images -----------------------------------------------------------------------------
 
+@pytest.mark.parametrize("native", ["1", "0"], ids=["engine", "pil"])
 @pytest.mark.parametrize("img_size", [28, 224])
-def test_load_and_resize_matches_jax_pil(tmp_path, img_size):
+def test_load_and_resize_matches_jax_pil(tmp_path, monkeypatch, img_size, native):
+    """Both packages at their defaults, with the C++ engine (MAFED_NATIVE_IMAGES=1) and with PIL (0)."""
+    monkeypatch.setenv("MAFED_NATIVE_IMAGES", native)
     cfg = write_learnable_vqa(str(tmp_path), tasks=("hue", "side"), n_train=3, n_val=1)
     img_dir = cfg.train_img_dirs[0]
     names = sorted(os.listdir(img_dir))
@@ -223,7 +226,7 @@ def test_load_and_resize_matches_jax_pil(tmp_path, img_size):
     for name in names:
         path = os.path.join(img_dir, name)
         got = timages.load_and_resize(path, tcfg.VisionConfig(img_size=img_size))
-        want = jimages.load_and_resize(path, JVisionConfig(img_size=img_size), use_native=False)
+        want = jimages.load_and_resize(path, JVisionConfig(img_size=img_size))
         assert got.dtype == np.uint8 and got.shape == (img_size, img_size, 3)
         np.testing.assert_array_equal(got, want)
     assert timages.get_image_path("d", "coco_train2014_000000000009.npz") == jimages.get_image_path(

@@ -95,9 +95,10 @@ def _records(root):
     return rows
 
 
+@pytest.mark.parametrize("native", ["1", "0"], ids=["engine", "pil"])
 @pytest.mark.parametrize("source", ["manifest", "records", "dict_rows"])
-def test_items_and_collate_match_jax(tmp_path, monkeypatch, source):
-    monkeypatch.setenv("MAFED_NATIVE_IMAGES", "0")  # the JAX package's PIL path: its C++ engine is not ported
+def test_items_and_collate_match_jax(tmp_path, monkeypatch, source, native):
+    monkeypatch.setenv("MAFED_NATIVE_IMAGES", native)  # both packages' C++ engine (1, the default) or PIL (0)
     jcfg, tc = tiny_cfgs()
     rows = _records(str(tmp_path))
     kwargs = {"model_max_length": TEXT}
@@ -409,5 +410,5 @@ def test_more_than_one_device_raises(tmp_path):
     _, tc = tiny_cfgs()
     train_ds, _ = _datasets("torch", tc.vision)
     for over in (dict(mesh_shape=(2, 1)), dict(distributed_init=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1: multi-process"):
             PretrainTrainer(tc, PretrainConfig(output_dir=str(tmp_path), **over), train_ds, device="cpu")

@@ -221,8 +221,14 @@ def test_model_config_from_json_matches_jax():
     {"mesh_shape": [2, 1]},
 ], ids=["profile", "distributed", "mesh"])
 def test_settings_left_out_raise(tmp_path, overrides):
+    """More than one process or device raises; profile_dir is ported
+    (tests/test_torch_profiling.py traces a run) and builds a trainer."""
     cfg = write_synthetic_vqa(str(tmp_path)).replace(cl_method="featdistill", **overrides)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if "profile_dir" in overrides:
+        trainer = ContinualLearningTrainer(cfg, model_cfg=tiny_cfgs()[1], device="cpu")
+        assert trainer.runner.config.profile_dir == "trace"
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1: multi-process"):
         ContinualLearningTrainer(cfg, device="cpu")
 
 
