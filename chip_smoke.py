@@ -113,6 +113,22 @@ Phases, each printing one JSON line:
  17. profile (last): the shipped config on one task of 384 questions, plain,
      with --profile_dir and plain again: the trace names the three kernels;
      the profiled fit's seconds against the plain ones.
+ 18. multiprocess (after cl_resume): data parallelism over torch.distributed,
+     two ranks of this script (--mp-worker) sharing cuda:0 over gloo (the
+     machine has one card; NCCL refuses two ranks on one), each failure or
+     timeout of a rank failing the phase: process_reduce_sum on known
+     values; phase window's three 410M MAFED windows on 8 of the 16 rows a
+     rank against one process on all 16 (the ranks bit-equal; metrics within
+     bf16's resolution; parameters within 5 % of one process's update
+     length; 118 / 48 / 48 launches a window on each rank), beside the
+     spread of one process on the rows reordered; a SIGTERM to rank 1 alone
+     stopping both after the same window; cl_sequence_default's sequence
+     over both ranks (the caches primed by both into one directory; no
+     epoch-end bundles), its accuracy matrix beside the one-process one,
+     then preempted by the countdown after 2 updates and resumed, bit-equal; two pretraining
+     updates at a global batch of 64 (the pair cannot hold 128) against one
+     process. The NCCL windows run on two cards; on one the phase prints
+     {"phase": "multiprocess_nccl", "run": false, "cards": 1}.
 The kernel cases include the CLIP tower's [32, 16, 577, 64] (non-causal,
 577 = 9 x 64 + 1) and its decode prefill (640, causal, 16 padded keys).
 Then the kernel summary line (one entry per kernel and head_dim), the
@@ -161,7 +177,7 @@ from mafed_tpu_torch.training.step import (
     make_mafed_window_step, make_train_step,
 )
 from mafed_tpu_torch.training.train_state import TrainState, make_teacher, trainable_parameters
-from mafed_tpu_torch.utils.checkpoint import load_task_checkpoint
+from mafed_tpu_torch.utils.checkpoint import load_task_checkpoint, save_task_checkpoint
 
 # Tolerances of the kernel checks (bf16): the tiled kernels round p to bf16
 # relative to a running row maximum, the dense plain versions relative to the
@@ -286,6 +302,11 @@ KERNEL_CASES = [
     ("decode_prefill_1b", 32, 8, 320, 256, True, (256, 272), False),
     ("causal_129_padded_d256", 8, 4, 129, 256, True, (0, 7), False),
     ("small_unaligned_empty_rows_d256", 3, 2, 77, 256, True, (0, 3), True),
+    # phase multiprocess: a rank's half of the 410M window (its CE stack of 3 x 8 rows, its student
+    # and teacher passes) and of the pretraining update at a global 64
+    ("mp_ce_410m_rank", 24, 16, 336, 64, True, (256, 276), False),
+    ("mp_student_410m_rank", 8, 16, 336, 64, True, (256, 276), False),
+    ("mp_pretrain_410m_rank", 32, 16, 356, 64, True, ("right", 257), False),
 ]
 # what SDPA's timed call computes beside each kernel's
 LIBRARY_COVERS = {"flash_fwd": "o", "flash_bwd_dkv": "dq+dk+dv", "flash_bwd_dq": "dq+dk+dv"}
@@ -1057,9 +1078,11 @@ def drive_sequence(argv, device, model_cfg, keep_checkpoints: str = "first", pre
 
         def fit_and_read_bundle(*args, **kwargs):
             out = fit(*args, **kwargs)
-            with open(os.path.join(cfg.output_dir, "resume", "fit_state.json")) as f:
-                meta = json.load(f)
-            bundles.append([meta["task_id"], meta["epoch"]])
+            fit_state = os.path.join(cfg.output_dir, "resume", "fit_state.json")
+            if os.path.exists(fit_state):  # not with --resume_bundle_every 0
+                with open(fit_state) as f:
+                    meta = json.load(f)
+                bundles.append([meta["task_id"], meta["epoch"]])
             return out
 
         trainer.runner.fit = fit_and_read_bundle
@@ -1079,7 +1102,8 @@ def drive_sequence(argv, device, model_cfg, keep_checkpoints: str = "first", pre
         raise AssertionError(f"no preemption after {preempt_after} updates")
     return {"cfg": cfg, "model_cfg": model_cfg, "trainer": trainer, "result": result, "wall": wall,
             "launches": launches_by_dim(), "saved": saved, "bundles": bundles,
-            "losses": logged_losses(cfg.output_dir), "bundle_save_s": trainer.runner.bundle_save_s,
+            "losses": logged_losses(cfg.output_dir) if trainer.is_main else None,  # rank 0 writes them
+            "bundle_save_s": trainer.runner.bundle_save_s,
             "train_ex_per_s": [[h["train_ex_per_s"] for h in log["history"]] for log in trainer.fit_logs]}
 
 
@@ -1922,6 +1946,418 @@ def phase_cka_sweep(smi: str, default_run: dict, device: str = "cuda", n_val: in
     return launches
 
 
+# --- phase multiprocess: data parallelism over torch.distributed -------------------------------------------
+
+# The card's machine has one H100 and NCCL refuses two ranks on one card, so
+# the phase runs two ranks on cuda:0 over gloo, which stages CUDA tensors
+# through the host: a check of correctness, not a measure of scaling.
+MP_WORLD, MP_BACKEND, MP_DEVICE = 2, "gloo", "cuda:0"
+MP_WAIT_S = 900  # each rank's bound, the SIGTERM's wait included
+MP_SIGTERM_MAX_WINDOWS = 40  # windows the ranks run while rank 1 waits for its SIGTERM
+MP_PREEMPT_AFTER = 2  # the countdown: task 0's two windows
+# the CL runs keep only the preemption's bundle: epoch-end bundles (~9 GB, written
+# by rank 0 while rank 1 waits) would add ~45 s to the phase
+MP_CL_SWITCHES = ["--resume_bundle_every", "0"]
+# Pretraining: two ranks on one card hold two copies of weights and optimizer
+# state, and one process at batch 128 peaks at 75.5 GB, so the pair trains
+# at a global batch of 64 (32 a rank) against one process at 64: two updates,
+# the first at lr 0 (the schedule's warmup step).
+MP_PRETRAIN_GLOBAL = 64
+# Against one process (bf16 compute; the ranks' half batches round otherwise):
+# the window metrics (loss, CE, distill, grad norm), the CL sequence's logged
+# losses and the pretraining losses within MP_METRIC_RTOL, bf16's relative
+# resolution; the parameters' distance
+# from one process's, over the length of one process's own update, within
+# MP_UPDATE_RTOL; no element farther than AdamW can move it in opposite
+# directions, 2.02 lr an update (|m^|/sqrt(v^) <= 1.004 in the first three
+# updates). The phase prints beside them the spread of one process run twice
+# on the same rows in the two orders (the ranks' interleave concatenated).
+MP_METRIC_RTOL = 2.0 ** -8
+MP_UPDATE_RTOL = 0.05
+
+
+def _sum_launches(parts) -> dict:
+    """The sum of launch counts by head_dim (a rank's come through JSON, keyed by str)."""
+    return {d: {k: sum((p[d] if d in p else p[str(d)])[k] for p in parts) for k in A.LAUNCHES}
+            for d in build.HEAD_DIMS}
+
+
+def equal_on_every_rank(tensors) -> bool:
+    """Whether every rank holds `tensors` equal to rank 0's, bit for bit."""
+    from mafed_tpu_torch.core import dist as D
+
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    ref = flat.clone()
+    D.broadcast_from_main_([ref])
+    return D.process_reduce_sum(float(torch.equal(flat, ref)))[0] == D.process_count()
+
+
+def param_distance(got: dict, want: dict, before: dict, bound=None) -> dict:
+    """max |got - want|, and ||got - want|| / ||want - before|| (the distance
+    from the reference over the length of the reference's update), over
+    want's keys; with `bound`, raises past it or past MP_UPDATE_RTOL."""
+    max_abs, sq_diff, sq_update = 0.0, 0.0, 0.0
+    for k, w in want.items():
+        d = got[k].float() - w.float()
+        max_abs = max(max_abs, float(d.abs().max()))
+        sq_diff += float(d.double().square().sum())
+        sq_update += float((w.float() - before[k].float()).double().square().sum())
+    out = {"max_abs_diff": max_abs, "update_rel_diff": math.sqrt(sq_diff / sq_update)}
+    if bound is not None:
+        out.update(max_abs_bound=bound, update_rtol=MP_UPDATE_RTOL)
+        if max_abs > bound or out["update_rel_diff"] > MP_UPDATE_RTOL:
+            raise AssertionError(f"multiprocess: parameters against one process's {out}")
+    return out
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mp_windows(rank: int, world: int, device: str, root: str, sigterm: bool, rows=None) -> dict:
+    """Phase window's three 410M MAFED windows (its seeded snapshot and rows),
+    each rank on its interleaved 16 / world of the 16 rows a microbatch (or
+    on `rows`, an index); rank 0 of several saves the trainable parameters
+    after them, one process (the reference) returns them and those before.
+    With `sigterm`, the ranks go on with windows, checking the agreed
+    preemption flag after each, until the SIGTERM that only rank 1 receives
+    stops them both."""
+    from mafed_tpu_torch.core import dist as D
+
+    cfg = model_config_for_preset("410m")
+    n_ce, b, text_len, windows = 3, 16, 80, 3
+    model = init_model(cfg, seed=0, device=device)
+    D.broadcast_model_(model)
+    step, state, teacher, ce, distill, lang = window_setup(
+        cfg, model, n_ce, b, text_len, torch.Generator().manual_seed(2), device)
+    rows = slice(rank, b, world) if rows is None else rows  # the loader's interleave of a global batch
+    ce, distill = {k: v[:, rows] for k, v in ce.items()}, {k: v[rows] for k, v in distill.items()}
+    trainable = trainable_parameters(model)
+    out = {"before": {k: p.detach().cpu().clone() for k, p in trainable.items()}} if world == 1 else {}
+    _sync(device)
+    A.reset_launches()
+    times, history = [], []
+    for _ in range(windows):
+        start = time.perf_counter()
+        state, m = step(state, teacher, ce, distill, lang)
+        _sync(device)
+        times.append((time.perf_counter() - start) * 1e3)
+        history.append({k: float(m[k]) for k in ("loss", "ce_loss", "distill_loss", "grad_norm")})
+    launches = launches_by_dim()
+    layers = cfg.num_hidden_layers
+    expected = at_head_dim(cfg.head_dim, _kernels(windows * (2 * layers + (layers - 2) + 2 * layers),
+                                                  windows * 2 * layers))
+    if torch.device(device).type == "cuda" and launches != expected:
+        raise AssertionError(f"multiprocess rank {rank}: window launches {launches}, expected {expected}")
+    out.update({"window_ms": times, "ms_per_window": sum(times[1:]) / (windows - 1), "metrics": history,
+                "launches": launches, "ranks_equal": equal_on_every_rank(trainable.values())})
+    if world == 1:
+        out["trainable"] = {k: p.detach().cpu().clone() for k, p in trainable.items()}
+    elif rank == 0:
+        save_task_checkpoint(trainable, os.path.join(root, "window_trainable.safetensors"))
+    if sigterm:
+        A.reset_launches()
+        if rank == 1:
+            open(os.path.join(root, "sigterm_ready"), "w").close()
+        for i in range(MP_SIGTERM_MAX_WINDOWS):
+            state, _ = step(state, teacher, ce, distill, lang)
+            if preempt.sync_preemption_requested(windows + i + 1):
+                break
+        else:
+            raise AssertionError(f"multiprocess rank {rank}: no SIGTERM stopped the windows")
+        out["sigterm"] = {"stopped_after_update": windows + i + 1, "signal_here": preempt.preemption_requested()}
+        out["sigterm_launches"] = launches_by_dim()
+        preempt.clear()
+    return out
+
+
+def mp_cl(rank: int, device: str, root: str) -> dict:
+    """cl_sequence_default's command line over two ranks: uninterrupted; then
+    preempted by the countdown after MP_PREEMPT_AFTER updates on every rank
+    and resumed with --resume_from_checkpoint, whose final trainable
+    parameters must equal the uninterrupted run's bit for bit."""
+    argv = cl_sequence_argv(os.path.join(root, "data")) + MP_CL_SWITCHES
+    pre_out = os.path.join(root, "cl_pre")
+    runs = {}
+    for name, extra, preempt_after in (
+            ("full", ["--output_dir", os.path.join(root, "cl_full")], None),
+            ("preempted", ["--output_dir", pre_out], MP_PREEMPT_AFTER),
+            ("resumed", ["--output_dir", pre_out, "--resume_from_checkpoint", os.path.join(pre_out, "resume")], None)):
+        run = drive_sequence(argv + extra, device, None, preempt_after=preempt_after)
+        trainer = run.pop("trainer")
+        run["primed"], run["teacher_cache"] = trainer.primed, trainer.strategy.teacher_cache_log
+        run["stages"] = trainer.timings
+        run["steps"] = [log["steps"] for log in trainer.fit_logs]
+        if preempt_after is None:
+            run["trainable"] = trainer.runner.host_trainable()
+            run["ranks_equal"] = equal_on_every_rank(trainable_parameters(trainer.runner.model).values())
+        else:
+            with open(os.path.join(pre_out, "resume", "fit_state.json")) as f:
+                run["bundle"] = {k: v for k, v in json.load(f).items() if k in ("task_id", "epoch", "batches_done")}
+        runs[name] = run
+        del trainer, run
+        free_device_memory()
+    full, resumed = runs["full"], runs["resumed"]
+    return {
+        "accuracy_matrix": full["result"]["accuracy_matrix"], "bwt": full["result"]["bwt"],
+        "resumed_accuracy_matrix": resumed["result"]["accuracy_matrix"],
+        "resumed_equal": all(torch.equal(resumed["trainable"][k], v) for k, v in full["trainable"].items()),
+        "ranks_equal": [full["ranks_equal"], resumed["ranks_equal"]], "bundle": runs["preempted"]["bundle"],
+        "images_primed": full["primed"], "teacher_cache": full["teacher_cache"], "steps": full["steps"],
+        "losses": full["losses"], "seconds": {name: run["wall"] for name, run in runs.items()},
+        "stage_seconds": {name: run["stages"] for name, run in runs.items()},
+        "launches": {name: run["launches"] for name, run in runs.items()},
+    }
+
+
+def mp_pretrain(root: str, world: int, device: str) -> dict:
+    """Pretraining through its entry point: two updates at a global batch of
+    MP_PRETRAIN_GLOBAL (MP_PRETRAIN_GLOBAL / world a rank), the first at lr 0
+    (the schedule's warmup step), no eval and no checkpoint but
+    checkpoint-final; its launches as computed."""
+    from mafed_tpu_torch import pretrain_vlpythia as cli
+    from mafed_tpu_torch.core.dist import process_count
+
+    out = os.path.join(root, f"pretrain_{world}")
+    argv = ["--manifest", os.path.join(root, "captions", "train.jsonl"), "--output_dir", out,
+            "--allow_tokenizer_fallback", "--per_device_train_batch_size", str(MP_PRETRAIN_GLOBAL // world),
+            "--model_max_length", "100", "--num_train_epochs", "1", "--save_steps", "2", "--eval_steps", "2",
+            "--device", device]
+    cuda = torch.device(device).type == "cuda"
+    _sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    start = time.perf_counter()
+    state = cli.train(argv)
+    _sync(device)
+    wall = time.perf_counter() - start
+    launches = launches_by_dim()
+    expected = pretrain_launches(state.model.cfg, 2, 0)
+    if state.step != 2 or (cuda and launches != expected):
+        raise AssertionError(f"multiprocess pretrain: {state.step} updates, launches {launches}, expected {expected}")
+    result = {"seconds": wall, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+              "launches": launches, "out": out,
+              "ranks_equal": equal_on_every_rank(trainable_parameters(state.model).values())}
+    if process_count() == 1:  # the reference: also the parameters both runs started from
+        from mafed_tpu_torch.pretrain.trainer import PretrainConfig
+
+        start_model = init_model(state.model.cfg, seed=PretrainConfig().seed, device=device)
+        result["before"] = {k: p.detach().cpu() for k, p in trainable_parameters(start_model).items()}
+    if process_count() == 1 or int(os.environ["RANK"]) == 0:
+        result["loss"] = _logged(out)["train/loss"]
+    return result
+
+
+def mp_worker(argv) -> int:
+    """One rank of phase multiprocess:
+    python3 chip_smoke.py --mp-worker RANK WORLD PORT MODE ROOT BACKEND DEVICE.
+    MODE "all": process_reduce_sum, the windows and the SIGTERM, the CL
+    runs, pretraining; "windows": the first two. Writes ROOT/rank<RANK>_<MODE>.json."""
+    rank, world, port, mode, root, backend, device = int(argv[0]), int(argv[1]), argv[2], argv[3], *argv[4:7]
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=port)
+    from mafed_tpu_torch.core import dist as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device sets it in the one-process reference
+    torch.backends.cudnn.allow_tf32 = False
+    preempt.install_handlers()
+    D.maybe_initialize_distributed(backend=backend, device=device)
+    print(json.dumps({"rank": rank, "backend": torch.distributed.get_backend(), "device": device}), flush=True)
+    out = {"rank": rank, "backend": torch.distributed.get_backend(), "device": device,
+           "reduce_sum": list(D.process_reduce_sum(rank + 1.0, 10.0))}
+    out["window"] = mp_windows(rank, world, device, root, sigterm=mode == "all")
+    if mode == "all":
+        free_device_memory()
+        out["cl"] = mp_cl(rank, device, root)
+        free_device_memory()
+        out["pretrain"] = mp_pretrain(root, world, device)
+    D.barrier("multiprocess_done")
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}_{mode}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def run_ranks(root: str, mode: str, backend: str, devices) -> list:
+    """Start one `mp_worker` a device, on a free port; in mode "all", send
+    SIGTERM to rank 1 alone once it waits for one. Any rank that fails or
+    outlasts MP_WAIT_S fails the phase, and every rank still alive is killed.
+    Returns each rank's result."""
+    import signal
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, logs = [], []
+    deadline = time.time() + MP_WAIT_S
+    try:
+        for rank, device in enumerate(devices):
+            logs.append(open(os.path.join(root, f"rank{rank}_{mode}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mp-worker", str(rank), str(len(devices)), str(port),
+                 mode, root, backend, device], cwd=here, stdout=logs[-1], stderr=subprocess.STDOUT))
+        if mode == "all":
+            ready = os.path.join(root, "sigterm_ready")
+            while not os.path.exists(ready) and all(p.poll() is None for p in procs):
+                if time.time() > deadline:
+                    raise AssertionError("multiprocess: rank 1 never waited for its SIGTERM")
+                time.sleep(0.05)
+            if os.path.exists(ready):
+                procs[1].send_signal(signal.SIGTERM)
+        for p in procs:
+            p.communicate(timeout=max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        for log in logs:
+            log.close()
+    results = []
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(root, f"rank{rank}_{mode}.log")) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"multiprocess: rank {rank} ({mode}) exited with {p.returncode}:\n{tail}")
+        with open(os.path.join(root, f"rank{rank}_{mode}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def _window_check(name: str, ranks: list, reference: dict) -> dict:
+    """Each rank's windows against the one-process reference of phase
+    window: metrics equal between the ranks, within MP_METRIC_RTOL of the
+    reference; parameters equal between the ranks (checked on the ranks)."""
+    windows = [r["window"] for r in ranks]
+    if not all(w["ranks_equal"] for w in windows):
+        raise AssertionError(f"{name}: trainable parameters differ between the ranks after the windows")
+    if any(w["metrics"] != windows[0]["metrics"] for w in windows):
+        raise AssertionError(f"{name}: the ranks' window metrics differ: {[w['metrics'] for w in windows]}")
+    rel = {k: max(abs(got[k] - want[k]) / abs(want[k]) for got, want in zip(windows[0]["metrics"],
+                                                                         reference["metrics"]))
+           for k in reference["metrics"][0]}
+    if max(rel.values()) > MP_METRIC_RTOL:
+        raise AssertionError(f"{name}: window metrics against one process, relative {rel} > {MP_METRIC_RTOL}")
+    return {"metrics": windows[0]["metrics"], "metric_rel_err_vs_one_process": rel, "metric_rtol": MP_METRIC_RTOL,
+            "ms_per_window_each_rank": [w["ms_per_window"] for w in windows],
+            "ms_per_window_one_process": reference["ms_per_window"], "launches_each_rank": windows[0]["launches"]}
+
+
+def phase_multiprocess(smi: str, default_accuracy, default_losses, root: str, device: str = "cuda") -> dict:
+    """Data parallelism over torch.distributed at full width: two ranks on
+    the one card over gloo (MP_BACKEND, MP_DEVICE). process_reduce_sum on
+    known values; phase window's three 410M MAFED windows against its
+    one-process run (the reference, run here first on `device`): the ranks bit-equal, within the
+    stated tolerances of one process, 118 / 48 / 48 launches a window on each
+    rank; a SIGTERM to rank 1 alone stops both after the same window; the
+    two-task CL sequence of cl_sequence_default's command line (the teacher
+    cache primed by both ranks into one directory), its accuracy matrix beside
+    the one-process one (`default_accuracy`), its logged losses within
+    MP_METRIC_RTOL of the one-process ones (`default_losses`: bundles
+    written or not, the same updates), and preempted by the countdown
+    and resumed bit-equal; one pretraining update at a global MP_PRETRAIN_GLOBAL
+    against one process. Then the NCCL windows, on two cards only. Returns the
+    launches of every rank."""
+    write_synthetic_vqa(os.path.join(root, "data"), ("taskA", "taskB"), 128, 32)
+    write_caption_manifests(os.path.join(root, "captions"), 2 * MP_PRETRAIN_GLOBAL, 0)
+    # the one-process references, before the ranks take the card: the windows on the rows in their
+    # order and in the ranks' (the spread of one process), then pretraining
+    window_reference = mp_windows(0, 1, device, root, sigterm=False)
+    free_device_memory()
+    interleaved = torch.cat([torch.arange(r, 16, MP_WORLD) for r in range(MP_WORLD)])
+    reordered = mp_windows(0, 1, device, root, sigterm=False, rows=interleaved)
+    free_device_memory()
+    spread = {"metric_rel": {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(reordered["metrics"],
+                                                                                window_reference["metrics"]))
+                             for k in window_reference["metrics"][0]},
+              "params": param_distance(reordered["trainable"], window_reference["trainable"],
+                                       window_reference["before"])}
+    del reordered
+    one = mp_pretrain(root, 1, device)
+    free_device_memory()
+    start = time.perf_counter()
+    ranks = run_ranks(root, "all", MP_BACKEND, [MP_DEVICE] * MP_WORLD)
+    wall = time.perf_counter() - start
+    name = "multiprocess"
+    if not all(r["reduce_sum"] == [3.0, 20.0] for r in ranks):
+        raise AssertionError(f"{name}: process_reduce_sum gave {[r['reduce_sum'] for r in ranks]}")
+    window = _window_check(name, ranks, window_reference)
+    window["one_process_spread"] = spread
+    window["params_vs_one_process"] = param_distance(
+        load_task_checkpoint(os.path.join(root, "window_trainable.safetensors")), window_reference.pop("trainable"),
+        window_reference.pop("before"), 2.02 * len(window["metrics"]) * train_config().learning_rate)
+    sigterm = [r["window"]["sigterm"] for r in ranks]
+    if len({s["stopped_after_update"] for s in sigterm}) != 1 or [s["signal_here"] for s in sigterm] != [False, True]:
+        raise AssertionError(f"{name}: SIGTERM to rank 1 alone: {sigterm}")
+    cl = [r["cl"] for r in ranks]
+    if any(c["accuracy_matrix"] != cl[0]["accuracy_matrix"] for c in cl):
+        raise AssertionError(f"{name}: the ranks' accuracy matrices differ: {[c['accuracy_matrix'] for c in cl]}")
+    if not all(c["resumed_equal"] and all(c["ranks_equal"]) for c in cl) or \
+            any(c["resumed_accuracy_matrix"] != cl[0]["accuracy_matrix"] for c in cl):
+        raise AssertionError(f"{name}: the resumed sequence differs from the uninterrupted one, or the ranks "
+                             f"differ: {[(c['resumed_equal'], c['ranks_equal']) for c in cl]}")
+    cl_loss_err = {task: _max_rel(cl[0]["losses"][task], want) for task, want in default_losses.items()}
+    if cl[0]["losses"].keys() != default_losses.keys() or \
+            any(len(cl[0]["losses"][t]) != len(w) for t, w in default_losses.items()) or \
+            not all(e <= MP_METRIC_RTOL for e in cl_loss_err.values()):
+        raise AssertionError(f"{name}: the CL losses {cl[0]['losses']} against one process's {default_losses}")
+    if cl[0]["bundle"] != {"task_id": 0, "epoch": 0, "batches_done": 8}:
+        raise AssertionError(f"{name}: the countdown's bundle {cl[0]['bundle']}")
+    primed = [sum(c["images_primed"][i] for c in cl) for i in range(3)]
+    if primed != [32, 96, 0] or [sum(c["teacher_cache"][0]["primed"] for c in cl)] != [32]:
+        raise AssertionError(f"{name}: primed images {primed} and teacher states "
+                             f"{[c['teacher_cache'] for c in cl]} over the ranks")
+    pre = [r["pretrain"] for r in ranks]
+    if not all(p["ranks_equal"] for p in pre):
+        raise AssertionError(f"{name}: the ranks' parameters differ after the pretraining update")
+    loss_err = max(abs(g - w) / abs(w) for (_, g), (_, w) in zip(pre[0]["loss"], one["loss"]))
+    if len(pre[0]["loss"]) != 2 or loss_err > MP_METRIC_RTOL:
+        raise AssertionError(f"{name}: the pretraining loss against one process's, relative {loss_err}")
+    from mafed_tpu_torch.pretrain.trainer import PretrainConfig
+
+    want = load_task_checkpoint(os.path.join(one["out"], "checkpoint-final", "model.safetensors"))
+    pretrain_params = param_distance(
+        load_task_checkpoint(os.path.join(pre[0]["out"], "checkpoint-final", "model.safetensors")),
+        {k: want[k] for k in one["before"]}, one.pop("before"), 2.02 * PretrainConfig().learning_rate)  # 1 update at lr > 0
+    del want
+    acc = np.asarray(cl[0]["accuracy_matrix"])
+    launches = _sum_launches([r["window"]["launches"] for r in ranks] + [r["window"]["sigterm_launches"] for r in ranks]
+                             + [run for c in cl for run in c["launches"].values()] + [p["launches"] for p in pre])
+    emit({"phase": name, "card": smi, "backend": ranks[0]["backend"], "device": MP_DEVICE, "ranks": MP_WORLD,
+          "note": "two ranks share one card over gloo: a check of correctness, no measure of scaling",
+          "reduce_sum": [r["reduce_sum"] for r in ranks], "window": window,
+          "sigterm": sigterm,
+          "cl": {"switches": MP_CL_SWITCHES, "accuracy_matrix": cl[0]["accuracy_matrix"],
+                 "one_process_accuracy_matrix": default_accuracy,
+                 "difference": (acc - np.asarray(default_accuracy)).tolist(), "bwt": cl[0]["bwt"],
+                 "resumed_bit_equal": True, "preempted_bundle": cl[0]["bundle"],
+                 "images_primed_each_rank": [c["images_primed"] for c in cl],
+                 "teacher_states_primed_each_rank": [c["teacher_cache"][0]["primed"] for c in cl],
+                 "steps": cl[0]["steps"], "losses": cl[0]["losses"], "one_process_losses": default_losses,
+                 "loss_rel_err_vs_one_process": cl_loss_err, "loss_rtol": MP_METRIC_RTOL,
+                 "seconds_each_rank": [c["seconds"] for c in cl],
+                 "stage_seconds_rank0": cl[0]["stage_seconds"]},
+          "pretrain": {"global_batch": MP_PRETRAIN_GLOBAL, "updates": 2,
+                       "cut": "global 64, not 128: two ranks on one card",
+                       "loss_two_ranks": pre[0]["loss"], "loss_one_process": one["loss"], "loss_rel_err": loss_err,
+                       "params_vs_one_process": pretrain_params,
+                       "seconds_two_ranks": [p["seconds"] for p in pre], "seconds_one_process": one["seconds"],
+                       "peak_memory_gb_each_rank": [p["peak_memory_gb"] for p in pre]},
+          "seconds": wall, "launches": launches})
+    if torch.cuda.device_count() >= 2:
+        nccl = run_ranks(root, "windows", "nccl", ["cuda"] * 2)
+        emit({"phase": "multiprocess_nccl", "run": True, "cards": torch.cuda.device_count(),
+              "window": _window_check("multiprocess_nccl", nccl, window_reference)})
+        launches = _sum_launches([launches] + [r["window"]["launches"] for r in nccl])
+    else:
+        emit({"phase": "multiprocess_nccl", "run": False, "cards": torch.cuda.device_count()})
+    return _sum_launches([launches, window_reference["launches"], one["launches"]])
+
+
 def free_device_memory() -> None:
     """Drop what earlier phases left cached on the card (their models are out of scope)."""
     gc.collect()
@@ -1981,6 +2417,10 @@ def main() -> int:
     free_device_memory()
     by_path["cl_resume"] = phase_cl_resume(smi, default)
     free_device_memory()
+    with tempfile.TemporaryDirectory(prefix="multiprocess_") as root:
+        by_path["multiprocess"] = phase_multiprocess(smi, default["result"]["accuracy_matrix"], default["losses"],
+                                                     root)
+    free_device_memory()
     by_path["profile"] = phase_profile(smi)
     # one entry per instantiation: times at its head_dim's CE shape (410M: 64, 1B: 256)
     kernels = [
@@ -2002,4 +2442,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(mp_worker(sys.argv[2:]) if sys.argv[1:2] == ["--mp-worker"] else main())

@@ -22,6 +22,7 @@ import torch
 
 from mafed_tpu_torch.cl.base import CLStrategy
 from mafed_tpu_torch.cl.replay import choose_memory
+from mafed_tpu_torch.core.dist import process_reduce_sum
 from mafed_tpu_torch.core.logging import LOGGER
 from mafed_tpu_torch.data.collate import collate_train
 from mafed_tpu_torch.data.teacher_cache import (
@@ -149,7 +150,10 @@ class FeatureDistillation(CLStrategy):
         return ConcatDataset([TeacherStateView(d, cache) for d in self.datasets])
 
     def _compute_adaptive_weights(self, runner, state, loader) -> np.ndarray:
-        """Dataset-level modality importances (dl_weights.py:91-146)."""
+        """Dataset-level modality importances (dl_weights.py:91-146), the
+        sums taken over every rank's slice. A rank's gradients are those of
+        its own mean loss, ranks times the whole batch's; the factor is
+        common to both modalities and cancels in the ratio."""
         lang_sums = np.zeros((len(self.layers),), np.float64)
         image_sums = np.zeros((len(self.layers),), np.float64)
         n_lang = n_image = 0.0
@@ -159,6 +163,10 @@ class FeatureDistillation(CLStrategy):
             image_sums += ims.cpu().double().numpy()
             n_lang += float(nl)
             n_image += float(ni)
+        k = len(self.layers)
+        sums = process_reduce_sum(*lang_sums, *image_sums, n_lang, n_image)
+        lang_sums, image_sums = np.asarray(sums[:k]), np.asarray(sums[k : 2 * k])
+        n_lang, n_image = sums[2 * k :]
         lang_imp = lang_sums / max(n_lang, 1e-9)
         image_imp = image_sums / max(n_image, 1e-9)
         return (lang_imp / (lang_imp + image_imp)).astype(np.float32)

@@ -1,7 +1,9 @@
 """Experience replay (counterpart of mafed_tpu/cl/replay.py): after each
 task, memory_size / (T - 1) examples chosen by a seeded numpy Generator
 join the memory; every replay_interval-th training batch is a memory batch
-with the plain CE loss, from an infinite shuffled stream."""
+with the plain CE loss, from an infinite shuffled stream. Every rank draws
+the same memory (the same seeded draws), and its stream is sharded like the
+train loader."""
 
 from __future__ import annotations
 
@@ -10,14 +12,18 @@ from typing import List
 import numpy as np
 
 from mafed_tpu_torch.cl.base import CLStrategy
+from mafed_tpu_torch.core.dist import same_on_every_rank
 from mafed_tpu_torch.core.logging import LOGGER
 from mafed_tpu_torch.data.vqa_dataset import ConcatDataset, Subset
 
 
 def choose_memory(rng: np.random.Generator, dataset, per_task: int) -> Subset:
-    """`per_task` distinct examples of `dataset`, drawn by `rng`."""
-    indices = rng.choice(np.arange(len(dataset)), per_task, replace=False)
-    return Subset(dataset, indices.tolist())
+    """`per_task` distinct examples of `dataset`, drawn by `rng`: the same on
+    every rank, which is checked."""
+    indices = rng.choice(np.arange(len(dataset)), per_task, replace=False).tolist()
+    if not same_on_every_rank(indices):
+        raise RuntimeError("the ranks drew different memory sets")
+    return Subset(dataset, indices)
 
 
 class ER(CLStrategy):

@@ -127,7 +127,8 @@ class TrainConfig:
 
     Some settings select features the port does not have yet; the trainer
     raises NotImplementedError on them rather than running something else
-    (trainer/continual.check_supported): more than one process or device.
+    (trainer/continual.check_supported): a mesh with a model axis, or more
+    than one device a rank.
     """
 
     # Required-ish paths
@@ -199,7 +200,7 @@ class TrainConfig:
     question_task_ids: str = ""
     val_num_workers: int = 4
     valid_steps: int = 75
-    # Device layout (the JAX package's mesh; the port runs on one device)
+    # Device layout (the JAX package's mesh; the port runs its data axis, one rank a device)
     mesh_shape: list = field(default_factory=lambda: [-1, 1])
     mesh_axis_names: list = field(default_factory=lambda: ["data", "model"])
     distributed_init: bool = False

@@ -10,10 +10,11 @@ the job; the restart with --resume_from_checkpoint continues where it
 stopped (the loader skips the batches already consumed of the seeded
 epoch order).
 
-One process: the check is the local flag (the JAX package's
-`sync_preemption_requested` reduces to it, and its
-`reinstall_after_dist_init` has nothing to re-arm; both come with the
-multi-process work, ROADMAP queue 1 item 1).
+Several ranks (core/dist.py): the save is collective, so every rank must
+stop at the same update boundary although the signal may reach only some of
+them. `sync_preemption_requested` takes the maximum of the local flags over
+the ranks at every boundary, so a SIGTERM seen by one rank stops all of them
+after the same update; one rank reads its local flag.
 """
 
 from __future__ import annotations
@@ -23,9 +24,13 @@ import signal
 import threading
 from typing import Optional
 
+import torch
+import torch.distributed
+
 LOGGER = logging.getLogger("mafed_tpu_torch")
 
 _FLAG = threading.Event()
+_INSTALLED = False
 _PREV_HANDLERS: dict = {}
 _TEST_COUNTDOWN: Optional[int] = None
 _lock = threading.Lock()
@@ -52,10 +57,22 @@ def _handler(signum, frame):
 def install_handlers(signals=(signal.SIGTERM,)) -> None:
     """Install the flag handler, chaining any previous handler. Main thread
     only (a restriction of the signal module); the CLI calls it once."""
+    global _INSTALLED
     for s in signals:
         prev = signal.signal(s, _handler)
         if prev not in (None, _handler):
             _PREV_HANDLERS[s] = prev
+    _INSTALLED = True
+
+
+def reinstall_after_dist_init() -> None:
+    """Re-arm the flag handler after the process group is joined, should the
+    backend or its launcher have replaced it. A no-op unless
+    `install_handlers` ran, and off the main thread."""
+    if not _INSTALLED or threading.current_thread() is not threading.main_thread():
+        return
+    if signal.getsignal(signal.SIGTERM) is not _handler:
+        install_handlers()
 
 
 def preemption_requested() -> bool:
@@ -64,6 +81,27 @@ def preemption_requested() -> bool:
         return True
     with _lock:
         return _TEST_COUNTDOWN is not None and _TEST_COUNTDOWN <= 0
+
+
+def sync_preemption_requested(step_id: int) -> bool:
+    """The preemption check every rank agrees on at an update boundary: the
+    local flag on one rank; on several, the maximum of the ranks' flags
+    (one all-reduce), so all ranks stop at the same `step_id` if any saw
+    the signal. The countdown of `request_preemption_after` ticks the same
+    boundaries on every rank, so it needs no collective."""
+    from mafed_tpu_torch.core import dist as D
+
+    if D.process_count() == 1:
+        return preemption_requested()
+    with _lock:
+        if _TEST_COUNTDOWN is not None and _TEST_COUNTDOWN <= 0:
+            return True
+    flag = torch.tensor([int(_FLAG.is_set())], dtype=torch.int32)
+    torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX, group=D.host_group())
+    if flag.item():
+        LOGGER.warning("preemption agreed by every rank at update %d", step_id)
+        return True
+    return False
 
 
 def tick_update() -> None:

@@ -8,6 +8,11 @@ mafed_tpu/data/diskcache.py), with its on-disk format:
     stamped with another digest, so entries computed from other weights are
     never served.
 
+Several ranks share one directory: every file is written to a temporary
+name and moved into place with os.replace, `set_fingerprint_coordinated`
+lets rank 0 alone wipe a stale directory, and `shard_owner` gives each key
+the one rank that computes it.
+
 The bits go through torch.bfloat16 viewed as int16, so no numpy bfloat16
 type is needed. An entry of another dtype or shape reads as a miss.
 """
@@ -22,6 +27,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from mafed_tpu_torch.core.dist import barrier, process_count, process_index
 
 _FINGERPRINT_FILE = "fingerprint.json"
 
@@ -94,6 +101,28 @@ class ArrayDiskCache:
                 json.dump({"fingerprint": fingerprint}, f)
             os.replace(tmp, stamp_path)
         return wiped
+
+
+def set_fingerprint_coordinated(cache: ArrayDiskCache, fingerprint: str) -> bool:
+    """`set_fingerprint` on a directory the ranks share: rank 0 stamps it
+    (wiping it if stale), every rank waits, then the others stamp the same
+    fingerprint, which wipes nothing. Concurrent wipes could delete a peer's
+    new entry between its makedirs and its os.replace."""
+    if process_count() == 1:
+        return cache.set_fingerprint(fingerprint)
+    wiped = cache.set_fingerprint(fingerprint) if process_index() == 0 else False
+    barrier(f"diskcache_stamp:{os.path.basename(cache.cache_dir)}")
+    if process_index() != 0:
+        cache.set_fingerprint(fingerprint)
+    return wiped
+
+
+def shard_owner(key, n_shards: int) -> int:
+    """The rank that computes the entry of `key` when the ranks prime a cache
+    together: a function of the key alone (the ranks may list different
+    misses while a peer's writes land), through sha1, since Python's hash()
+    is salted per process; the JAX package's owner of the same key."""
+    return int(hashlib.sha1(str(key).encode()).hexdigest()[:8], 16) % n_shards
 
 
 def params_fingerprint(tensors: Dict[str, torch.Tensor]) -> str:

@@ -1,6 +1,6 @@
-"""Task dataset and loader factories (copy of mafed_tpu/data/factory.py, one
-process): per-task train datasets concatenated over image dirs, all-task
-validation loaders built once, split files at
+"""Task dataset and loader factories (copy of mafed_tpu/data/factory.py):
+per-task train datasets concatenated over image dirs, all-task validation
+loaders built once, split files at
 ``{question_task_ids}/{exp}/{split}_question_ids.json`` ("valid" for val)."""
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from functools import partial
 from typing import Dict, List
 
 from mafed_tpu_torch.core.config import TrainConfig, VisionConfig
+from mafed_tpu_torch.core.dist import process_count, process_index
 from mafed_tpu_torch.data.collate import collate_val
 from mafed_tpu_torch.data.loader import BatchLoader
 from mafed_tpu_torch.data.vqa_dataset import ConcatDataset, VQADataset
@@ -55,6 +56,9 @@ def prepare_val_dataset(config: TrainConfig, task: str, tokenizer, vision_cfg: V
 
 
 def make_val_loader(config: TrainConfig, dataset, text_len: int) -> BatchLoader:
+    """Over several ranks, each scores its slice of the examples and
+    validate_vqa sums the metric states; decode is not collective, so the
+    slices may differ in size."""
     return BatchLoader(
         dataset,
         batch_size=config.val_batch_size,
@@ -62,6 +66,8 @@ def make_val_loader(config: TrainConfig, dataset, text_len: int) -> BatchLoader:
         shuffle=False,
         num_workers=config.val_num_workers,
         drop_last=False,
+        shard_id=process_index(),
+        num_shards=process_count(),
     )
 
 

@@ -17,6 +17,8 @@ device_teacher_table_mb; otherwise `TeacherStateView` streams them from
 disk, one [n_states, seq, hidden] file per example under base_dir/gen{g}/
 (the port's bf16-bits files, data/diskcache.py), with only the live
 teacher's generation kept. The policy between them is cl/distillation.py's.
+Several ranks prime one shared directory together, each the examples it
+owns (`shard_owner`), and wait for each other before any reads it.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from typing import Dict, List
 
 import torch
 
-from mafed_tpu_torch.data.diskcache import ArrayDiskCache, params_fingerprint
+from mafed_tpu_torch.core.dist import barrier, process_count, process_index
+from mafed_tpu_torch.data.diskcache import ArrayDiskCache, params_fingerprint, set_fingerprint_coordinated, shard_owner
 from mafed_tpu_torch.data.images import make_normalizer, prep_pixels
 from mafed_tpu_torch.data.prefetch import to_device
 from mafed_tpu_torch.data.vision_table import gather_rows
@@ -180,10 +183,10 @@ def prime_teacher_cache(cache: TeacherStateCache, dataset, teacher, collate, dee
     """Compute and store the teacher states of every memory example the cache
     lacks: one bf16 forward early-exited at `deepest_tap` a batch. The JAX
     package pads the last batch to its compiled size; here it runs short.
-    The cache is stamped with the teacher first (the JAX package's
-    `set_fingerprint_coordinated` is `set_fingerprint` on one process).
-    Returns the number of examples computed (0 on a warm cache)."""
-    cache.set_fingerprint(teacher_fingerprint(teacher))
+    The cache is stamped with the teacher first. Over several ranks, each
+    computes the examples it owns, then waits for the others. Returns the
+    number of examples this rank computed (0 on a warm cache)."""
+    set_fingerprint_coordinated(cache, teacher_fingerprint(teacher))
 
     todo: List[int] = []
     qids: List = []
@@ -201,12 +204,17 @@ def prime_teacher_cache(cache: TeacherStateCache, dataset, teacher, collate, dee
                 "teacher states would be served across examples (disable --teacher_state_cache)"
             )
         seen.add(str(qid))
-        if not cache.has(qid):
+        if not cache.has(qid) and shard_owner(qid, process_count()) == process_index():
             todo.append(i)
             qids.append(qid)
-    if not todo:
-        return 0
+    if todo:
+        _compute_states(cache, dataset, todo, qids, teacher, collate, deepest_tap, batch_size, vision_table)
+    barrier("teacher_cache_primed")  # also where this rank owned nothing: no rank reads a half-primed cache
+    return len(todo)
 
+
+def _compute_states(cache: TeacherStateCache, dataset, todo: List[int], qids: List, teacher, collate,
+                    deepest_tap: int, batch_size: int, vision_table) -> None:
     device = next(teacher.parameters()).device
     normalize = make_normalizer(teacher.cfg.vision)
     for start in range(0, len(todo), batch_size):
@@ -228,4 +236,3 @@ def prime_teacher_cache(cache: TeacherStateCache, dataset, teacher, collate, dee
             hs = hs.transpose(0, 1).cpu()  # [B, n_states, T, H]
         for qid, states in zip(qids[start : start + batch_size], hs):
             cache.save(qid, states)
-    return len(todo)

@@ -8,7 +8,9 @@ computed once per unique image by `prime_vision_cache`, through the port's
 tower (its attention through the flash forward kernel on the card), and
 training and eval batches then carry them instead of pixels: the tower
 leaves every step. The cache directory is stamped with a digest of the
-tower's weights in bfloat16 (data/diskcache.py).
+tower's weights in bfloat16 (data/diskcache.py). Several ranks prime one
+shared directory together: each miss is computed by its owner rank
+(`shard_owner`), and no rank reads the cache before every rank is done.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from typing import Dict, Iterable, List, Tuple
 import numpy as np
 import torch
 
-from mafed_tpu_torch.data.diskcache import ArrayDiskCache, params_fingerprint
+from mafed_tpu_torch.core.dist import barrier, process_count, process_index
+from mafed_tpu_torch.data.diskcache import ArrayDiskCache, params_fingerprint, set_fingerprint_coordinated, shard_owner
 from mafed_tpu_torch.data.images import make_normalizer, prep_pixels
 from mafed_tpu_torch.data.prefetch import to_device
 from mafed_tpu_torch.models.vl_pythia import get_patch_embeddings
@@ -57,9 +60,10 @@ def prime_vision_cache(cache: VisionFeatureCache, datasets: Iterable, model, bat
                        dtype=torch.bfloat16) -> int:
     """Compute and store the features of every uncached unique image of
     `datasets` with `model`'s tower, `batch_size` images a forward (images
-    decoded on a thread pool). Returns the number of images computed; 0 on a
-    warm cache."""
-    cache.set_fingerprint(vision_fingerprint(model))
+    decoded on a thread pool). Over several ranks, each computes the misses
+    it owns, then waits for the others. Returns the number of images this
+    rank computed; 0 on a warm cache."""
+    set_fingerprint_coordinated(cache, vision_fingerprint(model))
     jobs: Dict[str, Tuple] = {}
     for ds in datasets:
         for leaf in leaf_datasets(ds):
@@ -67,9 +71,15 @@ def prime_vision_cache(cache: VisionFeatureCache, datasets: Iterable, model, bat
                 key = leaf.image_key(i)
                 if key not in jobs and not cache.has(key):
                     jobs[key] = (leaf, i)
-    items = list(jobs.items())
-    if not items:
-        return 0
+    items = [kv for kv in jobs.items() if shard_owner(kv[0], process_count()) == process_index()]
+    if items:
+        _compute_features(cache, items, model, batch_size, dtype)
+    barrier("vision_cache_primed")  # also where this rank owned nothing: no rank reads a half-primed cache
+    return len(items)
+
+
+def _compute_features(cache: VisionFeatureCache, items: List[Tuple[str, Tuple]], model, batch_size: int,
+                      dtype) -> None:
     device = next(model.vision_encoder.parameters()).device
     normalize = make_normalizer(model.cfg.vision)
     with ThreadPoolExecutor(max_workers=8) as pool:
@@ -81,4 +91,3 @@ def prime_vision_cache(cache: VisionFeatureCache, datasets: Iterable, model, bat
                 feats = get_patch_embeddings(model, px, dtype=dtype).cpu()
             for (key, _), f in zip(chunk, feats):
                 cache.save(key, f)
-    return len(items)

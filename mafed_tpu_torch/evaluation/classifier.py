@@ -3,8 +3,8 @@ mafed_tpu/evaluation/classifier.py).
 
 The reference's classifier-head metrics (mafed/utils/eval_utils.py:29-68,
 107-158): the soft score of the argmax answer and a streaming accuracy, on
-torch tensors on their own device. `all_reduce_metrics` is the identity on
-one process; more than one is not ported yet.
+torch tensors on their own device. `all_reduce_metrics` sums the metric
+states over the ranks (core/dist.py).
 """
 
 from __future__ import annotations
@@ -13,7 +13,8 @@ from typing import Tuple
 
 import torch
 
-from mafed_tpu_torch.core.device import asks_for_several_devices
+from mafed_tpu_torch.core.device import check_data_parallel
+from mafed_tpu_torch.core.dist import process_count, process_reduce_sum
 
 
 def compute_score_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -42,11 +43,9 @@ class VQAAccuracy:
         return self.total_score / max(self.total, 1)
 
 
-def all_reduce_metrics(n_ex: float, loss_sum: float, score_sum: float, mesh_shape=None,
-                       distributed_init: bool = False) -> Tuple[float, float, float]:
-    """Sum the metrics over the processes (eval_utils.py:135-138): the
-    identity on one process and device; more raises."""
-    if asks_for_several_devices(mesh_shape, distributed_init):
-        raise NotImplementedError("all_reduce_metrics over more than one process or device is not ported to "
-                                  "mafed_tpu_torch yet (ROADMAP queue 1 item 1: multi-process)")
-    return n_ex, loss_sum, score_sum
+def all_reduce_metrics(n_ex: float, loss_sum: float, score_sum: float,
+                       mesh_shape=None) -> Tuple[float, float, float]:
+    """Sum each rank's metric states over the ranks (eval_utils.py:135-138):
+    the identity on one rank. A `mesh_shape` the port does not run raises."""
+    check_data_parallel(mesh_shape, process_count())
+    return process_reduce_sum(n_ex, loss_sum, score_sum)

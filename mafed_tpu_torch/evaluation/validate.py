@@ -1,4 +1,4 @@
-"""Generative VQA validation loop, on one device (counterpart of
+"""Generative VQA validation loop (counterpart of
 mafed_tpu/evaluation/validate.py).
 
 Greedy generation of up to 10 tokens, the decoded answers scored with the
@@ -8,7 +8,9 @@ repeating its last row, and the padding rows are dropped before scoring.
 Batches are a loader's: numpy arrays, and cached features as a bfloat16
 tensor; a batch of device vision-table rows ("patch_idx") goes through the
 `resolve` hook (the runner's `resolve_tables`), which gathers its features on
-the card.
+the card. Over several ranks each scores its slice of the examples (the
+loader's shard) and the metric states are summed, so every rank returns the
+score of the whole set; the per-question results stay the rank's own.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from mafed_tpu_torch.core.dist import process_reduce_sum
 from mafed_tpu_torch.data.prefetch import as_tensor
 from mafed_tpu_torch.evaluation.vqa_metrics import VQAGenerativeAccuracy, normalize_answer, vqa_v2_score
 
@@ -90,8 +93,10 @@ def validate_vqa(
         score(*pending)
 
     tot_time = max(time.time() - start, 1e-9)
-    total = metric.total
-    val_acc = metric.accuracy / max(total, 1.0)
-    LOGGER.info("Tested %d samples", total)
+    # ex_per_s is the system's rate: the ranks score their slices over about the same wall time
+    score_sum, total = process_reduce_sum(metric.accuracy, float(metric.total))
+    n_ex = int(total)
+    val_acc = score_sum / max(total, 1.0)
+    LOGGER.info("Tested %d samples", n_ex)
     LOGGER.info("validation finished in %d seconds, score: %.2f", int(tot_time), val_acc * 100)
-    return {"valid/acc": val_acc, "valid/ex_per_s": total / tot_time, "valid/n_ex": total}, results
+    return {"valid/acc": val_acc, "valid/ex_per_s": n_ex / tot_time, "valid/n_ex": n_ex}, results

@@ -26,7 +26,12 @@ best checkpoint, rotation spares it (and the newest). The JAX package's
 rotation keeps only the newest `save_total_limit`, so it can delete the
 best checkpoint and then fail to load it at the end.
 
-One device: CUDA unless the caller passes device="cpu".
+One device, CUDA unless the caller passes device="cpu", or data parallel
+over the ranks of a torchrun launch (core/dist.py): the global batch is
+per_device_train_batch_size x ranks, each rank loads its slice of it, the
+steps average the gradients over the ranks, the eval loss is summed over
+them, and rank 0 writes the checkpoints, rotates them and logs, while the
+others wait.
 """
 
 from __future__ import annotations
@@ -43,7 +48,11 @@ import numpy as np
 import torch
 
 from mafed_tpu_torch.core.config import ModelConfig, TrainConfig
-from mafed_tpu_torch.core.device import asks_for_several_devices, resolve_device
+from mafed_tpu_torch.core.device import check_data_parallel, resolve_device
+from mafed_tpu_torch.core.dist import (
+    barrier, broadcast_model_, is_main_process, maybe_initialize_distributed, process_count, process_index,
+    process_reduce_sum,
+)
 from mafed_tpu_torch.core.logging import LOGGER, MetricsLogger
 from mafed_tpu_torch.data.images import make_normalizer
 from mafed_tpu_torch.data.loader import BatchLoader
@@ -82,19 +91,14 @@ class PretrainConfig:
     betas: tuple = (0.9, 0.999)
     run_name: str = "pretrain-vl-pythia"
     project_name: str = "cl-pretrain-vl-pythia"
-    # the JAX package's (data, model) mesh; the port runs on one device
+    # the JAX package's (data, model) mesh: the port runs its data axis, one rank a device
     mesh_shape: tuple = (-1, 1)
     distributed_init: bool = False
 
 
 def check_supported(args: PretrainConfig) -> None:
-    """More than one process or device raises: the port has no
-    torch.distributed path yet. The default mesh (-1, 1) on one card is one
-    device."""
-    if asks_for_several_devices(args.mesh_shape, args.distributed_init):
-        raise NotImplementedError(
-            "pretraining on more than one process or device is not ported to mafed_tpu_torch yet "
-            "(ROADMAP queue 1 item 1: multi-process)")
+    """A mesh other than data parallel over the ranks raises."""
+    check_data_parallel(args.mesh_shape, process_count())
 
 
 class PretrainTrainer:
@@ -109,7 +113,9 @@ class PretrainTrainer:
         device="cuda",
     ) -> None:
         """init_params: a full state_dict (reference names) to start from;
-        otherwise a random model from args.seed."""
+        otherwise a random model from args.seed. Joins the process group of a
+        multi-process launch first; every rank starts from rank 0's model."""
+        maybe_initialize_distributed(args, device=device)
         check_supported(args)
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
@@ -118,10 +124,14 @@ class PretrainTrainer:
         self.eval_dataset = eval_dataset
         self.tokenizer = tokenizer
         os.makedirs(args.output_dir, exist_ok=True)
-        self.metrics = MetricsLogger(project=args.project_name, name=args.run_name, output_dir=args.output_dir)
+        self.is_main = is_main_process()
+        self.metrics = MetricsLogger(project=args.project_name, name=args.run_name,
+                                     output_dir=args.output_dir) if self.is_main else None
         self.model = self._build_model(init_params)
+        broadcast_model_(self.model)
 
-        self.global_batch = args.per_device_train_batch_size
+        self.world = process_count()
+        self.global_batch = args.per_device_train_batch_size * self.world
         self.accum = max(1, args.gradient_accumulation_steps)
         batches_per_epoch = len(train_dataset) // self.global_batch
         self.steps_per_epoch = max(1, batches_per_epoch // self.accum)
@@ -163,17 +173,20 @@ class PretrainTrainer:
 
     def save_checkpoint(self, state: TrainState, tag, rng: np.random.Generator, epoch: int, batch_idx: int,
                         opt_steps: int, best: bool = False) -> str:
+        """Rank 0 writes the checkpoint and rotates; every rank waits for it."""
         start = time.perf_counter()
         path = self._ckpt_dir(tag)
-        os.makedirs(path, exist_ok=True)
-        save_task_checkpoint(self.model.state_dict(), os.path.join(path, "model.safetensors"))
-        counters = save_opt_state(state.opt_state, os.path.join(path, "opt_state.safetensors"))
-        meta = {"step": opt_steps, "epoch": epoch, "batch_idx": batch_idx,
-                "rng_state": rng.bit_generator.state, "opt_state": counters}
-        atomic_json_commit(os.path.join(path, "trainer_state.json"), meta, default=str)
         if best:
             self.best_path = path
-        self._prune_checkpoints()
+        if self.is_main:
+            os.makedirs(path, exist_ok=True)
+            save_task_checkpoint(self.model.state_dict(), os.path.join(path, "model.safetensors"))
+            counters = save_opt_state(state.opt_state, os.path.join(path, "opt_state.safetensors"))
+            meta = {"step": opt_steps, "epoch": epoch, "batch_idx": batch_idx,
+                    "rng_state": rng.bit_generator.state, "opt_state": counters}
+            atomic_json_commit(os.path.join(path, "trainer_state.json"), meta, default=str)
+            self._prune_checkpoints()
+        barrier("pretrain_checkpoint_saved")
         self.checkpoint_seconds.append(time.perf_counter() - start)
         return path
 
@@ -206,13 +219,16 @@ class PretrainTrainer:
         with open(os.path.join(path, "trainer_state.json")) as f:
             meta = json.load(f)
         self.model.load_state_dict(load_task_checkpoint(os.path.join(path, "model.safetensors")), strict=True)
+        broadcast_model_(self.model)
         opt_state = load_opt_state(state.opt_state, os.path.join(path, "opt_state.safetensors"), meta["opt_state"])
         return TrainState(meta["step"] * self.accum, self.model, opt_state), meta
 
     # -- loaders ---------------------------------------------------------------------
-    def _loader(self, dataset, batch_size: int, text_len: int, shuffle: bool, seed: int = 0) -> BatchLoader:
-        return BatchLoader(dataset, batch_size=batch_size, collate=partial(collate_pretrain, text_len=text_len),
-                           shuffle=shuffle, seed=seed, drop_last=True)
+    def _loader(self, dataset, global_batch: int, text_len: int, shuffle: bool, seed: int = 0) -> BatchLoader:
+        """This rank's slice of the global batches of `dataset`."""
+        return BatchLoader(dataset, batch_size=global_batch // self.world,
+                           collate=partial(collate_pretrain, text_len=text_len), shuffle=shuffle, seed=seed,
+                           drop_last=True, shard_id=process_index(), num_shards=self.world)
 
     def _batches(self, loader):
         return DevicePrefetcher(loader, self.device)
@@ -220,16 +236,20 @@ class PretrainTrainer:
     # -- eval --------------------------------------------------------------------------
     @torch.no_grad()
     def evaluate(self, text_len: int) -> float:
-        """Mean over the eval batches of the bf16 CE loss, forward only."""
+        """Mean over the global eval batches of the bf16 CE loss, forward
+        only; each rank's losses of its slices are summed over the ranks (the
+        slices are equal, so this is the mean of the global batches' losses)."""
         if self.eval_dataset is None:
             return float("nan")
-        loader = self._loader(self.eval_dataset, self.args.per_device_eval_batch_size, text_len, shuffle=False)
+        loader = self._loader(self.eval_dataset, self.args.per_device_eval_batch_size * self.world, text_len,
+                              shuffle=False)
         dtype = torch.bfloat16
         losses = []
         for batch in self._batches(loader):
             patches = _vision_features(self.model, batch, self._normalize, dtype)
             losses.append(float(_ce_loss(self.model, batch, patches, dtype, None, remat=False)))
-        return float(np.mean(losses)) if losses else float("nan")
+        total, n = process_reduce_sum(float(np.sum(losses)) if losses else 0.0, float(len(losses)))
+        return total / n if n else float("nan")
 
     # -- train ---------------------------------------------------------------------------
     def train(self, resume_from_checkpoint: Optional[str] = None) -> TrainState:
@@ -263,11 +283,12 @@ class PretrainTrainer:
                 if (batch_idx + 1) % self.accum:
                     continue
                 opt_steps += 1
-                if opt_steps % args.logging_steps == 0:
+                if self.metrics is not None and opt_steps % args.logging_steps == 0:
                     self.metrics.log_metrics({"train/loss": float(m["loss"])}, step=opt_steps)
                 if opt_steps % eval_every == 0:
                     eval_loss = self.evaluate(text_len)
-                    self.metrics.log_metrics({"eval/loss": eval_loss}, step=opt_steps)
+                    if self.metrics is not None:
+                        self.metrics.log_metrics({"eval/loss": eval_loss}, step=opt_steps)
                     LOGGER.info("step %d eval loss %.4f", opt_steps, eval_loss)
                     if eval_loss < best_loss:
                         best_loss = eval_loss

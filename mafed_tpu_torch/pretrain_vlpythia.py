@@ -8,7 +8,10 @@ tower, the Pythia tokenizer (pad = eos), then PretrainTrainer.
 
 A directory as --model_name starts from its weights (load_pretrained);
 otherwise the model is random from --seed. Runs on the CUDA device unless
---device cpu. Each flag is added once: --model_max_length, a field of both
+--device cpu; under `torchrun --nproc_per_node N -m
+mafed_tpu_torch.pretrain_vlpythia ...` each of the N ranks runs on its own
+card (cuda:LOCAL_RANK, or the CPU with --device cpu) at a global batch of
+per_device_train_batch_size x N. Each flag is added once: --model_max_length, a field of both
 ModelArguments and PretrainConfig, sets both (the JAX package's parser adds
 it twice and so raises before parsing).
 """
@@ -21,6 +24,7 @@ import os
 from dataclasses import dataclass
 
 from mafed_tpu_torch.core.config import ModelConfig
+from mafed_tpu_torch.core.dist import maybe_initialize_distributed
 from mafed_tpu_torch.core.logging import LOGGER
 from mafed_tpu_torch.data.tokenizer import build_tokenizer
 from mafed_tpu_torch.models.weights import load_pretrained
@@ -104,6 +108,7 @@ def train(argv=None):
     """Parse `argv`, build the model, tokenizer and datasets, and pretrain;
     returns the final TrainState."""
     model_args, data_args, train_args, device = parse_args(argv)
+    maybe_initialize_distributed(train_args, device=device)  # before anything touches CUDA
     init_params = None
     if os.path.isdir(model_args.model_name):
         init_params, model_cfg = load_pretrained(model_args.model_name)

@@ -6,6 +6,12 @@ mafed_tpu/train.py):
 
 Flags are TrainConfig's fields; the JSON config fills every flag not given
 on the command line. Runs on the CUDA device; --device cpu runs on the CPU.
+Data parallel over N ranks, one device each (--batch_size is the global
+batch):
+
+    torchrun --nproc_per_node N -m mafed_tpu_torch.train --config ... [--device cpu]
+
+where the default device is each rank's card, cuda:LOCAL_RANK.
 
 SIGTERM makes the run save a resume bundle at the next optimizer update and
 exit with 143; the same command with --resume_from_checkpoint

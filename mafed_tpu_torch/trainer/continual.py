@@ -14,8 +14,13 @@ states primed per transition when they fit their table (cl/distillation.py),
 a resume bundle every epoch; a run restarted with resume_from_checkpoint
 loads the tasks finished before the bundle's task and resumes that one.
 
-Runs on one CUDA device unless given device="cpu". Settings that select a
-feature the port does not have raise NotImplementedError (`check_supported`).
+Runs on one CUDA device unless given device="cpu", or data parallel over
+the ranks of a torchrun launch (core/dist.py), one device each: every rank
+runs this loop in step, rank 0 writes the files (provenance, metrics,
+checkpoints, results) and the others wait where they read them. Every
+branch that decides what runs next reads a value equal on every rank (the
+summed validation score, sizes). Settings that select a feature the port
+does not have raise NotImplementedError (`check_supported`).
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ import torch
 
 from mafed_tpu_torch.cl import CLMethod
 from mafed_tpu_torch.core.config import ModelConfig, TrainConfig
-from mafed_tpu_torch.core.device import asks_for_several_devices, resolve_device
+from mafed_tpu_torch.core.device import check_data_parallel, resolve_device
+from mafed_tpu_torch.core.dist import barrier, is_main_process, maybe_initialize_distributed, process_count
 from mafed_tpu_torch.core.logging import LOGGER, MetricsLogger, add_log_to_file
 from mafed_tpu_torch.core.prng import seed_everything
 from mafed_tpu_torch.data import vision_table as vt
@@ -53,10 +59,8 @@ from mafed_tpu_torch.utils.save import save_configs
 
 def check_supported(config: TrainConfig) -> None:
     """Raise on settings whose feature the port lacks, instead of running
-    something else: more than one process or device."""
-    if asks_for_several_devices(config.mesh_shape, config.distributed_init):
-        raise NotImplementedError("more than one process or device is not ported to mafed_tpu_torch yet "
-                                  "(ROADMAP queue 1 item 1: multi-process)")
+    something else: a mesh other than data parallel over the ranks."""
+    check_data_parallel(config.mesh_shape, process_count())
 
 
 class ContinualLearningTrainer:
@@ -69,18 +73,22 @@ class ContinualLearningTrainer:
         device="cuda",
     ) -> None:
         """init_params: a full state_dict (reference names) to start from;
-        otherwise the initial checkpoint, or a random model from config.seed."""
+        otherwise the initial checkpoint, or a random model from config.seed.
+        Joins the process group of a multi-process launch first."""
+        maybe_initialize_distributed(config, device=device)
         check_supported(config)
         self.config = config
         self.device = resolve_device(device)
         seed_everything(config.seed)
         self._initialize_tasks()
-        save_configs(config)
-        add_log_to_file(os.path.join(config.output_dir, "log", "log.txt"))
+        self.is_main = is_main_process()
+        if self.is_main:
+            save_configs(config)
+            add_log_to_file(os.path.join(config.output_dir, "log", "log.txt"))
         self.metrics = MetricsLogger(
             project=config.run_project, entity=config.run_entity, group=config.run_group,
             name=config.run_name, output_dir=os.path.join(config.output_dir, "log"),
-        )
+        ) if self.is_main else None
         self.synthetic_images = synthetic_images
         self._init_params = init_params
         if model_cfg is None:
@@ -91,8 +99,9 @@ class ContinualLearningTrainer:
             else:
                 model_cfg = ModelConfig()
         self.model_cfg = model_cfg
-        with open(os.path.join(config.output_dir, "log", "model_config.json"), "w") as f:
-            json.dump(model_cfg.to_dict(), f, indent=2)
+        if self.is_main:
+            with open(os.path.join(config.output_dir, "log", "model_config.json"), "w") as f:
+                json.dump(model_cfg.to_dict(), f, indent=2)
 
         self.tokenizer = build_tokenizer(
             config.tokenizer_name, model_max_length=100, padding_side="left",
@@ -214,7 +223,8 @@ class ContinualLearningTrainer:
             bwt = float(np.mean(np.diag(accuracy[:task_id, task_id] - accuracy[:task_id, :task_id])))
             metrics["validation/BWT"] = bwt
             LOGGER.info("Average forgetting: %.2f", bwt * 100)
-        self.metrics.log_metrics(metrics, step=task_id, is_valid_step=True)
+        if self.metrics is not None:
+            self.metrics.log_metrics(metrics, step=task_id, is_valid_step=True)
         self.timings["eval"].append(time.time() - start)
         return accuracy
 
@@ -264,10 +274,13 @@ class ContinualLearningTrainer:
                 )
                 self.timings["fit"].append(time.time() - start)
                 self.fit_logs.append(fit_log)
-                self.metrics.set_global_step_offset(self.metrics.global_step_offset + fit_log["global_step"])
+                if self.metrics is not None:
+                    self.metrics.set_global_step_offset(self.metrics.global_step_offset + fit_log["global_step"])
                 params = {**best_trainable, **self.runner.frozen_params()}
                 start = time.time()
-                save_task_checkpoint(params, best_path)
+                if self.is_main:
+                    save_task_checkpoint(params, best_path)
+                barrier("task_checkpoint_saved")
                 self.timings["save"].append(time.time() - start)
                 del state
             elif os.path.exists(best_path):
@@ -288,9 +301,10 @@ class ContinualLearningTrainer:
             "bwt": float(np.mean(np.diag(accuracy[: n_tasks - 1, n_tasks - 1] - accuracy[: n_tasks - 1, : n_tasks - 1])))
             if n_tasks > 1 else 0.0,
         }
-        with open(os.path.join(cfg.output_dir, "log", "results.json"), "w") as f:
-            json.dump(result, f, indent=2)
+        if self.is_main:
+            with open(os.path.join(cfg.output_dir, "log", "results.json"), "w") as f:
+                json.dump(result, f, indent=2)
+            self.metrics.finish()
         LOGGER.info("final average accuracy: %.4f", result["average_accuracy"])
         strategy.close()
-        self.metrics.finish()
         return result

@@ -1,5 +1,5 @@
 """TaskRunner: the step registry and the per-task fit loop (counterpart of
-mafed_tpu/trainer/runner.py, one device).
+mafed_tpu/trainer/runner.py).
 
 The reference trains each task with a PyTorch Lightning Trainer
 (mafed/train.py:284-301): epochs, gradient accumulation with the replay
@@ -18,6 +18,15 @@ Device tables: with a vision table (data/vision_table.py) or a teacher table
 (data/teacher_cache.py) attached, batches carry int32 rows and the runner
 gathers their features or teacher states on the card, on the stream that
 runs the step, after the batch's copy.
+
+Data parallelism (core/dist.py): each rank runs one runner on its device.
+config.batch_size is the global batch; each rank's loaders take its
+interleaved slice, batch_size / ranks rows a batch, of the same seeded
+order. The steps average the gradients over the ranks before the clip
+(training/step.py), so every rank applies the update one process would
+apply to the union of the slices; rank 0's parameters are broadcast after
+init and after a bundle loads; rank 0 writes the bundles, and every rank
+waits for them.
 
 Profiling: with `profile_dir`, a torch.profiler trace (core/profiling.py)
 covers batches 10-20 of task 0, epoch 0, as in the JAX package.
@@ -47,6 +56,7 @@ from mafed_tpu_torch.constants import PATIENCE_THRESHOLD
 from mafed_tpu_torch.core import preempt
 from mafed_tpu_torch.core.config import ModelConfig, TrainConfig
 from mafed_tpu_torch.core.device import resolve_device
+from mafed_tpu_torch.core.dist import barrier, broadcast_model_, is_main_process, process_count, process_index
 from mafed_tpu_torch.core.logging import LOGGER, MetricsLogger
 from mafed_tpu_torch.core.profiling import Trace
 from mafed_tpu_torch.data.collate import collate_train
@@ -143,15 +153,21 @@ class TaskRunner:
     # -- loaders -------------------------------------------------------------------
     def make_train_loader(self, dataset, shuffle: bool = True, seed: Optional[int] = None,
                           infinite: bool = False) -> BatchLoader:
+        """This rank's slice of the global batches of `dataset`."""
+        world = process_count()
+        if self.config.batch_size % world:
+            raise ValueError(f"the global batch_size {self.config.batch_size} does not divide over {world} ranks")
         return BatchLoader(
             dataset,
-            batch_size=self.config.batch_size,
+            batch_size=self.config.batch_size // world,
             collate=partial(collate_train, text_len=self.train_text_len, label_tail=self.config.label_tail or None),
             shuffle=shuffle or infinite,
             seed=self.config.seed if seed is None else seed,
             num_workers=self.config.n_workers,
             drop_last=True,
             infinite=infinite,
+            shard_id=process_index(),
+            num_shards=world,
         )
 
     def device_batches(self, loader):
@@ -232,10 +248,12 @@ class TaskRunner:
             )
 
     def init_state(self, params: Dict[str, torch.Tensor]) -> TrainState:
-        """Load `params` into the model; a fresh optimizer state on this task's schedule."""
+        """Load `params` into the model (rank 0's, over several ranks); a fresh
+        optimizer state on this task's schedule."""
         if self.tx is None:
             raise RuntimeError("call setup_task_optimizer first")
         self.load_params(params)
+        broadcast_model_(self.model)
         opt_state = set_schedule(self.tx.init(trainable_parameters(self.model)), *self._sched)
         return TrainState(0, self.model, opt_state)
 
@@ -316,7 +334,11 @@ class TaskRunner:
         """The parameters (model.safetensors), the best ones so far
         (best.safetensors, written when they change), the optimizer state,
         then the commit marker fit_state.json with `meta` and the optimizer's
-        counters."""
+        counters. Rank 0 writes (the ranks hold equal copies); every rank
+        waits until it has."""
+        if not is_main_process():
+            barrier("resume_bundle_saved")
+            return
         start = time.time()
         os.makedirs(resume_dir, exist_ok=True)
         task_id = meta["task_id"]
@@ -336,12 +358,14 @@ class TaskRunner:
         LOGGER.info("resume bundle (task %s epoch %s) saved in %.1fs", task_id, meta["epoch"], seconds)
         if self.metrics is not None:
             self.metrics.log_metrics({f"task_{task_id}/bundle_save_s": round(seconds, 2)}, step=meta["global_step"])
+        barrier("resume_bundle_saved")
 
     def _load_resume_bundle(self, resume_dir: str, state: TrainState):
         """(state, meta, best trainable parameters or None) of a bundle."""
         with open(os.path.join(resume_dir, "fit_state.json")) as f:
             meta = json.load(f)
         self.load_params(load_task_checkpoint(os.path.join(resume_dir, "model.safetensors")))
+        broadcast_model_(self.model)
         opt_state = load_opt_state(state.opt_state, os.path.join(resume_dir, "opt_state.safetensors"),
                                    meta["opt_counters"])
         best_trainable = None
@@ -431,9 +455,9 @@ class TaskRunner:
                     n_seen += self.config.batch_size
                     global_step += 1
                 # an update boundary (no window is part-filled here): on a
-                # preemption request, a mid-epoch bundle and exit 143
+                # preemption request any rank saw, a mid-epoch bundle and exit 143
                 preempt.tick_update()
-                if resume_dir and preempt.preemption_requested():
+                if resume_dir and preempt.sync_preemption_requested(global_step):
                     self._save_resume_bundle(resume_dir, state, {
                         "task_id": task_id, "epoch": epoch, "batches_done": batch_idx + 1, "best_acc": best_acc,
                         "wait": wait, "global_step": global_step, "history": history,

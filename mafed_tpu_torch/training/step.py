@@ -19,6 +19,15 @@ Every step takes one loss through ONE optimizer update (or, under
 Batches carry cached "patches" or uint8 "pixels"; pixels go through the
 frozen tower with no graph, once per window where the window is fused. Every
 attention call goes through the CUDA flash kernels on the card.
+
+Data parallelism (core/dist.py): each rank runs the step on its slice of
+the global batch. After the last backward of the step, before the clip,
+one coalesced all-reduce averages the gradients and the loss metrics over
+the ranks (`_update`), so every rank applies the update of the whole
+batch; the per-sample means of the CE losses make the average of the
+ranks' losses the loss of the union. The distill loss averages over
+tokens, so its token counts are summed over the ranks first. The Fisher
+sums the ranks' gradients before squaring them.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import torch
 from mafed_tpu_torch.constants import NUM_VISION_TOKENS
 from mafed_tpu_torch.core.config import ModelConfig, TrainConfig
 from mafed_tpu_torch.core.device import resolve_device
+from mafed_tpu_torch.core.dist import all_reduce_mean_, all_reduce_sum_, process_count
 from mafed_tpu_torch.data.images import make_normalizer, prep_pixels
 from mafed_tpu_torch.models import vl_pythia
 from mafed_tpu_torch.models.gpt_neox import RematPolicy
@@ -122,10 +132,16 @@ def _cleared(model) -> Dict[str, torch.nn.Parameter]:
     return params
 
 
-def _update(state: TrainState, optimizer, params) -> Tuple[TrainState, torch.Tensor]:
+def _update(state: TrainState, optimizer, params, metrics: Dict[str, torch.Tensor]) -> Tuple[TrainState, Dict]:
     """Apply the optimizer to the gradients the backward left on `params`
-    (zeros where none reached), clear them; (new state, grad-norm metric)."""
+    (zeros where none reached), clear them; (new state, `metrics` detached
+    and the grad norm). Over several ranks the gradients and `metrics` are
+    first averaged in one coalesced all-reduce."""
     grads = {k: p.grad if p.grad is not None else torch.zeros_like(p) for k, p in params.items()}
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if process_count() > 1:  # averaged in place, so copies
+        metrics = {k: v.float().clone() for k, v in metrics.items()}
+        all_reduce_mean_(list(grads.values()) + list(metrics.values()))
     opt_state = optimizer.update(params, grads, state.opt_state)
     for p in params.values():
         p.grad = None
@@ -133,7 +149,7 @@ def _update(state: TrainState, optimizer, params) -> Tuple[TrainState, torch.Ten
         gnorm = last_grad_norm(opt_state)
     except ValueError:
         gnorm = global_norm(grads.values())
-    return TrainState(state.step + 1, state.model, opt_state), gnorm
+    return TrainState(state.step + 1, state.model, opt_state), {**metrics, "grad_norm": gnorm}
 
 
 # ---------------------------------------------------------------------------
@@ -169,8 +185,7 @@ def make_train_step(
         if with_ewc and ewc_state is not None:
             loss = loss + ewc_penalty(params, ewc_state, train_cfg.reg_lambda)
         loss.backward()
-        state, gnorm = _update(state, optimizer, params)
-        return state, {"loss": loss.detach(), "grad_norm": gnorm}
+        return _update(state, optimizer, params, {"loss": loss})
 
     return step
 
@@ -206,8 +221,7 @@ def make_ce_window_step(
         if with_ewc and ewc_state is not None:
             loss = loss + ewc_penalty(params, ewc_state, train_cfg.reg_lambda)
         loss.backward()
-        state, gnorm = _update(state, optimizer, params)
-        return state, {"loss": loss.detach(), "grad_norm": gnorm}
+        return _update(state, optimizer, params, {"loss": loss})
 
     return step
 
@@ -252,9 +266,10 @@ def modality_masks(attention_mask: torch.Tensor, num_vision_tokens: int = NUM_VI
     return lang, image
 
 
-def _masked_token_loss(h, h_past, mask, kind: str) -> torch.Tensor:
+def _masked_token_loss(h, h_past, mask, kind: str, count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Masked per-token distance averaged over unmasked tokens. h, h_past:
-    [..., T, D]; mask: [..., T]. MSE: ||h-h'||^2/D per token; cosine: 1 - cos."""
+    [..., T, D]; mask: [..., T]. MSE: ||h-h'||^2/D per token; cosine: 1 - cos.
+    `count` divides the masked sum in place of the mask's own count."""
     h32, p32 = h.float(), h_past.float()
     if kind == "mse":
         tok = torch.mean(torch.square(h32 - p32), dim=-1)
@@ -265,7 +280,7 @@ def _masked_token_loss(h, h_past, mask, kind: str) -> torch.Tensor:
     else:
         raise ValueError(kind)
     m = mask.float()
-    denom = torch.clamp(torch.sum(m, dim=(-2, -1)), min=1.0)
+    denom = torch.clamp(torch.sum(m, dim=(-2, -1)), min=1.0) if count is None else count
     return torch.sum(tok * m, dim=(-2, -1)) / denom
 
 
@@ -351,12 +366,18 @@ def make_distill_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *, rema
                 else:
                     per_layer = torch.mean(torch.mean(torch.square(s0 - t0), dim=-1), dim=-1)
             else:
-                lang_l = _masked_token_loss(s_sel, t_sel, lang_mask[None], loss_kind)
-                img_l = _masked_token_loss(s_sel, t_sel, image_mask[None], loss_kind)
+                # token counts of the whole batch: over several ranks, summed
+                # and divided by the ranks, so the ranks' mean is the batch's loss
+                counts = torch.stack([lang_mask.sum(), image_mask.sum()]).float()
+                world = process_count()
+                all_reduce_sum_([counts])
+                n_lang, n_img = counts[0], counts[1]
+                lang_l = _masked_token_loss(s_sel, t_sel, lang_mask[None], loss_kind,
+                                            torch.clamp(n_lang, min=1.0) / world)
+                img_l = _masked_token_loss(s_sel, t_sel, image_mask[None], loss_kind,
+                                           torch.clamp(n_img, min=1.0) / world)
                 if strategy == "equal":
                     # token-count-proportional weights
-                    n_lang = lang_mask.sum().float()
-                    n_img = image_mask.sum().float()
                     lw = (n_lang / (n_lang + n_img)).expand(len(layers))
                     vw = (n_img / (n_lang + n_img)).expand(len(layers))
                 else:  # balanced / adaptive: externally supplied coefficients
@@ -391,8 +412,7 @@ def make_distill_step(
         params = _cleared(model)
         loss, per_layer = loss_fn(model, teacher, batch, lang_coeffs, _vision_features(model, batch, normalize, dtype))
         loss.backward()
-        state, gnorm = _update(state, optimizer, params)
-        return state, {"loss": loss.detach(), "grad_norm": gnorm, "distill_layer_losses": per_layer.detach()}
+        return _update(state, optimizer, params, {"loss": loss, "distill_layer_losses": per_layer})
 
     return step
 
@@ -471,16 +491,9 @@ def make_mafed_window_step(
                 model, teacher, distill_batch, lang_coeffs, _vision_features(model, distill_batch, normalize, dtype))
             (d_loss / denom).backward()
             total = (n_ce * ce_loss + d_loss.detach()) / denom
-        state, gnorm = _update(state, optimizer, params)
-        metrics = {
-            "loss": total.detach(),
-            "ce_loss": ce_loss.detach(),
-            "distill_loss": d_loss.detach(),
-            "grad_norm": gnorm,
-            # modality-weighted per-tap distill losses
-            "distill_layer_losses": per_layer.detach(),
-        }
-        return state, metrics
+        # per_layer: the modality-weighted per-tap distill losses
+        return _update(state, optimizer, params, {"loss": total, "ce_loss": ce_loss, "distill_loss": d_loss,
+                                                  "distill_layer_losses": per_layer})
 
     return step
 
@@ -495,7 +508,9 @@ def make_ewc_fisher_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, device="c
     name-keyed `importances` in place and returns them. No remat; the
     gradients come from torch.autograd.grad, so no .grad is left on the
     model and no optimizer state is touched. The caller divides by the
-    number of samples."""
+    number of samples. Over several ranks, the ranks' gradients of their
+    rows are summed before squaring, which gives the gradient of the whole
+    batch (squares summed over the ranks would be another Fisher)."""
     device = resolve_device(device)
     dtype = compute_dtype(train_cfg)
     tail = train_cfg.label_tail or None
@@ -507,6 +522,7 @@ def make_ewc_fisher_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, device="c
         bsz = batch["input_ids"].shape[0]
         loss = bsz * _ce_loss(model, batch, _vision_features(model, batch, normalize, dtype), dtype, tail, remat=False)
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        all_reduce_sum_([g for g in grads if g is not None])
         with torch.no_grad():
             for name, g in zip(params, grads):
                 if g is not None:

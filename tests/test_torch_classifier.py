@@ -83,9 +83,13 @@ def test_vqa_accuracy_matches_jax():
 
 
 def test_all_reduce_metrics_one_process(monkeypatch):
+    """The identity on one rank (tests/test_torch_multiprocess.py sums over
+    two); a mesh the port does not run raises, and so does a launch of
+    several ranks that has not joined its process group."""
     assert tcls.all_reduce_metrics(4.0, 2.5, 3.0) == jcls.all_reduce_metrics(4.0, 2.5, 3.0) == (4.0, 2.5, 3.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1: multi-process"):
+    assert tcls.all_reduce_metrics(4.0, 2.5, 3.0, mesh_shape=(-1, 1)) == (4.0, 2.5, 3.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1: tensor parallel"):
         tcls.all_reduce_metrics(4.0, 2.5, 3.0, mesh_shape=(2, 1))
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="multi-process"):
+    with pytest.raises(RuntimeError, match="no process group"):
         tcls.all_reduce_metrics(4.0, 2.5, 3.0)

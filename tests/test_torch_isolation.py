@@ -1,4 +1,5 @@
-"""The port stands alone: mafed_tpu_torch and chip_smoke.py import nothing of
+"""The port stands alone: mafed_tpu_torch, chip_smoke.py and the ranks of
+the port's multi-process tests (tests/torch_mp_worker.py) import nothing of
 JAX and nothing of the JAX package, and its entry points run on CUDA unless
 the caller asks for the CPU."""
 
@@ -13,7 +14,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "mafed_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+WORKER = ROOT / "tests" / "torch_mp_worker.py"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", WORKER]
 
 
 def _forbidden(name: str) -> bool:
@@ -38,6 +40,24 @@ def test_importing_every_module_loads_no_jax():
         "    importlib.import_module(m)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'mafed_tpu'))\n"
         "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_multiprocess_modules_load_no_jax():
+    """core/dist.py and the test ranks' module with what they import (the
+    modules a rank's modes import lazily are the port's, held above)."""
+    code = (
+        "import importlib, sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "importlib.import_module('mafed_tpu_torch.core.dist')\n"
+        "importlib.import_module('torch_mp_worker')\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'mafed_tpu'))\n"
+        "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -407,8 +407,12 @@ def test_jax_parser_duplicates_a_flag():
 
 
 def test_more_than_one_device_raises(tmp_path):
+    """Two devices in one process is tensor-parallel work, not ported; a
+    distributed_init without a launcher's variables raises before anything
+    runs (tests/test_torch_multiprocess.py pretrains over two ranks)."""
     _, tc = tiny_cfgs()
     train_ds, _ = _datasets("torch", tc.vision)
-    for over in (dict(mesh_shape=(2, 1)), dict(distributed_init=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1: multi-process"):
-            PretrainTrainer(tc, PretrainConfig(output_dir=str(tmp_path), **over), train_ds, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1: tensor parallel"):
+        PretrainTrainer(tc, PretrainConfig(output_dir=str(tmp_path), mesh_shape=(2, 1)), train_ds, device="cpu")
+    with pytest.raises(RuntimeError, match="RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT"):
+        PretrainTrainer(tc, PretrainConfig(output_dir=str(tmp_path), distributed_init=True), train_ds, device="cpu")

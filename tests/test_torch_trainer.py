@@ -221,14 +221,21 @@ def test_model_config_from_json_matches_jax():
     {"mesh_shape": [2, 1]},
 ], ids=["profile", "distributed", "mesh"])
 def test_settings_left_out_raise(tmp_path, overrides):
-    """More than one process or device raises; profile_dir is ported
-    (tests/test_torch_profiling.py traces a run) and builds a trainer."""
+    """Two devices in one process (a data axis of 2 on one rank) is
+    tensor-parallel work and raises; distributed_init without a launcher's
+    variables raises (tests/test_torch_multiprocess.py runs two ranks);
+    profile_dir is ported (tests/test_torch_profiling.py traces a run) and
+    builds a trainer."""
     cfg = write_synthetic_vqa(str(tmp_path)).replace(cl_method="featdistill", **overrides)
     if "profile_dir" in overrides:
         trainer = ContinualLearningTrainer(cfg, model_cfg=tiny_cfgs()[1], device="cpu")
         assert trainer.runner.config.profile_dir == "trace"
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1: multi-process"):
+    if "distributed_init" in overrides:
+        with pytest.raises(RuntimeError, match="RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT"):
+            ContinualLearningTrainer(cfg, device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1: tensor parallel"):
         ContinualLearningTrainer(cfg, device="cpu")
 
 
