@@ -14,7 +14,8 @@ Phases, each printing one JSON line:
      EVA-02 shapes), at pretraining's ([128, 16, 356, 64], right padding of
      a different length in each row, and its tower at 128 images), at the
      1B model's (heads of 256: its CE pass, CE window, student pass and
-     decode prefill), and in a 129-token case across the tile edge, a small
+     decode prefill), at a tensor-parallel rank's (its heads: 4 of 256 at
+     1B, 8 of 64 at 410M), and in a 129-token case across the tile edge, a small
      unaligned case with fully-masked rows at both head_dims and a small
      unaligned right-padded one; and their times at each model's CE shape
      and at pretraining's beside the plain
@@ -95,7 +96,7 @@ Phases, each printing one JSON line:
      matrix equal to cl_sequence_default's bit for bit, the launches of each
      half as computed; the seconds of each half and of each bundle saved.
  13. image_engine (host only, before the model phases): whether the C++
-     image engine built (and why not), 1,000 COCO-sized JPEG and PNG files
+     image engine built (and why not), 250 COCO-sized JPEG and PNG files
      decoded through it and through PIL (seconds, largest and mean pixel
      difference), and a pretrain batch of 128 captions through the loader
      with MAFED_NATIVE_IMAGES=1 and =0;
@@ -125,12 +126,32 @@ Phases, each printing one JSON line:
      stopping both after the same window; cl_sequence_default's sequence
      over both ranks (the caches primed by both into one directory; no
      epoch-end bundles), its accuracy matrix beside the one-process one,
-     then preempted by the countdown after 2 updates and resumed, bit-equal; two pretraining
+     then preempted by the countdown after 2 updates and resumed, bit-equal
+     (these runs write only the bundle: no task checkpoint); two pretraining
      updates at a global batch of 64 (the pair cannot hold 128) against one
      process. The NCCL windows run on two cards; on one the phase prints
      {"phase": "multiprocess_nccl", "run": false, "cards": 1}.
+ 19. tensor_parallel (after multiprocess): the (data, model) grid of
+     core/mesh.py, ranks of this script on cuda:0 over gloo as in phase
+     multiprocess: VL-Pythia-1B at full width and depth under mesh_shape
+     [1, 2] (4 heads of 256 a rank), phase window_1b's three MAFED windows
+     against one process on the same weights and rows (metrics within
+     bf16's resolution, the gathered parameters within 5 % of one process's
+     update length and 2.02 lr an update, the replicated parameters
+     bit-equal on the ranks, 78 / 32 / 32 launches a window a rank, ms a
+     window and peak GB a rank); cl_sequence_default's sequence under
+     [2, 2] (four ranks), its accuracy matrix equal to the one-process one
+     and its losses within bf16's resolution, the best checkpoint, read by
+     rank 0 as one process reads it, bit-equal to the gathered model, then a SIGTERM
+     to rank 1 alone stopping all four at one update and the resume
+     bit-equal to the uninterrupted run; two pretraining updates at a
+     global 64 under [1, 2] (the windows' two ranks) against phase
+     multiprocess's one process. The
+     1B windows run over NCCL on two cards; on one the phase prints
+     {"phase": "tensor_parallel_nccl", "run": false, "cards": 1}.
 The kernel cases include the CLIP tower's [32, 16, 577, 64] (non-causal,
 577 = 9 x 64 + 1) and its decode prefill (640, causal, 16 padded keys).
+Every phase line ends with "clock_s", the script's seconds at its end.
 Then the kernel summary line (one entry per kernel and head_dim), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a CUDA device, or without the
@@ -197,7 +218,14 @@ KERNELS = {
 }
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also gets the script's clock at
+    its end."""
+    if "phase" in obj:
+        obj = {**obj, "clock_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -307,6 +335,14 @@ KERNEL_CASES = [
     ("mp_ce_410m_rank", 24, 16, 336, 64, True, (256, 276), False),
     ("mp_student_410m_rank", 8, 16, 336, 64, True, (256, 276), False),
     ("mp_pretrain_410m_rank", 32, 16, 356, 64, True, ("right", 257), False),
+    # phase tensor_parallel: a rank's heads (M = 2): the 1B window under [1, 2] (its CE stack of
+    # 3 x 16 rows, its student and teacher passes), the 410M CL windows under [2, 2] (3 x 8 and 8
+    # rows) and the pretraining update at a global 64 under [1, 2]
+    ("tp_ce_1b_rank", 48, 4, 336, 256, True, (256, 276), False),
+    ("tp_student_1b_rank", 16, 4, 336, 256, True, (256, 276), False),
+    ("tp_ce_410m_rank", 24, 8, 336, 64, True, (256, 276), False),
+    ("tp_student_410m_rank", 8, 8, 336, 64, True, (256, 276), False),
+    ("tp_pretrain_410m_rank", 64, 8, 356, 64, True, ("right", 257), False),
 ]
 # what SDPA's timed call computes beside each kernel's
 LIBRARY_COVERS = {"flash_fwd": "o", "flash_bwd_dkv": "dq+dk+dv", "flash_bwd_dq": "dq+dk+dv"}
@@ -347,6 +383,9 @@ def phase_kernels(gen):
     timing = {64: kernel_timing(gen, "timing_ce_410m", 48, 16, 336, 64),
               256: kernel_timing(gen, "timing_ce_1b", 48, 8, 336, 256),
               "pretrain": kernel_timing(gen, "timing_pretrain_410m", 128, 16, 356, 64, pad=("right", 257))}
+    # a tensor-parallel rank's CE pass (M = 2): 1B under [1, 2], 410M under [2, 2]
+    timing["tp_1b"] = kernel_timing(gen, "timing_tp_ce_1b_rank", 48, 4, 336, 256)
+    timing["tp_410m"] = kernel_timing(gen, "timing_tp_ce_410m_rank", 24, 8, 336, 64)
     for case, b, h, t, d, causal, pad in (("timing_decode_tower", 32, 16, 257, 64, False, None),
                                           ("timing_decode_prefill", 32, 16, 320, 64, True, (256, 272)),
                                           ("timing_ce_window", 64, 16, 336, 64, True, (256, 276)),
@@ -468,7 +507,7 @@ def window_setup(cfg, model, n_ce, b, text_len, gen, device, fuse_ce_batch=True)
     train_cfg = train_config()
     teacher = make_teacher(model)
     trainable = trainable_parameters(model)
-    opt = build_optimizer(train_cfg, trainable)
+    opt = build_optimizer(train_cfg, trainable, tp=model.tp)
     state = TrainState(0, model, set_schedule(opt.init(trainable), 0, 100))
     step = make_mafed_window_step(cfg, train_cfg, opt, n_ce=n_ce, fuse_ce_batch=fuse_ce_batch, device=device)
     mbs = [example_batch(gen, cfg, b, text_len) for _ in range(n_ce + 1)]  # on the CPU: same data on any device
@@ -1051,22 +1090,26 @@ def cl_sequence_argv(root: str) -> list:
             "--allow_tokenizer_fallback", "--log_every", "1"]
 
 
-def drive_sequence(argv, device, model_cfg, keep_checkpoints: str = "first", preempt_after=None) -> dict:
+def drive_sequence(argv, device, model_cfg, keep_checkpoints: str = "first", preempt_after=None,
+                   write=None) -> dict:
     """parse_with_config over `argv`, then ContinualLearningTrainer.main, with
     the launch counts set to 0 just before and read just after. Keeps host
-    copies of the checkpoints written ("first" or "all", by file name) and
-    the (task, epoch) of the resume bundle each fit leaves. With
-    `preempt_after`, a preemption is requested after that many updates and
-    only Preempted with code 143 ends the run."""
+    copies of the task checkpoints ("first", "all" or "none", by file name) and
+    the (task, epoch) of the resume bundle each fit leaves; writes the task
+    checkpoints named in `write` (file names; None: all), so that a run
+    whose files nothing reads writes none. With `preempt_after`, a
+    preemption is requested after that many updates and only Preempted with
+    code 143 ends the run."""
     cfg = parse_with_config(build_arg_parser(), argv)
     model_cfg = model_cfg or ModelConfig.from_json(cfg.model_config)
     saved, bundles = {}, []
     save = continual.save_task_checkpoint
 
     def save_and_keep(state_dict, path):
-        if keep_checkpoints == "all" or not saved:
+        if keep_checkpoints == "all" or (keep_checkpoints == "first" and not saved):
             saved[os.path.basename(path)] = {k: v.detach().float().cpu().clone() for k, v in state_dict.items()}
-        save(state_dict, path)
+        if write is None or os.path.basename(path) in write:
+            save(state_dict, path)
 
     continual.save_task_checkpoint = save_and_keep
     preempted = None
@@ -1627,7 +1670,7 @@ def _loader_batch_ms(manifest: str, vision_cfg, native: str, batch: int = 128) -
     return ms
 
 
-def phase_image_engine(smi: str, n_files: int = 1000) -> dict:
+def phase_image_engine(smi: str, n_files: int = 250) -> dict:
     """The C++ image engine (mafed_tpu_torch/native) on the card's host:
     whether it built, and why not if not; `n_files` COCO-sized JPEG and PNG
     files decoded to 224 x 224 through it and through PIL (each decoder's
@@ -1954,10 +1997,11 @@ def phase_cka_sweep(smi: str, default_run: dict, device: str = "cuda", n_val: in
 MP_WORLD, MP_BACKEND, MP_DEVICE = 2, "gloo", "cuda:0"
 MP_WAIT_S = 900  # each rank's bound, the SIGTERM's wait included
 MP_SIGTERM_MAX_WINDOWS = 40  # windows the ranks run while rank 1 waits for its SIGTERM
-MP_PREEMPT_AFTER = 2  # the countdown: task 0's two windows
 # the CL runs keep only the preemption's bundle: epoch-end bundles (~9 GB, written
 # by rank 0 while rank 1 waits) would add ~45 s to the phase
 MP_CL_SWITCHES = ["--resume_bundle_every", "0"]
+# the CL runs stop after task 0's two windows: by the countdown on [2, 1], by a SIGTERM to rank 1 on [2, 2]
+CL_INTERRUPT_AFTER = 2
 # Pretraining: two ranks on one card hold two copies of weights and optimizer
 # state, and one process at batch 128 peaks at 75.5 GB, so the pair trains
 # at a global batch of 64 (32 a rank) against one process at 64: two updates,
@@ -1974,6 +2018,8 @@ MP_PRETRAIN_GLOBAL = 64
 # on the same rows in the two orders (the ranks' interleave concatenated).
 MP_METRIC_RTOL = 2.0 ** -8
 MP_UPDATE_RTOL = 0.05
+# pretraining under tensor parallelism against one process on the same rows and weights
+TP_PRETRAIN_LOSS_RTOL = 1e-3
 
 
 def _sum_launches(parts) -> dict:
@@ -1992,16 +2038,28 @@ def equal_on_every_rank(tensors) -> bool:
     return D.process_reduce_sum(float(torch.equal(flat, ref)))[0] == D.process_count()
 
 
-def param_distance(got: dict, want: dict, before: dict, bound=None) -> dict:
+def replicated_parameters(model) -> list:
+    """The trainable parameters every rank holds whole: all of them, or
+    under tensor parallelism those param_partition_spec does not split."""
+    from mafed_tpu_torch.core.mesh import param_partition_spec
+
+    return [p for k, p in trainable_parameters(model).items()
+            if getattr(model, "tp", None) is None or param_partition_spec(k) is None]
+
+
+def param_distance(got: dict, want: dict, before: dict, bound=None, device: str = "cpu") -> dict:
     """max |got - want|, and ||got - want|| / ||want - before|| (the distance
     from the reference over the length of the reference's update), over
-    want's keys; with `bound`, raises past it or past MP_UPDATE_RTOL."""
+    want's keys, computed on `device` a tensor at a time (at 1B, minutes'
+    worth of host arithmetic otherwise); with `bound`, raises past it or
+    past MP_UPDATE_RTOL."""
     max_abs, sq_diff, sq_update = 0.0, 0.0, 0.0
     for k, w in want.items():
-        d = got[k].float() - w.float()
+        w = w.to(device, torch.float32)
+        d = got[k].to(device, torch.float32) - w
         max_abs = max(max_abs, float(d.abs().max()))
         sq_diff += float(d.double().square().sum())
-        sq_update += float((w.float() - before[k].float()).double().square().sum())
+        sq_update += float((w - before[k].to(device, torch.float32)).double().square().sum())
     out = {"max_abs_diff": max_abs, "update_rel_diff": math.sqrt(sq_diff / sq_update)}
     if bound is not None:
         out.update(max_abs_bound=bound, update_rtol=MP_UPDATE_RTOL)
@@ -2072,30 +2130,64 @@ def mp_windows(rank: int, world: int, device: str, root: str, sigterm: bool, row
     return out
 
 
-def mp_cl(rank: int, device: str, root: str) -> dict:
-    """cl_sequence_default's command line over two ranks: uninterrupted; then
-    preempted by the countdown after MP_PREEMPT_AFTER updates on every rank
-    and resumed with --resume_from_checkpoint, whose final trainable
-    parameters must equal the uninterrupted run's bit for bit."""
-    argv = cl_sequence_argv(os.path.join(root, "data")) + MP_CL_SWITCHES
-    pre_out = os.path.join(root, "cl_pre")
-    runs = {}
-    for name, extra, preempt_after in (
-            ("full", ["--output_dir", os.path.join(root, "cl_full")], None),
-            ("preempted", ["--output_dir", pre_out], MP_PREEMPT_AFTER),
-            ("resumed", ["--output_dir", pre_out, "--resume_from_checkpoint", os.path.join(pre_out, "resume")], None)):
-        run = drive_sequence(argv + extra, device, None, preempt_after=preempt_after)
+def cl_runs(rank: int, device: str, root: str, name: str, extra, interrupt: str, check_best: bool = False) -> dict:
+    """cl_sequence_default's command line (plus MP_CL_SWITCHES and `extra`)
+    three times over the ranks: uninterrupted, into ROOT/<name>_full; stopped
+    after CL_INTERRUPT_AFTER updates by `interrupt` ("countdown": the
+    preemption countdown on every rank; "sigterm": a SIGTERM to rank 1
+    alone, which every rank's vote turns into one bundle and exit 143); then
+    resumed from that bundle with --resume_from_checkpoint, whose final
+    trainable parameters (gathered under tensor parallelism) must equal the
+    uninterrupted run's bit for bit. The runs write only the files they
+    read back: the bundle and, with `check_best`, the uninterrupted run's
+    last best checkpoint, which rank 0 reads into a VLPythia as one process
+    reads it and holds against the gathered model."""
+    import signal
+
+    argv = cl_sequence_argv(os.path.join(root, "data")) + MP_CL_SWITCHES + list(extra)
+    pre_out = os.path.join(root, f"{name}_pre")
+    last_best = "taskB_best.safetensors"
+    runs, ticks = {}, []
+    tick = preempt.tick_update
+
+    def counted_tick():
+        tick()
+        ticks.append(1)
+        if interrupt == "sigterm" and rank == 1 and len(ticks) == CL_INTERRUPT_AFTER:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    for run_name, out_argv in (("full", ["--output_dir", os.path.join(root, f"{name}_full")]),
+                               ("stopped", ["--output_dir", pre_out]),
+                               ("resumed", ["--output_dir", pre_out, "--resume_from_checkpoint",
+                                            os.path.join(pre_out, "resume")])):
+        stopped = run_name == "stopped"
+        sigterm = stopped and interrupt == "sigterm"
+        preempt.tick_update = counted_tick if stopped else tick
+        try:
+            # with the SIGTERM, a countdown no run reaches: drive_sequence then takes its exit 143
+            run = drive_sequence(argv + out_argv, device, None, keep_checkpoints="none",
+                                 preempt_after=(10 ** 9 if sigterm else CL_INTERRUPT_AFTER) if stopped else None,
+                                 write=(last_best,) if check_best and run_name == "full" else ())
+        finally:
+            preempt.tick_update = tick
         trainer = run.pop("trainer")
         run["primed"], run["teacher_cache"] = trainer.primed, trainer.strategy.teacher_cache_log
-        run["stages"] = trainer.timings
-        run["steps"] = [log["steps"] for log in trainer.fit_logs]
-        if preempt_after is None:
-            run["trainable"] = trainer.runner.host_trainable()
-            run["ranks_equal"] = equal_on_every_rank(trainable_parameters(trainer.runner.model).values())
-        else:
+        run["stages"], run["steps"] = trainer.timings, [log["steps"] for log in trainer.fit_logs]
+        if stopped:
             with open(os.path.join(pre_out, "resume", "fit_state.json")) as f:
                 run["bundle"] = {k: v for k, v in json.load(f).items() if k in ("task_id", "epoch", "batches_done")}
-        runs[name] = run
+            run["updates_here"] = len(ticks)
+        else:
+            run["trainable"] = trainer.runner.host_trainable()
+            run["ranks_equal"] = equal_on_every_rank(replicated_parameters(trainer.runner.model))
+            if check_best and run_name == "full" and rank == 0:
+                path = os.path.join(root, f"{name}_full", "ckpt", last_best)
+                one_process = V.VLPythia(trainer.model_cfg, device="meta")
+                one_process.load_state_dict(load_task_checkpoint(path), strict=True, assign=True)
+                state = one_process.state_dict()
+                run["best_checkpoint_equal"] = all(torch.equal(state[k], v) for k, v in run["trainable"].items())
+                del one_process, state
+        runs[run_name] = run
         del trainer, run
         free_device_memory()
     full, resumed = runs["full"], runs["resumed"]
@@ -2103,27 +2195,30 @@ def mp_cl(rank: int, device: str, root: str) -> dict:
         "accuracy_matrix": full["result"]["accuracy_matrix"], "bwt": full["result"]["bwt"],
         "resumed_accuracy_matrix": resumed["result"]["accuracy_matrix"],
         "resumed_equal": all(torch.equal(resumed["trainable"][k], v) for k, v in full["trainable"].items()),
-        "ranks_equal": [full["ranks_equal"], resumed["ranks_equal"]], "bundle": runs["preempted"]["bundle"],
-        "images_primed": full["primed"], "teacher_cache": full["teacher_cache"], "steps": full["steps"],
-        "losses": full["losses"], "seconds": {name: run["wall"] for name, run in runs.items()},
-        "stage_seconds": {name: run["stages"] for name, run in runs.items()},
-        "launches": {name: run["launches"] for name, run in runs.items()},
+        "ranks_equal": [full["ranks_equal"], resumed["ranks_equal"]], "bundle": runs["stopped"]["bundle"],
+        "stopped_updates_here": runs["stopped"]["updates_here"],
+        "best_checkpoint_equal": full.get("best_checkpoint_equal"),
+        "images_primed": full["primed"], "teacher_cache": full["teacher_cache"],
+        "steps": full["steps"], "losses": full["losses"], "seconds": {k: run["wall"] for k, run in runs.items()},
+        "stage_seconds": {k: run["stages"] for k, run in runs.items()},
+        "launches": {k: run["launches"] for k, run in runs.items()},
     }
 
 
-def mp_pretrain(root: str, world: int, device: str) -> dict:
+def mp_pretrain(root: str, world: int, device: str, mesh=(-1, 1)) -> dict:
     """Pretraining through its entry point: two updates at a global batch of
-    MP_PRETRAIN_GLOBAL (MP_PRETRAIN_GLOBAL / world a rank), the first at lr 0
-    (the schedule's warmup step), no eval and no checkpoint but
-    checkpoint-final; its launches as computed."""
+    MP_PRETRAIN_GLOBAL (MP_PRETRAIN_GLOBAL / world a rank's share, the rows
+    split over its data group of `mesh`), the first at lr 0 (the schedule's
+    warmup step), no eval and no checkpoint but checkpoint-final; its
+    launches as computed."""
     from mafed_tpu_torch import pretrain_vlpythia as cli
     from mafed_tpu_torch.core.dist import process_count
 
-    out = os.path.join(root, f"pretrain_{world}")
+    out = os.path.join(root, f"pretrain_{world}" + ("" if mesh[-1] == 1 else f"_tp{mesh[-1]}"))
     argv = ["--manifest", os.path.join(root, "captions", "train.jsonl"), "--output_dir", out,
             "--allow_tokenizer_fallback", "--per_device_train_batch_size", str(MP_PRETRAIN_GLOBAL // world),
             "--model_max_length", "100", "--num_train_epochs", "1", "--save_steps", "2", "--eval_steps", "2",
-            "--device", device]
+            "--device", device, "--mesh_shape", *map(str, mesh)]
     cuda = torch.device(device).type == "cuda"
     _sync(device)
     if cuda:
@@ -2139,7 +2234,7 @@ def mp_pretrain(root: str, world: int, device: str) -> dict:
         raise AssertionError(f"multiprocess pretrain: {state.step} updates, launches {launches}, expected {expected}")
     result = {"seconds": wall, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
               "launches": launches, "out": out,
-              "ranks_equal": equal_on_every_rank(trainable_parameters(state.model).values())}
+              "ranks_equal": equal_on_every_rank(replicated_parameters(state.model))}
     if process_count() == 1:  # the reference: also the parameters both runs started from
         from mafed_tpu_torch.pretrain.trainer import PretrainConfig
 
@@ -2154,7 +2249,8 @@ def mp_worker(argv) -> int:
     """One rank of phase multiprocess:
     python3 chip_smoke.py --mp-worker RANK WORLD PORT MODE ROOT BACKEND DEVICE.
     MODE "all": process_reduce_sum, the windows and the SIGTERM, the CL
-    runs, pretraining; "windows": the first two. Writes ROOT/rank<RANK>_<MODE>.json."""
+    runs, pretraining; "windows": the first two; "tp_..." a part of phase
+    tensor_parallel (`tp_worker`). Writes ROOT/rank<RANK>_<MODE>.json."""
     rank, world, port, mode, root, backend, device = int(argv[0]), int(argv[1]), argv[2], argv[3], *argv[4:7]
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
                       MASTER_PORT=port)
@@ -2167,10 +2263,13 @@ def mp_worker(argv) -> int:
     print(json.dumps({"rank": rank, "backend": torch.distributed.get_backend(), "device": device}), flush=True)
     out = {"rank": rank, "backend": torch.distributed.get_backend(), "device": device,
            "reduce_sum": list(D.process_reduce_sum(rank + 1.0, 10.0))}
-    out["window"] = mp_windows(rank, world, device, root, sigterm=mode == "all")
+    if mode.startswith("tp_"):
+        out.update(tp_worker(rank, world, device, root, mode))
+    else:
+        out["window"] = mp_windows(rank, world, device, root, sigterm=mode == "all")
     if mode == "all":
         free_device_memory()
-        out["cl"] = mp_cl(rank, device, root)
+        out["cl"] = cl_runs(rank, device, root, "cl", [], "countdown")
         free_device_memory()
         out["pretrain"] = mp_pretrain(root, world, device)
     D.barrier("multiprocess_done")
@@ -2247,6 +2346,29 @@ def _window_check(name: str, ranks: list, reference: dict) -> dict:
             "ms_per_window_one_process": reference["ms_per_window"], "launches_each_rank": windows[0]["launches"]}
 
 
+def _check_cl_runs(name: str, cl: list, default_losses: dict) -> dict:
+    """`cl_runs`' results on every rank: the resumed run bit-equal to the
+    uninterrupted one, with its accuracy matrix; the ranks' (replicated)
+    parameters equal after both; every rank stopped after CL_INTERRUPT_AFTER
+    updates into one bundle (task 0, its two windows of 4 batches); the
+    uninterrupted run's logged losses within MP_METRIC_RTOL of one process's
+    (`default_losses`). Returns their largest relative error by task."""
+    if not all(c["resumed_equal"] and all(c["ranks_equal"]) for c in cl) or \
+            any(c["resumed_accuracy_matrix"] != c["accuracy_matrix"] for c in cl):
+        raise AssertionError(f"{name}: the resumed sequence differs from the uninterrupted one, or the ranks' "
+                             f"parameters differ: {[(c['resumed_equal'], c['ranks_equal']) for c in cl]}")
+    bundle = {"task_id": 0, "epoch": 0, "batches_done": 4 * CL_INTERRUPT_AFTER}
+    if any(c["bundle"] != bundle or c["stopped_updates_here"] != CL_INTERRUPT_AFTER for c in cl):
+        raise AssertionError(f"{name}: the ranks stopped apart or elsewhere: "
+                             f"{[(c['bundle'], c['stopped_updates_here']) for c in cl]}, expected {bundle}")
+    losses = cl[0]["losses"]
+    err = {task: _max_rel(losses[task], want) for task, want in default_losses.items()}
+    if losses.keys() != default_losses.keys() or any(len(losses[t]) != len(w) for t, w in default_losses.items()) \
+            or not all(e <= MP_METRIC_RTOL for e in err.values()):
+        raise AssertionError(f"{name}: the CL losses {losses} against one process's {default_losses}")
+    return err
+
+
 def phase_multiprocess(smi: str, default_accuracy, default_losses, root: str, device: str = "cuda") -> dict:
     """Data parallelism over torch.distributed at full width: two ranks on
     the one card over gloo (MP_BACKEND, MP_DEVICE). process_reduce_sum on
@@ -2258,10 +2380,10 @@ def phase_multiprocess(smi: str, default_accuracy, default_losses, root: str, de
     cache primed by both ranks into one directory), its accuracy matrix beside
     the one-process one (`default_accuracy`), its logged losses within
     MP_METRIC_RTOL of the one-process ones (`default_losses`: bundles
-    written or not, the same updates), and preempted by the countdown
-    and resumed bit-equal; one pretraining update at a global MP_PRETRAIN_GLOBAL
+    written or not, the same updates), then preempted by the countdown and
+    resumed bit-equal (`cl_runs`); one pretraining update at a global MP_PRETRAIN_GLOBAL
     against one process. Then the NCCL windows, on two cards only. Returns the
-    launches of every rank."""
+    launches of every rank and the one-process pretraining run."""
     write_synthetic_vqa(os.path.join(root, "data"), ("taskA", "taskB"), 128, 32)
     write_caption_manifests(os.path.join(root, "captions"), 2 * MP_PRETRAIN_GLOBAL, 0)
     # the one-process references, before the ranks take the card: the windows on the rows in their
@@ -2275,7 +2397,7 @@ def phase_multiprocess(smi: str, default_accuracy, default_losses, root: str, de
                                                                                 window_reference["metrics"]))
                              for k in window_reference["metrics"][0]},
               "params": param_distance(reordered["trainable"], window_reference["trainable"],
-                                       window_reference["before"])}
+                                       window_reference["before"], device=device)}
     del reordered
     one = mp_pretrain(root, 1, device)
     free_device_memory()
@@ -2289,24 +2411,14 @@ def phase_multiprocess(smi: str, default_accuracy, default_losses, root: str, de
     window["one_process_spread"] = spread
     window["params_vs_one_process"] = param_distance(
         load_task_checkpoint(os.path.join(root, "window_trainable.safetensors")), window_reference.pop("trainable"),
-        window_reference.pop("before"), 2.02 * len(window["metrics"]) * train_config().learning_rate)
+        window_reference.pop("before"), 2.02 * len(window["metrics"]) * train_config().learning_rate, device)
     sigterm = [r["window"]["sigterm"] for r in ranks]
     if len({s["stopped_after_update"] for s in sigterm}) != 1 or [s["signal_here"] for s in sigterm] != [False, True]:
         raise AssertionError(f"{name}: SIGTERM to rank 1 alone: {sigterm}")
     cl = [r["cl"] for r in ranks]
     if any(c["accuracy_matrix"] != cl[0]["accuracy_matrix"] for c in cl):
         raise AssertionError(f"{name}: the ranks' accuracy matrices differ: {[c['accuracy_matrix'] for c in cl]}")
-    if not all(c["resumed_equal"] and all(c["ranks_equal"]) for c in cl) or \
-            any(c["resumed_accuracy_matrix"] != cl[0]["accuracy_matrix"] for c in cl):
-        raise AssertionError(f"{name}: the resumed sequence differs from the uninterrupted one, or the ranks "
-                             f"differ: {[(c['resumed_equal'], c['ranks_equal']) for c in cl]}")
-    cl_loss_err = {task: _max_rel(cl[0]["losses"][task], want) for task, want in default_losses.items()}
-    if cl[0]["losses"].keys() != default_losses.keys() or \
-            any(len(cl[0]["losses"][t]) != len(w) for t, w in default_losses.items()) or \
-            not all(e <= MP_METRIC_RTOL for e in cl_loss_err.values()):
-        raise AssertionError(f"{name}: the CL losses {cl[0]['losses']} against one process's {default_losses}")
-    if cl[0]["bundle"] != {"task_id": 0, "epoch": 0, "batches_done": 8}:
-        raise AssertionError(f"{name}: the countdown's bundle {cl[0]['bundle']}")
+    cl_loss_err = _check_cl_runs(name, cl, default_losses)
     primed = [sum(c["images_primed"][i] for c in cl) for i in range(3)]
     if primed != [32, 96, 0] or [sum(c["teacher_cache"][0]["primed"] for c in cl)] != [32]:
         raise AssertionError(f"{name}: primed images {primed} and teacher states "
@@ -2322,7 +2434,8 @@ def phase_multiprocess(smi: str, default_accuracy, default_losses, root: str, de
     want = load_task_checkpoint(os.path.join(one["out"], "checkpoint-final", "model.safetensors"))
     pretrain_params = param_distance(
         load_task_checkpoint(os.path.join(pre[0]["out"], "checkpoint-final", "model.safetensors")),
-        {k: want[k] for k in one["before"]}, one.pop("before"), 2.02 * PretrainConfig().learning_rate)  # 1 update at lr > 0
+        {k: want[k] for k in one["before"]}, one["before"], 2.02 * PretrainConfig().learning_rate,  # 1 update at lr > 0
+        device)
     del want
     acc = np.asarray(cl[0]["accuracy_matrix"])
     launches = _sum_launches([r["window"]["launches"] for r in ranks] + [r["window"]["sigterm_launches"] for r in ranks]
@@ -2355,7 +2468,194 @@ def phase_multiprocess(smi: str, default_accuracy, default_losses, root: str, de
         launches = _sum_launches([launches] + [r["window"]["launches"] for r in nccl])
     else:
         emit({"phase": "multiprocess_nccl", "run": False, "cards": torch.cuda.device_count()})
-    return _sum_launches([launches, window_reference["launches"], one["launches"]])
+    return _sum_launches([launches, window_reference["launches"], one["launches"]]), one
+
+
+# --- phase tensor_parallel: the (data, model) grid of core/mesh.py --------------------------------------------
+
+# Ranks of this script on the one card over gloo, as in phase multiprocess: a check of
+# correctness, not a measure of scaling. The 1B windows and pretraining on a model group of
+# two ranks (D = 1: each rank all the rows, half the heads); the CL sequence on a 2 x 2 grid.
+TP_WINDOW_MESH, TP_CL_MESH, TP_PRETRAIN_MESH = (1, 2), (2, 2), (1, 2)
+
+
+def _windows_1b(rank: int, device: str, tp) -> tuple:
+    """Phase window_1b's three 1B MAFED windows (its seeded weights and rows)
+    on this rank's shard of the model (`tp`, its model group, or None), its
+    rows split over the data group. Returns (the trainable parameters before,
+    on the host, of the whole model (tp None: the reference) or None, the
+    model, the result: metrics, ms, launches, peak GB)."""
+    from mafed_tpu_torch.core import dist as D
+    from mafed_tpu_torch.models.tensor_parallel import shard_model_
+
+    cfg = model_config_for_preset("1b")
+    n_ce, b, text_len, windows = 3, 16, 80, 3
+    model = shard_model_(init_model(cfg, seed=0, device=device), tp)
+    D.broadcast_model_(model)
+    step, state, teacher, ce, distill, lang = window_setup(
+        cfg, model, n_ce, b, text_len, torch.Generator().manual_seed(2), device)
+    rows = slice(D.data_index(), b, D.data_size())
+    ce, distill = {k: v[:, rows] for k, v in ce.items()}, {k: v[rows] for k, v in distill.items()}
+    before = None if tp is not None else {k: p.detach().cpu().clone() for k, p in trainable_parameters(model).items()}
+    cuda = torch.device(device).type == "cuda"
+    _sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    times, history = [], []
+    for _ in range(windows):
+        start = time.perf_counter()
+        state, m = step(state, teacher, ce, distill, lang)
+        _sync(device)
+        times.append((time.perf_counter() - start) * 1e3)
+        history.append({k: float(m[k]) for k in ("loss", "ce_loss", "distill_loss", "grad_norm")})
+    launches = launches_by_dim()
+    layers = cfg.num_hidden_layers
+    expected = at_head_dim(cfg.head_dim, _kernels(windows * (2 * layers + (layers - 2) + 2 * layers),
+                                                  windows * 2 * layers))
+    if cuda and launches != expected:
+        raise AssertionError(f"tensor_parallel rank {rank}: window launches {launches}, expected {expected}")
+    return before, model, {"window_ms": times, "ms_per_window": sum(times[1:]) / (windows - 1),
+                           "metrics": history, "launches": launches,
+                           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
+
+
+def tp_windows(rank: int, world: int, device: str, root: str, mesh) -> dict:
+    """Under `mesh` (a data axis of 1), rank 0 first runs the 1B windows as
+    one process on the whole model, alone in its data group, while the other
+    ranks wait (the reference: its metrics, ms, peak GB, and its parameters
+    before and after, kept on the host); then every rank runs them on its
+    shard, and rank 0 holds the gathered parameters against the reference's
+    (no file: the card's machine limits what a command writes)."""
+    from mafed_tpu_torch.core import dist as D
+    from mafed_tpu_torch.core.mesh import gather_state_dict, make_mesh
+
+    grid = make_mesh(mesh)
+    if grid.shape[0] != 1:
+        raise ValueError(f"tensor_parallel windows: the reference needs a data axis of 1, not {grid.shape}")
+    tp = grid.model if grid.shape[1] > 1 else None
+    out, start = {}, time.perf_counter()
+    if rank == 0:
+        before, model, out["reference"] = _windows_1b(rank, device, None)
+        want = {k: p.detach().cpu().clone() for k, p in trainable_parameters(model).items()}
+        del model
+        free_device_memory()
+    D.barrier("tp_reference_done")
+    seconds = {"reference": time.perf_counter() - start}
+    _, model, result = _windows_1b(rank, device, tp)
+    trainable = trainable_parameters(model)
+    out.update(result, local_heads=trainable["gpt_neox.layers.0.attention.query_key_value.weight"].shape[0]
+               // (3 * model.cfg.head_dim), ranks_equal=equal_on_every_rank(replicated_parameters(model)))
+    full = gather_state_dict({k: p.detach() for k, p in trainable.items()}, tp)
+    if rank == 0:
+        out["params_vs_one_process"] = param_distance(
+            full, want, before, 2.02 * len(result["metrics"]) * train_config().learning_rate, device)
+    out["seconds"] = {**seconds, "sharded_and_checks": time.perf_counter() - start - seconds["reference"]}
+    return out
+
+
+def tp_worker(rank: int, world: int, device: str, root: str, mode: str) -> dict:
+    """One rank of phase tensor_parallel. MODE "tp_windows": the 1B windows
+    under TP_WINDOW_MESH (two ranks, over gloo or NCCL); "tp_pair": those,
+    then pretraining under TP_PRETRAIN_MESH, the same grid, in the same
+    processes; "tp_cl": the CL runs under TP_CL_MESH (four ranks)."""
+    if mode in ("tp_windows", "tp_pair"):
+        out = {"window": tp_windows(rank, world, device, root, TP_WINDOW_MESH)}
+        if mode == "tp_pair":
+            free_device_memory()
+            out["pretrain"] = mp_pretrain(root, world, device, TP_PRETRAIN_MESH)
+        return out
+    if mode == "tp_cl":
+        return {"cl": cl_runs(rank, device, root, "tp_cl", ["--mesh_shape", *map(str, TP_CL_MESH)], "sigterm",
+                              check_best=True)}
+    raise ValueError(mode)
+
+
+def phase_tensor_parallel(smi: str, default_accuracy, default_losses, pretrain_one: dict, root: str,
+                          device: str = "cuda") -> dict:
+    """Tensor parallelism at full width, ranks of this script on the one card
+    over gloo (MP_BACKEND, MP_DEVICE): the 1B windows on two ranks under
+    TP_WINDOW_MESH against one process (rank 0 alone, first); the CL sequence on
+    four ranks under TP_CL_MESH against cl_sequence_default's one process
+    (`default_accuracy`, `default_losses`), with the SIGTERM and the resume;
+    pretraining on two ranks under TP_PRETRAIN_MESH against phase
+    multiprocess's one process (`pretrain_one`). Reads phase multiprocess's
+    data under `root`. Then the NCCL windows, on two cards only. Returns the
+    launches of every rank and of the reference."""
+    name = "tensor_parallel"
+    start = time.perf_counter()
+    world_w, world_cl = math.prod(TP_WINDOW_MESH), math.prod(TP_CL_MESH)
+    if TP_PRETRAIN_MESH != TP_WINDOW_MESH:
+        raise ValueError("tensor_parallel: the windows and pretraining share their ranks, and so their grid")
+    ranks_w = run_ranks(root, "tp_pair", MP_BACKEND, [MP_DEVICE] * world_w)
+    reference = ranks_w[0]["window"].pop("reference")
+    window = _window_check(name, ranks_w, reference)
+    window.update(params_vs_one_process=ranks_w[0]["window"]["params_vs_one_process"],
+                  seconds_rank0=ranks_w[0]["window"]["seconds"],
+                  local_heads=[r["window"]["local_heads"] for r in ranks_w],
+                  peak_memory_gb_each_rank=[r["window"]["peak_memory_gb"] for r in ranks_w],
+                  peak_memory_gb_one_process=reference["peak_memory_gb"])
+    heads = model_config_for_preset("1b").num_attention_heads // TP_WINDOW_MESH[1]  # 4 of 256 at 1B
+    if window["local_heads"] != [heads] * world_w:
+        raise AssertionError(f"{name}: local heads {window['local_heads']}, expected {heads}")
+    free_device_memory()
+
+    pre = [r["pretrain"] for r in ranks_w]
+    parts = {"windows_and_pretrain": time.perf_counter() - start}
+    ranks_cl = run_ranks(root, "tp_cl", MP_BACKEND, [MP_DEVICE] * world_cl)
+    cl = [r["cl"] for r in ranks_cl]
+    if any(c["accuracy_matrix"] != default_accuracy for c in cl):
+        raise AssertionError(f"{name}: accuracy matrices {[c['accuracy_matrix'] for c in cl]} against one "
+                             f"process's {default_accuracy}")
+    cl_loss_err = _check_cl_runs(name, cl, default_losses)
+    if not cl[0]["best_checkpoint_equal"]:
+        raise AssertionError(f"{name}: the best checkpoint, read by rank 0 alone, differs from the gathered model")
+    parts["cl"] = time.perf_counter() - start - parts["windows_and_pretrain"]
+
+    if not all(p["ranks_equal"] for p in pre):
+        raise AssertionError(f"{name}: the ranks' replicated parameters differ after pretraining")
+    loss_err = max(abs(g - w) / abs(w) for (_, g), (_, w) in zip(pre[0]["loss"], pretrain_one["loss"]))
+    if len(pre[0]["loss"]) != 2 or loss_err > TP_PRETRAIN_LOSS_RTOL:
+        raise AssertionError(f"{name}: the pretraining loss against one process's, relative {loss_err}")
+    from mafed_tpu_torch.pretrain.trainer import PretrainConfig
+
+    want = load_task_checkpoint(os.path.join(pretrain_one["out"], "checkpoint-final", "model.safetensors"))
+    pretrain_params = param_distance(
+        load_task_checkpoint(os.path.join(pre[0]["out"], "checkpoint-final", "model.safetensors")),
+        {k: want[k] for k in pretrain_one["before"]}, pretrain_one["before"], 2.02 * PretrainConfig().learning_rate,
+        device)
+    del want
+    wall = time.perf_counter() - start
+    launches = _sum_launches([r["window"]["launches"] for r in ranks_w]
+                             + [run for c in cl for run in c["launches"].values()] + [p["launches"] for p in pre])
+    emit({"phase": name, "card": smi, "backend": ranks_w[0]["backend"], "device": MP_DEVICE,
+          "note": "ranks share one card over gloo: a check of correctness, no measure of scaling",
+          "window_1b": {"mesh": TP_WINDOW_MESH, **window},
+          "cl": {"mesh": TP_CL_MESH, "switches": MP_CL_SWITCHES, "accuracy_matrix": cl[0]["accuracy_matrix"],
+                 "one_process_accuracy_matrix": default_accuracy, "bwt": cl[0]["bwt"],
+                 "best_checkpoint_bit_equal": True, "resumed_bit_equal": True,
+                 "sigterm": {"to_rank": 1, "after_update": CL_INTERRUPT_AFTER, "bundle": cl[0]["bundle"],
+                             "updates_each_rank": [c["stopped_updates_here"] for c in cl]},
+                 "images_primed_each_rank": [c["images_primed"] for c in cl],
+                 "teacher_states_primed_each_rank": [c["teacher_cache"][0]["primed"] for c in cl],
+                 "steps": cl[0]["steps"], "losses": cl[0]["losses"], "one_process_losses": default_losses,
+                 "loss_rel_err_vs_one_process": cl_loss_err, "loss_rtol": MP_METRIC_RTOL,
+                 "seconds_each_rank": [c["seconds"] for c in cl], "stage_seconds_rank0": cl[0]["stage_seconds"]},
+          "pretrain": {"mesh": TP_PRETRAIN_MESH, "global_batch": MP_PRETRAIN_GLOBAL, "updates": 2,
+                       "loss_ranks": pre[0]["loss"], "loss_one_process": pretrain_one["loss"],
+                       "loss_rel_err": loss_err, "loss_rtol": TP_PRETRAIN_LOSS_RTOL,
+                       "params_vs_one_process": pretrain_params,
+                       "seconds_ranks": [p["seconds"] for p in pre], "seconds_one_process": pretrain_one["seconds"],
+                       "peak_memory_gb_each_rank": [p["peak_memory_gb"] for p in pre]},
+          "seconds": wall, "seconds_parts": parts, "launches": launches})
+    if torch.cuda.device_count() >= world_w:
+        nccl = run_ranks(root, "tp_windows", "nccl", ["cuda"] * world_w)
+        emit({"phase": "tensor_parallel_nccl", "run": True, "cards": torch.cuda.device_count(),
+              "window": _window_check("tensor_parallel_nccl", nccl, reference)})
+        launches = _sum_launches([launches] + [r["window"]["launches"] for r in nccl])
+    else:
+        emit({"phase": "tensor_parallel_nccl", "run": False, "cards": torch.cuda.device_count()})
+    return _sum_launches([launches, reference["launches"]])
 
 
 def free_device_memory() -> None:
@@ -2418,8 +2718,12 @@ def main() -> int:
     by_path["cl_resume"] = phase_cl_resume(smi, default)
     free_device_memory()
     with tempfile.TemporaryDirectory(prefix="multiprocess_") as root:
-        by_path["multiprocess"] = phase_multiprocess(smi, default["result"]["accuracy_matrix"], default["losses"],
-                                                     root)
+        by_path["multiprocess"], pretrain_one = phase_multiprocess(
+            smi, default["result"]["accuracy_matrix"], default["losses"], root)
+        free_device_memory()
+        by_path["tensor_parallel"] = phase_tensor_parallel(
+            smi, default["result"]["accuracy_matrix"], default["losses"], pretrain_one, root)
+        del pretrain_one
     free_device_memory()
     by_path["profile"] = phase_profile(smi)
     # one entry per instantiation: times at its head_dim's CE shape (410M: 64, 1B: 256)
@@ -2431,7 +2735,9 @@ def main() -> int:
          "bound_ms": timing[d]["bound_ms"][name], "bound_by": timing[d]["bound_by"][name],
          "library_ms": timing[d]["library_ms"][name], "library_covers": LIBRARY_COVERS[name],
          **({"at_pretrain_shape": {key: timing["pretrain"][key][name] for key in
-                                   ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} if d == 64 else {})}
+                                   ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} if d == 64 else {}),
+         "at_tp_rank_shape": {key: timing["tp_1b" if d == 256 else "tp_410m"][key][name] for key in
+                              ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for name, (replaces, design) in KERNELS.items() for d in build.HEAD_DIMS
     ]
     emit({"kernels": kernels})

@@ -22,7 +22,7 @@ import torch
 
 from mafed_tpu_torch.cl.base import CLStrategy
 from mafed_tpu_torch.cl.replay import choose_memory
-from mafed_tpu_torch.core.dist import process_reduce_sum
+from mafed_tpu_torch.core.dist import data_group, process_reduce_sum
 from mafed_tpu_torch.core.logging import LOGGER
 from mafed_tpu_torch.data.collate import collate_train
 from mafed_tpu_torch.data.teacher_cache import (
@@ -151,7 +151,7 @@ class FeatureDistillation(CLStrategy):
 
     def _compute_adaptive_weights(self, runner, state, loader) -> np.ndarray:
         """Dataset-level modality importances (dl_weights.py:91-146), the
-        sums taken over every rank's slice. A rank's gradients are those of
+        sums taken over the data group's slices (model peers hold the same rows). A rank's gradients are those of
         its own mean loss, ranks times the whole batch's; the factor is
         common to both modalities and cancels in the ratio."""
         lang_sums = np.zeros((len(self.layers),), np.float64)
@@ -164,7 +164,7 @@ class FeatureDistillation(CLStrategy):
             n_lang += float(nl)
             n_image += float(ni)
         k = len(self.layers)
-        sums = process_reduce_sum(*lang_sums, *image_sums, n_lang, n_image)
+        sums = process_reduce_sum(*lang_sums, *image_sums, n_lang, n_image, group=data_group())
         lang_sums, image_sums = np.asarray(sums[:k]), np.asarray(sums[k : 2 * k])
         n_lang, n_image = sums[2 * k :]
         lang_imp = lang_sums / max(n_lang, 1e-9)

@@ -2,8 +2,10 @@
 diagonal Fisher is the mean of squared gradients of batch_size x loss over
 the task's loader, accumulated online F <- new + 0.95 F_old; the penalty
 0.5 lambda sum F (theta - theta*)^2 is added to the loss inside the step.
-Over several ranks the loader is sharded, the squared gradients are those
-of each global batch (training/step.py), and the count is global."""
+Over several ranks the loader is sharded over the data group, the squared
+gradients are those of each global batch (training/step.py), and the count
+is global; under tensor parallelism the Fisher and theta* are this rank's
+shards, like the parameters."""
 
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from mafed_tpu_torch.cl.base import CLStrategy
-from mafed_tpu_torch.core.dist import process_count
+from mafed_tpu_torch.core.dist import data_size
 from mafed_tpu_torch.core.logging import LOGGER
 from mafed_tpu_torch.training.train_state import trainable_parameters
 
@@ -52,7 +54,7 @@ class EWC(CLStrategy):
         total = 0
         for batch in runner.device_batches(loader):
             runner.fisher_step(state.model, batch, importances)
-            total += int(batch["input_ids"].shape[0]) * process_count()  # the ranks' batches are equal
+            total += int(batch["input_ids"].shape[0]) * data_size()  # the data group's batches are equal
         importances = {k: v / max(total, 1) for k, v in importances.items()}
         # stored as float32 or bfloat16; the penalty upcasts to float32
         store = torch.bfloat16 if self.config.ewc_state_dtype == "bfloat16" else torch.float32

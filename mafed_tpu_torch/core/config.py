@@ -125,10 +125,10 @@ class TrainConfig:
     flags of mafed_tpu's TrainConfig (reference mafed/train.py:304-478), so a
     config written for one package reads the same in the other.
 
-    Some settings select features the port does not have yet; the trainer
-    raises NotImplementedError on them rather than running something else
-    (trainer/continual.check_supported): a mesh with a model axis, or more
-    than one device a rank.
+    `mesh_shape` [D, M] is a (data, model) grid of D x M ranks, one device
+    each (core/mesh.py); one that does not multiply to the number of ranks,
+    or whose M does not divide the model, raises ValueError
+    (trainer/continual.check_supported, the runner).
     """
 
     # Required-ish paths
@@ -200,7 +200,7 @@ class TrainConfig:
     question_task_ids: str = ""
     val_num_workers: int = 4
     valid_steps: int = 75
-    # Device layout (the JAX package's mesh; the port runs its data axis, one rank a device)
+    # Device layout: the (data, model) mesh of the ranks, one device each (core/mesh.py)
     mesh_shape: list = field(default_factory=lambda: [-1, 1])
     mesh_axis_names: list = field(default_factory=lambda: ["data", "model"])
     distributed_init: bool = False

@@ -2,10 +2,11 @@
 
 from __future__ import annotations
 
-import math
-from typing import Sequence, Union
+from typing import Sequence, Tuple, Union
 
 import torch
+
+from mafed_tpu_torch.core.mesh import check_divides, resolve_mesh_shape
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
@@ -24,15 +25,12 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     return device
 
 
-def check_data_parallel(mesh_shape: Sequence[int], world: int) -> None:
-    """Raise NotImplementedError for a layout the port does not run: it is
-    data parallel, one device per rank, so the JAX package's (data, model)
-    mesh must have a model axis of 1 and a data axis of -1 (inferred) or the
-    number of ranks."""
-    dims = list(mesh_shape or (-1, 1))
-    data, model = dims[0], math.prod(dims[1:])
-    if model != 1 or data not in (-1, world):
-        raise NotImplementedError(
-            f"mesh_shape {tuple(dims)} over {world} rank(s): the port runs data parallel with one device per "
-            f"rank (mesh_shape [-1, 1] or [{world}, 1]); a model axis, or more than one device a rank, is not "
-            "ported to mafed_tpu_torch yet (ROADMAP queue 1 item 1: tensor parallel)")
+def check_layout(mesh_shape: Sequence[int], world: int, model_cfg=None) -> Tuple[int, int]:
+    """(D, M) of a (data, model) mesh over `world` ranks, one device a rank
+    (core/mesh.py). Raises ValueError for a grid that does not multiply to
+    `world`, or whose model axis does not divide `model_cfg`'s heads,
+    intermediate size, hidden size or vocabulary."""
+    data, model = resolve_mesh_shape(mesh_shape, world)
+    if model_cfg is not None:
+        check_divides(model, model_cfg)
+    return data, model

@@ -14,11 +14,19 @@ switches backend when a launch fails. The host scalars (metric sums, the
 preemption vote, equality checks) go over a gloo group of their own, so
 that under NCCL they never wait for the card. A single process touches
 nothing: every collective here is the identity on one rank.
+
+Tensor parallelism (core/mesh.py) lays the ranks out as a (data, model)
+grid; `make_mesh` installs its groups here (`set_layout`). Each collective
+takes a `group`: None is every rank, `data_group()` the ranks that hold the
+same shards and split the rows, `model_group()` the ranks that split the
+weights and see the same rows. Without a mesh the layout is 1-D: the data
+group is every rank and the model group this rank alone.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
@@ -28,6 +36,30 @@ from mafed_tpu_torch.core.logging import LOGGER
 
 _LAUNCH_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 _HOST_GROUP = None  # the gloo group of the host collectives when the default group is NCCL
+_LAYOUT = None  # (data group, model group) of the mesh core/mesh.make_mesh built, None: 1-D
+
+
+@dataclass(frozen=True)
+class Group:
+    """Ranks that run collectives together: their global ranks in order,
+    this rank's place among them, the torch process group (None: the
+    default group of every rank) and the gloo group of its host values
+    (None: `host_group()`). Copying a model that holds one keeps it."""
+
+    ranks: Tuple[int, ...]
+    index: int
+    group: Any = None
+    host: Any = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def __copy__(self) -> "Group":
+        return self
+
+    def __deepcopy__(self, memo) -> "Group":
+        return self
 
 
 def _launched_world() -> int:
@@ -90,6 +122,44 @@ def is_main_process() -> bool:
     return process_index() == 0
 
 
+def world_group() -> Group:
+    return Group(tuple(range(process_count())), process_index())
+
+
+def set_layout(data: Optional[Group], model: Optional[Group]) -> None:
+    """Install the groups of a (data, model) mesh (core/mesh.make_mesh);
+    None, None goes back to the 1-D layout."""
+    global _LAYOUT
+    _LAYOUT = None if data is None else (data, model)
+
+
+def data_group() -> Group:
+    """The ranks that hold this rank's shards: they split the rows of a
+    global batch and average their gradients."""
+    return _LAYOUT[0] if _LAYOUT is not None else world_group()
+
+
+def model_group() -> Group:
+    """The ranks that split the weights with this one and see its rows."""
+    return _LAYOUT[1] if _LAYOUT is not None else Group((process_index(),), 0)
+
+
+def data_index() -> int:
+    return data_group().index
+
+
+def data_size() -> int:
+    return data_group().size
+
+
+def model_index() -> int:
+    return model_group().index
+
+
+def model_size() -> int:
+    return model_group().size
+
+
 def barrier(name: str) -> None:
     """Wait until every rank reaches the barrier `name` (a no-op on one)."""
     if process_count() > 1:
@@ -108,24 +178,40 @@ def host_group():
     return _HOST_GROUP
 
 
-def process_reduce_sum(*values: float) -> Tuple[float, ...]:
-    """Sum host scalars over the ranks in float64 (the metric states of the
-    reference's all_reduce, eval_utils.py:135-138); the values themselves on
-    one rank."""
-    if process_count() == 1:
+def _size(group: Optional[Group]) -> int:
+    return process_count() if group is None else group.size
+
+
+def _torch_group(group: Optional[Group]):
+    return None if group is None else group.group
+
+
+def _host(group: Optional[Group]):
+    """The gloo group of `group`'s host values."""
+    if group is None or group.group is None:
+        return host_group()
+    return group.host
+
+
+def process_reduce_sum(*values: float, group: Optional[Group] = None) -> Tuple[float, ...]:
+    """Sum host scalars over the ranks of `group` (every rank by default)
+    in float64 (the metric states of the reference's all_reduce,
+    eval_utils.py:135-138); the values themselves on one rank."""
+    if _size(group) == 1:
         return values
     t = torch.tensor(values, dtype=torch.float64)
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=host_group())
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=_host(group))
     return tuple(t.tolist())
 
 
-def same_on_every_rank(obj: Any) -> bool:
-    """Whether every rank holds an equal `obj` (picklable)."""
-    world = process_count()
-    if world == 1:
+def same_on_every_rank(obj: Any, group: Optional[Group] = None) -> bool:
+    """Whether every rank of `group` (every rank by default) holds an equal
+    `obj` (picklable)."""
+    size = _size(group)
+    if size == 1:
         return True
-    gathered: List[Any] = [None] * world
-    dist.all_gather_object(gathered, obj, group=host_group())
+    gathered: List[Any] = [None] * size
+    dist.all_gather_object(gathered, obj, group=_host(group))
     return all(g == gathered[0] for g in gathered)
 
 
@@ -145,32 +231,39 @@ def _coalesced(tensors: Iterable[torch.Tensor], collective: Callable[[torch.Tens
             offset += n
 
 
-def all_reduce_sum_(tensors: Iterable[torch.Tensor]) -> None:
-    """Sum `tensors` over the ranks in place, one all-reduce per dtype."""
-    if process_count() > 1:
-        _coalesced(tensors, lambda flat: dist.all_reduce(flat, op=dist.ReduceOp.SUM))
+def all_reduce_sum_(tensors: Iterable[torch.Tensor], group: Optional[Group] = None) -> None:
+    """Sum `tensors` over the ranks of `group` (every rank by default) in
+    place, one all-reduce per dtype."""
+    if _size(group) > 1:
+        _coalesced(tensors, lambda flat: dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=_torch_group(group)))
 
 
-def all_reduce_mean_(tensors: Iterable[torch.Tensor]) -> None:
-    """Average `tensors` over the ranks in place, one all-reduce per dtype:
-    the sum, then a division by the number of ranks."""
-    world = process_count()
-    if world > 1:
+def all_reduce_mean_(tensors: Iterable[torch.Tensor], group: Optional[Group] = None) -> None:
+    """Average `tensors` over the ranks of `group` (every rank by default)
+    in place, one all-reduce per dtype: the sum, then a division by the
+    number of ranks."""
+    size = _size(group)
+    if size > 1:
         def mean(flat: torch.Tensor) -> None:
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-            flat.div_(world)
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=_torch_group(group))
+            flat.div_(size)
 
         _coalesced(tensors, mean)
 
 
-def broadcast_from_main_(tensors: Iterable[torch.Tensor]) -> None:
-    """Overwrite `tensors` on every rank with rank 0's, one broadcast per dtype."""
-    if process_count() > 1:
-        _coalesced(tensors, lambda flat: dist.broadcast(flat, src=0))
+def broadcast_from_main_(tensors: Iterable[torch.Tensor], group: Optional[Group] = None) -> None:
+    """Overwrite `tensors` on every rank of `group` (every rank by default)
+    with those of its first rank, one broadcast per dtype."""
+    if _size(group) > 1:
+        src = 0 if group is None else group.ranks[0]
+        _coalesced(tensors, lambda flat: dist.broadcast(flat, src=src, group=_torch_group(group)))
 
 
 def broadcast_model_(model: torch.nn.Module) -> None:
-    """Give every rank rank 0's parameters and buffers of `model`."""
-    if process_count() > 1:
+    """Give every rank the parameters and buffers of `model` that the first
+    rank of its data group holds: under tensor parallelism each shard goes
+    to the ranks that hold the same shard."""
+    group = data_group()
+    if group.size > 1:
         with torch.no_grad():
-            broadcast_from_main_([t for t in model.state_dict().values() if t.is_floating_point()])
+            broadcast_from_main_([t for t in model.state_dict().values() if t.is_floating_point()], group)

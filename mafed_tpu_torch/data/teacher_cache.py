@@ -18,7 +18,10 @@ disk, one [n_states, seq, hidden] file per example under base_dir/gen{g}/
 (the port's bf16-bits files, data/diskcache.py), with only the live
 teacher's generation kept. The policy between them is cl/distillation.py's.
 Several ranks prime one shared directory together, each the examples it
-owns (`shard_owner`), and wait for each other before any reads it.
+owns (`shard_owner`), and wait for each other before any reads it. A
+tensor-parallel teacher is gathered first, as the JAX package localizes
+it (mafed_tpu/data/teacher_cache.py:345-347): each rank then computes its
+examples alone, with no collective in its forwards, on a full copy.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from mafed_tpu_torch.data.images import make_normalizer, prep_pixels
 from mafed_tpu_torch.data.prefetch import to_device
 from mafed_tpu_torch.data.vision_table import gather_rows
 from mafed_tpu_torch.data.vqa_dataset import question_id_of
+from mafed_tpu_torch.evaluation.validate import gather_to_replicated
 from mafed_tpu_torch.models import vl_pythia
 
 
@@ -185,7 +189,9 @@ def prime_teacher_cache(cache: TeacherStateCache, dataset, teacher, collate, dee
     package pads the last batch to its compiled size; here it runs short.
     The cache is stamped with the teacher first. Over several ranks, each
     computes the examples it owns, then waits for the others. Returns the
-    number of examples this rank computed (0 on a warm cache)."""
+    number of examples this rank computed (0 on a warm cache). A
+    tensor-parallel teacher is gathered first (every rank calls this)."""
+    teacher = gather_to_replicated(teacher)
     set_fingerprint_coordinated(cache, teacher_fingerprint(teacher))
 
     todo: List[int] = []

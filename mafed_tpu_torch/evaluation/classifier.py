@@ -4,7 +4,8 @@ mafed_tpu/evaluation/classifier.py).
 The reference's classifier-head metrics (mafed/utils/eval_utils.py:29-68,
 107-158): the soft score of the argmax answer and a streaming accuracy, on
 torch tensors on their own device. `all_reduce_metrics` sums the metric
-states over the ranks (core/dist.py).
+states over the ranks that hold different rows (core/dist.py): the data
+group of a (data, model) mesh, whose model peers see the same rows.
 """
 
 from __future__ import annotations
@@ -13,8 +14,8 @@ from typing import Tuple
 
 import torch
 
-from mafed_tpu_torch.core.device import check_data_parallel
-from mafed_tpu_torch.core.dist import process_count, process_reduce_sum
+from mafed_tpu_torch.core.dist import data_group, data_size, model_size, process_count, process_reduce_sum
+from mafed_tpu_torch.core.mesh import resolve_mesh_shape
 
 
 def compute_score_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -45,7 +46,15 @@ class VQAAccuracy:
 
 def all_reduce_metrics(n_ex: float, loss_sum: float, score_sum: float,
                        mesh_shape=None) -> Tuple[float, float, float]:
-    """Sum each rank's metric states over the ranks (eval_utils.py:135-138):
-    the identity on one rank. A `mesh_shape` the port does not run raises."""
-    check_data_parallel(mesh_shape, process_count())
-    return process_reduce_sum(n_ex, loss_sum, score_sum)
+    """Sum each rank's metric states over the ranks (eval_utils.py:135-138)
+    of its data group in the run's layout, so that model peers, which score
+    the same rows, count them once: the identity on one rank. A
+    `mesh_shape` is only checked against that layout: a grid that does not
+    multiply to the number of ranks, or is not the one the run built
+    (core/mesh.make_mesh), raises ValueError."""
+    if mesh_shape is not None:
+        grid = resolve_mesh_shape(mesh_shape, process_count())
+        if grid != (data_size(), model_size()):
+            raise ValueError(f"mesh_shape {tuple(mesh_shape)} is a {grid[0]} x {grid[1]} grid, but the run's layout "
+                             f"is {data_size()} x {model_size()}")
+    return process_reduce_sum(n_ex, loss_sum, score_sum, group=data_group())

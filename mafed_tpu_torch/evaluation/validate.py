@@ -11,6 +11,14 @@ tensor; a batch of device vision-table rows ("patch_idx") goes through the
 the card. Over several ranks each scores its slice of the examples (the
 loader's shard) and the metric states are summed, so every rank returns the
 score of the whole set; the per-question results stay the rank's own.
+
+A tensor-parallel model (core/mesh.py) is gathered first
+(`gather_to_replicated`, every rank joins), and each rank decodes its rows
+on the full copy: the val loaders split the rows over every rank, so the
+sum over the ranks counts each row once. The JAX package's
+`localize_params`, which re-places a global tree on one process's devices,
+has no counterpart: a rank drives one device, and the gathered copy is
+already on it.
 """
 
 from __future__ import annotations
@@ -24,12 +32,31 @@ import numpy as np
 import torch
 
 from mafed_tpu_torch.core.dist import process_reduce_sum
+from mafed_tpu_torch.core.mesh import gather_state_dict
 from mafed_tpu_torch.data.prefetch import as_tensor
 from mafed_tpu_torch.evaluation.vqa_metrics import VQAGenerativeAccuracy, normalize_answer, vqa_v2_score
 
 LOGGER = logging.getLogger(__name__)
 
 _DECODE_KEYS = ("input_ids", "attention_mask", "pixels", "patches", "patch_idx")
+
+
+def gather_to_replicated(model):
+    """A full copy of a tensor-parallel VLPythia, or `model` itself when it
+    is not split. Collective: every rank of the model group calls it
+    together. The copy is a new module of the full shapes and no gradient;
+    its replicated tensors and its frozen tower are `model`'s own (shared,
+    not copied), its split ones gathered."""
+    tp = getattr(model, "tp", None)
+    if tp is None:
+        return model
+    own = {k: v for k, v in model.state_dict().items() if not k.startswith("vision_encoder.")}
+    full = type(model)(model.cfg, device="meta")
+    full.vision_encoder = model.vision_encoder
+    missing, unexpected = full.load_state_dict(gather_state_dict(own, tp), strict=False, assign=True)
+    if unexpected or any(not k.startswith("vision_encoder.") for k in missing):
+        raise RuntimeError(f"gathered state_dict: missing {missing}, unexpected {unexpected}")
+    return full.requires_grad_(False)
 
 
 def _pad_batch(batch: Dict, batch_size: int) -> Tuple[Dict, int]:
@@ -63,7 +90,9 @@ def validate_vqa(
 
     The decode of batch i+1 is enqueued on the device before batch i's tokens
     are copied to the host and scored, so the tokenizer and the metric run
-    while the card decodes."""
+    while the card decodes. A tensor-parallel `model` is gathered first
+    (every rank calls this together)."""
+    model = gather_to_replicated(model)
     start = time.time()
     results: Dict = {}
     metric = VQAGenerativeAccuracy()

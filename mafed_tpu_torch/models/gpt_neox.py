@@ -15,6 +15,17 @@ With a `KVCache` (greedy decode) the prefill (empty cache) attends over its
 own positions through the flash kernel, causal and key-padded; later calls
 (single-token steps) attend over the whole buffer on the plain masked path,
 the counterpart of the JAX package's `xla_attention`.
+
+Under tensor parallelism (models/tensor_parallel.py) a layer holds its
+rank's heads and its slice of the MLP (`tp`, the model group): the LN
+outputs enter the column-parallel products through
+`copy_to_model_group`; the parallel residual adds the rank's two
+row-parallel partial products (attention out, MLP down) and sums them over
+the group once, then adds both biases (one reduction a layer in the
+forward, as EleutherAI's GPT-NeoX does; without the parallel residual each
+product is summed before its bias, two). The flash kernels run on the
+rank's heads. The KV-cache decode runs on a
+gathered full copy (evaluation/validate.gather_to_replicated).
 """
 
 from __future__ import annotations
@@ -29,7 +40,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from mafed_tpu_torch.core.config import ModelConfig
+from mafed_tpu_torch.core.dist import Group
 from mafed_tpu_torch.kernels.attention import REMAT_STASH, dot_product_attention
+from mafed_tpu_torch.models.tensor_parallel import (
+    copy_to_model_group, reduce_from_model_group, vocab_parallel_embedding,
+)
 
 
 @dataclass
@@ -128,16 +143,21 @@ class RematPolicy:
         return _stashing(stash, replay=False), _stashing(stash, replay=True)
 
 
-def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, name: Optional[str] = None) -> torch.Tensor:
+def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, name: Optional[str] = None,
+          reduce: Optional[Group] = None, bias: bool = True) -> torch.Tensor:
     """x @ W^T + b with the parameters cast to the compute dtype; `name`
-    tags the product for a RematPolicy."""
+    tags the product for a RematPolicy. With `reduce` (a row-parallel
+    product's model group), the partial products are summed over it before
+    the bias is added; a RematPolicy keeps the rank's partial product.
+    bias=False leaves the bias to the caller."""
     w_t = layer.weight.to(dtype).t()
     stash = REMAT_STASH.get() if name is not None else None
     if stash is not None and name in stash.keep:
         out = _KeptProduct.apply(x, w_t, stash, name)
     else:
         out = x @ w_t
-    if layer.bias is not None:
+    out = reduce_from_model_group(out, reduce)
+    if bias and layer.bias is not None:
         out = out + layer.bias.to(dtype)
     return out
 
@@ -193,6 +213,8 @@ class GPTNeoXMLP(nn.Module):
 
 
 class GPTNeoXLayer(nn.Module):
+    tp: Optional[Group] = None  # the model group under tensor parallelism
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.cfg = cfg
@@ -205,11 +227,13 @@ class GPTNeoXLayer(nn.Module):
     def forward(self, h, cos, sin, key_mask: Optional[torch.Tensor], dtype: torch.dtype, kv=None, past: int = 0):
         """kv: this layer's (k, v) cache buffers; the new positions are written
         at `past`. key_mask then spans the whole buffer."""
-        cfg = self.cfg
-        batch, t, hidden = h.shape
-        n_heads, head_dim = cfg.num_attention_heads, cfg.head_dim
-        qkv = dense(layer_norm(h, self.input_layernorm), self.attention.query_key_value, dtype, "qkv")
-        # HF fused layout: [..., heads, 3 * head_dim]
+        cfg, tp = self.cfg, self.tp
+        batch, t, _ = h.shape
+        head_dim = cfg.head_dim
+        x = copy_to_model_group(layer_norm(h, self.input_layernorm), tp)
+        qkv = dense(x, self.attention.query_key_value, dtype, "qkv")
+        # HF fused layout: [..., heads, 3 * head_dim]; the rank's heads under tensor parallelism
+        n_heads = qkv.shape[-1] // (3 * head_dim)
         qkv = qkv.view(batch, t, n_heads, 3 * head_dim)
         q = qkv[..., :head_dim].transpose(1, 2)
         k = qkv[..., head_dim : 2 * head_dim].transpose(1, 2)
@@ -225,18 +249,28 @@ class GPTNeoXLayer(nn.Module):
                 attn = dot_product_attention(q, k, v, key_padding_mask=key_mask[:, :t], causal=True)
             else:
                 attn = dot_product_attention(q, ck, cv, key_padding_mask=key_mask, causal=True, causal_offset=past)
-        attn = attn.transpose(1, 2).reshape(batch, t, hidden)
-        attn = dense(attn, self.attention.dense, dtype, "attn_out")
+        attn = attn.transpose(1, 2).reshape(batch, t, n_heads * head_dim)
+        # the parallel residual under tensor parallelism sums its two row-parallel
+        # partial products first and reduces them once, then adds both biases
+        once = tp is not None and cfg.use_parallel_residual
+        attn = dense(attn, self.attention.dense, dtype, "attn_out", reduce=None if once else tp, bias=not once)
         if not cfg.use_parallel_residual:
             h = h + attn
-        up = dense(layer_norm(h, self.post_attention_layernorm), self.mlp.dense_h_to_4h, dtype, "mlp_up")
-        down = dense(F.gelu(up), self.mlp.dense_4h_to_h, dtype, "mlp_down")
+        x = copy_to_model_group(layer_norm(h, self.post_attention_layernorm), tp)
+        up = dense(x, self.mlp.dense_h_to_4h, dtype, "mlp_up")
+        down = dense(F.gelu(up), self.mlp.dense_4h_to_h, dtype, "mlp_down", reduce=None if once else tp,
+                     bias=not once)
+        if once:
+            out = reduce_from_model_group(attn + down, tp)
+            return h + (out + self.attention.dense.bias.to(dtype) + self.mlp.dense_4h_to_h.bias.to(dtype))
         if cfg.use_parallel_residual:
             return h + attn + down
         return h + down
 
 
 class GPTNeoXModel(nn.Module):
+    tp: Optional[Group] = None  # the model group under tensor parallelism
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.cfg = cfg
@@ -300,6 +334,8 @@ class GPTNeoXModel(nn.Module):
         truncated = num_layers is not None and num_layers < cfg.num_hidden_layers
         if cache is not None and layer_perturbation is not None:
             raise ValueError("layer_perturbation is for the no-cache path")
+        if cache is not None and self.tp is not None:
+            raise ValueError("the KV-cache decode runs on a gathered copy, not on a tensor-parallel shard")
         if truncated:
             if num_layers < 0:
                 raise ValueError(f"num_layers must be >= 0, got {num_layers}")
@@ -335,11 +371,15 @@ class GPTNeoXModel(nn.Module):
         return out
 
 
-def logits(embed_out: nn.Linear, hidden: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """embed_out projection (untied)."""
-    return hidden.to(dtype) @ embed_out.weight.to(dtype).t()
+def logits(embed_out: nn.Linear, hidden: torch.Tensor, dtype: torch.dtype = torch.bfloat16,
+           tp: Optional[Group] = None) -> torch.Tensor:
+    """embed_out projection (untied); under tensor parallelism (`tp`), the
+    logits of this rank's rows of the vocabulary."""
+    return copy_to_model_group(hidden.to(dtype), tp) @ embed_out.weight.to(dtype).t()
 
 
 def embed(model: GPTNeoXModel, input_ids: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     # gather, then cast: the same values as casting the table first
+    if model.tp is not None:
+        return vocab_parallel_embedding(input_ids, model.embed_in.weight, model.tp).to(dtype)
     return F.embedding(input_ids.long(), model.embed_in.weight).to(dtype)

@@ -15,6 +15,11 @@ decoder (counterpart of mafed_tpu/models/vl_pythia.py).
 The tower is frozen in every reference config: `init_model` holds it in
 bfloat16 (the JAX package's `vision_dtype`) with requires_grad off, and the
 trainer keeps it out of the trainable set.
+
+Under tensor parallelism (`models/tensor_parallel.shard_model_`) the
+projector runs column -> row over the model group, the embeddings and
+`embed_out` split the vocabulary, and the loss is the vocab-parallel CE;
+`forward` then returns this rank's slice of the logits.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ from torch import nn
 from mafed_tpu_torch.constants import IGNORE_INDEX
 from mafed_tpu_torch.core.config import ModelConfig
 from mafed_tpu_torch.core.device import resolve_device
+from mafed_tpu_torch.core.dist import Group
 from mafed_tpu_torch.models import clip_vit, eva02, gpt_neox
+from mafed_tpu_torch.models.tensor_parallel import copy_to_model_group, vocab_parallel_cross_entropy
 
 TOWERS = {"eva02": (eva02.EVA02, eva02.init_weights), "clip": (clip_vit.CLIPVisionModel, clip_vit.init_weights)}
 
@@ -37,6 +44,8 @@ class VLPythia(nn.Module):
     """Parameters under the reference's torch names: `gpt_neox.*`,
     `embed_out.weight`, `vision_embed_tokens.{0,2}.*`, `vision_encoder.*`
     (timm's names for EVA-02, HF's `vision_model.*` for CLIP)."""
+
+    tp: Optional[Group] = None  # the model group under tensor parallelism
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -91,20 +100,24 @@ def masked_mean(vector: torch.Tensor, mask: torch.Tensor, dim: int) -> torch.Ten
     return value_sum / torch.clamp(value_count, min=1e-13)
 
 
-def average_task_loss(labels: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
-    """Per-sample length-normalised CE, then batch mean."""
+def average_task_loss(labels: torch.Tensor, logits: torch.Tensor, tp: Optional[Group] = None) -> torch.Tensor:
+    """Per-sample length-normalised CE, then batch mean; under tensor
+    parallelism (`tp`), over logits whose vocabulary is split."""
     mask = labels != IGNORE_INDEX
     safe_labels = torch.where(mask, labels, 0).long()
-    logprobs = F.log_softmax(logits.float(), dim=-1)
-    tok_loss = -torch.gather(logprobs, -1, safe_labels[..., None])[..., 0]
+    if tp is not None:
+        tok_loss = vocab_parallel_cross_entropy(logits, safe_labels, tp)
+    else:
+        logprobs = F.log_softmax(logits.float(), dim=-1)
+        tok_loss = -torch.gather(logprobs, -1, safe_labels[..., None])[..., 0]
     return masked_mean(tok_loss, mask, dim=-1).mean()
 
 
-def compute_loss(labels: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def compute_loss(labels: torch.Tensor, logits: torch.Tensor, tp: Optional[Group] = None) -> torch.Tensor:
     """Slice logits to the label length, shift, average."""
     label_len = labels.shape[1]
     logits = logits[:, -label_len:, :]
-    return average_task_loss(labels[:, 1:], logits[:, :-1, :])
+    return average_task_loss(labels[:, 1:], logits[:, :-1, :], tp)
 
 
 class VLPythiaOutput(NamedTuple):
@@ -137,8 +150,8 @@ def n_vision_tokens(cfg: ModelConfig) -> int:
 
 def project_vision(model: VLPythia, patch_embeddings: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     fc1, fc2 = model.vision_embed_tokens[0], model.vision_embed_tokens[2]
-    x = gpt_neox.dense(patch_embeddings.to(dtype), fc1, dtype)
-    return gpt_neox.dense(F.gelu(x), fc2, dtype)
+    x = gpt_neox.dense(copy_to_model_group(patch_embeddings.to(dtype), model.tp), fc1, dtype)
+    return gpt_neox.dense(F.gelu(x), fc2, dtype, reduce=model.tp)
 
 
 def build_inputs(model: VLPythia, input_ids, attention_mask, patch_embeddings=None, *, pixel_values=None, dtype=torch.bfloat16):
@@ -218,6 +231,6 @@ def forward(
         if label_tail is not None and 0 < label_tail < labels.shape[1]:
             labels = labels[:, -label_tail:]
         hidden = hidden[:, -labels.shape[1]:]
-    lm_logits = gpt_neox.logits(model.embed_out, hidden, dtype=dtype)
-    loss = compute_loss(labels, lm_logits) if labels is not None else None
+    lm_logits = gpt_neox.logits(model.embed_out, hidden, dtype=dtype, tp=model.tp)
+    loss = compute_loss(labels, lm_logits, model.tp) if labels is not None else None
     return VLPythiaOutput(loss=loss, logits=lm_logits, hidden_states=dec.get("hidden_states"))

@@ -17,7 +17,11 @@ One update applies, in order:
 `MultiSteps` wraps an `Optimizer` as optax.MultiSteps does: gradients
 accumulate for k mini-steps and the k-th applies one update.
 
-Plain tensor code; parameters and moments are updated in place.
+Plain tensor code; parameters and moments are updated in place. Under
+tensor parallelism every rank updates its shards (the update is
+element-wise), and the global norm sums the squares of the split tensors
+over the model group the optimizer was built with (`build_optimizer(...,
+tp=model.tp)`), counting the replicated ones once.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from mafed_tpu_torch.core.config import TrainConfig
+from mafed_tpu_torch.core.dist import Group, all_reduce_sum_
+from mafed_tpu_torch.core.mesh import param_partition_spec
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -56,15 +62,29 @@ class OptState(NamedTuple):
     schedule: object  # ScheduleState, or the step count of a schedule callable
 
 
-def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+def global_norm(tensors: Dict[str, torch.Tensor], tp: Optional[Group] = None) -> torch.Tensor:
+    """The L2 norm of name-keyed `tensors` together. Under tensor
+    parallelism (`tp`, the model group that splits them), the squares of
+    the split tensors are summed over the group and the replicated ones,
+    equal on every rank, counted once."""
+    if tp is None or tp.size == 1:
+        return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors.values()))
+    device = next(iter(tensors.values())).device
+    sharded, replicated = torch.zeros((), device=device), torch.zeros((), device=device)
+    for k, t in tensors.items():
+        if param_partition_spec(k) is None:
+            replicated = replicated + torch.sum(t.float() ** 2)
+        else:
+            sharded = sharded + torch.sum(t.float() ** 2)
+    all_reduce_sum_([sharded], tp)
+    return torch.sqrt(sharded + replicated)
 
 
 def clip_by_global_norm_recorded(
-    grads: Dict[str, torch.Tensor], max_norm: float
+    grads: Dict[str, torch.Tensor], max_norm: float, tp: Optional[Group] = None
 ) -> Tuple[Dict[str, torch.Tensor], ClipState]:
     """optax.clip_by_global_norm semantics, with the pre-clip norm kept."""
-    gnorm = global_norm(grads.values())
+    gnorm = global_norm(grads, tp)
     scale = torch.where(gnorm > max_norm, max_norm / gnorm, torch.ones_like(gnorm))
     return {k: g * scale.to(g.dtype) for k, g in grads.items()}, ClipState(gnorm)
 
@@ -110,7 +130,7 @@ def param_group_masks(names) -> Tuple[Dict[str, bool], Dict[str, bool]]:
 
 
 class Optimizer:
-    def __init__(self, config: TrainConfig, names, schedule: Optional[Callable] = None):
+    def __init__(self, config: TrainConfig, names, schedule: Optional[Callable] = None, tp: Optional[Group] = None):
         if config.optim == "adamw":
             self.eps, self.decoupled_wd = 1e-6, True
         elif config.optim in ("adam", "adamax"):
@@ -127,6 +147,7 @@ class Optimizer:
         self.lr0 = config.learning_rate
         self.schedule = schedule
         self.top, self.decay = param_group_masks(list(names))
+        self.tp = tp
 
     def init(self, params: Dict[str, torch.Tensor]) -> OptState:
         mu = {k: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype) for k, p in params.items()}
@@ -146,7 +167,7 @@ class Optimizer:
         """Apply one update to `params` in place; returns the new state."""
         clip = state.clip
         if self.max_norm is not None:
-            grads, clip = clip_by_global_norm_recorded(grads, self.max_norm)
+            grads, clip = clip_by_global_norm_recorded(grads, self.max_norm, self.tp)
         if self.wd > 0 and not self.decoupled_wd:
             grads = {k: g + self.wd * params[k] if self.decay[k] else g for k, g in grads.items()}
         count = state.adam.count + 1
@@ -213,10 +234,12 @@ class MultiSteps:
         return MultiStepsState(0, state.gradient_step + 1, inner, state.acc_grads)
 
 
-def build_optimizer(config: TrainConfig, params: Dict[str, torch.Tensor], schedule: Optional[Callable] = None) -> Optimizer:
+def build_optimizer(config: TrainConfig, params: Dict[str, torch.Tensor], schedule: Optional[Callable] = None,
+                    tp: Optional[Group] = None) -> Optimizer:
     """The optimizer for `params` (a name -> tensor dict). `schedule`, a
     step -> lr callable such as `sched.linear_warmup_schedule`, replaces the
     triangular schedule that otherwise runs off the ScheduleState in the
     optimizer state (see set_schedule); that one starts at count 0, warmup 1,
-    so the first update has learning rate 0 until a horizon is set."""
-    return Optimizer(config, params.keys(), schedule)
+    so the first update has learning rate 0 until a horizon is set. `tp` is
+    the model group of a tensor-parallel model (its `tp`), None otherwise."""
+    return Optimizer(config, params.keys(), schedule, tp)

@@ -31,7 +31,11 @@ over the ranks of a torchrun launch (core/dist.py): the global batch is
 per_device_train_batch_size x ranks, each rank loads its slice of it, the
 steps average the gradients over the ranks, the eval loss is summed over
 them, and rank 0 writes the checkpoints, rotates them and logs, while the
-others wait.
+others wait. Under mesh_shape [D, M] (core/mesh.py) the global batch is
+still per_device_train_batch_size x ranks (the JAX package's x mesh size),
+split over the D ranks of a data group; each rank holds its shard of the
+model, and checkpoints are gathered to the whole model before rank 0 writes
+them (every rank joins) and sharded again when read.
 """
 
 from __future__ import annotations
@@ -48,15 +52,17 @@ import numpy as np
 import torch
 
 from mafed_tpu_torch.core.config import ModelConfig, TrainConfig
-from mafed_tpu_torch.core.device import check_data_parallel, resolve_device
+from mafed_tpu_torch.core.device import check_layout, resolve_device
 from mafed_tpu_torch.core.dist import (
-    barrier, broadcast_model_, is_main_process, maybe_initialize_distributed, process_count, process_index,
-    process_reduce_sum,
+    barrier, broadcast_model_, data_group, data_index, data_size, is_main_process, maybe_initialize_distributed,
+    process_count, process_reduce_sum,
 )
+from mafed_tpu_torch.core.mesh import gather_state_dict, make_mesh, shard_state_dict
 from mafed_tpu_torch.core.logging import LOGGER, MetricsLogger
 from mafed_tpu_torch.data.images import make_normalizer
 from mafed_tpu_torch.data.loader import BatchLoader
 from mafed_tpu_torch.data.prefetch import DevicePrefetcher
+from mafed_tpu_torch.models.tensor_parallel import shard_model_
 from mafed_tpu_torch.models.vl_pythia import VLPythia, init_model
 from mafed_tpu_torch.optim.optimizer import MultiSteps, build_optimizer
 from mafed_tpu_torch.optim.sched import linear_warmup_schedule
@@ -64,7 +70,8 @@ from mafed_tpu_torch.pretrain.dataset import collate_pretrain
 from mafed_tpu_torch.training.step import _ce_loss, _vision_features, make_train_step
 from mafed_tpu_torch.training.train_state import TrainState, trainable_parameters
 from mafed_tpu_torch.utils.checkpoint import (
-    atomic_json_commit, load_opt_state, load_task_checkpoint, save_opt_state, save_task_checkpoint,
+    atomic_json_commit, gather_opt_state, load_opt_state, load_task_checkpoint, save_opt_state,
+    save_task_checkpoint,
 )
 
 
@@ -91,14 +98,15 @@ class PretrainConfig:
     betas: tuple = (0.9, 0.999)
     run_name: str = "pretrain-vl-pythia"
     project_name: str = "cl-pretrain-vl-pythia"
-    # the JAX package's (data, model) mesh: the port runs its data axis, one rank a device
+    # the (data, model) mesh of the ranks, one device each (core/mesh.py)
     mesh_shape: tuple = (-1, 1)
     distributed_init: bool = False
 
 
-def check_supported(args: PretrainConfig) -> None:
-    """A mesh other than data parallel over the ranks raises."""
-    check_data_parallel(args.mesh_shape, process_count())
+def check_supported(args: PretrainConfig, model_cfg: Optional[ModelConfig] = None) -> None:
+    """A mesh that is not a grid of the ranks, or whose model axis does not
+    divide the model, raises ValueError."""
+    check_layout(args.mesh_shape, process_count(), model_cfg)
 
 
 class PretrainTrainer:
@@ -116,7 +124,9 @@ class PretrainTrainer:
         otherwise a random model from args.seed. Joins the process group of a
         multi-process launch first; every rank starts from rank 0's model."""
         maybe_initialize_distributed(args, device=device)
-        check_supported(args)
+        check_supported(args, model_cfg)
+        mesh = make_mesh(args.mesh_shape)
+        self.tp = mesh.model if mesh.shape[1] > 1 else None  # the model group under tensor parallelism
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.args = args
@@ -149,7 +159,7 @@ class PretrainTrainer:
             seed=args.seed,
             label_tail=0,  # captions supervise every position
         )
-        tx = build_optimizer(self._train_cfg, trainable_parameters(self.model), schedule)
+        tx = build_optimizer(self._train_cfg, trainable_parameters(self.model), schedule, tp=self.tp)
         self.tx = MultiSteps(tx, self.accum) if self.accum > 1 else tx
         self.step_fn = make_train_step(model_cfg, self._train_cfg, self.tx, device=self.device)
         self._normalize = make_normalizer(model_cfg.vision)
@@ -158,14 +168,15 @@ class PretrainTrainer:
 
     # -- model -------------------------------------------------------------------
     def _build_model(self, init_params: Optional[Dict[str, torch.Tensor]]) -> VLPythia:
-        """The starting model on the device: trainable decoder and projector
-        in float32, the frozen tower in bfloat16."""
+        """The starting model on the device (this rank's shard of it under
+        tensor parallelism): trainable decoder and projector in float32, the
+        frozen tower in bfloat16."""
         if init_params is None:
-            return init_model(self.model_cfg, seed=self.args.seed, device=self.device)
+            return shard_model_(init_model(self.model_cfg, seed=self.args.seed, device=self.device), self.tp)
         model = VLPythia(self.model_cfg, device=self.device)
         model.vision_encoder.to(torch.bfloat16)
         model.load_state_dict(init_params, strict=True)
-        return model
+        return shard_model_(model, self.tp)
 
     # -- checkpointing -------------------------------------------------------------
     def _ckpt_dir(self, tag) -> str:
@@ -173,15 +184,19 @@ class PretrainTrainer:
 
     def save_checkpoint(self, state: TrainState, tag, rng: np.random.Generator, epoch: int, batch_idx: int,
                         opt_steps: int, best: bool = False) -> str:
-        """Rank 0 writes the checkpoint and rotates; every rank waits for it."""
+        """Rank 0 writes the checkpoint and rotates; every rank waits for it
+        (and under tensor parallelism first joins the gather of the model
+        and the optimizer state)."""
         start = time.perf_counter()
         path = self._ckpt_dir(tag)
         if best:
             self.best_path = path
+        model_sd = gather_state_dict(self.model.state_dict(), self.tp)
+        opt_state = gather_opt_state(state.opt_state, self.tp)
         if self.is_main:
             os.makedirs(path, exist_ok=True)
-            save_task_checkpoint(self.model.state_dict(), os.path.join(path, "model.safetensors"))
-            counters = save_opt_state(state.opt_state, os.path.join(path, "opt_state.safetensors"))
+            save_task_checkpoint(model_sd, os.path.join(path, "model.safetensors"))
+            counters = save_opt_state(opt_state, os.path.join(path, "opt_state.safetensors"))
             meta = {"step": opt_steps, "epoch": epoch, "batch_idx": batch_idx,
                     "rng_state": rng.bit_generator.state, "opt_state": counters}
             atomic_json_commit(os.path.join(path, "trainer_state.json"), meta, default=str)
@@ -218,17 +233,20 @@ class PretrainTrainer:
         structure) and trainer_state.json of a checkpoint."""
         with open(os.path.join(path, "trainer_state.json")) as f:
             meta = json.load(f)
-        self.model.load_state_dict(load_task_checkpoint(os.path.join(path, "model.safetensors")), strict=True)
+        self.model.load_state_dict(shard_state_dict(load_task_checkpoint(os.path.join(path, "model.safetensors")),
+                                                    self.tp), strict=True)
         broadcast_model_(self.model)
-        opt_state = load_opt_state(state.opt_state, os.path.join(path, "opt_state.safetensors"), meta["opt_state"])
+        opt_state = load_opt_state(state.opt_state, os.path.join(path, "opt_state.safetensors"), meta["opt_state"],
+                                   self.tp)
         return TrainState(meta["step"] * self.accum, self.model, opt_state), meta
 
     # -- loaders ---------------------------------------------------------------------
     def _loader(self, dataset, global_batch: int, text_len: int, shuffle: bool, seed: int = 0) -> BatchLoader:
-        """This rank's slice of the global batches of `dataset`."""
-        return BatchLoader(dataset, batch_size=global_batch // self.world,
+        """This rank's slice of the global batches of `dataset`: the rows
+        split over the data group, the same for model peers."""
+        return BatchLoader(dataset, batch_size=global_batch // data_size(),
                            collate=partial(collate_pretrain, text_len=text_len), shuffle=shuffle, seed=seed,
-                           drop_last=True, shard_id=process_index(), num_shards=self.world)
+                           drop_last=True, shard_id=data_index(), num_shards=data_size())
 
     def _batches(self, loader):
         return DevicePrefetcher(loader, self.device)
@@ -237,8 +255,9 @@ class PretrainTrainer:
     @torch.no_grad()
     def evaluate(self, text_len: int) -> float:
         """Mean over the global eval batches of the bf16 CE loss, forward
-        only; each rank's losses of its slices are summed over the ranks (the
-        slices are equal, so this is the mean of the global batches' losses)."""
+        only; each rank's losses of its slices are summed over the data group
+        (the slices are equal, so this is the mean of the global batches'
+        losses; model peers compute the same ones)."""
         if self.eval_dataset is None:
             return float("nan")
         loader = self._loader(self.eval_dataset, self.args.per_device_eval_batch_size * self.world, text_len,
@@ -248,7 +267,8 @@ class PretrainTrainer:
         for batch in self._batches(loader):
             patches = _vision_features(self.model, batch, self._normalize, dtype)
             losses.append(float(_ce_loss(self.model, batch, patches, dtype, None, remat=False)))
-        total, n = process_reduce_sum(float(np.sum(losses)) if losses else 0.0, float(len(losses)))
+        total, n = process_reduce_sum(float(np.sum(losses)) if losses else 0.0, float(len(losses)),
+                                      group=data_group())
         return total / n if n else float("nan")
 
     # -- train ---------------------------------------------------------------------------
@@ -300,5 +320,6 @@ class PretrainTrainer:
         # always save checkpoint-final (hf.py:554-561)
         self.save_checkpoint(state, "checkpoint-final", rng, args.num_train_epochs - 1, -1, opt_steps)
         if args.load_best_model_at_end and self.best_path is not None:
-            self.model.load_state_dict(load_task_checkpoint(os.path.join(self.best_path, "model.safetensors")))
+            self.model.load_state_dict(shard_state_dict(
+                load_task_checkpoint(os.path.join(self.best_path, "model.safetensors")), self.tp))
         return state

@@ -11,7 +11,9 @@ otherwise the model is random from --seed. Runs on the CUDA device unless
 --device cpu; under `torchrun --nproc_per_node N -m
 mafed_tpu_torch.pretrain_vlpythia ...` each of the N ranks runs on its own
 card (cuda:LOCAL_RANK, or the CPU with --device cpu) at a global batch of
-per_device_train_batch_size x N. Each flag is added once: --model_max_length, a field of both
+per_device_train_batch_size x N; with --mesh_shape D M (D x M = N) the
+ranks form a (data, model) grid and split the model over each M
+(core/mesh.py). Each flag is added once: --model_max_length, a field of both
 ModelArguments and PretrainConfig, sets both (the JAX package's parser adds
 it twice and so raises before parsing).
 """

@@ -11,7 +11,10 @@ batch):
 
     torchrun --nproc_per_node N -m mafed_tpu_torch.train --config ... [--device cpu]
 
-where the default device is each rank's card, cuda:LOCAL_RANK.
+where the default device is each rank's card, cuda:LOCAL_RANK. Tensor
+parallel over a (data, model) grid of D x M ranks (core/mesh.py):
+
+    torchrun --nproc_per_node D*M -m mafed_tpu_torch.train --config ... --mesh_shape D M
 
 SIGTERM makes the run save a resume bundle at the next optimizer update and
 exit with 143; the same command with --resume_from_checkpoint

@@ -19,8 +19,11 @@ the ranks of a torchrun launch (core/dist.py), one device each: every rank
 runs this loop in step, rank 0 writes the files (provenance, metrics,
 checkpoints, results) and the others wait where they read them. Every
 branch that decides what runs next reads a value equal on every rank (the
-summed validation score, sizes). Settings that select a feature the port
-does not have raise NotImplementedError (`check_supported`).
+summed validation score, sizes). Under mesh_shape [D, M] the D x M ranks
+form a (data, model) grid (core/mesh.py): the runner holds this rank's
+shard of the model, and the parameters this loop passes around stay full.
+A grid that does not match the ranks or the model raises ValueError
+(`check_supported`, the runner).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch
 
 from mafed_tpu_torch.cl import CLMethod
 from mafed_tpu_torch.core.config import ModelConfig, TrainConfig
-from mafed_tpu_torch.core.device import check_data_parallel, resolve_device
+from mafed_tpu_torch.core.device import check_layout, resolve_device
 from mafed_tpu_torch.core.dist import barrier, is_main_process, maybe_initialize_distributed, process_count
 from mafed_tpu_torch.core.logging import LOGGER, MetricsLogger, add_log_to_file
 from mafed_tpu_torch.core.prng import seed_everything
@@ -43,6 +46,7 @@ from mafed_tpu_torch.data import vision_table as vt
 from mafed_tpu_torch.data.factory import get_val_loaders, prepare_train_dataset
 from mafed_tpu_torch.data.tokenizer import build_tokenizer
 from mafed_tpu_torch.data.vision_cache import VisionFeatureCache, prime_vision_cache
+from mafed_tpu_torch.evaluation.validate import gather_to_replicated
 from mafed_tpu_torch.models.vl_pythia import init_model, n_vision_tokens
 from mafed_tpu_torch.models.weights import load_pretrained, normalize_state_dict
 from mafed_tpu_torch.trainer.runner import TaskRunner
@@ -58,9 +62,9 @@ from mafed_tpu_torch.utils.save import save_configs
 
 
 def check_supported(config: TrainConfig) -> None:
-    """Raise on settings whose feature the port lacks, instead of running
-    something else: a mesh other than data parallel over the ranks."""
-    check_data_parallel(config.mesh_shape, process_count())
+    """Raise on settings the run cannot take, instead of running something
+    else: a (data, model) mesh that is not a grid of the ranks."""
+    check_layout(config.mesh_shape, process_count())
 
 
 class ContinualLearningTrainer:
@@ -210,10 +214,11 @@ class ContinualLearningTrainer:
     def validate_all_tasks(self, params, task_id: int, accuracy: np.ndarray) -> np.ndarray:
         start = time.time()
         self.runner.load_params(params)
+        model = gather_to_replicated(self.runner.model)  # one gather for every task's val set
         metrics = {}
         for val_task_id, val_task in enumerate(self.config.tasks):
             LOGGER.info(val_task)
-            val_log, _ = self.runner.validate(self.val_loaders[val_task])
+            val_log, _ = self.runner.validate(self.val_loaders[val_task], model)
             accuracy[val_task_id, task_id] = val_log["valid/acc"]
             for k, v in val_log.items():
                 metrics[f"validation/{val_task}/{k.split('/', 1)[1]}"] = float(v)

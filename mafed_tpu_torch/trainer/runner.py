@@ -28,6 +28,13 @@ apply to the union of the slices; rank 0's parameters are broadcast after
 init and after a bundle loads; rank 0 writes the bundles, and every rank
 waits for them.
 
+Tensor parallelism (core/mesh.py): under mesh_shape [D, M] the model is
+this rank's shard (models/tensor_parallel.py); the loaders split the rows
+over the data group, so model peers see the same batches (checked once a
+task); parameters go in full (`load_params` shards them) and come out full
+(`host_trainable` and the bundles gather them, every rank joining); each
+shard is broadcast within its data group.
+
 Profiling: with `profile_dir`, a torch.profiler trace (core/profiling.py)
 covers batches 10-20 of task 0, epoch 0, as in the JAX package.
 
@@ -40,6 +47,7 @@ resume_from_checkpoint continues from it exactly.
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import json
 import math
@@ -56,7 +64,10 @@ from mafed_tpu_torch.constants import PATIENCE_THRESHOLD
 from mafed_tpu_torch.core import preempt
 from mafed_tpu_torch.core.config import ModelConfig, TrainConfig
 from mafed_tpu_torch.core.device import resolve_device
-from mafed_tpu_torch.core.dist import barrier, broadcast_model_, is_main_process, process_count, process_index
+from mafed_tpu_torch.core.dist import (
+    barrier, broadcast_model_, data_index, data_size, is_main_process, same_on_every_rank,
+)
+from mafed_tpu_torch.core.mesh import check_divides, gather_state_dict, make_mesh, shard_state_dict
 from mafed_tpu_torch.core.logging import LOGGER, MetricsLogger
 from mafed_tpu_torch.core.profiling import Trace
 from mafed_tpu_torch.data.collate import collate_train
@@ -64,6 +75,7 @@ from mafed_tpu_torch.data.loader import BatchLoader
 from mafed_tpu_torch.data.prefetch import DevicePrefetcher, as_tensor, to_device
 from mafed_tpu_torch.evaluation.decode import make_greedy_decoder
 from mafed_tpu_torch.evaluation.validate import validate_vqa
+from mafed_tpu_torch.models.tensor_parallel import shard_model_
 from mafed_tpu_torch.models.vl_pythia import VLPythia
 from mafed_tpu_torch.optim.optimizer import MultiSteps, build_optimizer, set_schedule
 from mafed_tpu_torch.training.step import (
@@ -77,7 +89,8 @@ from mafed_tpu_torch.training.step import (
 )
 from mafed_tpu_torch.training.train_state import FROZEN_PREFIX, TrainState, trainable_parameters
 from mafed_tpu_torch.utils.checkpoint import (
-    atomic_json_commit, load_opt_state, load_task_checkpoint, save_opt_state, save_task_checkpoint,
+    atomic_json_commit, gather_opt_state, load_opt_state, load_task_checkpoint, save_opt_state,
+    save_task_checkpoint,
 )
 
 # the reference's schedule horizon: ceil(batches / accum) * 60, whatever the
@@ -110,7 +123,10 @@ class TaskRunner:
         # question + answer + eos; one length for the whole run
         self.train_text_len = _round_up(config.max_txt_len + 20, pad_m)
         self.val_text_len = _round_up(config.max_txt_len + 4, pad_m)
-        self.model = VLPythia(model_cfg, device=self.device)
+        mesh = make_mesh(config.mesh_shape)
+        check_divides(mesh.shape[1], model_cfg)
+        self.tp = mesh.model if mesh.shape[1] > 1 else None  # the model group under tensor parallelism
+        self.model = shard_model_(VLPythia(model_cfg, device=self.device), self.tp)
         self.model.vision_encoder.to(torch.bfloat16)
         self.decoder = make_greedy_decoder(
             model_cfg, eos_token_id=getattr(tokenizer, "eos_token_id", 0), device=self.device
@@ -139,12 +155,19 @@ class TaskRunner:
     # -- parameters --------------------------------------------------------------
     def load_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Copy a full state_dict (reference names, any device and float
-        dtype) into the model, in the model's dtypes."""
-        self.model.load_state_dict(params, strict=True)
+        dtype) into the model, in the model's dtypes: this rank's shards of
+        it under tensor parallelism."""
+        self.model.load_state_dict(shard_state_dict(params, self.tp), strict=True)
+
+    def full_trainable(self) -> Dict[str, torch.Tensor]:
+        """The trainable parameters of the whole model: the live tensors, or
+        under tensor parallelism their gather (every rank calls it)."""
+        return gather_state_dict({k: p.detach() for k, p in trainable_parameters(self.model).items()}, self.tp)
 
     def host_trainable(self) -> Dict[str, torch.Tensor]:
-        """A CPU copy of the trainable parameters."""
-        return {k: p.detach().to("cpu", copy=True) for k, p in trainable_parameters(self.model).items()}
+        """A CPU copy of the trainable parameters of the whole model (a
+        collective under tensor parallelism)."""
+        return {k: p.to("cpu", copy=True) for k, p in self.full_trainable().items()}
 
     def frozen_params(self) -> Dict[str, torch.Tensor]:
         """The frozen tower's entries of the state_dict (the live tensors)."""
@@ -153,8 +176,9 @@ class TaskRunner:
     # -- loaders -------------------------------------------------------------------
     def make_train_loader(self, dataset, shuffle: bool = True, seed: Optional[int] = None,
                           infinite: bool = False) -> BatchLoader:
-        """This rank's slice of the global batches of `dataset`."""
-        world = process_count()
+        """This rank's slice of the global batches of `dataset`: the rows
+        split over the data group, the same for model peers."""
+        world = data_size()
         if self.config.batch_size % world:
             raise ValueError(f"the global batch_size {self.config.batch_size} does not divide over {world} ranks")
         return BatchLoader(
@@ -166,7 +190,7 @@ class TaskRunner:
             num_workers=self.config.n_workers,
             drop_last=True,
             infinite=infinite,
-            shard_id=process_index(),
+            shard_id=data_index(),
             num_shards=world,
         )
 
@@ -233,7 +257,7 @@ class TaskRunner:
         self._sched = (warmup_steps, total_steps)
         if self.tx is None:
             self.ensure_window_policy(strategy)
-            tx = build_optimizer(self.config, trainable_parameters(self.model))
+            tx = build_optimizer(self.config, trainable_parameters(self.model), tp=self.tp)
             if accum > 1 and self.window == 1:
                 tx = MultiSteps(tx, accum)
             self.tx = tx
@@ -321,9 +345,12 @@ class TaskRunner:
                 self.model_cfg, self.config, self._distill_layer_ids, device=self.device)
         return fn(model, batch)
 
-    def validate(self, val_loader) -> Tuple[Dict, Dict]:
-        return validate_vqa(self.model, self.decoder, val_loader, self.tokenizer, self.config.val_batch_size,
-                            max_batches=self.config.val_max_batches, resolve=self.resolve_tables)
+    def validate(self, val_loader, model=None) -> Tuple[Dict, Dict]:
+        """validate_vqa on `model`, by default the runner's (gathered first
+        under tensor parallelism, every rank joining)."""
+        return validate_vqa(self.model if model is None else model, self.decoder, val_loader, self.tokenizer,
+                            self.config.val_batch_size, max_batches=self.config.val_max_batches,
+                            resolve=self.resolve_tables)
 
     def synchronize(self) -> None:
         if self.device.type == "cuda":
@@ -334,8 +361,10 @@ class TaskRunner:
         """The parameters (model.safetensors), the best ones so far
         (best.safetensors, written when they change), the optimizer state,
         then the commit marker fit_state.json with `meta` and the optimizer's
-        counters. Rank 0 writes (the ranks hold equal copies); every rank
-        waits until it has."""
+        counters. Rank 0 writes (the ranks hold equal copies, or under tensor
+        parallelism gather them first); every rank waits until it has."""
+        trainable = self.full_trainable()
+        opt_state = gather_opt_state(state.opt_state, self.tp)
         if not is_main_process():
             barrier("resume_bundle_saved")
             return
@@ -346,12 +375,12 @@ class TaskRunner:
             # the frozen tower never changes within a task: one host copy serves its bundles
             self._bundle_frozen = (task_id, {k: v.to("cpu", copy=True) for k, v in self.frozen_params().items()})
         frozen = self._bundle_frozen[1]
-        save_task_checkpoint({**trainable_parameters(self.model), **frozen}, os.path.join(resume_dir, "model.safetensors"))
+        save_task_checkpoint({**trainable, **frozen}, os.path.join(resume_dir, "model.safetensors"))
         best_key, best_path = (task_id, meta["best_acc"]), os.path.join(resume_dir, "best.safetensors")
         if best_trainable is not None and not (self._bundle_best_key == best_key and os.path.exists(best_path)):
             save_task_checkpoint({**best_trainable, **frozen}, best_path)
             self._bundle_best_key = best_key
-        meta = {**meta, "opt_counters": save_opt_state(state.opt_state, os.path.join(resume_dir, "opt_state.safetensors"))}
+        meta = {**meta, "opt_counters": save_opt_state(opt_state, os.path.join(resume_dir, "opt_state.safetensors"))}
         atomic_json_commit(os.path.join(resume_dir, "fit_state.json"), meta)
         seconds = time.time() - start
         self.bundle_save_s.append(seconds)
@@ -367,7 +396,7 @@ class TaskRunner:
         self.load_params(load_task_checkpoint(os.path.join(resume_dir, "model.safetensors")))
         broadcast_model_(self.model)
         opt_state = load_opt_state(state.opt_state, os.path.join(resume_dir, "opt_state.safetensors"),
-                                   meta["opt_counters"])
+                                   meta["opt_counters"], self.tp)
         best_trainable = None
         best_path = os.path.join(resume_dir, "best.safetensors")
         if os.path.exists(best_path):
@@ -376,6 +405,14 @@ class TaskRunner:
         return TrainState(meta["global_step"], self.model, opt_state), meta, best_trainable
 
     # -- fit -----------------------------------------------------------------------------
+    def _check_model_peers_batch(self, batch) -> None:
+        """Model peers split the weights of one computation: they must hold
+        the same rows (a task's first batch is compared)."""
+        ids = batch["input_ids"]
+        ids = ids.cpu().numpy() if isinstance(ids, torch.Tensor) else np.asarray(ids)
+        if not same_on_every_rank(hashlib.sha1(ids.tobytes()).hexdigest(), self.tp):
+            raise RuntimeError("tensor parallel: the ranks of a model group drew different batches")
+
     def fit(self, state: TrainState, strategy, train_dataset, val_loader, task_id: int, epochs: int,
             resume_dir: Optional[str] = None, resume: bool = False) -> Tuple[TrainState, Dict[str, torch.Tensor], Dict]:
         """Train one task with early stopping: (state, a CPU copy of the best
@@ -435,6 +472,8 @@ class TaskRunner:
             last_logged = global_step
             trace = None
             for batch_idx, batch in enumerate(self.fit_batches(loader), start=skip):
+                if self.tp is not None and epoch == start_epoch and batch_idx == skip:
+                    self._check_model_peers_batch(batch)
                 if self.config.profile_dir and task_id == 0 and epoch == 0 and batch_idx == PROFILE_BATCHES[0]:
                     trace = Trace(self.config.profile_dir).start()
                 if self.window > 1:

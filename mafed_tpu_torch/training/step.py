@@ -28,6 +28,11 @@ batch; the per-sample means of the CE losses make the average of the
 ranks' losses the loss of the union. The distill loss averages over
 tokens, so its token counts are summed over the ranks first. The Fisher
 sums the ranks' gradients before squaring them.
+
+Tensor parallelism (core/mesh.py): the ranks of a model group hold the
+same rows and their shards of the weights; the averages and sums above run
+over the data group only (averaging over every rank would mix shards), and
+the EWC penalty's value sums the split tensors' terms over the model group.
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ import torch
 from mafed_tpu_torch.constants import NUM_VISION_TOKENS
 from mafed_tpu_torch.core.config import ModelConfig, TrainConfig
 from mafed_tpu_torch.core.device import resolve_device
-from mafed_tpu_torch.core.dist import all_reduce_mean_, all_reduce_sum_, process_count
+from mafed_tpu_torch.core.dist import Group, all_reduce_mean_, all_reduce_sum_, data_group
+from mafed_tpu_torch.core.mesh import param_partition_spec
 from mafed_tpu_torch.data.images import make_normalizer, prep_pixels
 from mafed_tpu_torch.models import vl_pythia
 from mafed_tpu_torch.models.gpt_neox import RematPolicy
@@ -108,13 +114,22 @@ def _ce_loss(model, batch, patches, dtype, label_tail, *, remat: bool, policy: O
     ).loss
 
 
-def ewc_penalty(params: Dict[str, torch.Tensor], ewc_state, reg_lambda: float) -> torch.Tensor:
+def ewc_penalty(params: Dict[str, torch.Tensor], ewc_state, reg_lambda: float, tp: Optional[Group] = None) -> torch.Tensor:
     """0.5 * lambda * sum(F * (theta - theta*)^2) over name-keyed dicts;
     ewc_state = (fisher, theta*), either stored in bfloat16 or float32, and
-    both upcast to float32 with theta before the difference."""
+    both upcast to float32 with theta before the difference. Under tensor
+    parallelism (`tp`, the model group that splits `params`) the split
+    tensors' terms are summed over the group (the replicated ones counted
+    once); the gradient stays this rank's."""
     fisher, old = ewc_state
-    terms = [torch.sum(fisher[k].float() * torch.square(p.float() - old[k].float())) for k, p in params.items()]
-    return 0.5 * reg_lambda * sum(terms)
+    terms = {k: torch.sum(fisher[k].float() * torch.square(p.float() - old[k].float())) for k, p in params.items()}
+    if tp is None or tp.size == 1:
+        return 0.5 * reg_lambda * sum(terms.values())
+    sharded = sum(t for k, t in terms.items() if param_partition_spec(k) is not None)
+    replicated = sum(t for k, t in terms.items() if param_partition_spec(k) is None)
+    total = sharded.detach().clone()
+    all_reduce_sum_([total], tp)  # the group's terms; the gradient flows through this rank's alone
+    return 0.5 * reg_lambda * (sharded + (total - sharded.detach()) + replicated)
 
 
 def _merge_window(x: torch.Tensor) -> torch.Tensor:
@@ -135,20 +150,21 @@ def _cleared(model) -> Dict[str, torch.nn.Parameter]:
 def _update(state: TrainState, optimizer, params, metrics: Dict[str, torch.Tensor]) -> Tuple[TrainState, Dict]:
     """Apply the optimizer to the gradients the backward left on `params`
     (zeros where none reached), clear them; (new state, `metrics` detached
-    and the grad norm). Over several ranks the gradients and `metrics` are
-    first averaged in one coalesced all-reduce."""
+    and the grad norm). Over several ranks of a data group the gradients and
+    `metrics` are first averaged in one coalesced all-reduce."""
     grads = {k: p.grad if p.grad is not None else torch.zeros_like(p) for k, p in params.items()}
     metrics = {k: v.detach() for k, v in metrics.items()}
-    if process_count() > 1:  # averaged in place, so copies
+    group = data_group()
+    if group.size > 1:  # averaged in place, so copies
         metrics = {k: v.float().clone() for k, v in metrics.items()}
-        all_reduce_mean_(list(grads.values()) + list(metrics.values()))
+        all_reduce_mean_(list(grads.values()) + list(metrics.values()), group)
     opt_state = optimizer.update(params, grads, state.opt_state)
     for p in params.values():
         p.grad = None
     try:  # the pre-clip norm the clip recorded (the last boundary's under MultiSteps)
         gnorm = last_grad_norm(opt_state)
     except ValueError:
-        gnorm = global_norm(grads.values())
+        gnorm = global_norm(grads, state.model.tp)
     return TrainState(state.step + 1, state.model, opt_state), {**metrics, "grad_norm": gnorm}
 
 
@@ -183,7 +199,7 @@ def make_train_step(
         loss = _ce_loss(model, batch, _vision_features(model, batch, normalize, dtype), dtype, tail,
                         remat=train_cfg.remat, policy=policy)
         if with_ewc and ewc_state is not None:
-            loss = loss + ewc_penalty(params, ewc_state, train_cfg.reg_lambda)
+            loss = loss + ewc_penalty(params, ewc_state, train_cfg.reg_lambda, model.tp)
         loss.backward()
         return _update(state, optimizer, params, {"loss": loss})
 
@@ -219,7 +235,7 @@ def make_ce_window_step(
         loss = _ce_loss(model, merged, _vision_features(model, merged, normalize, dtype), dtype, tail, remat=True,
                         policy=policy)
         if with_ewc and ewc_state is not None:
-            loss = loss + ewc_penalty(params, ewc_state, train_cfg.reg_lambda)
+            loss = loss + ewc_penalty(params, ewc_state, train_cfg.reg_lambda, model.tp)
         loss.backward()
         return _update(state, optimizer, params, {"loss": loss})
 
@@ -366,11 +382,12 @@ def make_distill_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *, rema
                 else:
                     per_layer = torch.mean(torch.mean(torch.square(s0 - t0), dim=-1), dim=-1)
             else:
-                # token counts of the whole batch: over several ranks, summed
-                # and divided by the ranks, so the ranks' mean is the batch's loss
+                # token counts of the whole batch: over a data group, summed
+                # and divided by its ranks, so the ranks' mean is the batch's loss
                 counts = torch.stack([lang_mask.sum(), image_mask.sum()]).float()
-                world = process_count()
-                all_reduce_sum_([counts])
+                group = data_group()
+                world = group.size
+                all_reduce_sum_([counts], group)
                 n_lang, n_img = counts[0], counts[1]
                 lang_l = _masked_token_loss(s_sel, t_sel, lang_mask[None], loss_kind,
                                             torch.clamp(n_lang, min=1.0) / world)
@@ -508,9 +525,10 @@ def make_ewc_fisher_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, device="c
     name-keyed `importances` in place and returns them. No remat; the
     gradients come from torch.autograd.grad, so no .grad is left on the
     model and no optimizer state is touched. The caller divides by the
-    number of samples. Over several ranks, the ranks' gradients of their
-    rows are summed before squaring, which gives the gradient of the whole
-    batch (squares summed over the ranks would be another Fisher)."""
+    number of samples. Over several ranks, the data group's gradients of
+    their rows are summed before squaring, which gives the gradient of the
+    whole batch (squares summed over the ranks would be another Fisher);
+    under tensor parallelism each rank squares its shards."""
     device = resolve_device(device)
     dtype = compute_dtype(train_cfg)
     tail = train_cfg.label_tail or None
@@ -522,7 +540,7 @@ def make_ewc_fisher_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, device="c
         bsz = batch["input_ids"].shape[0]
         loss = bsz * _ce_loss(model, batch, _vision_features(model, batch, normalize, dtype), dtype, tail, remat=False)
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        all_reduce_sum_([g for g in grads if g is not None])
+        all_reduce_sum_([g for g in grads if g is not None], data_group())
         with torch.no_grad():
             for name, g in zip(params, grads):
                 if g is not None:

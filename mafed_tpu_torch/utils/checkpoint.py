@@ -12,6 +12,13 @@ one safetensors file by path ("adam.mu.<param>", ...), and their integer
 counters returned for the bundle's fit_state.json, which is written last
 (`atomic_json_commit`) and so marks the bundle complete. The JAX package
 cannot read these files, and has no need to.
+
+Files on disk hold the whole model and optimizer state under the
+reference's names, whatever the layout that wrote them: under tensor
+parallelism (core/mesh.py) every rank gathers (`gather_opt_state`, the
+runner's `full_trainable`), rank 0 writes, and a load shards what it reads
+(`load_opt_state(..., group)`), so a bundle round-trips bit for bit and
+loads under any layout.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 
 from mafed_tpu_torch.core.config import TrainConfig
 from mafed_tpu_torch.core.logging import LOGGER
+from mafed_tpu_torch.core.mesh import gather_state_dict, shard_state_dict
 from mafed_tpu_torch.models.weights import load_safetensors, load_torch_pickle, save_safetensors
 
 
@@ -78,17 +86,30 @@ def _flatten(node, prefix: str, tensors: Dict[str, torch.Tensor], counters: Dict
         raise TypeError(f"optimizer state leaf {prefix!r} of type {type(node).__name__}")
 
 
-def _restore(node, prefix: str, tensors: Dict[str, torch.Tensor], counters: Dict[str, Any]):
-    """`node`'s structure with its tensors overwritten in place from `tensors`
-    and its counters taken from `counters`."""
+def _restore(node, prefix: str, tensors: Dict[str, torch.Tensor], counters: Dict[str, Any],
+             put=lambda old, new: old.copy_(new)):
+    """`node`'s structure with each tensor `put(old, tensors[path])` (by
+    default overwritten in place) and its counters taken from `counters`."""
     if isinstance(node, torch.Tensor):
-        return node.copy_(tensors[prefix])
+        return put(node, tensors[prefix])
     if isinstance(node, tuple) and hasattr(node, "_fields"):
-        return type(node)(*(_restore(getattr(node, n), f"{prefix}.{n}" if prefix else n, tensors, counters)
+        return type(node)(*(_restore(getattr(node, n), f"{prefix}.{n}" if prefix else n, tensors, counters, put)
                             for n in node._fields))
     if isinstance(node, dict):
-        return {k: _restore(v, f"{prefix}.{k}", tensors, counters) for k, v in node.items()}
+        return {k: _restore(v, f"{prefix}.{k}", tensors, counters, put) for k, v in node.items()}
     return counters[prefix]
+
+
+def gather_opt_state(opt_state, group):
+    """The optimizer state of the whole model, of which every rank of the
+    model group `group` holds its shard (collective); `opt_state` itself
+    without a model axis. Moments split like their parameters."""
+    if group is None or group.size == 1:
+        return opt_state
+    tensors: Dict[str, torch.Tensor] = {}
+    counters: Dict[str, Any] = {}
+    _flatten(opt_state, "", tensors, counters)
+    return _restore(opt_state, "", gather_state_dict(tensors, group), counters, put=lambda old, new: new)
 
 
 def save_opt_state(opt_state, path: str) -> Dict[str, Any]:
@@ -101,11 +122,11 @@ def save_opt_state(opt_state, path: str) -> Dict[str, Any]:
     return counters
 
 
-def load_opt_state(template, path: str, counters: Dict[str, Any]):
+def load_opt_state(template, path: str, counters: Dict[str, Any], group=None):
     """An optimizer state of `template`'s structure, devices and dtypes (a
-    fresh `init`), its tensors read from `path` and its counters from
-    `counters`."""
-    return _restore(template, "", load_safetensors(path), counters)
+    fresh `init`), its tensors read from `path` (this rank's shards of them
+    under the model group `group`) and its counters from `counters`."""
+    return _restore(template, "", shard_state_dict(load_safetensors(path), group), counters)
 
 
 def get_initialization_checkpoint(config: TrainConfig, task_id: int = 0) -> Optional[str]:

@@ -84,11 +84,12 @@ def test_vqa_accuracy_matches_jax():
 
 def test_all_reduce_metrics_one_process(monkeypatch):
     """The identity on one rank (tests/test_torch_multiprocess.py sums over
-    two); a mesh the port does not run raises, and so does a launch of
-    several ranks that has not joined its process group."""
+    two, tests/test_torch_tensor_parallel.py over a data group); a mesh of
+    more ranks than the run has raises, and so does a launch of several
+    ranks that has not joined its process group."""
     assert tcls.all_reduce_metrics(4.0, 2.5, 3.0) == jcls.all_reduce_metrics(4.0, 2.5, 3.0) == (4.0, 2.5, 3.0)
     assert tcls.all_reduce_metrics(4.0, 2.5, 3.0, mesh_shape=(-1, 1)) == (4.0, 2.5, 3.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1: tensor parallel"):
+    with pytest.raises(ValueError, match=r"grid of 2 x 1 = 2 ranks, but the run has 1 rank\(s\)"):
         tcls.all_reduce_metrics(4.0, 2.5, 3.0, mesh_shape=(2, 1))
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(RuntimeError, match="no process group"):

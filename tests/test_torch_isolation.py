@@ -1,5 +1,6 @@
 """The port stands alone: mafed_tpu_torch, chip_smoke.py and the ranks of
-the port's multi-process tests (tests/torch_mp_worker.py) import nothing of
+the port's multi-process tests (tests/torch_mp_worker.py,
+tests/torch_tp_worker.py) import nothing of
 JAX and nothing of the JAX package, and its entry points run on CUDA unless
 the caller asks for the CPU."""
 
@@ -14,8 +15,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "mafed_tpu_torch"
-WORKER = ROOT / "tests" / "torch_mp_worker.py"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", WORKER]
+WORKERS = [ROOT / "tests" / "torch_mp_worker.py", ROOT / "tests" / "torch_tp_worker.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", *WORKERS]
 
 
 def _forbidden(name: str) -> bool:
@@ -49,13 +50,16 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_multiprocess_modules_load_no_jax():
-    """core/dist.py and the test ranks' module with what they import (the
-    modules a rank's modes import lazily are the port's, held above)."""
+    """core/dist.py, core/mesh.py and the test ranks' modules with what
+    they import (the modules a rank's modes import lazily are the port's,
+    held above)."""
     code = (
         "import importlib, sys\n"
         "sys.path.insert(0, 'tests')\n"
         "importlib.import_module('mafed_tpu_torch.core.dist')\n"
+        "importlib.import_module('mafed_tpu_torch.core.mesh')\n"
         "importlib.import_module('torch_mp_worker')\n"
+        "importlib.import_module('torch_tp_worker')\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'mafed_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -183,14 +183,15 @@ def test_shard_owner_matches_jax():
         assert set(owners) == set(range(n))
 
 
-# --- what stays unported raises ------------------------------------------------------------------------
+# --- layouts that do not fit the ranks raise ----------------------------------------------------------
 
 @pytest.mark.parametrize("mesh", [[2, 2], [2, 1], [1, 2]])
 @pytest.mark.parametrize("entry", ["trainer", "pretrain", "all_reduce_metrics"])
 def test_unported_layouts_raise(tmp_path, entry, mesh):
-    """A model axis, or a data axis other than the number of ranks (one
-    here), names the ROADMAP's tensor-parallel item in every entry point."""
-    with pytest.raises(NotImplementedError, match="tensor parallel"):
+    """A (data, model) grid of more ranks than the run has (one here) is
+    refused by every entry point: one device a rank, so D x M must be the
+    number of ranks (tests/test_torch_tensor_parallel.py runs the grids)."""
+    with pytest.raises(ValueError, match=r"but the run has 1 rank\(s\): one device a rank"):
         if entry == "trainer":
             cfg = write_synthetic_vqa(str(tmp_path)).replace(mesh_shape=mesh)
             ContinualLearningTrainer(cfg, model_cfg=tiny_cfgs()[1], device="cpu")

@@ -407,12 +407,14 @@ def test_jax_parser_duplicates_a_flag():
 
 
 def test_more_than_one_device_raises(tmp_path):
-    """Two devices in one process is tensor-parallel work, not ported; a
-    distributed_init without a launcher's variables raises before anything
-    runs (tests/test_torch_multiprocess.py pretrains over two ranks)."""
+    """Two devices in one process does not exist here (one device a rank),
+    so a mesh of two on one rank raises; a distributed_init without a
+    launcher's variables raises before anything runs
+    (tests/test_torch_multiprocess.py pretrains over two ranks,
+    tests/test_torch_tp_multiprocess.py over a (1, 2) grid)."""
     _, tc = tiny_cfgs()
     train_ds, _ = _datasets("torch", tc.vision)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1: tensor parallel"):
+    with pytest.raises(ValueError, match=r"grid of 2 x 1 = 2 ranks, but the run has 1 rank\(s\)"):
         PretrainTrainer(tc, PretrainConfig(output_dir=str(tmp_path), mesh_shape=(2, 1)), train_ds, device="cpu")
     with pytest.raises(RuntimeError, match="RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT"):
         PretrainTrainer(tc, PretrainConfig(output_dir=str(tmp_path), distributed_init=True), train_ds, device="cpu")

@@ -221,8 +221,8 @@ def test_model_config_from_json_matches_jax():
     {"mesh_shape": [2, 1]},
 ], ids=["profile", "distributed", "mesh"])
 def test_settings_left_out_raise(tmp_path, overrides):
-    """Two devices in one process (a data axis of 2 on one rank) is
-    tensor-parallel work and raises; distributed_init without a launcher's
+    """A mesh of two ranks on one rank raises (one device a rank);
+    distributed_init without a launcher's
     variables raises (tests/test_torch_multiprocess.py runs two ranks);
     profile_dir is ported (tests/test_torch_profiling.py traces a run) and
     builds a trainer."""
@@ -235,7 +235,7 @@ def test_settings_left_out_raise(tmp_path, overrides):
         with pytest.raises(RuntimeError, match="RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT"):
             ContinualLearningTrainer(cfg, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1: tensor parallel"):
+    with pytest.raises(ValueError, match=r"grid of 2 x 1 = 2 ranks, but the run has 1 rank\(s\)"):
         ContinualLearningTrainer(cfg, device="cpu")
 
 
