@@ -7,25 +7,30 @@ Phases, each printing one JSON line:
   2. build: compiles csrc/flash_attn.cu with nvcc for sm_90a and prints the
      registers and spill bytes (-Xptxas -v) and the HGMMA and UTMALDG
      instruction counts (cuobjdump -sass, where the toolkit has it) of each
-     instantiation: the three kernels at head_dim 64 and 256; all six are
-     TMA + wgmma kernels, and none may spill or lack either;
+     instantiation: the three kernels at head_dim 64, 96, 128 and 256; all
+     twelve are TMA + wgmma kernels, and none may spill or lack either;
   3. kernels: the three flash kernels against their plain PyTorch versions on
      the card, in bf16, at the shapes of the 410M window and CE window (and
      EVA-02 shapes), at pretraining's ([128, 16, 356, 64], right padding of
      a different length in each row, and its tower at 128 images), at the
      1B model's (heads of 256: its CE pass, CE window, student pass and
-     decode prefill), at a tensor-parallel rank's (its heads: 4 of 256 at
-     1B, 8 of 64 at 410M), and in a 129-token case across the tile edge, a small
-     unaligned case with fully-masked rows at both head_dims and a small
-     unaligned right-padded one; and their times at each model's CE shape
-     and at pretraining's beside the plain
-     versions, the bound and torch.nn.functional.scaled_dot_product_attention
-     (a yardstick only: its forward for the forward kernel, its whole
-     backward, which also computes dq, for each backward kernel);
+     decode prefill), at 1.4B's (heads of 128: the same four) and at the
+     GPT-NeoX-20B-width decoder's (64 heads of 96: its CE and student
+     passes), at a tensor-parallel rank's (its heads: 4 of 256 at 1B, 8 of
+     64 at 410M), and in 65- and 129-token cases across the tile edges, a
+     small unaligned case with fully-masked rows at every head_dim, a
+     non-causal unmasked one at 96 and 128 and a small unaligned
+     right-padded one; and their times at each head_dim's CE shape and at
+     pretraining's beside the plain versions, the bound and
+     torch.nn.functional.scaled_dot_product_attention (a yardstick only: its
+     forward for the forward kernel, its whole backward, which also computes
+     dq, for each backward kernel); then one shape that the JAX package
+     sends to xla_attention (32 heads of 80, Pythia-2.8B's width):
+     dot_product_attention equal to masked_attention, no launch;
   4. reference: one window of a tiny model on the card (CUDA kernels) against
      the same window on the CPU (plain versions), and that model's tower
      features and KV-cache prefill logits (head_dim-64 tower; a decoder with
-     heads of 64, then one with heads of 256); then the head_dim-64 model's
+     heads of 64, then of 96, 128 and 256); then the head_dim-64 model's
      CE window, EWC window, train step, distill step, Fisher accumulator and
      adaptive-weight sums, card against CPU; and the rows the device vision
      table (bfloat16 and int8) and the teacher table gather, card against
@@ -69,7 +74,19 @@ Phases, each printing one JSON line:
      6's shapes (launches 78 / 32 / 32 a window, all at head_dim 256), three
      CE windows of 4 x 16 (32 / 16 / 16), and phase 7's decode with the
      EVA-02-L tower (40 forward launches a batch from pixels, 24 at head_dim
-     64 and 16 at 256; 16 from patches);
+     64 and 16 at 256; 16 from patches); then window_1_4b, ce_window_1_4b,
+     decode_1_4b: the same three at VL-Pythia-1.4B (EleutherAI/pythia-1.4b:
+     hidden 2048, 24 layers, 16 heads of 128, intermediate 8192; 118 / 48 /
+     48, 48 / 24 / 24 and 24 at 64 + 24 at 128 a batch from pixels, 24 from
+     patches); then window_d96: three MAFED windows of a decoder at
+     EleutherAI/gpt-neox-20b's widths (hidden 6144, 64 heads of 96,
+     intermediate 24576, vocab 50432) cut to 4 of its 44 layers (18 / 8 / 8
+     a window at 96). After the timed windows of window_1_4b and window_d96,
+     one window of 4 x 2 rows from the same starting weights through the
+     kernels and through the plain versions on the card: losses and grad
+     norm within PLAIN_WINDOW_RTOL, the gradients of every layer's attention
+     weights (q, k, v rows of query_key_value, and dense) in norm within
+     PLAIN_ATTN_NORM_RTOL and in difference within PLAIN_ATTN_DIFF_RTOL;
  10. cl_sequence: the port's continual-learning trainer through its entry
      points (parse_with_config over config/train-vqa-base-cl-vlpythia.json,
      ContinualLearningTrainer.main) on the shipped config's model,
@@ -151,7 +168,8 @@ Phases, each printing one JSON line:
      {"phase": "tensor_parallel_nccl", "run": false, "cards": 1}.
 The kernel cases include the CLIP tower's [32, 16, 577, 64] (non-causal,
 577 = 9 x 64 + 1) and its decode prefill (640, causal, 16 padded keys).
-Every phase line ends with "clock_s", the script's seconds at its end.
+Every phase line ends with "clock_s", the script's seconds at its end, and
+"phase_s", its seconds since the phase line before it.
 Then the kernel summary line (one entry per kernel and head_dim), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a CUDA device, or without the
@@ -160,6 +178,7 @@ package beside it, the script exits non-zero before printing anything.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -219,13 +238,17 @@ KERNELS = {
 
 
 _START = time.perf_counter()
+_CLOCK = [0.0]  # the script's clock at the last phase line
 
 
 def emit(obj) -> None:
     """Print one JSON line; a phase's line also gets the script's clock at
-    its end."""
+    its end (clock_s) and the seconds since the phase line before it
+    (phase_s)."""
     if "phase" in obj:
-        obj = {**obj, "clock_s": time.perf_counter() - _START}
+        now = time.perf_counter() - _START
+        obj = {**obj, "clock_s": now, "phase_s": now - _CLOCK[0]}
+        _CLOCK[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -330,6 +353,22 @@ KERNEL_CASES = [
     ("decode_prefill_1b", 32, 8, 320, 256, True, (256, 272), False),
     ("causal_129_padded_d256", 8, 4, 129, 256, True, (0, 7), False),
     ("small_unaligned_empty_rows_d256", 3, 2, 77, 256, True, (0, 3), True),
+    # VL-Pythia-1.4B (16 heads of 128): its CE pass, CE window, student pass and decode prefill
+    ("ce_1_4b", 48, 16, 336, 128, True, (256, 276), False),
+    ("ce_window_1_4b", 64, 16, 336, 128, True, (256, 276), False),
+    ("student_1_4b", 16, 16, 336, 128, True, (256, 276), False),
+    ("decode_prefill_1_4b", 32, 16, 320, 128, True, (256, 272), False),
+    ("causal_65_padded_d128", 8, 4, 65, 128, True, (0, 7), False),
+    ("causal_129_padded_d128", 8, 4, 129, 128, True, (0, 7), False),
+    ("small_unaligned_empty_rows_d128", 3, 2, 77, 128, True, (0, 3), True),
+    ("noncausal_unmasked_d128", 16, 16, 257, 128, False, None, False),
+    # the decoder at GPT-NeoX-20B's width (64 heads of 96): its CE and student passes
+    ("ce_neox20b", 48, 64, 336, 96, True, (256, 276), False),
+    ("student_neox20b", 16, 64, 336, 96, True, (256, 276), False),
+    ("causal_65_padded_d96", 8, 4, 65, 96, True, (0, 7), False),
+    ("causal_129_padded_d96", 8, 4, 129, 96, True, (0, 7), False),
+    ("small_unaligned_empty_rows_d96", 3, 2, 77, 96, True, (0, 3), True),
+    ("noncausal_unmasked_d96", 16, 16, 257, 96, False, None, False),
     # phase multiprocess: a rank's half of the 410M window (its CE stack of 3 x 8 rows, its student
     # and teacher passes) and of the pretraining update at a global 64
     ("mp_ce_410m_rank", 24, 16, 336, 64, True, (256, 276), False),
@@ -381,6 +420,8 @@ def phase_kernels(gen):
               "empty_rows": int((~fin).sum().item()), "max_abs_err": case_err, "atol": ATOL, "rtol": RTOL})
 
     timing = {64: kernel_timing(gen, "timing_ce_410m", 48, 16, 336, 64),
+              96: kernel_timing(gen, "timing_ce_neox20b", 48, 64, 336, 96),
+              128: kernel_timing(gen, "timing_ce_1_4b", 48, 16, 336, 128),
               256: kernel_timing(gen, "timing_ce_1b", 48, 8, 336, 256),
               "pretrain": kernel_timing(gen, "timing_pretrain_410m", 128, 16, 356, 64, pad=("right", 257))}
     # a tensor-parallel rank's CE pass (M = 2): 1B under [1, 2], 410M under [2, 2]
@@ -391,9 +432,27 @@ def phase_kernels(gen):
                                           ("timing_ce_window", 64, 16, 336, 64, True, (256, 276)),
                                           ("timing_window_tower_b64", 64, 16, 257, 64, False, None),
                                           ("timing_decode_prefill_1b", 32, 8, 320, 256, True, (256, 272)),
-                                          ("timing_ce_window_1b", 64, 8, 336, 256, True, (256, 276))):
+                                          ("timing_ce_window_1b", 64, 8, 336, 256, True, (256, 276)),
+                                          ("timing_decode_prefill_1_4b", 32, 16, 320, 128, True, (256, 272))):
         emit({"phase": "kernels", "case": case, **_fwd_timing(gen, b, h, t, d, causal, pad)})
+    check_xla_routing(gen)
     return errs, timing
+
+
+def check_xla_routing(gen) -> None:
+    """A shape that the JAX dispatcher sends to xla_attention, an attention
+    of Pythia-2.8B's width (32 heads of 80; causal, 20 padded keys):
+    dot_product_attention on the card returns masked_attention's result,
+    bit for bit, and launches no kernel."""
+    q, k, v, _, mask = _qkv(gen, 2, 32, 336, (256, 276), False, 80)
+    A.reset_launches()
+    got = A.dot_product_attention(q, k, v, key_padding_mask=mask, causal=True)
+    want = A.masked_attention(q, k, v, key_padding_mask=mask, causal=True)
+    launches = dict(A.LAUNCHES)
+    if launches != _kernels(0, 0) or not got.is_cuda or not torch.equal(got, want):
+        raise AssertionError(f"xla routing: launches {launches}, equal {torch.equal(got, want)}")
+    emit({"phase": "kernels", "case": "xla_routing_head_dim_80", "shape": list(q.shape), "causal": True,
+          "route": "masked_attention", "bit_equal": True, "launches": launches})
 
 
 def _bound(nbytes: float, flops: float):
@@ -535,8 +594,10 @@ def tower_and_prefill(model, cfg, pixels, input_ids, attention_mask, device):
         return feats, gpt_neox.logits(model.embed_out, hidden[:, -1], dtype=dtype)
 
 
-# tiny decoders: 2 heads of 64, or of 256 as VL-Pythia-1B's
+# tiny decoders: 2 heads of 64; of 96 as GPT-NeoX-20B's; of 128 as Pythia-1.4B's; of 256 as VL-Pythia-1B's
 TINY_DECODERS = {64: dict(hidden_size=128, num_hidden_layers=3, intermediate_size=256),
+                 96: dict(hidden_size=192, num_hidden_layers=2, intermediate_size=384),
+                 128: dict(hidden_size=256, num_hidden_layers=2, intermediate_size=512),
                  256: dict(hidden_size=512, num_hidden_layers=2, intermediate_size=1024)}
 
 
@@ -674,10 +735,34 @@ def phase_reference_tables() -> None:
     emit({"phase": "reference", "case": "tables", "bit_equal": checked})
 
 
-def phase_window(smi: str, preset: str, phase: str):
+# Published GPT-NeoX decoders whose heads the kernels take at 128 and 96, as ModelConfig fields (the
+# JAX package has no preset for them and runs them from a config file, ModelConfig.from_json); the
+# other fields keep ModelConfig's defaults, which are those configs' own (rotary_pct 0.25, parallel
+# residual, rotary base 10000, layer-norm eps 1e-5)
+DECODER_CONFIGS = {
+    # EleutherAI/pythia-1.4b config.json: 16 heads of 128, full depth
+    "1.4b": dict(hidden_size=2048, num_hidden_layers=24, num_attention_heads=16, intermediate_size=8192),
+    # EleutherAI/gpt-neox-20b config.json: 64 heads of 96, vocab 50432; cut to 4 of its 44 layers (its
+    # weights alone take ~41 GB in bf16 at full depth, and training ~16 bytes a parameter)
+    "neox20b_4l": dict(hidden_size=6144, num_hidden_layers=4, num_attention_heads=64, intermediate_size=24576,
+                       vocab_size=50432),
+}
+
+
+def model_config(preset: str) -> ModelConfig:
+    """VL-Pythia with the EVA-02-L tower and the decoder of `preset`: a
+    preset of the package (410m, 1b) or one of DECODER_CONFIGS."""
+    if preset in DECODER_CONFIGS:
+        return ModelConfig(**DECODER_CONFIGS[preset])
+    return model_config_for_preset(preset)
+
+
+def phase_window(smi: str, preset: str, phase: str, plain_check: bool = False):
     """Three fused MAFED windows of VL-Pythia-`preset` at full width and depth
-    (bench.py's shape); returns the launches by head_dim."""
-    cfg = model_config_for_preset(preset)
+    (bench.py's shape); with `plain_check`, then the kernels against the
+    plain versions on one small window (`check_window_against_plain`).
+    Returns the launches by head_dim of the three windows."""
+    cfg = model_config(preset)
     n_ce, b, text_len, windows = 3, 16, 80, 3
     model = init_model(cfg, seed=0, device="cuda")
     step, state, teacher, ce, distill, lang = window_setup(
@@ -703,13 +788,8 @@ def phase_window(smi: str, preset: str, phase: str):
     unchanged = [n for n, p in trainable_parameters(model).items() if torch.equal(p, before[n])]
     if unchanged:
         raise AssertionError(f"parameters that no update moved: {unchanged[:5]} ({len(unchanged)})")
-    # per window, all at the decoder's head_dim: fwd in every layer of the CE
-    # (L), student (L) and teacher (L - 2, early exit) passes, plus the
-    # per-layer recompute of the 2 L differentiated layers in backward; dK/dV
-    # and dQ once per differentiated layer (410M: 118 / 48 / 48; 1B: 78 / 32 / 32)
     layers = cfg.num_hidden_layers
-    expected = at_head_dim(cfg.head_dim, _kernels(windows * (2 * layers + (layers - 2) + 2 * layers),
-                                                  windows * 2 * layers))
+    expected = window_launches(cfg, windows)
     if launches != expected:
         raise AssertionError(f"{phase}: kernel launches {launches}, expected {expected}")
 
@@ -717,16 +797,132 @@ def phase_window(smi: str, preset: str, phase: str):
     examples = (n_ce + 1) * b
     ex_per_s = examples / (ms_window / 1e3)
     flops = framework_window_flops(cfg, text_len, n_ce, b) / examples
-    emit({"phase": phase, "card": smi, "preset": preset, "layers": layers, "hidden": cfg.hidden_size,
-          "head_dim": cfg.head_dim, "n_ce": n_ce, "batch": b, "text_len": text_len, "window_ms": times,
-          "ms_per_window": ms_window, "examples_per_s": ex_per_s, "mfu": mfu(ex_per_s, flops),
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "metrics": history, "launches": launches, "expected_launches": expected})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    line = {"phase": phase, "card": smi, "preset": preset, "layers": layers, "hidden": cfg.hidden_size,
+            "heads": cfg.num_attention_heads, "head_dim": cfg.head_dim, "intermediate": cfg.intermediate_size,
+            "vocab": cfg.vocab_size, "n_ce": n_ce, "batch": b, "text_len": text_len, "window_ms": times,
+            "ms_per_window": ms_window, "examples_per_s": ex_per_s, "mfu": mfu(ex_per_s, flops),
+            "peak_memory_gb": peak_gb, "metrics": history, "launches": launches, "expected_launches": expected}
+    if plain_check:
+        del step, state, teacher, ce, distill
+        free_device_memory()
+        line["against_plain"] = check_window_against_plain(cfg, model, before)
+    emit(line)
     return launches
+
+
+# kernels against plain versions through a whole window, bf16 on the card: the attention outputs
+# differ by a few bf16 ulps (ATOL, RTOL), which the losses and the weight gradients average over.
+# Each limit is about 10x the largest sound reading on the H100 (1.4B and the 20B-width cut): losses
+# and global norm 2.3e-4; the attention weights' gradients 1.4e-3 in norm and 4.3e-2 as
+# |kernels - plain| / |plain| (the q and k rows, which take dS, at random init). A dQ that is zero,
+# negated or zero past column 64 leaves the losses and the global norm at 1.4B within
+# PLAIN_WINDOW_RTOL, and fails the attention weights' limits (as a dV zero past column 64 does)
+PLAIN_WINDOW_RTOL = 3e-3
+PLAIN_ATTN_NORM_RTOL = 1.5e-2
+PLAIN_ATTN_DIFF_RTOL = 0.4
+
+
+def _attention_grad_parts(name: str, grad: torch.Tensor, cfg) -> dict:
+    """The gradient of an attention projection's weight, query_key_value's
+    split into its q, k and v rows (HF's fused [heads, 3, head_dim] layout),
+    so that a wrong dQ, dK or dV shows in a part of its own."""
+    if "query_key_value" not in name:
+        return {name: grad}
+    g = grad.view(-1, 3, cfg.head_dim, grad.shape[1])
+    return {f"{name}[{part}]": g[:, i] for i, part in enumerate("qkv")}
+
+
+def check_window_against_plain(cfg, model, snapshot: dict, b: int = 2) -> dict:
+    """One fused MAFED window of `model` at `b` rows a microbatch (text 80,
+    3 CE microbatches and a memory one) from the trainable weights
+    `snapshot`, twice: through the kernels, then with FlashAttention's
+    forward and backward calling the plain versions on the same card
+    tensors. Losses and the global gradient norm within PLAIN_WINDOW_RTOL.
+    The gradient of every attention weight (each layer's query_key_value, in
+    its q, k and v rows, and dense: what dQ, dK and dV reach first) against
+    the plain run's: its norm within PLAIN_ATTN_NORM_RTOL (a scaled or
+    partly missing gradient), |kernels - plain| / |plain| within
+    PLAIN_ATTN_DIFF_RTOL (a wrong sign or a wrong row, whatever the norm).
+    The kernels' launches as computed, the plain run's none."""
+    runs, launches, grads, attn = {}, {}, {}, {}
+
+    def record(route, name, grad):
+        for part, g in _attention_grad_parts(name, grad.float(), cfg).items():
+            if route == "kernels":
+                grads[part] = g.clone()
+            else:
+                got = grads.pop(part)
+                attn[part] = ((got.norm() - g.norm()).abs().item() / g.norm().item(),
+                              (got - g).norm().item() / g.norm().item())
+
+    for route in ("kernels", "plain"):
+        with torch.no_grad():
+            for name, p in trainable_parameters(model).items():
+                p.copy_(snapshot[name])
+        step, state, teacher, ce, distill, lang = window_setup(
+            cfg, model, 3, b, 80, torch.Generator().manual_seed(8), "cuda")
+        hooks = [p.register_post_accumulate_grad_hook(lambda p, n=n, r=route: record(r, n, p.grad))
+                 for n, p in trainable_parameters(model).items() if ".attention." in n and n.endswith(".weight")]
+        A.reset_launches()
+        try:
+            with plain_attention(route == "plain"):
+                _, m = step(state, teacher, ce, distill, lang)
+        finally:
+            for h in hooks:
+                h.remove()
+        runs[route] = {k: float(m[k]) for k in ("loss", "ce_loss", "distill_loss", "grad_norm")}
+        launches[route] = launches_by_dim()
+        del step, state, teacher, ce, distill
+        free_device_memory()
+    expected = window_launches(cfg)
+    if launches["kernels"] != expected or launches["plain"] != at_head_dim(cfg.head_dim, _kernels(0, 0)):
+        raise AssertionError(f"window against plain: launches {launches}, expected {expected} and none")
+    if grads or len(attn) != 4 * cfg.num_hidden_layers:
+        raise AssertionError(f"window against plain: attention gradients compared {sorted(attn)}, "
+                             f"unmatched {sorted(grads)}; expected 4 parts a layer")
+    errs = {k: abs(runs["kernels"][k] - w) / abs(w) for k, w in runs["plain"].items()}
+    by_part = {}  # the largest (norm, difference) error over the layers, by weight and part
+    for part, e in attn.items():
+        key = part.split(".attention.")[1]
+        by_part[key] = [max(x, y) for x, y in zip(e, by_part.get(key, (0.0, 0.0)))]
+    norm_err, diff_err = (max(e[i] for e in by_part.values()) for i in (0, 1))
+    if (not all(e <= PLAIN_WINDOW_RTOL for e in errs.values()) or norm_err > PLAIN_ATTN_NORM_RTOL
+            or diff_err > PLAIN_ATTN_DIFF_RTOL):
+        raise AssertionError(f"window against plain: {runs}, relative errors {errs} (limit {PLAIN_WINDOW_RTOL}); "
+                             f"attention weight gradients (norm, difference) by part {by_part} "
+                             f"(limits {PLAIN_ATTN_NORM_RTOL}, {PLAIN_ATTN_DIFF_RTOL})")
+    return {"batch": b, **runs, "rel_err": errs, "rtol": PLAIN_WINDOW_RTOL, "attn_grads": len(attn),
+            "attn_grad_norm_diff_err": by_part, "attn_rtol": [PLAIN_ATTN_NORM_RTOL, PLAIN_ATTN_DIFF_RTOL]}
+
+
+@contextlib.contextmanager
+def plain_attention(on: bool):
+    """With `on`, FlashAttention's forward and backward call the plain
+    versions directly (on whatever device the tensors are), and no kernel
+    launches; the wrappers come back on exit."""
+    saved = A.flash_forward, A.flash_backward
+    if on:
+        A.flash_forward, A.flash_backward = A.flash_forward_plain, A.flash_backward_plain
+    try:
+        yield
+    finally:
+        A.flash_forward, A.flash_backward = saved
 
 
 def _kernels(fwd: int, bwd: int) -> dict:
     return {"flash_fwd": fwd, "flash_bwd_dkv": bwd, "flash_bwd_dq": bwd}
+
+
+def window_launches(cfg, windows: int = 1) -> dict:
+    """Launches by head_dim of `windows` fused MAFED windows, all at the
+    decoder's head_dim: fwd in every layer of the CE (L), student (L) and
+    teacher (L - 2, early exit) passes, plus the per-layer recompute of the
+    2 L differentiated layers in backward; dK/dV and dQ once per
+    differentiated layer (410M: 118 / 48 / 48 a window; 1B: 78 / 32 / 32;
+    1.4B: 118 / 48 / 48; the 20B-width cut: 18 / 8 / 8)."""
+    layers = cfg.num_hidden_layers
+    return at_head_dim(cfg.head_dim, _kernels(windows * (5 * layers - 2), windows * 2 * layers))
 
 
 def run_path(name, calls, trainable=None, snapshot=None, head_dim=64) -> dict:
@@ -899,11 +1095,12 @@ def phase_train_steps(smi: str):
     return {p: v["launches_by_head_dim"] for p, v in paths.items()}
 
 
-def phase_ce_window_1b(smi: str):
+def phase_ce_window(smi: str, preset: str, phase: str):
     """Three CE windows (4 microbatches of 16 merged, per-layer remat, one
-    AdamW update each) of VL-Pythia-1B at full width and depth: 2 L forward
-    and L of each backward launch a window, all at head_dim 256."""
-    cfg = model_config_for_preset("1b")
+    AdamW update each) of VL-Pythia-`preset` at full width and depth: 2 L
+    forward and L of each backward launch a window, all at the decoder's
+    head_dim (1B: 256; 1.4B: 128)."""
+    cfg = model_config(preset)
     n_mb, b, text_len = 4, 16, 80
     layers = cfg.num_hidden_layers
     model = init_model(cfg, seed=0, device="cuda")
@@ -915,10 +1112,10 @@ def phase_ce_window_1b(smi: str):
     gen = torch.Generator().manual_seed(5)
     mbs = stack([{k: v.cuda() for k, v in example_batch(gen, cfg, b, text_len).items()} for _ in range(n_mb)])
     step = make_ce_window_step(cfg, train_cfg, opt)
-    path = run_path("ce_window_1b", [(_call(box, step, mbs), _kernels(2 * layers, layers), n_mb * b,
-                                      n_mb * b * ce_example_flops(cfg, text_len))] * 3,
+    path = run_path(phase, [(_call(box, step, mbs), _kernels(2 * layers, layers), n_mb * b,
+                             n_mb * b * ce_example_flops(cfg, text_len))] * 3,
                     trainable, snapshot, head_dim=cfg.head_dim)
-    emit({"phase": "ce_window_1b", "card": smi, "preset": "1b", "layers": layers, "hidden": cfg.hidden_size,
+    emit({"phase": phase, "card": smi, "preset": preset, "layers": layers, "hidden": cfg.hidden_size,
           "head_dim": cfg.head_dim, "n_mb": n_mb, "batch": b, "text_len": text_len, **path})
     return path["launches_by_head_dim"]
 
@@ -982,7 +1179,7 @@ def check_cache_invariance(model, cfg, batch, toks, eos: int) -> dict:
 def phase_decode(smi: str, preset: str, phase: str):
     """Greedy decode of VL-Pythia-`preset` + EVA-02-L (bench_eval.py's
     shapes), uncached and cached routes; returns the launches by head_dim."""
-    cfg = model_config_for_preset(preset)
+    cfg = model_config(preset)
     b, text_len, pad, max_new, n = 32, 64, 16, 10, 6
     model = init_model(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     decode = make_greedy_decoder(cfg, max_new_tokens=max_new, eos_token_id=0)
@@ -2103,9 +2300,7 @@ def mp_windows(rank: int, world: int, device: str, root: str, sigterm: bool, row
         times.append((time.perf_counter() - start) * 1e3)
         history.append({k: float(m[k]) for k in ("loss", "ce_loss", "distill_loss", "grad_norm")})
     launches = launches_by_dim()
-    layers = cfg.num_hidden_layers
-    expected = at_head_dim(cfg.head_dim, _kernels(windows * (2 * layers + (layers - 2) + 2 * layers),
-                                                  windows * 2 * layers))
+    expected = window_launches(cfg, windows)
     if torch.device(device).type == "cuda" and launches != expected:
         raise AssertionError(f"multiprocess rank {rank}: window launches {launches}, expected {expected}")
     out.update({"window_ms": times, "ms_per_window": sum(times[1:]) / (windows - 1), "metrics": history,
@@ -2510,9 +2705,7 @@ def _windows_1b(rank: int, device: str, tp) -> tuple:
         times.append((time.perf_counter() - start) * 1e3)
         history.append({k: float(m[k]) for k in ("loss", "ce_loss", "distill_loss", "grad_norm")})
     launches = launches_by_dim()
-    layers = cfg.num_hidden_layers
-    expected = at_head_dim(cfg.head_dim, _kernels(windows * (2 * layers + (layers - 2) + 2 * layers),
-                                                  windows * 2 * layers))
+    expected = window_launches(cfg, windows)
     if cuda and launches != expected:
         raise AssertionError(f"tensor_parallel rank {rank}: window launches {launches}, expected {expected}")
     return before, model, {"window_ms": times, "ms_per_window": sum(times[1:]) / (windows - 1),
@@ -2699,9 +2892,14 @@ def main() -> int:
     free_device_memory()
     by_path["clip_eval"] = phase_clip_eval(smi, gen)
     # VL-Pythia-1B, with the 410M models and their caches gone
+    # then VL-Pythia-1.4B (heads of 128) and the decoder at GPT-NeoX-20B's width (heads of 96)
     for path, run in (("window_1b", lambda: phase_window(smi, "1b", "window_1b")),
-                      ("ce_window_1b", lambda: phase_ce_window_1b(smi)),
-                      ("decode_1b", lambda: phase_decode(smi, "1b", "decode_1b"))):
+                      ("ce_window_1b", lambda: phase_ce_window(smi, "1b", "ce_window_1b")),
+                      ("decode_1b", lambda: phase_decode(smi, "1b", "decode_1b")),
+                      ("window_1_4b", lambda: phase_window(smi, "1.4b", "window_1_4b", plain_check=True)),
+                      ("ce_window_1_4b", lambda: phase_ce_window(smi, "1.4b", "ce_window_1_4b")),
+                      ("decode_1_4b", lambda: phase_decode(smi, "1.4b", "decode_1_4b")),
+                      ("window_d96", lambda: phase_window(smi, "neox20b_4l", "window_d96", plain_check=True))):
         free_device_memory()
         by_path[path] = run()
     free_device_memory()
@@ -2726,7 +2924,9 @@ def main() -> int:
         del pretrain_one
     free_device_memory()
     by_path["profile"] = phase_profile(smi)
-    # one entry per instantiation: times at its head_dim's CE shape (410M: 64, 1B: 256)
+    # one entry per instantiation: times at its head_dim's CE shape (410M: 64, the 20B-width decoder:
+    # 96, 1.4B: 128, 1B: 256)
+    tp_shape = {64: "tp_410m", 256: "tp_1b"}
     kernels = [
         {"name": f"{name}<{d}>", "head_dim": d, "route": "cuda", "source": "mafed_tpu_torch/csrc/flash_attn.cu",
          "replaces": replaces, "design": design, "launches": sum(path[d][name] for path in by_path.values()),
@@ -2736,8 +2936,8 @@ def main() -> int:
          "library_ms": timing[d]["library_ms"][name], "library_covers": LIBRARY_COVERS[name],
          **({"at_pretrain_shape": {key: timing["pretrain"][key][name] for key in
                                    ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} if d == 64 else {}),
-         "at_tp_rank_shape": {key: timing["tp_1b" if d == 256 else "tp_410m"][key][name] for key in
-                              ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+         **({"at_tp_rank_shape": {key: timing[tp_shape[d]][key][name] for key in
+                                  ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} if d in tp_shape else {})}
         for name, (replaces, design) in KERNELS.items() for d in build.HEAD_DIMS
     ]
     emit({"kernels": kernels})

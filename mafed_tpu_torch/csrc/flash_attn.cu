@@ -22,18 +22,28 @@
 // every loop: rows past the end load as zeros, their keys are dropped from
 // the keep bits, and their outputs are never stored.
 //
-// Head dims. Every kernel is a template over D (64 and 256 are instantiated)
-// and over WG, the number of warpgroups (128 threads each) in the CTA. A
-// thread of a warpgroup holds D/64 x 32 f32 of a 64 x D accumulator, so at
-// D = 256 one accumulator is 128 registers of the 255 a thread may have. With
-// WG > 1 each warpgroup owns D / WG of the output's columns, and every
-// warpgroup computes the whole 64 x 64 score tile (S, and dP in the backward)
-// over the full D itself: the products that make the scores are repeated WG
-// times, but nothing passes between warpgroups (an exchange of scores through
-// shared memory would not fit beside the 192 KB of tiles at D = 256). dK/dV
-// at D = 256 needs it (dK and dV are 256 registers together); the forward
-// takes it too, and dQ keeps one warpgroup (FWD_WG_256, DKV_WG_256,
-// DQ_WG_256 below).
+// Head dims. Every kernel is a template over D (64, 96, 128 and 256 are
+// instantiated) and over WG, the number of warpgroups (128 threads each) in
+// the CTA. A tile is ceil(D / 64) panels of 64 columns (`panels`); a thread of
+// a warpgroup holds panels x 32 f32 of a 64-row accumulator, so at D = 256 one
+// accumulator is 128 registers of the 255 a thread may have. With WG > 1 each
+// warpgroup owns panels / WG of the output's panels, and every warpgroup
+// computes the whole 64 x 64 score tile (S, and dP in the backward) over the
+// full D itself: the products that make the scores are repeated WG times, but
+// nothing passes between warpgroups (an exchange of scores through shared
+// memory would not fit beside the 192 KB of tiles at D = 256). dK/dV at
+// D = 256 needs it (dK and dV are 256 registers together); at D = 128 one
+// warpgroup holds dK and dV beside S^T and dP^T in 234 registers. The
+// warpgroups of each kernel and head_dim are FWD_WG_*, DKV_WG_*, DQ_WG_*
+// below.
+//
+// D = 96 runs the D = 128 tile: its tensor maps are 96 columns wide, so TMA
+// fills columns 96..127 of the second panel with zeros (as it fills rows past
+// a sequence's end). The score products S and dP stop at column 96 (6 of the
+// 8 k-steps); the products into 64-column panels (O, dV, dK, dQ) run the whole
+// second panel, whose columns 96..127 come out zero and are never stored. A
+// third of that panel work is wasted; a 32-column panel with the 64-byte
+// swizzle would remove it.
 //
 // Nothing is allocated on the device here: the Python wrapper allocates the
 // outputs, and every launch goes on the stream it is given.
@@ -53,11 +63,24 @@ constexpr int WARPS = 4;                // each warp owns 16 rows of its warpgro
 constexpr int THREADS = WARPS * 32;     // one warpgroup
 constexpr float NEG = -3.4028234663852886e38f;  // finfo(float32).min
 
+// 64-column panels of a [64][D] tile: D = 96 is padded to two
+__host__ __device__ constexpr int panels(int d) { return (d + 63) / 64; }
+
 // Warpgroups of each kernel at head_dim 256 (64 takes one everywhere). At the
 // 1B CE shape [48, 8, 336, 256] on an H100 SXM at 700 W
 // (scripts/flash_variants.py, each pair timed in turns): forward 0.218 ms
 // with two against 0.248 with one; dQ 0.182 with one against 0.200 with two.
 constexpr int FWD_WG_256 = 2, DKV_WG_256 = 2, DQ_WG_256 = 1;
+// At head_dim 128 and 96, at the 1.4B CE shape [48, 16, 336, 128] and the
+// GPT-NeoX-20B-width one [48, 64, 336, 96] (the same card and script, three
+// rounds in turns): dK/dV 0.224-0.247 / 0.753-0.783 ms with one against
+// 0.371-0.372 / 1.298-1.305 with two (two warpgroups of 168 registers fit one
+// CTA per SM, one of 234 fits two); dQ 0.154-0.167 / 0.532-0.560 with one
+// against 0.185-0.192 / 0.603-0.625 with two; the forward 0.187-0.212 /
+// 0.767-0.794 with one against 0.195-0.206 / 0.743-0.771 with two (at 128
+// the ranges overlap and the smaller count stays).
+constexpr int FWD_WG_128 = 1, DKV_WG_128 = 1, DQ_WG_128 = 1;
+constexpr int FWD_WG_96 = 2, DKV_WG_96 = 1, DQ_WG_96 = 1;
 
 // The warp of this thread within its warpgroup: rows 16 warp .. 16 warp + 15.
 __device__ __forceinline__ int wg_warp() { return (threadIdx.x % THREADS) / 32; }
@@ -85,9 +108,10 @@ __device__ __forceinline__ uint64_t row_keep_bits(uint64_t kbits, bool diag, int
   return (diag ? kbits & ((2ull << row) - 1) : kbits) >> (2 * (lane % 4));
 }
 
-// Store NPW 64-column panels (from panel p0) of a 64 x D wgmma accumulator
-// of the tile at row0, times `scale`, as bf16 pairs; rows at or past n_rows
-// are never stored.
+// Store NPW 64-column panels (from panel p0) of a 64-row wgmma accumulator
+// of the tile at row0 into rows of D columns, times `scale`, as bf16 pairs;
+// rows at or past n_rows and columns at or past D (the padding of D = 96) are
+// never stored.
 template <int D, int NPW>
 __device__ __forceinline__ void store_acc_rows(bf16* __restrict__ dst, const float (&acc)[NPW][32], int row0,
                                                int n_rows, float scale, int p0) {
@@ -101,8 +125,9 @@ __device__ __forceinline__ void store_acc_rows(bf16* __restrict__ dst, const flo
     for (int n = 0; n < NPW; ++n)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<uint32_t*>(out + n * 64 + 8 * j) =
-            sm90::pack_bf16(acc[n][4 * j + 2 * i] * scale, acc[n][4 * j + 2 * i + 1] * scale);
+        if (D % 64 == 0 || (p0 + n) * 64 + 8 * j < D)
+          *reinterpret_cast<uint32_t*>(out + n * 64 + 8 * j) =
+              sm90::pack_bf16(acc[n][4 * j + 2 * i] * scale, acc[n][4 * j + 2 * i + 1] * scale);
   }
 }
 
@@ -131,8 +156,10 @@ __device__ __forceinline__ void store_acc_rows(bf16* __restrict__ dst, const flo
 // (V read MN-major). At D = 64: about 41 KB of shared memory and under 100
 // registers a thread, 5 CTAs per SM. At D = 256: 165 KB (one CTA per SM) and
 // two warpgroups, each with half of O (64 registers) beside its own S, 128
-// registers a thread (one warpgroup with all of O took 202). (Issuing S of
-// tile j + 1 while P V of tile j runs measured slower on the H100.)
+// registers a thread (one warpgroup with all of O took 202). At D = 128: 81
+// KB (two CTAs per SM), one warpgroup, 128 registers; at D = 96 two
+// warpgroups of 100 registers. (Issuing S of tile j + 1 while P V of tile
+// j runs measured slower on the H100.)
 // ---------------------------------------------------------------------------
 constexpr int STAGES = 2;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -185,7 +212,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], flo
 // and V stages of the ring, each stage's keep bits, and the barriers (the
 // once-loaded tiles', then one per stage).
 template <int D, int ONCE> struct QTileSmem {
-  static constexpr uint32_t TILE = 64 * D * 2;
+  static constexpr uint32_t TILE = panels(D) * sm90::PANEL_BYTES;
   static constexpr uint32_t K = ONCE * TILE;
   static constexpr uint32_t V = K + STAGES * TILE;
   static constexpr uint32_t KEEP = V + STAGES * TILE;   // STAGES x uint64 keep bits
@@ -260,8 +287,8 @@ __global__ void __launch_bounds__(THREADS * WG)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ mask, bf16* __restrict__ o,
                  float* __restrict__ lse, int heads, int q_len, int kv_len, int causal, float scale) {
-  static_assert(D % 64 == 0 && (D / 64) % WG == 0, "tiles are 64-column panels, split evenly over warpgroups");
-  constexpr int NPW = D / 64 / WG;  // O panels of each warpgroup
+  static_assert(D % 16 == 0 && panels(D) % WG == 0, "tiles are 64-column panels, split evenly over warpgroups");
+  constexpr int NPW = panels(D) / WG;  // O panels of each warpgroup
   const int qt = blockIdx.x, bh = blockIdx.y, b = bh / heads;
   const int wg = threadIdx.x / THREADS, lane = threadIdx.x % 32, p0 = wg * NPW;
   const int q0 = qt * BLOCK;
@@ -382,10 +409,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 // alone would be 256 registers a thread, so the CTA has two warpgroups, each
 // with 128 of the 256 columns of dK and dV (128 registers) and its own S^T
 // and dP^T over the full D: 234 registers a thread, no spill; 199 KB of
-// shared memory, one CTA per SM.
+// shared memory, one CTA per SM. At D = 128 (and 96, its padded tile) one
+// warpgroup holds all of dK and dV: 234 registers, no spill, 97 KB, two CTAs
+// per SM (two warpgroups of 168 registers would fit only one CTA per SM).
 // ---------------------------------------------------------------------------
 template <int D> struct DkvSmem {  // byte offsets from the 1024-aligned base
-  static constexpr uint32_t TILE = 64 * D * 2;
+  static constexpr uint32_t TILE = panels(D) * sm90::PANEL_BYTES;
   static constexpr uint32_t K = 0;
   static constexpr uint32_t V = K + TILE;
   static constexpr uint32_t Q = V + TILE;
@@ -403,9 +432,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
                      const float* __restrict__ lse, const float* __restrict__ delta, const int* __restrict__ mask,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int q_len, int kv_len, int causal,
                      float scale) {
-  static_assert(D % 64 == 0 && (D / 64) % WG == 0, "tiles are 64-column panels, split evenly over warpgroups");
+  static_assert(D % 16 == 0 && panels(D) % WG == 0, "tiles are 64-column panels, split evenly over warpgroups");
   using L = DkvSmem<D>;
-  constexpr int NPW = D / 64 / WG;  // dK and dV panels of each warpgroup
+  constexpr int NPW = panels(D) / WG;  // dK and dV panels of each warpgroup
   const int kt = blockIdx.x, bh = blockIdx.y, b = bh / heads;
   const int tid = threadIdx.x, warp = wg_warp(), lane = tid % 32, p0 = tid / THREADS * NPW;
   const int k0 = kt * BLOCK;
@@ -595,7 +624,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
 // until it is scaled once and stored. At D = 64: about 49 KB of shared memory
 // and 122 registers a thread, 4 CTAs per SM. At D = 256: 198 KB (one CTA per
 // SM) and one warpgroup, the 128-register dQ beside S and dP: 218 registers,
-// no spill.
+// no spill. At D = 128 (and 96): 97 KB, two CTAs per SM, one warpgroup, 154
+// registers.
 // ---------------------------------------------------------------------------
 // p = keep ? 2^(s scale log2(e) - lse log2(e)) : 0, in place, for this
 // thread's two rows of one 64-key tile.
@@ -621,8 +651,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                     const float* __restrict__ lse, const float* __restrict__ delta, const int* __restrict__ mask,
                     bf16* __restrict__ dq, int heads, int q_len, int kv_len, int causal, float scale) {
-  static_assert(D % 64 == 0 && (D / 64) % WG == 0, "tiles are 64-column panels, split evenly over warpgroups");
-  constexpr int NPW = D / 64 / WG;  // dQ panels of each warpgroup
+  static_assert(D % 16 == 0 && panels(D) % WG == 0, "tiles are 64-column panels, split evenly over warpgroups");
+  constexpr int NPW = panels(D) / WG;  // dQ panels of each warpgroup
   const int qt = blockIdx.x, bh = blockIdx.y, b = bh / heads;
   const int warp = wg_warp(), lane = threadIdx.x % 32, p0 = threadIdx.x / THREADS * NPW;
   const int q0 = qt * BLOCK;
@@ -779,8 +809,8 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const voi
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// C launchers (bound from Python with ctypes). head_dim 64 and 256 are
-// instantiated; any other head_dim returns cudaErrorInvalidValue.
+// C launchers (bound from Python with ctypes). head_dim 64, 96, 128 and 256
+// are instantiated; any other head_dim returns cudaErrorInvalidValue.
 // ---------------------------------------------------------------------------
 
 extern "C" cudaError_t flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
@@ -790,6 +820,12 @@ extern "C" cudaError_t flash_attn_fwd(const void* q, const void* k, const void* 
   switch (head_dim) {
     case 64:
       return launch_fwd<64, 1>(q, k, v, mask, o, lse, batch_heads, heads, q_len, kv_len, causal, scale, st);
+    case 96:
+      return launch_fwd<96, FWD_WG_96>(q, k, v, mask, o, lse, batch_heads, heads, q_len, kv_len, causal, scale,
+                                        st);
+    case 128:
+      return launch_fwd<128, FWD_WG_128>(q, k, v, mask, o, lse, batch_heads, heads, q_len, kv_len, causal, scale,
+                                         st);
     case 256:
       return launch_fwd<256, FWD_WG_256>(q, k, v, mask, o, lse, batch_heads, heads, q_len, kv_len, causal, scale,
                                          st);
@@ -807,6 +843,12 @@ extern "C" cudaError_t flash_attn_bwd_dkv(const void* q, const void* k, const vo
     case 64:
       return launch_bwd_dkv<64, 1>(q, k, v, dout, lse, delta, mask, dk, dv, batch_heads, heads, q_len, kv_len,
                                    causal, scale, st);
+    case 96:
+      return launch_bwd_dkv<96, DKV_WG_96>(q, k, v, dout, lse, delta, mask, dk, dv, batch_heads, heads, q_len,
+                                           kv_len, causal, scale, st);
+    case 128:
+      return launch_bwd_dkv<128, DKV_WG_128>(q, k, v, dout, lse, delta, mask, dk, dv, batch_heads, heads, q_len,
+                                             kv_len, causal, scale, st);
     case 256:
       return launch_bwd_dkv<256, DKV_WG_256>(q, k, v, dout, lse, delta, mask, dk, dv, batch_heads, heads, q_len,
                                              kv_len, causal, scale, st);
@@ -824,6 +866,12 @@ extern "C" cudaError_t flash_attn_bwd_dq(const void* q, const void* k, const voi
     case 64:
       return launch_bwd_dq<64, 1>(q, k, v, dout, lse, delta, mask, dq, batch_heads, heads, q_len, kv_len, causal,
                                   scale, st);
+    case 96:
+      return launch_bwd_dq<96, DQ_WG_96>(q, k, v, dout, lse, delta, mask, dq, batch_heads, heads, q_len, kv_len,
+                                         causal, scale, st);
+    case 128:
+      return launch_bwd_dq<128, DQ_WG_128>(q, k, v, dout, lse, delta, mask, dq, batch_heads, heads, q_len, kv_len,
+                                           causal, scale, st);
     case 256:
       return launch_bwd_dq<256, DQ_WG_256>(q, k, v, dout, lse, delta, mask, dq, batch_heads, heads, q_len, kv_len,
                                            causal, scale, st);

@@ -3,11 +3,13 @@
 // tensor maps. Inline PTX only; nothing here allocates or synchronises the
 // device.
 //
-// Shared-memory tiles. Every bf16 tile is [64 rows][D] and is stored as D/64
-// panels of [64 rows][64 columns]: one row of a panel is 128 bytes, and TMA
-// writes it with the 128-byte swizzle (the 16-byte chunk c of row r lands at
-// chunk c ^ (r % 8)). A panel is 8 KB and 1024-byte aligned, so the swizzle,
-// which is a function of the shared address, is the same for TMA and wgmma.
+// Shared-memory tiles. Every bf16 tile is [64 rows][D] and is stored as
+// ceil(D/64) panels of [64 rows][64 columns]: one row of a panel is 128
+// bytes, and TMA writes it with the 128-byte swizzle (the 16-byte chunk c of
+// row r lands at chunk c ^ (r % 8)). A panel is 8 KB and 1024-byte aligned, so
+// the swizzle, which is a function of the shared address, is the same for TMA
+// and wgmma. Columns past D (D = 96: 96..127 of the second panel) arrive as
+// zeros.
 //
 // wgmma m64n64k16 reads such a panel in two ways:
 //   K-major (rows are M or N, the 64 columns are K): k-step kk starts 32 bytes
@@ -88,12 +90,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// A [64][D] tile: D/64 panels of one box each, all on one barrier.
+// A [64][D] tile: ceil(D/64) panels of one box each, all on one barrier; a
+// box counts its whole 8 KB on the barrier, the zeros past the map's edge
+// included.
 template <int D>
 __device__ __forceinline__ void tma_load_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int row,
                                               int plane) {
 #pragma unroll
-  for (int p = 0; p < D / PANEL; ++p) tma_load_3d(dst + p * PANEL_BYTES, map, bar, p * PANEL, row, plane);
+  for (int p = 0; p < (D + PANEL - 1) / PANEL; ++p)
+    tma_load_3d(dst + p * PANEL_BYTES, map, bar, p * PANEL, row, plane);
 }
 
 // ---------------------------------------------------------------------------
@@ -238,7 +243,8 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A contiguous [planes, rows, d] bf16 tensor, read in boxes of {64, 64, 1}
-// with the 128-byte swizzle. Rows past `rows` of a plane read as zeros.
+// with the 128-byte swizzle. Rows past `rows` of a plane, and columns past d
+// (d = 96), read as zeros.
 inline cudaError_t make_map_3d(CUtensorMap* map, const void* ptr, int planes, int rows, int d) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;

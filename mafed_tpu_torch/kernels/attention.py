@@ -13,14 +13,17 @@ Counterpart of mafed_tpu/kernels/attention.py. Layout: q, k, v are
     remat policy (`REMAT_STASH`, models/gpt_neox.py) the policy may keep
     (o, lse) from the forward and hand them back to the recompute, which
     then launches no forward.
-  * `dot_product_attention` dispatches as the JAX package's does, minus its
-    TPU routing choices: a call with `causal_offset` (a KV-cache decode step)
-    takes the plain masked path, every other call with supported shapes the
+  * `dot_product_attention` dispatches by shape as the JAX package's does on
+    its TPU: a call with `causal_offset` (a KV-cache decode step) and every
+    shape that the JAX dispatcher sends to `xla_attention` take the plain
+    masked path (`masked_attention`) on every device; every other call the
     flash path: the training window, the EVA-02 tower (non-causal, unmasked)
     and the KV-cache prefill (causal over its own positions, key-padded).
 
 The kernels take head_dim 64 (the 160M and 410M decoders, the EVA-02
-tower) and 256 (the 1B decoder); other head_dims raise on CUDA tensors.
+tower), 96 (GPT-NeoX-20B's width), 128 (Pythia-1.4B, 6.9B, 12B) and 256
+(the 1B decoder). The flash path's other head_dims (384 and larger
+multiples of 128) are not yet ported and raise on CUDA tensors.
 
 `LAUNCHES` counts kernel launches, one per launch, for callers that check
 which path ran; `LAUNCHES_BY_HEAD_DIM[d]` counts the same launches at head_dim d.
@@ -164,8 +167,8 @@ def _check_qkv(q, k, v, causal: bool):
     _check_cuda("k", k, (batch, heads, kv_len, d), torch.bfloat16)
     _check_cuda("v", v, (batch, heads, kv_len, d), torch.bfloat16)
     if d not in HEAD_DIMS:
-        dims = " and ".join(str(x) for x in HEAD_DIMS)
-        raise ValueError(f"the CUDA flash kernels are built for head_dim {dims}, got {d}")
+        dims = ", ".join(str(x) for x in HEAD_DIMS)
+        raise ValueError(f"head_dim {d} is not yet ported: the CUDA flash kernels take head_dim {dims}")
     if causal and kv_len != q_len:
         raise ValueError("causal flash attention needs kv_len == q_len")
     return batch, heads, q_len, kv_len, d
@@ -281,26 +284,24 @@ class FlashAttention(torch.autograd.Function):
 def dot_product_attention(q, k, v, *, key_padding_mask=None, causal=False, causal_offset=None, scale=None):
     """Attention with [B, H, T, D] layout.
 
-    causal_offset (KV-cache decode) takes the plain masked path. Otherwise
-    shapes that the JAX dispatcher sends to its flash kernel (head_dim 64,
-    96, 128, 256 or a multiple of 128; q_len >= 8; causal only with
-    kv_len == q_len) go through `FlashAttention`; other shapes raise on CUDA
-    and take the plain masked path on the CPU. Of those head_dims the CUDA
-    kernels take 64 and 256; the others raise on CUDA tensors (`_check_qkv`).
+    Routed by shape, exactly as the JAX dispatcher routes on its TPU:
+    shapes that it sends to its flash kernel (head_dim 64, 96, 128, 256 or a
+    multiple of 128; q_len >= 8; causal only with kv_len == q_len; no
+    causal_offset) go through `FlashAttention`, on the CPU and on CUDA alike;
+    every other shape (head_dim 80, say, or a KV-cache decode step) takes
+    `masked_attention`, its counterpart of `xla_attention`, on every device.
+    Of the flash head_dims the CUDA kernels take 64, 96, 128 and 256; the
+    others raise on CUDA tensors as not yet ported (`_check_qkv`).
     """
     head_dim = q.shape[-1]
     scale_f = float((head_dim ** -0.5) if scale is None else scale)
-    if causal_offset is not None:
+    q_len, kv_len = q.shape[2], k.shape[2]
+    shapes_ok = head_dim % 128 == 0 or head_dim in (64, 96, 128, 256)
+    shapes_ok = shapes_ok and q_len >= 8 and (not causal or kv_len == q_len)
+    if causal_offset is not None or not shapes_ok:
         return masked_attention(
             q, k, v, key_padding_mask=key_padding_mask, causal=causal,
             causal_offset=causal_offset, scale=scale_f,
         )
-    q_len, kv_len = q.shape[2], k.shape[2]
-    shapes_ok = head_dim % 128 == 0 or head_dim in (64, 96, 128, 256)
-    shapes_ok = shapes_ok and q_len >= 8 and (not causal or kv_len == q_len)
-    if not shapes_ok:
-        if q.is_cuda:
-            raise ValueError(f"unsupported shapes for flash attention: {tuple(q.shape)} {tuple(k.shape)}")
-        return masked_attention(q, k, v, key_padding_mask=key_padding_mask, causal=causal, scale=scale_f)
     mask = None if key_padding_mask is None else key_padding_mask.to(torch.int32).contiguous()
     return FlashAttention.apply(q, k, v, mask, causal, scale_f)

@@ -32,7 +32,7 @@ CSRC = _PKG / "csrc"
 SOURCE = CSRC / "flash_attn.cu"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
-HEAD_DIMS = (64, 256)  # the head_dims the library instantiates; the launchers refuse any other
+HEAD_DIMS = (64, 96, 128, 256)  # the head_dims the library instantiates; the launchers refuse any other
 
 
 def instantiation(kernel: str, head_dim: int) -> str:

@@ -8,10 +8,12 @@ substitutions applied to mafed_tpu_torch/csrc/flash_attn.cu; a first pair
 parent commit's, unpacked with `git archive`). `{"base": []}` is the source
 as it stands. Every variant is built with nvcc in parallel into its own
 library and held against the plain versions (o, dk, dv and dq at
-chip_smoke's tolerances, lse's empty rows exactly) at head_dim 64 and 256,
-each in a small unaligned case with empty rows, a non-causal 100 x 257 case
-and its model's CE shape (410M: [48, 16, 336, 64]; 1B: [48, 8, 336, 256]).
-Then the forward, dK/dV and dQ kernels are timed at both CE shapes in
+chip_smoke's tolerances, lse's empty rows exactly) at every head_dim the
+kernels are built for (kernels/build.py HEAD_DIMS), each in a small
+unaligned case with empty rows, a non-causal 100 x 257 case and its model's
+CE shape (CE_SHAPES: 410M [48, 16, 336, 64], a decoder at GPT-NeoX-20B's
+width [48, 64, 336, 96], 1.4B [48, 16, 336, 128], 1B [48, 8, 336, 256]).
+Then the forward, dK/dV and dQ kernels are timed at those CE shapes in
 turns, three rounds of 50 launches each, so every variant sees the same
 card. Prints one JSON line per variant (ptxas report, largest errors and
 times by head_dim); with --out, the list also goes to that file.
@@ -31,6 +33,8 @@ import tempfile
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# (batch, heads) of each head_dim's CE pass: 3 x 16 rows of its model's heads
+CE_SHAPES = {64: (48, 16), 96: (48, 64), 128: (48, 16), 256: (48, 8)}
 
 
 def _build(variants, workdir):
@@ -86,10 +90,10 @@ def main() -> int:
         gen = torch.Generator(device="cuda").manual_seed(0)
         # (batch, heads, q_len, kv_len, head_dim, causal, padded keys, all-masked last sample); the last
         # case of each head_dim is its model's CE shape, where the kernels are timed
-        cases = [(3, 2, 77, 77, 64, True, (0, 3), True), (2, 4, 100, 257, 64, False, None, False),
-                 (48, 16, 336, 336, 64, True, (256, 276), False),
-                 (3, 2, 77, 77, 256, True, (0, 3), True), (2, 4, 100, 257, 256, False, None, False),
-                 (48, 8, 336, 336, 256, True, (256, 276), False)]
+        cases = []
+        for d in build.HEAD_DIMS:
+            cases += [(3, 2, 77, 77, d, True, (0, 3), True), (2, 4, 100, 257, d, False, None, False),
+                      (*CE_SHAPES[d], 336, 336, d, True, (256, 276), False)]
         data = []
         for b, h, tq, tk, d, causal, pad, empty in cases:
             q = torch.randn(b, h, tq, d, generator=gen, device="cuda").bfloat16()
@@ -125,7 +129,7 @@ def main() -> int:
             for _ in range(3):
                 for name, lib in libs.items():
                     A.load_library = lambda lib=lib: lib
-                    for q, k, v, do, mask, _, scale, _, lse_p, delta, _, _, _ in (data[2], data[5]):
+                    for q, k, v, do, mask, _, scale, _, lse_p, delta, _, _, _ in data[2::3]:
                         d = q.shape[-1]
                         results[name]["fwd_ms"].setdefault(d, []).append(
                             chip_smoke.time_ms(lambda: A.flash_forward(q, k, v, mask, True, scale), iters=50))

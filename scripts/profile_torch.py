@@ -1,7 +1,7 @@
 """Where the time of the port's main paths goes on an NVIDIA GPU.
 
     python3 scripts/profile_torch.py [--path window|window_unfused|ce_window|train_step|decode|cl_sequence|pretrain_step]
-                                     [--preset 410m|1b] [--reps 2] [--train-questions 1024] [--out PATH]
+                                     [--preset 410m|1b|1.4b|neox20b_4l] [--reps 2] [--train-questions 1024] [--out PATH]
 
 window: the fused MAFED window of chip_smoke.py (VL-Pythia-410M at full width
 and depth, 3 CE microbatches of 16 + 1 memory microbatch of 16, 256 cached
@@ -39,7 +39,9 @@ right-padded per row, AdamW, bf16), from a batch of the trainer's own
 loader on the card; and one batch of its eval loss (forward only).
 
 --preset 1b runs every other path with VL-Pythia-1B (hidden 2048, 16 layers, 8
-heads of 256) at the same shapes in place of the 410M model.
+heads of 256) at the same shapes in place of the 410M model; 1.4b with
+VL-Pythia-1.4B (16 heads of 128), neox20b_4l with the decoder at
+GPT-NeoX-20B's widths cut to 4 layers (64 heads of 96): chip_smoke.DECODER_CONFIGS.
 
 For each profiled unit, torch.profiler over `--reps` steady repetitions
 gives the wall ms per repetition (host clock, ending in a synchronise),
@@ -126,11 +128,10 @@ def profile(fn, reps: int, warmup: int = 2) -> dict:
 
 
 def window_units(reps: int, preset: str, fuse: bool = True) -> dict:
-    from chip_smoke import window_setup
-    from mafed_tpu_torch.core.config import model_config_for_preset
+    from chip_smoke import model_config, window_setup
     from mafed_tpu_torch.models.vl_pythia import init_model
 
-    cfg = model_config_for_preset(preset)
+    cfg = model_config(preset)
     model = init_model(cfg, seed=0, device="cuda")
     step, state, teacher, ce, distill, lang = window_setup(cfg, model, 3, 16, 80, torch.Generator().manual_seed(2), "cuda",
                                                            fuse_ce_batch=fuse)
@@ -143,14 +144,13 @@ def window_units(reps: int, preset: str, fuse: bool = True) -> dict:
 
 
 def ce_units(path: str, reps: int, preset: str) -> dict:
-    from chip_smoke import example_batch, stack, train_config
-    from mafed_tpu_torch.core.config import model_config_for_preset
+    from chip_smoke import example_batch, model_config, stack, train_config
     from mafed_tpu_torch.models.vl_pythia import init_model
     from mafed_tpu_torch.optim.optimizer import build_optimizer, set_schedule
     from mafed_tpu_torch.training.step import make_ce_window_step, make_train_step
     from mafed_tpu_torch.training.train_state import TrainState, trainable_parameters
 
-    cfg = model_config_for_preset(preset)
+    cfg = model_config(preset)
     model = init_model(cfg, seed=0, device="cuda")
     train_cfg = train_config()
     trainable = trainable_parameters(model)
@@ -170,15 +170,14 @@ def ce_units(path: str, reps: int, preset: str) -> dict:
 
 
 def decode_units(reps: int, preset: str) -> dict:
-    from chip_smoke import decode_batches
-    from mafed_tpu_torch.core.config import model_config_for_preset
+    from chip_smoke import decode_batches, model_config
     from mafed_tpu_torch.data.images import make_normalizer, prep_pixels
     from mafed_tpu_torch.evaluation.decode import make_greedy_decoder
     from mafed_tpu_torch.models import gpt_neox
     from mafed_tpu_torch.models import vl_pythia as V
     from mafed_tpu_torch.models.vl_pythia import init_model
 
-    cfg = model_config_for_preset(preset)
+    cfg = model_config(preset)
     b, text_len, pad, max_new, dtype = 32, 64, 16, 10, torch.bfloat16
     model = init_model(cfg, seed=0, device="cuda", dtype=dtype)
     decode = make_greedy_decoder(cfg, max_new_tokens=max_new)
@@ -309,7 +308,7 @@ def main() -> int:
     parser.add_argument("--path", choices=("window", "window_unfused", "ce_window", "train_step", "decode",
                                            "cl_sequence", "pretrain_step"),
                         default="window")
-    parser.add_argument("--preset", choices=("410m", "1b"), default="410m")
+    parser.add_argument("--preset", choices=("410m", "1b", "1.4b", "neox20b_4l"), default="410m")
     parser.add_argument("--reps", type=int, default=2)
     parser.add_argument("--train-questions", type=int, default=1024, help="cl_sequence: train questions a task")
     parser.add_argument("--out", help="also write the JSON object to this file")

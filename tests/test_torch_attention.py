@@ -8,13 +8,21 @@ rtol 1e-4: both sum f32 products, in different orders (online softmax over
 64-key tiles against one dense softmax), so they differ by float32 rounding
 only. Both forwards are also held, at the same tolerance, against a float64
 dense softmax in numpy, so a disagreement names the side that moved. Every
-case runs at the head_dim of its name (64, or 256 for the 1B decoder's heads)
-with the models' scale head_dim^-0.5.
+case runs at the head_dim of its name (64; 96, GPT-NeoX-20B's heads; 128,
+Pythia-1.4B's; 256, the 1B decoder's) with the models' scale head_dim^-0.5.
 
 The JAX references are compiled in this module's process, never read from
 the persistent compilation cache (`tests/conftest.py` turns it on for the
 suite): an executable from that cache may have been compiled by another
 process, on another machine type.
+
+Torch runs on one CPU thread here (`one_torch_thread`). In parallel runs of
+the suite, a multithreaded CPU matmul of the port's plain forward returned,
+rarely, up to 5e-5 off in the block of rows a second thread computes when
+the product is split two ways (rows 33-64 of one head of a 65-row case;
+every other value bit-equal to a clean recompute), which no global torch
+setting (matmul precision, oneDNN mode, thread count) reproduces; on one
+thread no product is split among threads.
 """
 
 import numpy as np
@@ -27,6 +35,7 @@ from jax._src import compilation_cache
 
 from mafed_tpu.kernels import attention as jattn
 from mafed_tpu_torch.kernels import attention as tattn
+from tests.torch_helpers import one_torch_thread  # noqa: F401 (a fixture)
 
 ATOL, RTOL = 1e-5, 1e-4
 
@@ -71,6 +80,14 @@ CASES = [
     ("causal_tile_edge_129_d256", 1, 2, 129, 129, True, True, False, 256),
     ("noncausal_100x257_d256", 1, 2, 100, 257, False, True, False, 256),
     ("noncausal_empty_rows_d256", 2, 2, 40, 40, False, True, True, 256),
+    ("causal_padded_d128", 2, 2, 64, 64, True, True, False, 128),
+    ("causal_tile_edge_65_d128", 2, 2, 65, 65, True, True, False, 128),
+    ("noncausal_empty_rows_d128", 2, 2, 40, 40, False, True, True, 128),
+    ("noncausal_100x257_d128", 1, 2, 100, 257, False, True, False, 128),
+    ("causal_padded_d96", 2, 2, 64, 64, True, True, False, 96),
+    ("causal_tile_edge_65_d96", 2, 2, 65, 65, True, True, False, 96),
+    ("noncausal_empty_rows_d96", 2, 2, 40, 40, False, True, True, 96),
+    ("noncausal_100x257_d96", 1, 2, 100, 257, False, True, False, 96),
 ]
 CASE_ARGS = "name,b,h,t,kv_len,causal,masked,empty,d"
 
@@ -231,6 +248,32 @@ def test_unsupported_head_dim_takes_plain_path_on_cpu():
     ref = jattn.xla_attention(*(jnp.asarray(x) for x in (q, k, v)), causal=True)
     tattn.reset_launches()
     got = tattn.dot_product_attention(_t(q), _t(k), _t(v), causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL)
+    assert tattn.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+
+
+# shapes that the JAX dispatcher sends to xla_attention even where it runs
+# Pallas: head_dim 80 (Pythia-2.8B's heads), q_len under 8, causal with
+# kv_len != q_len; (q shape, kv_len, causal)
+XLA_SHAPES = [((2, 4, 24, 80), 24, True), ((2, 4, 4, 64), 4, False), ((2, 4, 24, 128), 40, True)]
+
+
+@pytest.mark.parametrize("q_shape,kv_len,causal", XLA_SHAPES, ids=["head_dim_80", "q_len_4", "causal_24x40"])
+def test_shapes_jax_sends_to_xla_take_masked_attention(q_shape, kv_len, causal, monkeypatch):
+    """Both dispatchers route these shapes to their plain masked path (the
+    JAX one with its Pallas kernels on, in interpret mode): the same result;
+    the port never reaches FlashAttention and counts no flash launch."""
+    b, h, t, d = q_shape
+    rng = np.random.default_rng(10)
+    q = rng.normal(size=q_shape).astype(np.float32)
+    k, v = (rng.normal(size=(b, h, kv_len, d)).astype(np.float32) for _ in range(2))
+    mask = np.ones((b, kv_len), np.int32)
+    mask[0, :2] = 0
+    ref = jattn.dot_product_attention(*(jnp.asarray(x) for x in (q, k, v)), key_padding_mask=jnp.asarray(mask),
+                                      causal=causal)
+    monkeypatch.setattr(tattn.FlashAttention, "apply", lambda *a: pytest.fail("took the flash path"))
+    tattn.reset_launches()
+    got = tattn.dot_product_attention(_t(q), _t(k), _t(v), key_padding_mask=_t(mask), causal=causal)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL)
     assert tattn.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 

@@ -16,14 +16,18 @@ ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_bwd_dkv_kernelI
 ptxas info    : Used 255 registers, used 1 barriers
 """
 
-# nvcc's report of a library with both head_dims of all three kernels, the
-# 256 instantiations of a kernel after its 64 one in one case and before it
-# in another (ptxas orders entries by neither)
+# nvcc's report of a library with every head_dim of all three kernels, the
+# instantiations of a kernel in a different order for each kernel (ptxas
+# orders entries by neither kernel nor head_dim): each kernel's warpgroups
+# (the *_WG_* of flash_attn.cu) and its registers as ptxas read them for
+# sm_90a on an H100, with a spill made up at dK/dV 256 so that one is read
 _MANGLED = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}ELi{wg}EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16Pfiiiif"
-_ENTRIES = [("flash_fwd_kernel", 64, 1, 93, 0), ("flash_fwd_kernel", 256, 1, 190, 0),
-            ("flash_bwd_dkv_kernel", 256, 2, 236, 24), ("flash_bwd_dkv_kernel", 64, 1, 165, 0),
-            ("flash_bwd_dq_kernel", 64, 1, 122, 0), ("flash_bwd_dq_kernel", 256, 1, 222, 0)]
-
+_ENTRIES = [("flash_fwd_kernel", 64, 1, 92, 0), ("flash_fwd_kernel", 96, 2, 100, 0),
+            ("flash_fwd_kernel", 128, 1, 128, 0), ("flash_fwd_kernel", 256, 2, 128, 0),
+            ("flash_bwd_dkv_kernel", 256, 2, 234, 24), ("flash_bwd_dkv_kernel", 128, 1, 234, 0),
+            ("flash_bwd_dkv_kernel", 96, 1, 234, 0), ("flash_bwd_dkv_kernel", 64, 1, 163, 0),
+            ("flash_bwd_dq_kernel", 128, 1, 154, 0), ("flash_bwd_dq_kernel", 64, 1, 122, 0),
+            ("flash_bwd_dq_kernel", 256, 1, 218, 0), ("flash_bwd_dq_kernel", 96, 1, 154, 0)]
 
 def _mangled(name, d, wg):
     return _MANGLED.format(n=len(name), name=name, d=d, wg=wg)
@@ -40,7 +44,7 @@ PTXAS_BOTH = "".join(
 SASS_BOTH = "".join(
     f"\n\tcode for sm_90a\n\t\tFunction : {_mangled(name, d, wg)}\n"
     "\t.headerflags\t@\"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)\"\n"
-    + "        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;\n" * (d // 64)
+    + "        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;\n" * -(-d // 64)
     + "        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24 ;\n" * (d // 16 + regs % 7)
     + "        /*0300*/                   EXIT ;\n"
     for name, d, wg, regs, _ in _ENTRIES
@@ -67,7 +71,7 @@ def test_kernel_resources_reads_the_ptxas_report():
 
 def test_kernel_resources_keeps_every_instantiation_apart():
     got = build.kernel_resources(PTXAS_BOTH)
-    assert sorted(got) == sorted(build.INSTANTIATIONS) and len(got) == 6
+    assert sorted(got) == sorted(build.INSTANTIATIONS) and len(got) == 12
     for name, d, _, regs, spill in _ENTRIES:
         assert got[build.instantiation(name, d)] == {
             "spill_store_bytes": spill, "spill_load_bytes": spill // 2, "registers": regs}
@@ -77,4 +81,4 @@ def test_sass_counts_keep_every_instantiation_apart():
     got = build.parse_sass(SASS_BOTH)
     assert sorted(got) == sorted(build.INSTANTIATIONS)
     for name, d, _, regs, _ in _ENTRIES:
-        assert got[build.instantiation(name, d)] == {"UTMALDG": d // 64, "HGMMA": d // 16 + regs % 7}
+        assert got[build.instantiation(name, d)] == {"UTMALDG": -(-d // 64), "HGMMA": d // 16 + regs % 7}

@@ -36,7 +36,7 @@ from mafed_tpu_torch.optim import optimizer as topt
 from mafed_tpu_torch.training import flops as tflops
 from mafed_tpu_torch.training import step as tstep
 from mafed_tpu_torch.training.train_state import TrainState, trainable_parameters
-from tests.torch_helpers import TINY_256, batch, jax_params, stack, tiny_cfgs, to_torch, torch_model
+from tests.torch_helpers import WIDE_DECODERS, WIDE_IDS, batch, jax_params, stack, tiny_cfgs, to_torch, torch_model
 
 N_MB, B, TEXT = 4, 2, 16
 LR = 5e-5
@@ -56,10 +56,10 @@ def setup():
     return jcfg, tc, params, mbs
 
 
-@pytest.fixture(scope="module")
-def setup_256():
-    """The tiny model with the 1B decoder's heads (2 of 256)."""
-    jcfg, tc = tiny_cfgs(decoder=TINY_256)
+@pytest.fixture(scope="module", params=list(WIDE_DECODERS), ids=WIDE_IDS)
+def setup_wide(request):
+    """The tiny model with 2 heads of 256 (the 1B decoder's), 128 or 96."""
+    jcfg, tc = tiny_cfgs(decoder=WIDE_DECODERS[request.param])
     params = jax_params(jcfg, seed=4)
     mbs = [batch(tc, B, TEXT, seed=30 + i, pad=1 + i) for i in range(N_MB)]
     return jcfg, tc, params, mbs
@@ -112,10 +112,10 @@ def test_ce_window_matches_jax_f32(setup, case):
     _check_ce_window_f32(setup, CE_WINDOW_CASES[case])
 
 
-def test_ce_window_matches_jax_f32_head_dim_256(setup_256):
-    """The CE window of the 1B run (heads of 256, AdamW with a bf16 first
+def test_ce_window_matches_jax_f32_wide_heads(setup_wide):
+    """The CE window of the 1B run (heads of 256, or 128, 96; AdamW with a bf16 first
     moment as the bench runs it) at the tiny width."""
-    _check_ce_window_f32(setup_256, dict(adam_mu_dtype="bfloat16"))
+    _check_ce_window_f32(setup_wide, dict(adam_mu_dtype="bfloat16"))
 
 
 def _check_ce_window_f32(setup, train_kw):

@@ -9,8 +9,8 @@ The kernels are held against their dense plain versions in bf16 at atol =
 rtol = 2e-2: the tiled kernels round p to bf16 against a running row maximum,
 the plain versions against the final one, so single elements differ by a few
 bf16 ulps. lse is float32 in both (atol 1e-4). Every kernel check runs at
-both head_dims the kernels take, 64 and 256, with the models' scale
-head_dim^-0.5.
+each head_dim the kernels take (HEAD_DIMS: 64, 96, 128 and 256), with the
+models' scale head_dim^-0.5.
 """
 
 import numpy as np
@@ -21,6 +21,7 @@ from mafed_tpu_torch.kernels import attention as tattn
 
 ATOL, RTOL = 2e-2, 2e-2
 SCALE = 0.125  # head_dim 64's
+HEAD_DIMS = [64, 96, 128, 256]
 
 
 @pytest.fixture
@@ -56,7 +57,7 @@ KERNEL_CASES += [(100, 257, False, None), (65, 336, False, None), (200, 200, Tru
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", [64, 256])
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("q_len,kv_len,causal,masked", KERNEL_CASES)
 def test_kernels_match_plain(gpu, q_len, kv_len, causal, masked, head_dim):
     q, k, v, g, mask = _inputs(2, 4, q_len, seed=11, kv_len=kv_len, masked=masked, d=head_dim)
@@ -76,7 +77,7 @@ def test_kernels_match_plain(gpu, q_len, kv_len, causal, masked, head_dim):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", [64, 256])
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 def test_autograd_goes_through_the_kernels(gpu, head_dim):
     """dot_product_attention on the card: one launch of each kernel, at this
     head_dim, for one forward and backward, on the non-contiguous q/k/v views
@@ -101,18 +102,40 @@ def test_cuda_calls_the_kernels_cannot_take_raise(gpu):
     q, k, v, _, mask = _inputs(1, 2, 64, seed=13)
     with pytest.raises(TypeError, match="bfloat16"):
         tattn.flash_forward(q.float(), k.float(), v.float(), mask, True, SCALE)
-    wide = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="head_dim 64 and 256, got 128"):
+    wide = torch.zeros(1, 2, 64, 384, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 384 is not yet ported"):
         tattn.flash_forward(wide, wide, wide, None, True, SCALE)
+    with pytest.raises(ValueError, match="head_dim 384 is not yet ported"):
+        tattn.dot_product_attention(wide, wide, wide, causal=True)  # the JAX package sends it to Pallas
     with pytest.raises(ValueError, match="contiguous"):
         tattn.flash_forward(q.transpose(2, 3), k, v, None, False, SCALE)
-    narrow = torch.zeros(1, 2, 64, 16, dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="unsupported shapes"):
-        tattn.dot_product_attention(narrow, narrow, narrow, causal=True)
 
 
-# tiny decoders: heads of 64, and of 256 as the 1B preset's
+# shapes that the JAX dispatcher sends to xla_attention: head_dim 80
+# (Pythia-2.8B's heads), q_len under 8, causal with kv_len != q_len
+XLA_SHAPES = [((2, 32, 336, 80), 336, True), ((2, 4, 4, 64), 4, False), ((2, 4, 24, 128), 40, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_shape,kv_len,causal", XLA_SHAPES)
+def test_shapes_jax_sends_to_xla_take_masked_attention_on_card(gpu, q_shape, kv_len, causal):
+    """dot_product_attention on the card returns masked_attention's result
+    for these shapes, bit for bit, with no flash launch (before the routing
+    followed the JAX dispatcher, they raised on CUDA tensors)."""
+    b, h, t, d = q_shape
+    q, k, v, _, mask = _inputs(b, h, t, seed=14, kv_len=kv_len, d=d)
+    tattn.reset_launches()
+    got = tattn.dot_product_attention(q, k, v, key_padding_mask=mask, causal=causal)
+    want = tattn.masked_attention(q, k, v, key_padding_mask=mask, causal=causal)
+    assert tattn.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    assert got.is_cuda and torch.equal(got, want)
+
+
+# tiny decoders of 2 heads: of 64; of 96 as GPT-NeoX-20B's; of 128 as
+# Pythia-1.4B's; of 256 as the 1B preset's
 DECODERS = {64: dict(hidden_size=128, num_hidden_layers=3, intermediate_size=256),
+            96: dict(hidden_size=192, num_hidden_layers=2, intermediate_size=384),
+            128: dict(hidden_size=256, num_hidden_layers=2, intermediate_size=512),
             256: dict(hidden_size=512, num_hidden_layers=2, intermediate_size=1024)}
 
 
@@ -197,10 +220,10 @@ def _tiny_train_batch(seed, b=4, text_len=24):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", [64, 256])
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("remat", [False, True])
 def test_train_step_on_card_matches_cpu(gpu, remat, head_dim):
-    """One bf16 train step of the tiny model (decoder heads of 64 or 256) on
+    """One bf16 train step of the tiny model (decoder heads of `head_dim`) on
     the card (kernels) against the CPU (plain versions): loss and grad norm
     within rtol 3e-2; without remat one launch of each kernel per layer, with
     remat one more forward, all at the decoder's head_dim."""

@@ -37,7 +37,7 @@ from mafed_tpu_torch.evaluation.validate import validate_vqa
 from mafed_tpu_torch.kernels import attention as tattn
 from mafed_tpu_torch.models import eva02 as teva
 from mafed_tpu_torch.models import vl_pythia as tvl
-from tests.torch_helpers import TINY_256, TINY_VISION_64, jax_params, tiny_cfgs, to_torch, torch_model
+from tests.torch_helpers import WIDE_DECODERS, WIDE_IDS, TINY_VISION_64, jax_params, tiny_cfgs, to_torch, torch_model
 
 F32 = torch.float32
 
@@ -56,10 +56,10 @@ def setup():
     return jcfg, tc, params, torch_model(params, tc)
 
 
-@pytest.fixture(scope="module")
-def setup_256():
-    """The 1B decoder's heads (2 of 256) behind the same head_dim-64 tower."""
-    jcfg, tc = tiny_cfgs(TINY_VISION_64, decoder=TINY_256)
+@pytest.fixture(scope="module", params=list(WIDE_DECODERS), ids=WIDE_IDS)
+def setup_wide(request):
+    """2 heads of 256 (the 1B decoder's), 128 or 96 behind the same head_dim-64 tower."""
+    jcfg, tc = tiny_cfgs(TINY_VISION_64, decoder=WIDE_DECODERS[request.param])
     params = jax_params(jcfg, seed=2)
     return jcfg, tc, params, torch_model(params, tc)
 
@@ -173,10 +173,10 @@ def test_greedy_tokens_equal_jax(setup, route, max_new, seed):
 
 
 @pytest.mark.parametrize("route", ["pixels", "patches"])
-def test_greedy_tokens_equal_jax_head_dim_256(setup_256, route):
-    """The 1B decoder's heads: a KV cache of [B, 2, T, 256], rotary over 64 of
-    the 256 dims; 10 tokens (bench_eval.py's count) from each route."""
-    jcfg, tc, params, model = setup_256
+def test_greedy_tokens_equal_jax_wide_heads(setup_wide, route):
+    """The wider heads: a KV cache of [B, 2, T, head_dim], rotary over a
+    quarter of them; 10 tokens (bench_eval.py's count) from each route."""
+    jcfg, tc, params, model = setup_wide
     b_np = _decode_batch(tc, 4, 8, seed=7, route=route)
     want = _jax_tokens(jcfg, params, b_np, 10)
     got = _port_tokens(tc, model, b_np, 10)
@@ -229,8 +229,8 @@ def test_flash_forward_calls_per_decode(setup, monkeypatch, route):
 
 
 @pytest.mark.parametrize("route", ["pixels", "patches"])
-def test_flash_forward_calls_per_decode_head_dim_256(setup_256, monkeypatch, route):
-    _check_flash_forward_calls(setup_256, monkeypatch, route)
+def test_flash_forward_calls_per_decode_wide_heads(setup_wide, monkeypatch, route):
+    _check_flash_forward_calls(setup_wide, monkeypatch, route)
 
 
 def _check_flash_forward_calls(setup, monkeypatch, route):

@@ -24,7 +24,7 @@ from mafed_tpu_torch.kernels import attention as tattn
 from mafed_tpu_torch.models import vl_pythia as tvl
 from mafed_tpu_torch.models.weights import params_from_jax
 from mafed_tpu_torch.training.train_state import trainable_parameters
-from tests.torch_helpers import TINY_256, batch, jax_params, tiny_cfgs, to_jax, to_torch, torch_model
+from tests.torch_helpers import WIDE_DECODERS, WIDE_IDS, batch, jax_params, tiny_cfgs, to_jax, to_torch, torch_model
 
 ATOL, RTOL = 1e-5, 1e-4
 
@@ -44,11 +44,12 @@ def setup():
     return jcfg, tc, jax_params(jcfg, seed=1)
 
 
-@pytest.fixture(scope="module")
-def setup_256():
-    """The tiny model with the 1B decoder's heads: 2 of 256, rotary over 64."""
-    jcfg, tc = tiny_cfgs(decoder=TINY_256)
-    assert tc.head_dim == 256 and tc.rotary_ndims == 64
+@pytest.fixture(scope="module", params=list(WIDE_DECODERS), ids=WIDE_IDS)
+def setup_wide(request):
+    """The tiny model with 2 heads of 256 (the 1B decoder's), 128
+    (Pythia-1.4B's) or 96 (GPT-NeoX-20B's), rotary over a quarter of them."""
+    jcfg, tc = tiny_cfgs(decoder=WIDE_DECODERS[request.param])
+    assert tc.head_dim == request.param and tc.rotary_ndims == request.param // 4
     return jcfg, tc, jax_params(jcfg, seed=1)
 
 
@@ -56,8 +57,8 @@ def test_params_from_jax_matches_reference_names(setup):
     _check_reference_names(setup)
 
 
-def test_params_from_jax_matches_reference_names_head_dim_256(setup_256):
-    _check_reference_names(setup_256)
+def test_params_from_jax_matches_reference_names_wide_heads(setup_wide):
+    _check_reference_names(setup_wide)
 
 
 def _check_reference_names(setup):
@@ -103,8 +104,8 @@ def test_decoder_hidden_states_f32(setup, num_layers):
 
 
 @pytest.mark.parametrize("num_layers", [None, 1], ids=["full_stack", "truncated"])
-def test_decoder_hidden_states_f32_head_dim_256(setup_256, num_layers):
-    _check_decoder_hidden_states(setup_256, num_layers)
+def test_decoder_hidden_states_f32_wide_heads(setup_wide, num_layers):
+    _check_decoder_hidden_states(setup_wide, num_layers)
 
 
 def _check_decoder_hidden_states(setup, num_layers):
@@ -166,8 +167,8 @@ def test_vl_pythia_grads_f32_with_remat(setup):
     _check_grads_with_remat(setup)
 
 
-def test_vl_pythia_grads_f32_with_remat_head_dim_256(setup_256):
-    _check_grads_with_remat(setup_256)
+def test_vl_pythia_grads_f32_with_remat_wide_heads(setup_wide):
+    _check_grads_with_remat(setup_wide)
 
 
 def _check_grads_with_remat(setup):

@@ -35,7 +35,7 @@ from mafed_tpu_torch.optim import optimizer as topt
 from mafed_tpu_torch.optim.sched import linear_warmup_schedule
 from mafed_tpu_torch.training import step as tstep
 from mafed_tpu_torch.training.train_state import TrainState, make_teacher, trainable_parameters
-from tests.torch_helpers import TINY_256, batch, jax_params, tiny_cfgs, to_torch, torch_model
+from tests.torch_helpers import WIDE_DECODERS, WIDE_IDS, batch, jax_params, tiny_cfgs, to_torch, torch_model
 
 N_CE, B, TEXT = 3, 2, 16
 LR = 5e-5
@@ -101,10 +101,10 @@ def setup():
     return jcfg, tc, params, _batches(tc)
 
 
-@pytest.fixture(scope="module")
-def setup_256():
-    """The tiny model with the 1B decoder's heads (2 of 256)."""
-    jcfg, tc = tiny_cfgs(decoder=TINY_256)
+@pytest.fixture(scope="module", params=list(WIDE_DECODERS), ids=WIDE_IDS)
+def setup_wide(request):
+    """The tiny model with 2 heads of 256 (the 1B decoder's), 128 or 96."""
+    jcfg, tc = tiny_cfgs(decoder=WIDE_DECODERS[request.param])
     params = jax_params(jcfg, seed=3)
     return jcfg, tc, params, _batches(tc)
 
@@ -126,9 +126,9 @@ def test_window_matches_jax_f32(setup, case):
 
 
 @pytest.mark.parametrize("case", ["bench_mu_f32", "bench_mu_bf16"])
-def test_window_matches_jax_f32_head_dim_256(setup_256, case):
-    """The window of the 1B run (its heads of 256, the bench's settings) at the tiny width."""
-    _check_window_f32(setup_256, WINDOW_CASES[case])
+def test_window_matches_jax_f32_wide_heads(setup_wide, case):
+    """The window of the 1B run (the bench's settings) at the tiny width, with heads of 256, 128 or 96."""
+    _check_window_f32(setup_wide, WINDOW_CASES[case])
 
 
 def _check_window_f32(setup, train_kw):
