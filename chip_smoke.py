@@ -7,8 +7,10 @@ Phases, each printing one JSON line:
   2. build: compiles csrc/flash_attn.cu with nvcc for sm_90a and prints the
      registers and spill bytes (-Xptxas -v) and the HGMMA and UTMALDG
      instruction counts (cuobjdump -sass, where the toolkit has it) of each
-     instantiation: the three kernels at head_dim 64, 96, 128 and 256; all
-     twelve are TMA + wgmma kernels, and none may spill or lack either;
+     instantiation: the three kernels at head_dim 64, 96, 128 and 256, and
+     the three wide kernels (every multiple of 128 from 384 on, a grid axis
+     over 128-column output slices); all fifteen are TMA + wgmma kernels,
+     and none may spill or lack either;
   3. kernels: the three flash kernels against their plain PyTorch versions on
      the card, in bf16, at the shapes of the 410M window and CE window (and
      EVA-02 shapes), at pretraining's ([128, 16, 356, 64], right padding of
@@ -16,10 +18,13 @@ Phases, each printing one JSON line:
      1B model's (heads of 256: its CE pass, CE window, student pass and
      decode prefill), at 1.4B's (heads of 128: the same four) and at the
      GPT-NeoX-20B-width decoder's (64 heads of 96: its CE and student
-     passes), at a tensor-parallel rank's (its heads: 4 of 256 at 1B, 8 of
-     64 at 410M), and in 65- and 129-token cases across the tile edges, a
+     passes), at the regrouped decoders' (1B as 4 heads of 512: its CE and
+     student passes and decode prefill; the 20B width as 16 heads of 384:
+     its CE and student passes), causal cases at 640 and 1024 (the slice
+     loop past four slices), at a tensor-parallel rank's (its heads: 4 of
+     256 at 1B, 8 of 64 at 410M), and in 65- and 129-token cases across the tile edges, a
      small unaligned case with fully-masked rows at every head_dim, a
-     non-causal unmasked one at 96 and 128 and a small unaligned
+     non-causal unmasked one at 96, 128, 384 and 512 and a small unaligned
      right-padded one; and their times at each head_dim's CE shape and at
      pretraining's beside the plain versions, the bound and
      torch.nn.functional.scaled_dot_product_attention (a yardstick only: its
@@ -30,8 +35,8 @@ Phases, each printing one JSON line:
   4. reference: one window of a tiny model on the card (CUDA kernels) against
      the same window on the CPU (plain versions), and that model's tower
      features and KV-cache prefill logits (head_dim-64 tower; a decoder with
-     heads of 64, then of 96, 128 and 256); then the head_dim-64 model's
-     CE window, EWC window, train step, distill step, Fisher accumulator and
+     heads of 64, then of 96, 128, 256, 384 and 512); then the head_dim-64
+     model's CE window, EWC window, train step, distill step, Fisher accumulator and
      adaptive-weight sums, card against CPU; and the rows the device vision
      table (bfloat16 and int8) and the teacher table gather, card against
      CPU, bit for bit;
@@ -81,9 +86,14 @@ Phases, each printing one JSON line:
      patches); then window_d96: three MAFED windows of a decoder at
      EleutherAI/gpt-neox-20b's widths (hidden 6144, 64 heads of 96,
      intermediate 24576, vocab 50432) cut to 4 of its 44 layers (18 / 8 / 8
-     a window at 96). After the timed windows of window_1_4b and window_d96,
-     one window of 4 x 2 rows from the same starting weights through the
-     kernels and through the plain versions on the card: losses and grad
+     a window at 96); then window_d512 and decode_d512: VL-Pythia-1B's
+     decoder regrouped as 4 heads of 512 (78 / 32 / 32 a window at 512; 24
+     at 64 + 16 at 512 a batch from pixels, 16 from patches), and
+     window_d384: the 20B-width cut regrouped as 16 heads of 384 (18 / 8 / 8
+     at 384). After the timed windows of window_1_4b, window_d96,
+     window_d512 and window_d384, one window of 4 x 2 rows from the same
+     starting weights through the kernels and through the plain versions
+     on the card: losses and grad
      norm within PLAIN_WINDOW_RTOL, the gradients of every layer's attention
      weights (q, k, v rows of query_key_value, and dense) in norm within
      PLAIN_ATTN_NORM_RTOL and in difference within PLAIN_ATTN_DIFF_RTOL;
@@ -170,7 +180,8 @@ The kernel cases include the CLIP tower's [32, 16, 577, 64] (non-causal,
 577 = 9 x 64 + 1) and its decode prefill (640, causal, 16 padded keys).
 Every phase line ends with "clock_s", the script's seconds at its end, and
 "phase_s", its seconds since the phase line before it.
-Then the kernel summary line (one entry per kernel and head_dim), the
+Then the kernel summary line (one entry per kernel and head_dim that
+launched on the main path), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a CUDA device, or without the
 package beside it, the script exits non-zero before printing anything.
@@ -295,13 +306,24 @@ def phase_build() -> None:
 
 
 def launches_by_dim() -> dict:
-    """{head_dim: {kernel: launches}} since the last reset."""
+    """{head_dim: {kernel: launches}} since the last reset, at the head_dims
+    that launched."""
     return {d: dict(c) for d, c in A.LAUNCHES_BY_HEAD_DIM.items()}
 
 
 def at_head_dim(d: int, per_kernel: dict) -> dict:
-    """{head_dim: {kernel: launches}} with `per_kernel` at d and none at the other head_dims."""
-    return {dim: dict(per_kernel) if dim == d else _kernels(0, 0) for dim in build.HEAD_DIMS}
+    """{head_dim: {kernel: launches}} with `per_kernel` at d and none at the
+    other head_dims, as launches_by_dim() reads after such a run."""
+    return _sum_launches([{d: per_kernel}])
+
+
+def _sum_launches(parts) -> dict:
+    """The sum of launch counts by head_dim (a rank's come through JSON, keyed
+    by str), without the head_dims at which none launched, as
+    launches_by_dim() leaves them out."""
+    parts = [{int(d): c for d, c in p.items()} for p in parts]
+    dims = {d for p in parts for d, c in p.items() if any(c.values())}
+    return {d: {k: sum(p[d][k] for p in parts if d in p) for k in A.LAUNCHES} for d in sorted(dims)}
 
 
 def _row_lengths(b: int, t: int, low: int) -> torch.Tensor:
@@ -369,6 +391,24 @@ KERNEL_CASES = [
     ("causal_129_padded_d96", 8, 4, 129, 96, True, (0, 7), False),
     ("small_unaligned_empty_rows_d96", 3, 2, 77, 96, True, (0, 3), True),
     ("noncausal_unmasked_d96", 16, 16, 257, 96, False, None, False),
+    # the wide kernels: 1B's decoder as 4 heads of 512 (its CE and student passes and decode prefill)
+    # and the 20B-width decoder as 16 heads of 384 (its CE and student passes)
+    ("ce_1b_d512", 48, 4, 336, 512, True, (256, 276), False),
+    ("student_1b_d512", 16, 4, 336, 512, True, (256, 276), False),
+    ("decode_prefill_1b_d512", 32, 4, 320, 512, True, (256, 272), False),
+    ("causal_65_padded_d512", 8, 4, 65, 512, True, (0, 7), False),
+    ("causal_129_padded_d512", 8, 4, 129, 512, True, (0, 7), False),
+    ("small_unaligned_empty_rows_d512", 3, 2, 77, 512, True, (0, 3), True),
+    ("noncausal_unmasked_d512", 16, 4, 257, 512, False, None, False),
+    ("ce_neox20b_d384", 48, 16, 336, 384, True, (256, 276), False),
+    ("student_neox20b_d384", 16, 16, 336, 384, True, (256, 276), False),
+    ("causal_65_padded_d384", 8, 4, 65, 384, True, (0, 7), False),
+    ("causal_129_padded_d384", 8, 4, 129, 384, True, (0, 7), False),
+    ("small_unaligned_empty_rows_d384", 3, 2, 77, 384, True, (0, 3), True),
+    ("noncausal_unmasked_d384", 16, 16, 257, 384, False, None, False),
+    # five and eight slices: the slice loop past the four of 512
+    ("causal_200_padded_d640", 2, 2, 200, 640, True, (0, 5), False),
+    ("causal_130_padded_d1024", 2, 2, 130, 1024, True, (0, 5), False),
     # phase multiprocess: a rank's half of the 410M window (its CE stack of 3 x 8 rows, its student
     # and teacher passes) and of the pretraining update at a global 64
     ("mp_ce_410m_rank", 24, 16, 336, 64, True, (256, 276), False),
@@ -391,7 +431,7 @@ def phase_kernels(gen):
     """Every case, kernel against plain version, at the models' scale
     head_dim^-0.5; then the times at each model's CE shape. Returns
     ({(kernel, head_dim): largest error}, {head_dim: timing at its CE shape})."""
-    errs = {(name, d): 0.0 for name in KERNELS for d in build.HEAD_DIMS}
+    errs = {}
     for name, b, h, t, d, causal, pad, empty in KERNEL_CASES:
         scale = d ** -0.5
         q, k, v, do, mask = _qkv(gen, b, h, t, pad, empty, d)
@@ -415,7 +455,7 @@ def phase_kernels(gen):
             "flash_bwd_dq": _err(dq, dq_p),
         }
         for kname, e in case_err.items():
-            errs[kname, d] = max(errs[kname, d], e)
+            errs[kname, d] = max(errs.get((kname, d), 0.0), e)
         emit({"phase": "kernels", "case": name, "shape": [b, h, t, d], "causal": causal,
               "empty_rows": int((~fin).sum().item()), "max_abs_err": case_err, "atol": ATOL, "rtol": RTOL})
 
@@ -423,6 +463,8 @@ def phase_kernels(gen):
               96: kernel_timing(gen, "timing_ce_neox20b", 48, 64, 336, 96),
               128: kernel_timing(gen, "timing_ce_1_4b", 48, 16, 336, 128),
               256: kernel_timing(gen, "timing_ce_1b", 48, 8, 336, 256),
+              384: kernel_timing(gen, "timing_ce_neox20b_d384", 48, 16, 336, 384),
+              512: kernel_timing(gen, "timing_ce_1b_d512", 48, 4, 336, 512),
               "pretrain": kernel_timing(gen, "timing_pretrain_410m", 128, 16, 356, 64, pad=("right", 257))}
     # a tensor-parallel rank's CE pass (M = 2): 1B under [1, 2], 410M under [2, 2]
     timing["tp_1b"] = kernel_timing(gen, "timing_tp_ce_1b_rank", 48, 4, 336, 256)
@@ -433,7 +475,8 @@ def phase_kernels(gen):
                                           ("timing_window_tower_b64", 64, 16, 257, 64, False, None),
                                           ("timing_decode_prefill_1b", 32, 8, 320, 256, True, (256, 272)),
                                           ("timing_ce_window_1b", 64, 8, 336, 256, True, (256, 276)),
-                                          ("timing_decode_prefill_1_4b", 32, 16, 320, 128, True, (256, 272))):
+                                          ("timing_decode_prefill_1_4b", 32, 16, 320, 128, True, (256, 272)),
+                                          ("timing_decode_prefill_1b_d512", 32, 4, 320, 512, True, (256, 272))):
         emit({"phase": "kernels", "case": case, **_fwd_timing(gen, b, h, t, d, causal, pad)})
     check_xla_routing(gen)
     return errs, timing
@@ -594,11 +637,14 @@ def tower_and_prefill(model, cfg, pixels, input_ids, attention_mask, device):
         return feats, gpt_neox.logits(model.embed_out, hidden[:, -1], dtype=dtype)
 
 
-# tiny decoders: 2 heads of 64; of 96 as GPT-NeoX-20B's; of 128 as Pythia-1.4B's; of 256 as VL-Pythia-1B's
+# tiny decoders: 2 heads of 64; of 96 as GPT-NeoX-20B's; of 128 as Pythia-1.4B's; of 256 as VL-Pythia-1B's;
+# of 384 and 512 as the regrouped decoders' (the wide kernels)
 TINY_DECODERS = {64: dict(hidden_size=128, num_hidden_layers=3, intermediate_size=256),
                  96: dict(hidden_size=192, num_hidden_layers=2, intermediate_size=384),
                  128: dict(hidden_size=256, num_hidden_layers=2, intermediate_size=512),
-                 256: dict(hidden_size=512, num_hidden_layers=2, intermediate_size=1024)}
+                 256: dict(hidden_size=512, num_hidden_layers=2, intermediate_size=1024),
+                 384: dict(hidden_size=768, num_hidden_layers=2, intermediate_size=1536),
+                 512: dict(hidden_size=1024, num_hidden_layers=2, intermediate_size=2048)}
 
 
 def tiny_config(head_dim: int = 64) -> ModelConfig:
@@ -738,7 +784,9 @@ def phase_reference_tables() -> None:
 # Published GPT-NeoX decoders whose heads the kernels take at 128 and 96, as ModelConfig fields (the
 # JAX package has no preset for them and runs them from a config file, ModelConfig.from_json); the
 # other fields keep ModelConfig's defaults, which are those configs' own (rotary_pct 0.25, parallel
-# residual, rotary base 10000, layer-norm eps 1e-5)
+# residual, rotary base 10000, layer-norm eps 1e-5). No published GPT-NeoX decoder has heads of 384
+# or more: the "_d512" and "_d384" entries regroup a published width's heads (the same parameters,
+# activations and products; only the attention's head shape changes)
 DECODER_CONFIGS = {
     # EleutherAI/pythia-1.4b config.json: 16 heads of 128, full depth
     "1.4b": dict(hidden_size=2048, num_hidden_layers=24, num_attention_heads=16, intermediate_size=8192),
@@ -746,6 +794,11 @@ DECODER_CONFIGS = {
     # weights alone take ~41 GB in bf16 at full depth, and training ~16 bytes a parameter)
     "neox20b_4l": dict(hidden_size=6144, num_hidden_layers=4, num_attention_heads=64, intermediate_size=24576,
                        vocab_size=50432),
+    # config/vlpythia-1b.json's decoder (the trainer's default) as 4 heads of 512, full depth
+    "1b_d512": dict(hidden_size=2048, num_hidden_layers=16, num_attention_heads=4, intermediate_size=8192),
+    # neox20b_4l as 16 heads of 384
+    "neox20b_4l_d384": dict(hidden_size=6144, num_hidden_layers=4, num_attention_heads=16, intermediate_size=24576,
+                            vocab_size=50432),
 }
 
 
@@ -1203,8 +1256,7 @@ def phase_decode(smi: str, preset: str, phase: str):
         A.reset_launches()
         toks, ms = run_decode(decode, model, data[1:])
         launches[route] = launches_by_dim()
-        expected = {d: {k: n * (prefill[d][k] + (tower[d][k] if with_tower else 0)) for k in A.LAUNCHES}
-                    for d in build.HEAD_DIMS}
+        expected = _sum_launches([prefill] * n + ([tower] * n if with_tower else []))
         if launches[route] != expected:
             raise AssertionError(f"{phase} ({route}): kernel launches {launches[route]}, expected {expected}")
         if any(t.shape != (b, max_new) or t.dtype != torch.int32 or t.min() < 0 or t.max() >= cfg.vocab_size
@@ -1233,7 +1285,7 @@ def phase_decode(smi: str, preset: str, phase: str):
           "vision": "eva02_large_patch14_224", "batch": b, "text_len": text_len, "left_pad": pad,
           "max_new_tokens": max_new, "timed_batches": n, "dtype": "bfloat16", "routes": routes,
           "cache_invariance": invariance, "validate": val_log})
-    return {d: {k: sum(launches[r][d][k] for r in launches) for k in A.LAUNCHES} for d in build.HEAD_DIMS}
+    return _sum_launches(launches.values())
 
 
 def write_synthetic_vqa(root: str, tasks, n_train: int, n_val: int) -> None:
@@ -1372,9 +1424,7 @@ def sequence_launches(cfg, model_cfg, ce: int, mafed: int, decode_batches: int, 
            + decode_batches * layers + teacher_batches * deepest)
     decoder = _kernels(fwd, ce * layers + mafed * 2 * layers)
     tower = _kernels(tower_batches * model_cfg.vision.depth, 0)
-    return {d: {k: (decoder[k] if d == model_cfg.head_dim else 0)
-                + (tower[k] if d == model_cfg.vision.head_dim else 0) for k in A.LAUNCHES}
-            for d in build.HEAD_DIMS}
+    return _sum_launches([{model_cfg.head_dim: decoder}, {model_cfg.vision.head_dim: tower}])
 
 
 def check_sequence(phase: str, run: dict, n_train: int, n_val: int, device: str, tables: bool) -> dict:
@@ -1569,7 +1619,7 @@ def phase_cl_resume(smi: str, uninterrupted: dict, device: str = "cuda", model_c
           "train_ex_per_s": [first["train_ex_per_s"], second["train_ex_per_s"]],
           "accuracy_matrix": second["result"]["accuracy_matrix"], "checkpoint_max_abs_diff": ckpt_err,
           "launches": launches, "expected_launches": expected})
-    return {d: {k: launches["first"][d][k] + launches["second"][d][k] for k in A.LAUNCHES} for d in build.HEAD_DIMS}
+    return _sum_launches([launches["first"], launches["second"]])
 
 
 CAPTION_WORDS = ("a", "the", "red", "small", "dog", "cat", "runs", "sits", "on", "green", "grass", "beside",
@@ -1939,7 +1989,7 @@ def phase_remat_policies(smi: str, windows: int = 5, device: str = "cuda", cfg=N
     model = init_model(cfg, seed=0, device=device)
     snapshot = {k: v.detach().clone() for k, v in model.state_dict().items()}
     layers = cfg.num_hidden_layers
-    results, total = {}, {d: _kernels(0, 0) for d in build.HEAD_DIMS}
+    results, total = {}, at_head_dim(cfg.head_dim, _kernels(0, 0))
     for policy in REMAT_POLICIES:
         model.load_state_dict(snapshot)
         train_cfg = train_config()
@@ -1975,13 +2025,12 @@ def phase_remat_policies(smi: str, windows: int = 5, device: str = "cuda", cfg=N
                                                       windows * 2 * layers))
         if cuda and launches != expected:
             raise AssertionError(f"remat_policies ({policy!r}): kernel launches {launches}, expected {expected}")
-        for d in build.HEAD_DIMS:
-            for k in A.LAUNCHES:
-                total[d][k] += launches[d][k]
+        total = _sum_launches([total, launches])
         results[policy] = {"window_ms": times, "ms_per_window": sum(times[2:]) / (windows - 2),
                            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
                            "metrics": history,
-                           "launches_per_window": {k: v // windows for k, v in launches[cfg.head_dim].items()}}
+                           "launches_per_window": {k: v // windows for k, v in
+                                                  launches.get(cfg.head_dim, _kernels(0, 0)).items()}}
         del step, state, opt, teacher
         if cuda:
             free_device_memory()
@@ -2217,12 +2266,6 @@ MP_METRIC_RTOL = 2.0 ** -8
 MP_UPDATE_RTOL = 0.05
 # pretraining under tensor parallelism against one process on the same rows and weights
 TP_PRETRAIN_LOSS_RTOL = 1e-3
-
-
-def _sum_launches(parts) -> dict:
-    """The sum of launch counts by head_dim (a rank's come through JSON, keyed by str)."""
-    return {d: {k: sum((p[d] if d in p else p[str(d)])[k] for p in parts) for k in A.LAUNCHES}
-            for d in build.HEAD_DIMS}
 
 
 def equal_on_every_rank(tensors) -> bool:
@@ -2865,7 +2908,7 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs, timing = phase_kernels(gen)
-    for head_dim in build.HEAD_DIMS:
+    for head_dim in TINY_DECODERS:
         phase_reference(head_dim)
     phase_reference_steps()
     phase_reference_tables()
@@ -2899,7 +2942,11 @@ def main() -> int:
                       ("window_1_4b", lambda: phase_window(smi, "1.4b", "window_1_4b", plain_check=True)),
                       ("ce_window_1_4b", lambda: phase_ce_window(smi, "1.4b", "ce_window_1_4b")),
                       ("decode_1_4b", lambda: phase_decode(smi, "1.4b", "decode_1_4b")),
-                      ("window_d96", lambda: phase_window(smi, "neox20b_4l", "window_d96", plain_check=True))):
+                      ("window_d96", lambda: phase_window(smi, "neox20b_4l", "window_d96", plain_check=True)),
+                      # the wide kernels: 1B's decoder as 4 heads of 512, the 20B-width cut as 16 of 384
+                      ("window_d512", lambda: phase_window(smi, "1b_d512", "window_d512", plain_check=True)),
+                      ("decode_d512", lambda: phase_decode(smi, "1b_d512", "decode_d512")),
+                      ("window_d384", lambda: phase_window(smi, "neox20b_4l_d384", "window_d384", plain_check=True))):
         free_device_memory()
         by_path[path] = run()
     free_device_memory()
@@ -2924,13 +2971,21 @@ def main() -> int:
         del pretrain_one
     free_device_memory()
     by_path["profile"] = phase_profile(smi)
-    # one entry per instantiation: times at its head_dim's CE shape (410M: 64, the 20B-width decoder:
-    # 96, 1.4B: 128, 1B: 256)
+    # one entry per kernel and head_dim that launched: times at its head_dim's CE shape (410M: 64, the
+    # 20B-width decoder: 96, 1.4B: 128, 1B: 256; the wide kernels at 1B as heads of 512 and the 20B
+    # width as heads of 384)
     tp_shape = {64: "tp_410m", 256: "tp_1b"}
+    launched = _sum_launches(by_path.values())
+    idle = [f"{name}<{d}>" for d in (*build.HEAD_DIMS, 384, 512) for name in KERNELS
+            if not launched.get(d, {}).get(name)]
+    if idle:
+        raise AssertionError(f"kernels that the main path never launched: {idle}")
     kernels = [
         {"name": f"{name}<{d}>", "head_dim": d, "route": "cuda", "source": "mafed_tpu_torch/csrc/flash_attn.cu",
-         "replaces": replaces, "design": design, "launches": sum(path[d][name] for path in by_path.values()),
-         "launches_by_path": {p: path[d][name] for p, path in by_path.items()},
+         "instantiation": (build.instantiation(f"{name}_wide_kernel", build.WIDE_SLICE) if build.wide_head_dim(d)
+                           else build.instantiation(f"{name}_kernel", d)),
+         "replaces": replaces, "design": design, "launches": launched[d][name],
+         "launches_by_path": {p: path.get(d, {}).get(name, 0) for p, path in by_path.items()},
          "max_abs_err": errs[name, d], "ms": timing[d]["ms"][name], "plain_ms": timing[d]["plain_ms"][name],
          "bound_ms": timing[d]["bound_ms"][name], "bound_by": timing[d]["bound_by"][name],
          "library_ms": timing[d]["library_ms"][name], "library_covers": LIBRARY_COVERS[name],
@@ -2938,7 +2993,7 @@ def main() -> int:
                                    ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} if d == 64 else {}),
          **({"at_tp_rank_shape": {key: timing[tp_shape[d]][key][name] for key in
                                   ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} if d in tp_shape else {})}
-        for name, (replaces, design) in KERNELS.items() for d in build.HEAD_DIMS
+        for name, (replaces, design) in KERNELS.items() for d in launched
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -45,6 +45,11 @@
 // third of that panel work is wasted; a 32-column panel with the 64-byte
 // swizzle would remove it.
 //
+// Every multiple of 128 from 384 on (a runtime head_dim) takes the wide
+// kernels further down (flash_*_wide_kernel): a grid axis over 128-column
+// slices of the output, so that neither shared memory nor the accumulators
+// grow with D.
+//
 // Nothing is allocated on the device here: the Python wrapper allocates the
 // outputs, and every launch goes on the stream it is given.
 
@@ -745,6 +750,473 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
 }
 
 // ---------------------------------------------------------------------------
+// Wide heads: head_dim 384, 512, 640, ... (every multiple of 128 from 384 on,
+// a runtime argument). Same three Pallas kernels, same numerics and masks as
+// the kernels above.
+//
+// Why not the kernels above at D = 384. Their tiles are [64][D] and grow with
+// D: the forward's Q + 2-stage K/V ring is 240 KB at 384, dQ's and dK/dV's
+// 288 KB, past the 227 KB a CTA may have. Their accumulators grow with D too:
+// dK and dV of one 64-key tile at 384 are 2 x 64 x 384 f32, 49,152 of the SM's
+// 65,536 registers, before S^T and dP^T.
+//
+// Design. A grid axis over SW-column slices of the output (SW = 128: three
+// slices at 384, four at 512, eight at 1024). The CTA of slice s computes the
+// whole 64 x 64 score tile S (and dP in the backward) over all of D, then
+// only its slice's products: O_s += P V_s; dV_s += P^T dO_s and
+// dK_s += dS^T Q_s; dQ_s += dS K_s. Its accumulators are then those of the
+// <128> kernels (one warpgroup), whatever D. Every operand streams in 64-row
+// x 64-column panels through one TMA ring of WIDE_STAGES slots of two panels,
+// one mbarrier each: a score product takes one slot
+// per 64 columns of D (the A panel, then the B panel), a slice product one
+// slot (the slice's panels of its B operand). Shared memory does not grow
+// with D, so every multiple of 128 runs. A slot is refilled once the wgmma
+// that read it has completed on every warp (`WideRing::release`): the score
+// products keep one k-group in flight while the previous slot is released.
+// Every slice computes the same m and l by the same instructions in the same
+// order; slice 0 alone writes lse.
+//
+// Cost. The score products, and the loads of their Q and K (dO and V)
+// panels, repeat D / SW times; each CTA reads its operands from L2. Bound on
+// the H100 as for the kernels above: memory at VQA lengths (the times are in
+// PERF.md).
+// ---------------------------------------------------------------------------
+// At the CE shapes [48, 16, 336, 384] and [48, 4, 336, 512] on an H100 SXM at
+// 700 W (scripts/flash_variants.py, three rounds in turns): six stages made
+// the forward 0.46-0.47 / 1.12-1.15 ms against 0.34-0.35 / 0.83-0.84 with
+// four, the backward kernels unchanged.
+constexpr int WIDE_STAGES = 4;
+// Output columns of one CTA of every wide kernel (kernels/build.py WIDE_SLICE
+// mirrors it). dK/dV holds two slice accumulators beside S^T and dP^T: at 256
+// that is 320 registers a thread. A 256-column slice (half the repeated score
+// products) measured slower for the others (the same script and shapes): the
+// forward 0.515 / 1.69-1.72 ms (205 registers, 128 KB of ring), dQ
+// 0.71-0.73 / 2.14-2.15 (244 registers), against 0.34-0.35 / 0.83-0.84 and
+// 0.70-0.72 / 1.61-1.63 at 128.
+constexpr int WIDE_SLICE = 128;
+// A slice is one slot's two 64-column panels, and divides every wide head_dim
+// (a multiple of 128): no slice is partial.
+static_assert(WIDE_SLICE == 128, "the ring slots, slice loads and stores assume slices of two panels");
+
+// Shared memory of a wide kernel, byte offsets from the 1024-aligned base:
+// the ring's slots, the current key tile's keep bits, the current query
+// tile's lse (log2 domain) and delta (dK/dV), the ring's barriers.
+template <int SW> struct WideSmem {
+  static_assert(SW == WIDE_SLICE, "the wide kernels are built at WIDE_SLICE");
+  static constexpr uint32_t SLOT = 2 * sm90::PANEL_BYTES;
+  static constexpr uint32_t KEEP = WIDE_STAGES * SLOT;
+  static constexpr uint32_t LSE = KEEP + 8;     // 64 f32
+  static constexpr uint32_t DELTA = LSE + 256;  // 64 f32
+  static constexpr uint32_t BAR = DELTA + 256;  // one per slot
+  static constexpr size_t ALLOC = BAR + WIDE_STAGES * 8 + 1024;
+};
+
+// The ring of a wide kernel. Items 0 .. total - 1 of the kernel's sweep
+// stream through the slots in order, item g in slot g % WIDE_STAGES; thread 0
+// issues the loads through the kernel's `load(g)`, which calls `pair` or
+// `slice`.
+template <int SW> struct WideRing {
+  using L = WideSmem<SW>;
+  unsigned char* smem;
+  int bh, total;
+
+  __device__ __forceinline__ uint64_t* bar(int g) const {
+    return reinterpret_cast<uint64_t*>(smem + L::BAR) + g % WIDE_STAGES;
+  }
+  __device__ __forceinline__ uint32_t slot(int g) const {
+    return sm90::smem_addr(smem + (g % WIDE_STAGES) * L::SLOT);
+  }
+  // The A and B panels of a score product: 64 columns from col of rows
+  // row_a.. of map a and of rows row_b.. of map b.
+  __device__ __forceinline__ void pair(int g, const CUtensorMap* a, int row_a, const CUtensorMap* b, int row_b,
+                                       int col) const {
+    unsigned char* dst = smem + (g % WIDE_STAGES) * L::SLOT;
+    sm90::mbar_expect_tx(bar(g), 2 * sm90::PANEL_BYTES);
+    sm90::tma_load_3d(dst, a, bar(g), col, row_a, bh);
+    sm90::tma_load_3d(dst + sm90::PANEL_BYTES, b, bar(g), col, row_b, bh);
+  }
+  // The SW / 64 panels of slice c0.. of rows row.. of map m.
+  __device__ __forceinline__ void slice(int g, const CUtensorMap* m, int row, int c0) const {
+    unsigned char* dst = smem + (g % WIDE_STAGES) * L::SLOT;
+    sm90::mbar_expect_tx(bar(g), SW / 64 * sm90::PANEL_BYTES);
+#pragma unroll
+    for (int p = 0; p < SW / 64; ++p)
+      sm90::tma_load_3d(dst + p * sm90::PANEL_BYTES, m, bar(g), c0 + 64 * p, row, bh);
+  }
+  template <class Load> __device__ __forceinline__ void start(const Load& load) const {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < WIDE_STAGES; ++i) sm90::mbar_init(bar(i), 1);
+      sm90::fence_mbar_init();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int g = 0; g < WIDE_STAGES && g < total; ++g) load(g);
+  }
+  __device__ __forceinline__ void wait(int g) const { sm90::mbar_wait(bar(g), (g / WIDE_STAGES) & 1); }
+  // Item g's products have completed on this warp: once every warp is here,
+  // its slot takes item g + WIDE_STAGES. Also orders the shared-memory writes
+  // before it (keep bits, lse, delta) before the reads after it.
+  template <class Load> __device__ __forceinline__ void release(int g, const Load& load) const {
+    __syncthreads();
+    if (threadIdx.x == 0 && g + WIDE_STAGES < total) load(g + WIDE_STAGES);
+  }
+};
+
+// acc = A B^T over all of D from items g .. g + n_panels - 1 (the A panel and
+// the B panel of 64 columns each, both K-major). Returns with acc complete
+// and every one of those items released.
+template <int SW, class Load>
+__device__ __forceinline__ void wide_scores(float (&acc)[32], const WideRing<SW>& ring, int g, int n_panels,
+                                            const Load& load) {
+  sm90::fence_regs(acc);
+  for (int p = 0; p < n_panels; ++p, ++g) {
+    ring.wait(g);
+    const uint32_t a = ring.slot(g), b = a + sm90::PANEL_BYTES;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::wgmma_ss(acc, sm90::desc_k_major(a, kk), sm90::desc_k_major(b, kk), p > 0 || kk > 0);
+    sm90::wgmma_commit();
+    if (p > 0) {
+      sm90::wgmma_wait<1>();
+      ring.release(g - 1, load);
+    }
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+  ring.release(g - 1, load);
+}
+
+// acc[n] += A . (panel n of item g), A the bf16 fragments of a 64-column
+// accumulator, the item's panels MN-major; then item g is released.
+template <int SW, class Load>
+__device__ __forceinline__ void wide_slice_product(float (&acc)[SW / 64][32], const uint32_t (&a)[4][4],
+                                                   const WideRing<SW>& ring, int g, const Load& load) {
+  ring.wait(g);
+  const uint32_t b = ring.slot(g);
+#pragma unroll
+  for (int n = 0; n < SW / 64; ++n) sm90::fence_regs(acc[n]);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int n = 0; n < SW / 64; ++n)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs(acc[n], a[kk], sm90::desc_mn_major(b, n, kk));
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+#pragma unroll
+  for (int n = 0; n < SW / 64; ++n) sm90::fence_regs(acc[n]);
+  ring.release(g, load);
+}
+
+// Store slice c0.. (SW columns) of a 64-row accumulator of the tile at row0
+// into rows of d columns, times `scale`, as bf16 pairs; rows at or past
+// n_rows are never stored.
+template <int SW>
+__device__ __forceinline__ void store_wide_rows(bf16* __restrict__ dst, const float (&acc)[SW / 64][32], int row0,
+                                                int n_rows, int d, int c0, float scale) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + wg_warp() * 16 + lane / 4 + 8 * i;
+    if (row >= n_rows) continue;
+    bf16* out = dst + (size_t)row * d + c0 + 2 * (lane % 4);
+#pragma unroll
+    for (int n = 0; n < SW / 64; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + n * 64 + 8 * j) =
+            sm90::pack_bf16(acc[n][4 * j + 2 * i] * scale, acc[n][4 * j + 2 * i + 1] * scale);
+  }
+}
+
+// Forward. Grid (slices, query tiles, batch x heads). Per key tile: items
+// 0 .. np - 1 the (Q, K) panels of S, item np the slice of V.
+template <int SW>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ mask, bf16* __restrict__ o,
+                      float* __restrict__ lse, int heads, int q_len, int kv_len, int d, int causal, float scale) {
+  constexpr int SP = SW / 64;  // O panels of the slice
+  const int c0 = blockIdx.x * SW, qt = blockIdx.y, bh = blockIdx.z, b = bh / heads;
+  const int lane = threadIdx.x % 32, np = d / 64, q0 = qt * BLOCK;
+  o += (size_t)bh * q_len * d;
+  lse += (size_t)bh * q_len;
+  const int* mask_row = mask == nullptr ? nullptr : mask + (size_t)b * kv_len;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* keep_word = reinterpret_cast<uint64_t*>(smem + WideSmem<SW>::KEEP);
+  const int n_kt = (kv_len + BLOCK - 1) / BLOCK, upper = causal ? min(qt + 1, n_kt) : n_kt;
+  const int per_tile = np + 1;
+  const WideRing<SW> ring{smem, bh, upper * per_tile};
+  const CUtensorMap *mq = &tm_q, *mk = &tm_k, *mv = &tm_v;
+  const auto load = [=](int g) {
+    const int kt = g / per_tile, i = g % per_tile;
+    if (i < np)
+      ring.pair(g, mq, q0, mk, kt * BLOCK, 64 * i);
+    else
+      ring.slice(g, mv, kt * BLOCK, c0);
+  };
+  ring.start(load);
+
+  float acc[SP][32], sc[32];
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    sc[r] = 0.0f;
+#pragma unroll
+    for (int n = 0; n < SP; ++n) acc[n][r] = 0.0f;
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};  // row max (log2 domain) and sum
+  const float scale_log2 = scale * LOG2E;
+
+  int g = 0;
+  for (int kt = 0; kt < upper; ++kt) {
+    // read after the score products' releases; the last reader of the
+    // previous tile's bits passed the release of its V slice
+    if (threadIdx.x < 64) store_keep_bits(keep_word, keep_key(mask_row, kt * BLOCK, kv_len));
+    wide_scores(sc, ring, g, np, load);
+    g += np;
+    const uint64_t kbits = *keep_word;
+    const bool diag = causal && kt == qt;
+    float alpha[2];
+    if (diag || kbits != ~0ull)
+      softmax_tile<true>(sc, m, l, alpha, kbits, diag, scale_log2);
+    else
+      softmax_tile<false>(sc, m, l, alpha, kbits, false, scale_log2);
+#pragma unroll
+    for (int n = 0; n < SP; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          acc[n][4 * j + 2 * i] *= alpha[i];
+          acc[n][4 * j + 2 * i + 1] *= alpha[i];
+        }
+    uint32_t pa[4][4];
+    sm90::acc_to_a(sc, pa);
+    wide_slice_product(acc, pa, ring, g++, load);  // O_s += P V_s
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool empty = l[i] == 0.0f;
+    const float l_safe = empty ? 1.0f : l[i];
+#pragma unroll
+    for (int n = 0; n < SP; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[n][4 * j + 2 * i] /= l_safe;
+        acc[n][4 * j + 2 * i + 1] /= l_safe;
+      }
+    const int row = q0 + wg_warp() * 16 + lane / 4 + 8 * i;
+    if (c0 == 0 && lane % 4 == 0 && row < q_len) lse[row] = empty ? INFINITY : m[i] * LN2 + logf(l_safe);
+  }
+  store_wide_rows<SW>(o, acc, q0, q_len, d, c0, 1.0f);
+}
+
+// dK, dV. Grid (slices, key tiles, batch x heads). Per query tile: items
+// 0 .. np - 1 the (K, Q) panels of S^T, item np the slice of dO, items
+// np + 1 .. 2 np the (V, dO) panels of dP^T, item 2 np + 1 the slice of Q.
+template <int SW>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const int* __restrict__ mask, bf16* __restrict__ dk, bf16* __restrict__ dv, int heads,
+                          int q_len, int kv_len, int d, int causal, float scale) {
+  constexpr int SP = SW / 64;  // dK and dV panels of the slice
+  const int c0 = blockIdx.x * SW, kt = blockIdx.y, bh = blockIdx.z, b = bh / heads;
+  const int tid = threadIdx.x, warp = wg_warp(), lane = tid % 32, np = d / 64, k0 = kt * BLOCK;
+  dk += (size_t)bh * kv_len * d;
+  dv += (size_t)bh * kv_len * d;
+  lse += (size_t)bh * q_len;
+  delta += (size_t)bh * q_len;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  float* s_lse = reinterpret_cast<float*>(smem + WideSmem<SW>::LSE);
+  float* s_delta = reinterpret_cast<float*>(smem + WideSmem<SW>::DELTA);
+
+  // this thread's keys k0 + r_i, r_i = 16 warp + lane / 4 + 8 i
+  bool key_keep[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + warp * 16 + lane / 4 + 8 * i;
+    key_keep[i] = key < kv_len && (mask == nullptr || mask[(size_t)b * kv_len + key] > 0);
+  }
+
+  const int n_qt = (q_len + BLOCK - 1) / BLOCK;
+  const int first = causal ? kt : 0;  // causal: queries before k0 contribute nothing
+  const int n_it = max(n_qt - first, 0), per_tile = 2 * np + 2;
+  const WideRing<SW> ring{smem, bh, n_it * per_tile};
+  const CUtensorMap *mq = &tm_q, *mk = &tm_k, *mv = &tm_v, *mdo = &tm_do;
+  const auto load = [=](int g) {
+    const int row = (first + g / per_tile) * BLOCK, i = g % per_tile;
+    if (i < np)
+      ring.pair(g, mk, k0, mq, row, 64 * i);
+    else if (i == np)
+      ring.slice(g, mdo, row, c0);
+    else if (i <= 2 * np)
+      ring.pair(g, mv, k0, mdo, row, 64 * (i - np - 1));
+    else
+      ring.slice(g, mq, row, c0);
+  };
+  ring.start(load);
+
+  float dk_acc[SP][32], dv_acc[SP][32], st[32], dpt[32];
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    st[r] = dpt[r] = 0.0f;
+#pragma unroll
+    for (int n = 0; n < SP; ++n) dk_acc[n][r] = dv_acc[n][r] = 0.0f;
+  }
+  const float scale_log2 = scale * LOG2E;
+
+  int g = 0;
+  for (int it = 0; it < n_it; ++it) {
+    const int qt = first + it;
+    // lse (threads 0-63, log2 domain) and delta (64-127) of the tile's
+    // queries: +inf and 0 past q_len, so those queries get p = 0. Read after
+    // the score products' releases; the last reader of the previous tile's
+    // passed the release of its Q slice.
+    {
+      const int qrow = qt * BLOCK + tid % 64;
+      if (tid < 64)
+        s_lse[tid] = qrow < q_len ? lse[qrow] * LOG2E : INFINITY;
+      else
+        s_delta[tid - 64] = qrow < q_len ? delta[qrow] : 0.0f;
+    }
+    wide_scores(st, ring, g, np, load);  // S^T = K Q^T
+    g += np;
+
+    // p^T in registers: rows are keys, columns are the tile's queries
+    const bool diag = causal && qt == kt;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col0 = 8 * j + 2 * (lane % 4);
+      const float2 lse2 = *reinterpret_cast<const float2*>(s_lse + col0);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = warp * 16 + lane / 4 + 8 * i;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int r = 4 * j + 2 * i + c;
+          const bool keep = key_keep[i] && (!diag || row <= col0 + c);
+          st[r] = keep ? sm90::exp2_approx(fmaf(st[r], scale_log2, -(c ? lse2.y : lse2.x))) : 0.0f;
+        }
+      }
+    }
+    {
+      uint32_t pa[4][4];
+      sm90::acc_to_a(st, pa);
+      wide_slice_product(dv_acc, pa, ring, g++, load);  // dV_s += P^T dO_s
+    }
+
+    wide_scores(dpt, ring, g, np, load);  // dP^T = V dO^T
+    g += np;
+    // ds^T = p^T (dp^T - delta)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 delta2 = *reinterpret_cast<const float2*>(s_delta + 8 * j + 2 * (lane % 4));
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int r = 4 * j + 2 * i + c;
+          dpt[r] = st[r] * (dpt[r] - (c ? delta2.y : delta2.x));
+        }
+    }
+    uint32_t dsa[4][4];
+    sm90::acc_to_a(dpt, dsa);
+    wide_slice_product(dk_acc, dsa, ring, g++, load);  // dK_s += dS^T Q_s
+  }
+
+  store_wide_rows<SW>(dv, dv_acc, k0, kv_len, d, c0, 1.0f);
+  store_wide_rows<SW>(dk, dk_acc, k0, kv_len, d, c0, scale);
+}
+
+// dQ. Grid (slices, query tiles, batch x heads). Per key tile: items
+// 0 .. np - 1 the (Q, K) panels of S, items np .. 2 np - 1 the (dO, V)
+// panels of dP, item 2 np the slice of K.
+template <int SW>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const int* __restrict__ mask, bf16* __restrict__ dq, int heads, int q_len, int kv_len,
+                         int d, int causal, float scale) {
+  constexpr int SP = SW / 64;  // dQ panels of the slice
+  const int c0 = blockIdx.x * SW, qt = blockIdx.y, bh = blockIdx.z, b = bh / heads;
+  const int warp = wg_warp(), lane = threadIdx.x % 32, np = d / 64, q0 = qt * BLOCK;
+  dq += (size_t)bh * q_len * d;
+  lse += (size_t)bh * q_len;
+  delta += (size_t)bh * q_len;
+  const int* mask_row = mask == nullptr ? nullptr : mask + (size_t)b * kv_len;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* keep_word = reinterpret_cast<uint64_t*>(smem + WideSmem<SW>::KEEP);
+  const int n_kt = (kv_len + BLOCK - 1) / BLOCK, upper = causal ? min(qt + 1, n_kt) : n_kt;
+  const int per_tile = 2 * np + 1;
+  const WideRing<SW> ring{smem, bh, upper * per_tile};
+  const CUtensorMap *mq = &tm_q, *mk = &tm_k, *mv = &tm_v, *mdo = &tm_do;
+  const auto load = [=](int g) {
+    const int row = g / per_tile * BLOCK, i = g % per_tile;
+    if (i < np)
+      ring.pair(g, mq, q0, mk, row, 64 * i);
+    else if (i < 2 * np)
+      ring.pair(g, mdo, q0, mv, row, 64 * (i - np));
+    else
+      ring.slice(g, mk, row, c0);
+  };
+  ring.start(load);
+
+  // lse (log2 domain, +inf stays +inf) and delta of this thread's rows
+  float lse_log2[2], row_delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + lane / 4 + 8 * i;
+    lse_log2[i] = row < q_len ? lse[row] * LOG2E : INFINITY;
+    row_delta[i] = row < q_len ? delta[row] : 0.0f;
+  }
+  float dq_acc[SP][32], sc[32], dp[32];
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    sc[r] = dp[r] = 0.0f;
+#pragma unroll
+    for (int n = 0; n < SP; ++n) dq_acc[n][r] = 0.0f;
+  }
+  const float scale_log2 = scale * LOG2E;
+
+  int g = 0;
+  for (int kt = 0; kt < upper; ++kt) {
+    // read after the score products' releases; the last reader of the
+    // previous tile's bits passed the release of its K slice
+    if (threadIdx.x < 64) store_keep_bits(keep_word, keep_key(mask_row, kt * BLOCK, kv_len));
+    wide_scores(sc, ring, g, np, load);  // S = Q K^T
+    g += np;
+    wide_scores(dp, ring, g, np, load);  // dP = dO V^T
+    g += np;
+    probs_tile(sc, lse_log2, *keep_word, causal && kt == qt, scale_log2);
+    // dS = P (dP - delta)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int r = 4 * j + 2 * i + c;
+          dp[r] = sc[r] * (dp[r] - row_delta[i]);
+        }
+    uint32_t dsa[4][4];
+    sm90::acc_to_a(dp, dsa);
+    wide_slice_product(dq_acc, dsa, ring, g++, load);  // dQ_s += dS K_s
+  }
+
+  store_wide_rows<SW>(dq, dq_acc, q0, q_len, d, c0, scale);
+}
+
+// ---------------------------------------------------------------------------
 // Launch of one instantiation: one tensor map per bf16 input, encoded on the
 // host per launch; the dynamic shared-memory limit raised for the kernel.
 // ---------------------------------------------------------------------------
@@ -806,17 +1278,84 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const voi
   return cudaGetLastError();
 }
 
+// The wide kernels: grid (slices, tiles, batch x heads), one warpgroup.
+__host__ __forceinline__ dim3 wide_grid(int head_dim, int len, int batch_heads) {
+  return dim3(head_dim / WIDE_SLICE, (len + BLOCK - 1) / BLOCK, batch_heads);
+}
+
+cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v, const void* mask, void* o, void* lse,
+                            int batch_heads, int heads, int q_len, int kv_len, int d, int causal, float scale,
+                            cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  cudaError_t err;
+  if ((err = sm90_host::make_map_3d(&tm_q, q, batch_heads, q_len, d)) != cudaSuccess) return err;
+  if ((err = sm90_host::make_map_3d(&tm_k, k, batch_heads, kv_len, d)) != cudaSuccess) return err;
+  if ((err = sm90_host::make_map_3d(&tm_v, v, batch_heads, kv_len, d)) != cudaSuccess) return err;
+  constexpr size_t smem = WideSmem<WIDE_SLICE>::ALLOC;
+  err = cudaFuncSetAttribute(flash_fwd_wide_kernel<WIDE_SLICE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_wide_kernel<WIDE_SLICE><<<wide_grid(d, q_len, batch_heads), THREADS, smem, stream>>>(
+      tm_q, tm_k, tm_v, (const int*)mask, (bf16*)o, (float*)lse, heads, q_len, kv_len, d, causal, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_dkv_wide(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                                const void* delta, const void* mask, void* dk, void* dv, int batch_heads,
+                                int heads, int q_len, int kv_len, int d, int causal, float scale,
+                                cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t err;
+  if ((err = sm90_host::make_map_3d(&tm_q, q, batch_heads, q_len, d)) != cudaSuccess) return err;
+  if ((err = sm90_host::make_map_3d(&tm_k, k, batch_heads, kv_len, d)) != cudaSuccess) return err;
+  if ((err = sm90_host::make_map_3d(&tm_v, v, batch_heads, kv_len, d)) != cudaSuccess) return err;
+  if ((err = sm90_host::make_map_3d(&tm_do, dout, batch_heads, q_len, d)) != cudaSuccess) return err;
+  constexpr size_t smem = WideSmem<WIDE_SLICE>::ALLOC;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_wide_kernel<WIDE_SLICE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_wide_kernel<WIDE_SLICE><<<wide_grid(d, kv_len, batch_heads), THREADS, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)delta, (const int*)mask, (bf16*)dk, (bf16*)dv,
+      heads, q_len, kv_len, d, causal, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_dq_wide(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                               const void* delta, const void* mask, void* dq, int batch_heads, int heads,
+                               int q_len, int kv_len, int d, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t err;
+  if ((err = sm90_host::make_map_3d(&tm_q, q, batch_heads, q_len, d)) != cudaSuccess) return err;
+  if ((err = sm90_host::make_map_3d(&tm_k, k, batch_heads, kv_len, d)) != cudaSuccess) return err;
+  if ((err = sm90_host::make_map_3d(&tm_v, v, batch_heads, kv_len, d)) != cudaSuccess) return err;
+  if ((err = sm90_host::make_map_3d(&tm_do, dout, batch_heads, q_len, d)) != cudaSuccess) return err;
+  constexpr size_t smem = WideSmem<WIDE_SLICE>::ALLOC;
+  err = cudaFuncSetAttribute(flash_bwd_dq_wide_kernel<WIDE_SLICE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wide_kernel<WIDE_SLICE><<<wide_grid(d, q_len, batch_heads), THREADS, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)delta, (const int*)mask, (bf16*)dq, heads, q_len,
+      kv_len, d, causal, scale);
+  return cudaGetLastError();
+}
+
+// head_dim 384, 512, 640, ...: the wide kernels
+__host__ __forceinline__ bool wide_head_dim(int head_dim) { return head_dim >= 384 && head_dim % 128 == 0; }
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
 // C launchers (bound from Python with ctypes). head_dim 64, 96, 128 and 256
-// are instantiated; any other head_dim returns cudaErrorInvalidValue.
+// are instantiated, every multiple of 128 from 384 on takes the wide kernels;
+// any other head_dim returns cudaErrorInvalidValue.
 // ---------------------------------------------------------------------------
 
 extern "C" cudaError_t flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
                                       void* lse, int batch_heads, int heads, int q_len, int kv_len,
                                       int head_dim, int causal, float scale, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (wide_head_dim(head_dim))
+    return launch_fwd_wide(q, k, v, mask, o, lse, batch_heads, heads, q_len, kv_len, head_dim, causal, scale, st);
   switch (head_dim) {
     case 64:
       return launch_fwd<64, 1>(q, k, v, mask, o, lse, batch_heads, heads, q_len, kv_len, causal, scale, st);
@@ -839,6 +1378,9 @@ extern "C" cudaError_t flash_attn_bwd_dkv(const void* q, const void* k, const vo
                                           void* dv, int batch_heads, int heads, int q_len, int kv_len,
                                           int head_dim, int causal, float scale, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (wide_head_dim(head_dim))
+    return launch_bwd_dkv_wide(q, k, v, dout, lse, delta, mask, dk, dv, batch_heads, heads, q_len, kv_len,
+                               head_dim, causal, scale, st);
   switch (head_dim) {
     case 64:
       return launch_bwd_dkv<64, 1>(q, k, v, dout, lse, delta, mask, dk, dv, batch_heads, heads, q_len, kv_len,
@@ -862,6 +1404,9 @@ extern "C" cudaError_t flash_attn_bwd_dq(const void* q, const void* k, const voi
                                          int batch_heads, int heads, int q_len, int kv_len, int head_dim,
                                          int causal, float scale, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (wide_head_dim(head_dim))
+    return launch_bwd_dq_wide(q, k, v, dout, lse, delta, mask, dq, batch_heads, heads, q_len, kv_len, head_dim,
+                              causal, scale, st);
   switch (head_dim) {
     case 64:
       return launch_bwd_dq<64, 1>(q, k, v, dout, lse, delta, mask, dq, batch_heads, heads, q_len, kv_len, causal,

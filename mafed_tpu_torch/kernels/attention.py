@@ -20,13 +20,16 @@ Counterpart of mafed_tpu/kernels/attention.py. Layout: q, k, v are
     flash path: the training window, the EVA-02 tower (non-causal, unmasked)
     and the KV-cache prefill (causal over its own positions, key-padded).
 
-The kernels take head_dim 64 (the 160M and 410M decoders, the EVA-02
-tower), 96 (GPT-NeoX-20B's width), 128 (Pythia-1.4B, 6.9B, 12B) and 256
-(the 1B decoder). The flash path's other head_dims (384 and larger
-multiples of 128) are not yet ported and raise on CUDA tensors.
+The kernels take every head_dim that the JAX dispatcher sends to its Pallas
+kernels: 64 (the 160M and 410M decoders, the EVA-02 tower), 96 (GPT-NeoX-20B's
+width), 128 (Pythia-1.4B, 6.9B, 12B), 256 (the 1B decoder), each a kernel of
+its own, and every multiple of 128 from 384 on (heads of 384 or 512 of a
+regrouped decoder), which the wide kernels take with a grid axis over
+128-column slices of the output.
 
 `LAUNCHES` counts kernel launches, one per launch, for callers that check
-which path ran; `LAUNCHES_BY_HEAD_DIM[d]` counts the same launches at head_dim d.
+which path ran; `LAUNCHES_BY_HEAD_DIM[d]` counts the same launches at head_dim d,
+and holds a head_dim from its first launch until `reset_launches()`.
 """
 
 from __future__ import annotations
@@ -36,26 +39,26 @@ from typing import Optional, Tuple
 
 import torch
 
-from mafed_tpu_torch.kernels.build import HEAD_DIMS, load_library
+from mafed_tpu_torch.kernels.build import HEAD_DIMS, load_library, takes_head_dim
 
 _NEG = torch.finfo(torch.float32).min
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
-LAUNCHES_BY_HEAD_DIM = {d: dict(LAUNCHES) for d in HEAD_DIMS}
+LAUNCHES_BY_HEAD_DIM: dict = {}
 # the stash of the remat policy of the decoder layer being run (models/gpt_neox.py
 # RematPolicy), or None: FlashAttention's forward asks it for (o, lse)
 REMAT_STASH: contextvars.ContextVar = contextvars.ContextVar("mafed_torch_remat_stash", default=None)
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, *LAUNCHES_BY_HEAD_DIM.values()):
-        for name in counts:
-            counts[name] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    LAUNCHES_BY_HEAD_DIM.clear()
 
 
 def _count(name: str, head_dim: int) -> None:
     LAUNCHES[name] += 1
-    LAUNCHES_BY_HEAD_DIM[head_dim][name] += 1
+    LAUNCHES_BY_HEAD_DIM.setdefault(head_dim, dict.fromkeys(LAUNCHES, 0))[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -166,9 +169,10 @@ def _check_qkv(q, k, v, causal: bool):
     _check_cuda("q", q, q.shape, torch.bfloat16)
     _check_cuda("k", k, (batch, heads, kv_len, d), torch.bfloat16)
     _check_cuda("v", v, (batch, heads, kv_len, d), torch.bfloat16)
-    if d not in HEAD_DIMS:
+    if not takes_head_dim(d):
         dims = ", ".join(str(x) for x in HEAD_DIMS)
-        raise ValueError(f"head_dim {d} is not yet ported: the CUDA flash kernels take head_dim {dims}")
+        raise ValueError(f"head_dim {d}: the CUDA flash kernels take head_dim {dims} and every multiple of 128 "
+                         "from 384 on")
     if causal and kv_len != q_len:
         raise ValueError("causal flash attention needs kv_len == q_len")
     return batch, heads, q_len, kv_len, d
@@ -290,8 +294,8 @@ def dot_product_attention(q, k, v, *, key_padding_mask=None, causal=False, causa
     causal_offset) go through `FlashAttention`, on the CPU and on CUDA alike;
     every other shape (head_dim 80, say, or a KV-cache decode step) takes
     `masked_attention`, its counterpart of `xla_attention`, on every device.
-    Of the flash head_dims the CUDA kernels take 64, 96, 128 and 256; the
-    others raise on CUDA tensors as not yet ported (`_check_qkv`).
+    The CUDA kernels take every flash head_dim: 64, 96, 128 and 256, and
+    every multiple of 128 from 384 on in the wide kernels.
     """
     head_dim = q.shape[-1]
     scale_f = float((head_dim ** -0.5) if scale is None else scale)

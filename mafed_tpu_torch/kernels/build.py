@@ -13,7 +13,10 @@ spill bytes) and `sass_counts()` counts instructions in the built library's
 SASS (`cuobjdump -sass`). Both key their results by instantiation, kernel
 and head_dim (`flash_fwd_kernel<256>`), read from the first template
 argument of the mangled name (`...flash_fwd_kernelILi256E...`), so every
-head_dim of a kernel is reported, and checked, on its own.
+head_dim of a kernel is reported, and checked, on its own. The wide kernels,
+which take every multiple of 128 from 384 on as a runtime argument, are
+keyed by their template argument, the width of the output slice of one CTA
+(`flash_fwd_wide_kernel<128>`).
 """
 
 from __future__ import annotations
@@ -32,14 +35,29 @@ CSRC = _PKG / "csrc"
 SOURCE = CSRC / "flash_attn.cu"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
-HEAD_DIMS = (64, 96, 128, 256)  # the head_dims the library instantiates; the launchers refuse any other
+HEAD_DIMS = (64, 96, 128, 256)  # the head_dims the library instantiates a kernel for
+# the kernels of every multiple of 128 from 384 on, built at one output slice width (flash_attn.cu
+# WIDE_SLICE)
+WIDE_KERNELS = ("flash_fwd_wide_kernel", "flash_bwd_dkv_wide_kernel", "flash_bwd_dq_wide_kernel")
+WIDE_SLICE = 128
+
+
+def wide_head_dim(head_dim: int) -> bool:
+    """Whether the wide kernels take `head_dim` (384, 512, 640, ...)."""
+    return head_dim >= 384 and head_dim % 128 == 0
+
+
+def takes_head_dim(head_dim: int) -> bool:
+    """Whether the launchers take `head_dim`; they refuse any other."""
+    return head_dim in HEAD_DIMS or wide_head_dim(head_dim)
 
 
 def instantiation(kernel: str, head_dim: int) -> str:
     return f"{kernel}<{head_dim}>"
 
 
-INSTANTIATIONS = tuple(instantiation(k, d) for k in KERNELS for d in HEAD_DIMS)
+INSTANTIATIONS = (tuple(instantiation(k, d) for k in KERNELS for d in HEAD_DIMS)
+                  + tuple(instantiation(k, WIDE_SLICE) for k in WIDE_KERNELS))
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -111,7 +129,7 @@ def load_library() -> ctypes.CDLL:
 
 def _kernel_of(mangled: str) -> Optional[str]:
     """The instantiation (`flash_fwd_kernel<256>`) that a mangled name is of, or None."""
-    for kernel in KERNELS:
+    for kernel in KERNELS + WIDE_KERNELS:
         found = re.search(rf"{kernel}ILi(\d+)E", mangled)
         if found:
             return instantiation(kernel, int(found.group(1)))

@@ -8,11 +8,14 @@ substitutions applied to mafed_tpu_torch/csrc/flash_attn.cu; a first pair
 parent commit's, unpacked with `git archive`). `{"base": []}` is the source
 as it stands. Every variant is built with nvcc in parallel into its own
 library and held against the plain versions (o, dk, dv and dq at
-chip_smoke's tolerances, lse's empty rows exactly) at every head_dim the
-kernels are built for (kernels/build.py HEAD_DIMS), each in a small
-unaligned case with empty rows, a non-causal 100 x 257 case and its model's
-CE shape (CE_SHAPES: 410M [48, 16, 336, 64], a decoder at GPT-NeoX-20B's
-width [48, 64, 336, 96], 1.4B [48, 16, 336, 128], 1B [48, 8, 336, 256]).
+chip_smoke's tolerances, lse's empty rows exactly) at every head_dim of
+CE_SHAPES: those the kernels are built for (kernels/build.py HEAD_DIMS) and
+the two wide head_dims the models run (384 and 512, the wide kernels), each
+in a small unaligned case with empty rows, a non-causal 100 x 257 case and
+its model's CE shape (410M [48, 16, 336, 64], a decoder at GPT-NeoX-20B's
+width [48, 64, 336, 96], 1.4B [48, 16, 336, 128], 1B [48, 8, 336, 256],
+that width as 16 heads of 384 [48, 16, 336, 384], 1B as 4 heads of 512
+[48, 4, 336, 512]).
 Then the forward, dK/dV and dQ kernels are timed at those CE shapes in
 turns, three rounds of 50 launches each, so every variant sees the same
 card. Prints one JSON line per variant (ptxas report, largest errors and
@@ -34,7 +37,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (batch, heads) of each head_dim's CE pass: 3 x 16 rows of its model's heads
-CE_SHAPES = {64: (48, 16), 96: (48, 64), 128: (48, 16), 256: (48, 8)}
+CE_SHAPES = {64: (48, 16), 96: (48, 64), 128: (48, 16), 256: (48, 8), 384: (48, 16), 512: (48, 4)}
 
 
 def _build(variants, workdir):
@@ -91,9 +94,9 @@ def main() -> int:
         # (batch, heads, q_len, kv_len, head_dim, causal, padded keys, all-masked last sample); the last
         # case of each head_dim is its model's CE shape, where the kernels are timed
         cases = []
-        for d in build.HEAD_DIMS:
+        for d, (batch, heads) in CE_SHAPES.items():
             cases += [(3, 2, 77, 77, d, True, (0, 3), True), (2, 4, 100, 257, d, False, None, False),
-                      (*CE_SHAPES[d], 336, 336, d, True, (256, 276), False)]
+                      (batch, heads, 336, 336, d, True, (256, 276), False)]
         data = []
         for b, h, tq, tk, d, causal, pad, empty in cases:
             q = torch.randn(b, h, tq, d, generator=gen, device="cuda").bfloat16()

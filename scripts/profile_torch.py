@@ -1,7 +1,7 @@
 """Where the time of the port's main paths goes on an NVIDIA GPU.
 
     python3 scripts/profile_torch.py [--path window|window_unfused|ce_window|train_step|decode|cl_sequence|pretrain_step]
-                                     [--preset 410m|1b|1.4b|neox20b_4l] [--reps 2] [--train-questions 1024] [--out PATH]
+                                     [--preset 410m|1b|1.4b|neox20b_4l|1b_d512|neox20b_4l_d384] [--reps 2] [--train-questions 1024] [--out PATH]
 
 window: the fused MAFED window of chip_smoke.py (VL-Pythia-410M at full width
 and depth, 3 CE microbatches of 16 + 1 memory microbatch of 16, 256 cached
@@ -41,7 +41,9 @@ loader on the card; and one batch of its eval loss (forward only).
 --preset 1b runs every other path with VL-Pythia-1B (hidden 2048, 16 layers, 8
 heads of 256) at the same shapes in place of the 410M model; 1.4b with
 VL-Pythia-1.4B (16 heads of 128), neox20b_4l with the decoder at
-GPT-NeoX-20B's widths cut to 4 layers (64 heads of 96): chip_smoke.DECODER_CONFIGS.
+GPT-NeoX-20B's widths cut to 4 layers (64 heads of 96); 1b_d512 and
+neox20b_4l_d384 with 1B's decoder regrouped as 4 heads of 512 and that cut
+as 16 heads of 384 (the wide kernels): chip_smoke.DECODER_CONFIGS.
 
 For each profiled unit, torch.profiler over `--reps` steady repetitions
 gives the wall ms per repetition (host clock, ending in a synchronise),
@@ -67,7 +69,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def category(name: str) -> str:
     for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
-        if f"{kernel}_kernel" in name:
+        if f"{kernel}_kernel" in name or f"{kernel}_wide_kernel" in name:
             return kernel
     lowered = name.lower()
     if any(s in lowered for s in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
@@ -308,7 +310,8 @@ def main() -> int:
     parser.add_argument("--path", choices=("window", "window_unfused", "ce_window", "train_step", "decode",
                                            "cl_sequence", "pretrain_step"),
                         default="window")
-    parser.add_argument("--preset", choices=("410m", "1b", "1.4b", "neox20b_4l"), default="410m")
+    parser.add_argument("--preset", choices=("410m", "1b", "1.4b", "neox20b_4l", "1b_d512", "neox20b_4l_d384"),
+                        default="410m")
     parser.add_argument("--reps", type=int, default=2)
     parser.add_argument("--train-questions", type=int, default=1024, help="cl_sequence: train questions a task")
     parser.add_argument("--out", help="also write the JSON object to this file")

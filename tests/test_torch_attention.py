@@ -9,7 +9,8 @@ rtol 1e-4: both sum f32 products, in different orders (online softmax over
 only. Both forwards are also held, at the same tolerance, against a float64
 dense softmax in numpy, so a disagreement names the side that moved. Every
 case runs at the head_dim of its name (64; 96, GPT-NeoX-20B's heads; 128,
-Pythia-1.4B's; 256, the 1B decoder's) with the models' scale head_dim^-0.5.
+Pythia-1.4B's; 256, the 1B decoder's; 384 and 512, the regrouped decoders'
+that the wide kernels take, and 640) with the models' scale head_dim^-0.5.
 
 The JAX references are compiled in this module's process, never read from
 the persistent compilation cache (`tests/conftest.py` turns it on for the
@@ -88,6 +89,14 @@ CASES = [
     ("causal_tile_edge_65_d96", 2, 2, 65, 65, True, True, False, 96),
     ("noncausal_empty_rows_d96", 2, 2, 40, 40, False, True, True, 96),
     ("noncausal_100x257_d96", 1, 2, 100, 257, False, True, False, 96),
+    # the wide kernels' head_dims: 384 and 512 (the regrouped decoders), 640 (five 128-column slices)
+    ("causal_padded_d384", 2, 2, 64, 64, True, True, False, 384),
+    ("causal_tile_edge_65_d384", 2, 2, 65, 65, True, True, False, 384),
+    ("noncausal_100x257_d384", 1, 2, 100, 257, False, True, False, 384),
+    ("causal_padded_d512", 2, 2, 64, 64, True, True, False, 512),
+    ("causal_tile_edge_65_d512", 2, 2, 65, 65, True, True, False, 512),
+    ("noncausal_100x257_d512", 1, 2, 100, 257, False, True, False, 512),
+    ("causal_tile_edge_65_d640", 1, 2, 65, 65, True, True, False, 640),
 ]
 CASE_ARGS = "name,b,h,t,kv_len,causal,masked,empty,d"
 

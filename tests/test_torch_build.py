@@ -1,7 +1,7 @@
 """The port's kernel build helpers (mafed_tpu_torch/kernels/build.py) on the CPU:
 the library's name follows every source file, and the ptxas report and the
-SASS dump are read per instantiation (kernel and head_dim). Nothing here
-compiles."""
+SASS dump are read per instantiation (kernel and head_dim; a wide kernel and
+its slice width). Nothing here compiles."""
 
 from mafed_tpu_torch.kernels import build
 
@@ -16,20 +16,27 @@ ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_bwd_dkv_kernelI
 ptxas info    : Used 255 registers, used 1 barriers
 """
 
-# nvcc's report of a library with every head_dim of all three kernels, the
-# instantiations of a kernel in a different order for each kernel (ptxas
-# orders entries by neither kernel nor head_dim): each kernel's warpgroups
-# (the *_WG_* of flash_attn.cu) and its registers as ptxas read them for
-# sm_90a on an H100, with a spill made up at dK/dV 256 so that one is read
+# nvcc's report of a library with every head_dim of all three kernels and the
+# three wide kernels, the instantiations of a kernel in a different order for
+# each kernel (ptxas orders entries by neither kernel nor head_dim): each
+# kernel's warpgroups (the *_WG_* of flash_attn.cu) and its registers as
+# ptxas read them for sm_90a on an H100, with a spill made up at dK/dV 256 so
+# that one is read. A wide kernel has one template argument, the width of its
+# output slice (128), and takes head_dim at run time.
 _MANGLED = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}ELi{wg}EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16Pfiiiif"
+_MANGLED_WIDE = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16Pfiiiiif"
 _ENTRIES = [("flash_fwd_kernel", 64, 1, 92, 0), ("flash_fwd_kernel", 96, 2, 100, 0),
             ("flash_fwd_kernel", 128, 1, 128, 0), ("flash_fwd_kernel", 256, 2, 128, 0),
             ("flash_bwd_dkv_kernel", 256, 2, 234, 24), ("flash_bwd_dkv_kernel", 128, 1, 234, 0),
             ("flash_bwd_dkv_kernel", 96, 1, 234, 0), ("flash_bwd_dkv_kernel", 64, 1, 163, 0),
             ("flash_bwd_dq_kernel", 128, 1, 154, 0), ("flash_bwd_dq_kernel", 64, 1, 122, 0),
-            ("flash_bwd_dq_kernel", 256, 1, 218, 0), ("flash_bwd_dq_kernel", 96, 1, 154, 0)]
+            ("flash_bwd_dq_kernel", 256, 1, 218, 0), ("flash_bwd_dq_kernel", 96, 1, 154, 0),
+            ("flash_bwd_dq_wide_kernel", 128, None, 177, 0), ("flash_fwd_wide_kernel", 128, None, 140, 0),
+            ("flash_bwd_dkv_wide_kernel", 128, None, 243, 0)]
 
 def _mangled(name, d, wg):
+    if wg is None:
+        return _MANGLED_WIDE.format(n=len(name), name=name, d=d)
     return _MANGLED.format(n=len(name), name=name, d=d, wg=wg)
 
 
@@ -71,7 +78,7 @@ def test_kernel_resources_reads_the_ptxas_report():
 
 def test_kernel_resources_keeps_every_instantiation_apart():
     got = build.kernel_resources(PTXAS_BOTH)
-    assert sorted(got) == sorted(build.INSTANTIATIONS) and len(got) == 12
+    assert sorted(got) == sorted(build.INSTANTIATIONS) and len(got) == 15
     for name, d, _, regs, spill in _ENTRIES:
         assert got[build.instantiation(name, d)] == {
             "spill_store_bytes": spill, "spill_load_bytes": spill // 2, "registers": regs}
@@ -82,3 +89,19 @@ def test_sass_counts_keep_every_instantiation_apart():
     assert sorted(got) == sorted(build.INSTANTIATIONS)
     for name, d, _, regs, _ in _ENTRIES:
         assert got[build.instantiation(name, d)] == {"UTMALDG": -(-d // 64), "HGMMA": d // 16 + regs % 7}
+
+
+def test_the_wide_kernels_are_instantiations_of_their_own():
+    """The three wide kernels are reported under their own names, at their
+    slice width, beside the twelve fixed instantiations."""
+    wide = [build.instantiation(k, build.WIDE_SLICE) for k in build.WIDE_KERNELS]
+    assert wide == ["flash_fwd_wide_kernel<128>", "flash_bwd_dkv_wide_kernel<128>", "flash_bwd_dq_wide_kernel<128>"]
+    assert build.INSTANTIATIONS[-3:] == tuple(wide) and len(set(build.INSTANTIATIONS)) == 15
+    assert build._kernel_of(_mangled("flash_fwd_wide_kernel", 128, None)) == "flash_fwd_wide_kernel<128>"
+    assert build._kernel_of(_mangled("flash_fwd_kernel", 256, 2)) == "flash_fwd_kernel<256>"
+
+
+def test_the_launchers_take_every_multiple_of_128_from_384():
+    assert [d for d in range(16, 2049, 16) if build.takes_head_dim(d)] == (
+        [64, 96, 128, 256] + list(range(384, 2049, 128)))
+    assert [d for d in range(16, 2049, 16) if build.wide_head_dim(d)] == list(range(384, 2049, 128))

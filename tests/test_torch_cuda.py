@@ -9,7 +9,8 @@ The kernels are held against their dense plain versions in bf16 at atol =
 rtol = 2e-2: the tiled kernels round p to bf16 against a running row maximum,
 the plain versions against the final one, so single elements differ by a few
 bf16 ulps. lse is float32 in both (atol 1e-4). Every kernel check runs at
-each head_dim the kernels take (HEAD_DIMS: 64, 96, 128 and 256), with the
+each head_dim the kernels are built for (64, 96, 128 and 256) and at the two
+that the regrouped decoders give the wide kernels (384 and 512), with the
 models' scale head_dim^-0.5.
 """
 
@@ -21,7 +22,7 @@ from mafed_tpu_torch.kernels import attention as tattn
 
 ATOL, RTOL = 2e-2, 2e-2
 SCALE = 0.125  # head_dim 64's
-HEAD_DIMS = [64, 96, 128, 256]
+HEAD_DIMS = [64, 96, 128, 256, 384, 512]
 
 
 @pytest.fixture
@@ -99,14 +100,20 @@ def test_autograd_goes_through_the_kernels(gpu, head_dim):
 
 @pytest.mark.cuda
 def test_cuda_calls_the_kernels_cannot_take_raise(gpu):
+    """The wrappers raise on what the kernels do not take: a float32 tensor, a
+    head_dim that is neither one of 64, 96, 128, 256 nor a multiple of 128
+    from 384 on (320: dot_product_attention sends it to masked_attention, as
+    the JAX dispatcher sends it to xla_attention, so only a direct call
+    reaches the wrapper), a non-contiguous tensor."""
     q, k, v, _, mask = _inputs(1, 2, 64, seed=13)
     with pytest.raises(TypeError, match="bfloat16"):
         tattn.flash_forward(q.float(), k.float(), v.float(), mask, True, SCALE)
-    wide = torch.zeros(1, 2, 64, 384, dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="head_dim 384 is not yet ported"):
-        tattn.flash_forward(wide, wide, wide, None, True, SCALE)
-    with pytest.raises(ValueError, match="head_dim 384 is not yet ported"):
-        tattn.dot_product_attention(wide, wide, wide, causal=True)  # the JAX package sends it to Pallas
+    odd = torch.zeros(1, 2, 64, 320, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 320"):
+        tattn.flash_forward(odd, odd, odd, None, True, SCALE)
+    lse = torch.zeros(1, 2, 64, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 320"):
+        tattn.flash_bwd_dq(odd, odd, odd, None, odd, lse, lse, True, SCALE)
     with pytest.raises(ValueError, match="contiguous"):
         tattn.flash_forward(q.transpose(2, 3), k, v, None, False, SCALE)
 
@@ -132,11 +139,14 @@ def test_shapes_jax_sends_to_xla_take_masked_attention_on_card(gpu, q_shape, kv_
 
 
 # tiny decoders of 2 heads: of 64; of 96 as GPT-NeoX-20B's; of 128 as
-# Pythia-1.4B's; of 256 as the 1B preset's
+# Pythia-1.4B's; of 256 as the 1B preset's; of 384 and 512 as the regrouped
+# decoders' (the wide kernels)
 DECODERS = {64: dict(hidden_size=128, num_hidden_layers=3, intermediate_size=256),
             96: dict(hidden_size=192, num_hidden_layers=2, intermediate_size=384),
             128: dict(hidden_size=256, num_hidden_layers=2, intermediate_size=512),
-            256: dict(hidden_size=512, num_hidden_layers=2, intermediate_size=1024)}
+            256: dict(hidden_size=512, num_hidden_layers=2, intermediate_size=1024),
+            384: dict(hidden_size=768, num_hidden_layers=2, intermediate_size=1536),
+            512: dict(hidden_size=1024, num_hidden_layers=2, intermediate_size=2048)}
 
 
 def _tiny_eval_model(device, head_dim=64):

@@ -1,8 +1,8 @@
 """Shared fixtures of the port's parity tests: tiny VL-Pythia configs built
 in both packages (head_dim 64, and with `WIDE_DECODERS` the wider heads the
 flash kernels take: 256 as the 1B decoder's, 128 as Pythia-1.4B's, 96 as
-GPT-NeoX-20B's), JAX parameters carried into the port, and seeded numpy
-batches."""
+GPT-NeoX-20B's, 384 and 512 as the regrouped decoders' that the wide kernels
+take), JAX parameters carried into the port, and seeded numpy batches."""
 
 from __future__ import annotations
 
@@ -26,8 +26,11 @@ TINY_256 = dict(vocab_size=512, hidden_size=512, num_hidden_layers=2, num_attent
 # Pythia-1.4B's head shape (heads of 128, rotary over 32) and GPT-NeoX-20B's (heads of 96, rotary over 24)
 TINY_128 = dict(vocab_size=512, hidden_size=256, num_hidden_layers=2, num_attention_heads=2, intermediate_size=512, rotary_pct=0.25)
 TINY_96 = dict(vocab_size=512, hidden_size=192, num_hidden_layers=2, num_attention_heads=2, intermediate_size=384, rotary_pct=0.25)
+# the regrouped decoders' head shapes (heads of 384 and 512, rotary over 96 and 128), which the wide kernels take
+TINY_384 = dict(vocab_size=512, hidden_size=768, num_hidden_layers=2, num_attention_heads=2, intermediate_size=1536, rotary_pct=0.25)
+TINY_512 = dict(vocab_size=512, hidden_size=1024, num_hidden_layers=2, num_attention_heads=2, intermediate_size=2048, rotary_pct=0.25)
 # the tiny decoders of the `*_wide_heads` tests, by head_dim; their test ids are "head_dim_<d>"
-WIDE_DECODERS = {256: TINY_256, 128: TINY_128, 96: TINY_96}
+WIDE_DECODERS = {256: TINY_256, 128: TINY_128, 96: TINY_96, 384: TINY_384, 512: TINY_512}
 WIDE_IDS = [f"head_dim_{d}" for d in WIDE_DECODERS]
 TINY_VISION = dict(img_size=28, patch_size=14, embed_dim=32, depth=2, num_heads=2, mlp_ratio=2.0)
 # a tower whose attention the flash dispatch takes: 16 patches + CLS, 2 heads of 64
@@ -37,7 +40,7 @@ TINY_VISION_64 = dict(img_size=56, patch_size=14, embed_dim=128, depth=2, num_he
 def tiny_cfgs(vision=TINY_VISION, decoder=TINY):
     """(JAX ModelConfig, port ModelConfig) of the same tiny model: by default
     hidden 128, 2 heads of 64, 3 layers (`decoder=TINY_256`: hidden 512, 2
-    heads of 256, 2 layers; TINY_128, TINY_96 likewise), and a tower of 4
+    heads of 256, 2 layers; TINY_128, TINY_96, TINY_384, TINY_512 likewise), and a tower of 4
     patches of width 32."""
     jcfg = ModelConfig(**decoder, vision=VisionConfig(**vision), vision_encoder_name="tiny-eva")
     tc = tcfg.ModelConfig(**decoder, vision=tcfg.VisionConfig(**vision), vision_encoder_name="tiny-eva")
