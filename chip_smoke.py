@@ -4,13 +4,15 @@
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: compiles csrc/flash_attn.cu with nvcc for sm_90a and prints the
-     registers and spill bytes (-Xptxas -v) and the HGMMA and UTMALDG
-     instruction counts (cuobjdump -sass, where the toolkit has it) of each
-     instantiation: the three kernels at head_dim 64, 96, 128 and 256, and
-     the three wide kernels (every multiple of 128 from 384 on, a grid axis
-     over 128-column output slices); all fifteen are TMA + wgmma kernels,
-     and none may spill or lack either;
+  2. build: compiles csrc/flash_attn.cu and csrc/flash_attn_f32.cu with nvcc
+     for sm_90a into one library and prints the registers and spill bytes
+     (-Xptxas -v) and the HGMMA, UTMALDG and FFMA instruction counts
+     (cuobjdump -sass, where the toolkit has it) of each instantiation: the
+     three bf16 kernels at head_dim 64, 96, 128 and 256 and the three wide
+     kernels (every multiple of 128 from 384 on, a grid axis over
+     128-column output slices), fifteen TMA + wgmma kernels that may lack
+     neither; and the three float32 kernels (every head_dim at run time),
+     FFMA kernels with no HGMMA; none may spill;
   3. kernels: the three flash kernels against their plain PyTorch versions on
      the card, in bf16, at the shapes of the 410M window and CE window (and
      EVA-02 shapes), at pretraining's ([128, 16, 356, 64], right padding of
@@ -29,9 +31,14 @@ Phases, each printing one JSON line:
      pretraining's beside the plain versions, the bound and
      torch.nn.functional.scaled_dot_product_attention (a yardstick only: its
      forward for the forward kernel, its whole backward, which also computes
-     dq, for each backward kernel); then one shape that the JAX package
-     sends to xla_attention (32 heads of 80, Pythia-2.8B's width):
-     dot_product_attention equal to masked_attention, no launch;
+     dq, for each backward kernel); then every case again at float32, the
+     float32 kernels against the plain versions at float32 (F32_ATOL), and
+     their times at each head_dim's CE shape beside their bound (bytes at 4
+     an element, operations at the card's float32 rate outside the tensor
+     cores) and SDPA at float32 with TF32 off on the backend it takes; then
+     one shape that the JAX package sends to xla_attention (32 heads of 80,
+     Pythia-2.8B's width): dot_product_attention equal to masked_attention,
+     no launch;
   4. reference: one window of a tiny model on the card (CUDA kernels) against
      the same window on the CPU (plain versions), and that model's tower
      features and KV-cache prefill logits (head_dim-64 tower; a decoder with
@@ -56,7 +63,12 @@ Phases, each printing one JSON line:
      model equal to the checkpoint bit for bit, launches 572 / 144 / 144;
   6. window: three fused MAFED windows of VL-Pythia-410M at full width and
      depth (random seeded weights, cached-patch shapes of the bench), with the
-     kernel launch counts of that run;
+     kernel launch counts of that run; window_f32 (after train_steps): the
+     same three windows from the same weights at compute_dtype float32
+     (118 / 48 / 48 launches a window, all of the float32 kernels), their
+     metrics against window's, MFU against the card's float32 peak, then one
+     small window through the kernels against the plain versions at float32
+     (PLAIN_F32_LIMITS);
   7. decode: greedy KV-cache decode of VL-Pythia-410M + EVA-02-L at full width
      and depth (bf16 weights from a seed; batch 32, text 64 with 16 left-padded
      positions, 10 new tokens), from uint8 pixels through the tower and from
@@ -109,8 +121,11 @@ Phases, each printing one JSON line:
      asserts the accuracy matrix and BWT, the run's files, a resume bundle
      after each task, a bit-for-bit checkpoint reload, an unchanged teacher,
      the windows each task ran and the flash launches computed from the
-     config; prints the seconds of each stage and each task's train
-     examples/s;
+     config, by head_dim and by dtype; prints the seconds of each stage and
+     each task's train examples/s; then cl_sequence_f32: the same with
+     --compute_dtype float32, its windows' launches (332 / 144 / 144) of the
+     float32 kernels and eval's and the tower's (240 / 0 / 0) of the bf16
+     ones;
  11. cl_sequence_default: the same command line without those two switches,
      the shipped config's defaults: the features in a device table (tier,
      rows and MB asserted), the teacher's states primed after task 0 into a
@@ -180,8 +195,9 @@ The kernel cases include the CLIP tower's [32, 16, 577, 64] (non-causal,
 577 = 9 x 64 + 1) and its decode prefill (640, causal, 16 padded keys).
 Every phase line ends with "clock_s", the script's seconds at its end, and
 "phase_s", its seconds since the phase line before it.
-Then the kernel summary line (one entry per kernel and head_dim that
-launched on the main path), the
+Then the kernel summary line (one entry per bf16 kernel and head_dim that
+launched on the main path, and one per float32 kernel with its times at
+every head_dim), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a CUDA device, or without the
 package beside it, the script exits non-zero before printing anything.
@@ -235,11 +251,19 @@ from mafed_tpu_torch.utils.checkpoint import load_task_checkpoint, save_task_che
 # final one, so single elements differ by a few bf16 ulps.
 ATOL, RTOL = 2e-2, 2e-2
 LSE_ATOL = 1e-4  # lse is f32 in both
+# The float32 kernels against the plain versions at float32: both multiply
+# float32 operands in float32 (TF32 off), in other orders (online softmax over
+# 64-key tiles, FMA chains against cuBLAS's blocking), so they differ by
+# float32 rounding only, a few 1e-6 at these magnitudes
+F32_ATOL = F32_RTOL = 1e-4
+F32_LSE_ATOL = 1e-5
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16
+FP32_FLOPS_PER_S = 67e12  # H100 SXM dense float32 outside the tensor cores
 
 SM90 = "sm90 tma+wgmma"
+SM90_F32 = "sm90 cuda-core ffma, cp.async"
 # name (its CUDA kernel is name + "_kernel"): (the TPU kernel it replaces, its design)
 KERNELS = {
     "flash_fwd": ("mafed_tpu/kernels/attention.py:81", SM90),
@@ -301,8 +325,10 @@ def phase_build() -> None:
         res = resources.get(kernel, {})
         if res.get("spill_store_bytes") != 0 or res.get("spill_load_bytes") != 0:
             raise AssertionError(f"{kernel}: spills or no ptxas report: {res}")
-        if sass is not None and not (kernel in sass and sass[kernel]["HGMMA"] and sass[kernel]["UTMALDG"]):
-            raise AssertionError(f"{kernel}: no HGMMA or UTMALDG in its SASS: {sass.get(kernel)}")
+    # the bfloat16 kernels are TMA + wgmma kernels; the float32 ones FFMA kernels with no wgmma
+    faults = build.sass_faults(sass) if sass is not None else []
+    if faults:
+        raise AssertionError(f"SASS: {faults}")
 
 
 def launches_by_dim() -> dict:
@@ -332,12 +358,12 @@ def _row_lengths(b: int, t: int, low: int) -> torch.Tensor:
     return t - (torch.arange(b, device="cuda") * 37) % (t - low + 1)
 
 
-def _qkv(gen, b, h, t, pad, empty_sample, d=64):
-    """q, k, v, do and the key mask of a case: `pad` is a key range (start,
-    end) masked in every row, or ("right", low) for right padding of a
-    different length in each row (a caption batch: keys past the row's
-    length masked, at least `low` kept)."""
-    q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
+def _qkv(gen, b, h, t, pad, empty_sample, d=64, dtype=torch.bfloat16):
+    """q, k, v, do (bf16, or `dtype`) and the key mask of a case: `pad` is a
+    key range (start, end) masked in every row, or ("right", low) for right
+    padding of a different length in each row (a caption batch: keys past
+    the row's length masked, at least `low` kept)."""
+    q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype) for _ in range(4))
     mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
     if pad is not None and pad[0] == "right":
         mask = (torch.arange(t, device="cuda")[None] < _row_lengths(b, t, pad[1])[:, None]).to(torch.int32)
@@ -427,37 +453,53 @@ KERNEL_CASES = [
 LIBRARY_COVERS = {"flash_fwd": "o", "flash_bwd_dkv": "dq+dk+dv", "flash_bwd_dq": "dq+dk+dv"}
 
 
+def check_case(gen, name, b, h, t, d, causal, pad, empty, dtype=torch.bfloat16) -> dict:
+    """One case, the three kernels against the plain versions at `dtype`
+    (bf16 at ATOL / RTOL, f32 at F32_ATOL / F32_RTOL), at the models' scale
+    head_dim^-0.5; emitted, and returns the largest error of each kernel."""
+    atol, rtol, lse_atol = (ATOL, RTOL, LSE_ATOL) if dtype == torch.bfloat16 else (F32_ATOL, F32_RTOL, F32_LSE_ATOL)
+    scale = d ** -0.5
+    q, k, v, do, mask = _qkv(gen, b, h, t, pad, empty, d, dtype)
+    o, lse = A.flash_forward(q, k, v, mask, causal, scale)
+    o_p, lse_p = A.flash_forward_plain(q, k, v, mask, causal, scale)
+    fin = torch.isfinite(lse_p)
+    if not torch.equal(torch.isinf(lse), ~fin):
+        raise AssertionError(f"{name}: empty rows differ between kernel and plain version")
+    torch.testing.assert_close(o.float(), o_p.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse[fin], lse_p[fin], atol=lse_atol, rtol=0)
+    delta = (do.float() * o_p.float()).sum(-1)
+    dk, dv = A.flash_bwd_dkv(q, k, v, mask, do, lse_p, delta, causal, scale)
+    dq = A.flash_bwd_dq(q, k, v, mask, do, lse_p, delta, causal, scale)
+    dq_p, dk_p, dv_p = A.flash_backward_plain(q, k, v, mask, o_p, lse_p, do, causal, scale)
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        if got.dtype != dtype:
+            raise AssertionError(f"{name}: a gradient of dtype {got.dtype} from {dtype} inputs")
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    torch.cuda.synchronize()
+    case_err = {
+        "flash_fwd": max(_err(o, o_p), (lse[fin] - lse_p[fin]).abs().max().item()),
+        "flash_bwd_dkv": max(_err(dk, dk_p), _err(dv, dv_p)),
+        "flash_bwd_dq": _err(dq, dq_p),
+    }
+    emit({"phase": "kernels", "case": name, "dtype": str(dtype).split(".")[1], "shape": [b, h, t, d],
+          "causal": causal, "empty_rows": int((~fin).sum().item()), "max_abs_err": case_err, "atol": atol,
+          "rtol": rtol, "lse_atol": lse_atol})
+    return case_err
+
+
 def phase_kernels(gen):
-    """Every case, kernel against plain version, at the models' scale
-    head_dim^-0.5; then the times at each model's CE shape. Returns
-    ({(kernel, head_dim): largest error}, {head_dim: timing at its CE shape})."""
-    errs = {}
-    for name, b, h, t, d, causal, pad, empty in KERNEL_CASES:
-        scale = d ** -0.5
-        q, k, v, do, mask = _qkv(gen, b, h, t, pad, empty, d)
-        o, lse = A.flash_forward(q, k, v, mask, causal, scale)
-        o_p, lse_p = A.flash_forward_plain(q, k, v, mask, causal, scale)
-        fin = torch.isfinite(lse_p)
-        if not torch.equal(torch.isinf(lse), ~fin):
-            raise AssertionError(f"{name}: empty rows differ between kernel and plain version")
-        torch.testing.assert_close(o.float(), o_p.float(), atol=ATOL, rtol=RTOL)
-        torch.testing.assert_close(lse[fin], lse_p[fin], atol=LSE_ATOL, rtol=0)
-        delta = (do.float() * o_p.float()).sum(-1)
-        dk, dv = A.flash_bwd_dkv(q, k, v, mask, do, lse_p, delta, causal, scale)
-        dq = A.flash_bwd_dq(q, k, v, mask, do, lse_p, delta, causal, scale)
-        dq_p, dk_p, dv_p = A.flash_backward_plain(q, k, v, mask, o_p, lse_p, do, causal, scale)
-        for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
-            torch.testing.assert_close(got.float(), want.float(), atol=ATOL, rtol=RTOL)
-        torch.cuda.synchronize()
-        case_err = {
-            "flash_fwd": max(_err(o, o_p), (lse[fin] - lse_p[fin]).abs().max().item()),
-            "flash_bwd_dkv": max(_err(dk, dk_p), _err(dv, dv_p)),
-            "flash_bwd_dq": _err(dq, dq_p),
-        }
-        for kname, e in case_err.items():
-            errs[kname, d] = max(errs.get((kname, d), 0.0), e)
-        emit({"phase": "kernels", "case": name, "shape": [b, h, t, d], "causal": causal,
-              "empty_rows": int((~fin).sum().item()), "max_abs_err": case_err, "atol": ATOL, "rtol": RTOL})
+    """Every case, kernel against plain version, in bf16 and then again in
+    f32; then the times at each model's CE shape, in both. Returns
+    ({(kernel, head_dim): largest error}, {head_dim: timing at its CE
+    shape}) for the bf16 kernels, then the same two for the f32 ones."""
+    errs, errs_f32 = {}, {}
+    for dtype, into in ((torch.bfloat16, errs), (torch.float32, errs_f32)):
+        for name, b, h, t, d, causal, pad, empty in KERNEL_CASES:
+            for kname, e in check_case(gen, name, b, h, t, d, causal, pad, empty, dtype).items():
+                into[kname, d] = max(into.get((kname, d), 0.0), e)
+    emit({"phase": "kernels", "case": "f32_largest_errors", "atol": F32_ATOL, "rtol": F32_RTOL,
+          "lse_atol": F32_LSE_ATOL,
+          "max_abs_err": {k: {d: e for (kn, d), e in sorted(errs_f32.items()) if kn == k} for k in KERNELS}})
 
     timing = {64: kernel_timing(gen, "timing_ce_410m", 48, 16, 336, 64),
               96: kernel_timing(gen, "timing_ce_neox20b", 48, 64, 336, 96),
@@ -478,8 +520,11 @@ def phase_kernels(gen):
                                           ("timing_decode_prefill_1_4b", 32, 16, 320, 128, True, (256, 272)),
                                           ("timing_decode_prefill_1b_d512", 32, 4, 320, 512, True, (256, 272))):
         emit({"phase": "kernels", "case": case, **_fwd_timing(gen, b, h, t, d, causal, pad)})
+    # the f32 kernels at each head_dim's CE shape (the bound: float32 operations on the CUDA cores)
+    timing_f32 = {d: kernel_timing(gen, f"timing_f32_ce_{d}", 48, h, 336, d, dtype=torch.float32)
+                  for d, h in ((64, 16), (96, 64), (128, 16), (256, 8), (384, 16), (512, 4))}
     check_xla_routing(gen)
-    return errs, timing
+    return errs, timing, errs_f32, timing_f32
 
 
 def check_xla_routing(gen) -> None:
@@ -498,21 +543,45 @@ def check_xla_routing(gen) -> None:
           "route": "masked_attention", "bit_equal": True, "launches": launches})
 
 
-def _bound(nbytes: float, flops: float):
+def _bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S):
     """(least ms for this many bytes and operations on the card, which of the two sets it)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def kernel_timing(gen, case, b, h, t, d, pad=(256, 276)) -> dict:
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+
+
+def sdpa_backend(q, k, v, keep, scale, do) -> str:
+    """The first of SDPA_BACKENDS, in that order, whose forward and
+    backward take this call; kernel_timing times SDPA on it at float32."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+                out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep, scale=scale)
+                torch.autograd.grad(out, (qg, kg, vg), do)
+            return name
+        except RuntimeError:
+            continue
+    raise AssertionError("no SDPA backend takes the call")
+
+
+def kernel_timing(gen, case, b, h, t, d, pad=(256, 276), dtype=torch.bfloat16) -> dict:
     """The three kernels' times at one causal shape with the keys `pad`
     masks (by default 256..275, 20 padded keys) beside the plain versions',
     SDPA's (a yardstick, never called by the port: its forward against the
     forward kernel, its whole backward, which computes dq, dk and dv,
-    against each backward kernel) and each kernel's bound; emitted, and
+    against each backward kernel; at float32 on the backend sdpa_backend
+    names, TF32 off) and each kernel's bound (at float32: 4 bytes an
+    element, operations at the CUDA cores' float32 rate); emitted, and
     returned with the bounds' causes."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     scale = d ** -0.5
-    q, k, v, do, mask = _qkv(gen, b, h, t, pad, False, d)
+    q, k, v, do, mask = _qkv(gen, b, h, t, pad, False, d, dtype)
     o, lse = A.flash_forward(q, k, v, mask, True, scale)
     delta = (do.float() * o.float()).sum(-1)
     ms = {
@@ -526,26 +595,30 @@ def kernel_timing(gen, case, b, h, t, d, pad=(256, 276)) -> dict:
 
     keep = torch.ones(t, t, dtype=torch.bool, device="cuda").tril()[None, None] & (mask > 0)[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    sdpa_fwd = time_ms(lambda: sdpa(q, k, v, attn_mask=keep, scale=scale))
-    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
-    out = sdpa(qg, kg, vg, attn_mask=keep, scale=scale)
-    sdpa_bwd = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True))
+    f32 = dtype == torch.float32
+    backend = sdpa_backend(q, k, v, keep, scale, do) if f32 else None
+    with sdpa_kernel(getattr(SDPBackend, backend)) if f32 else contextlib.nullcontext():
+        sdpa_fwd = time_ms(lambda: sdpa(q, k, v, attn_mask=keep, scale=scale))
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        out = sdpa(qg, kg, vg, attn_mask=keep, scale=scale)
+        sdpa_bwd = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True))
     library = {"flash_fwd": sdpa_fwd, "flash_bwd_dkv": sdpa_bwd, "flash_bwd_dq": sdpa_bwd}
 
     # least time for the same work: each input read once, each output written
     # once; products counted over the (query, key) pairs this mask keeps
     pairs = h * int((torch.ones(t, t, device="cuda").tril()[None] * (mask > 0)[:, None, :]).sum().item())
-    act, row, msk = b * h * t * d * 2, b * h * t * 4, b * t * 4
+    act, row, msk = b * h * t * d * q.element_size(), b * h * t * 4, b * t * 4
+    peak = FP32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S
     bounds = {
-        "flash_fwd": _bound(3 * act + msk + act + row, 4 * d * pairs),
-        "flash_bwd_dkv": _bound(4 * act + 2 * row + msk + 2 * act, 8 * d * pairs),
-        "flash_bwd_dq": _bound(4 * act + 2 * row + msk + act, 6 * d * pairs),
+        "flash_fwd": _bound(3 * act + msk + act + row, 4 * d * pairs, peak),
+        "flash_bwd_dkv": _bound(4 * act + 2 * row + msk + 2 * act, 8 * d * pairs, peak),
+        "flash_bwd_dq": _bound(4 * act + 2 * row + msk + act, 6 * d * pairs, peak),
     }
-    res = {"ms": ms, "plain_ms": plain_ms, "library_ms": library,
+    res = {"ms": ms, "plain_ms": plain_ms, "library_ms": library, "library_backend": backend,
            "bound_ms": {n: v[0] for n, v in bounds.items()}, "bound_by": {n: v[1] for n, v in bounds.items()}}
-    emit({"phase": "kernels", "case": case, "shape": [b, h, t, d], "ms": ms, "plain_ms": plain_ms,
-          "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd, "bound_ms": res["bound_ms"],
-          "bound_by": res["bound_by"], "kept_pairs": pairs})
+    emit({"phase": "kernels", "case": case, "dtype": str(dtype).split(".")[1], "shape": [b, h, t, d], "ms": ms,
+          "plain_ms": plain_ms, "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd, "sdpa_backend": backend,
+          "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "kept_pairs": pairs})
     return res
 
 
@@ -589,14 +662,16 @@ def example_batch(gen, cfg, b: int, text_len: int, device="cpu", pixels: bool = 
     return out
 
 
-def train_config() -> TrainConfig:
+def train_config(compute_dtype: str = "bfloat16") -> TrainConfig:
     """The bench's training settings: AdamW with a bf16 first moment, balanced
-    modality weights, discounted layers (gamma 0.5)."""
+    modality weights, discounted layers (gamma 0.5); bf16 compute unless
+    `compute_dtype` says otherwise."""
     return TrainConfig(
         optim="adamw", weight_decay=0.01, adam_mu_dtype="bfloat16",
         replay_coeff=1.0, distillation_coeff=1.0,
         distillation_modality_weighing_strategy="balanced",
         distillation_layer_weighing_strategy="discounted", distillation_layer_discount=0.5,
+        compute_dtype=compute_dtype,
     )
 
 
@@ -605,8 +680,8 @@ def stack(batches):
     return {k: torch.stack([mb[k] for mb in batches]) for k in batches[0]}
 
 
-def window_setup(cfg, model, n_ce, b, text_len, gen, device, fuse_ce_batch=True):
-    train_cfg = train_config()
+def window_setup(cfg, model, n_ce, b, text_len, gen, device, fuse_ce_batch=True, compute_dtype="bfloat16"):
+    train_cfg = train_config(compute_dtype)
     teacher = make_teacher(model)
     trainable = trainable_parameters(model)
     opt = build_optimizer(train_cfg, trainable, tp=model.tp)
@@ -810,16 +885,21 @@ def model_config(preset: str) -> ModelConfig:
     return model_config_for_preset(preset)
 
 
-def phase_window(smi: str, preset: str, phase: str, plain_check: bool = False):
+def phase_window(smi: str, preset: str, phase: str, plain_check: bool = False, compute_dtype: str = "bfloat16",
+                 reference=None) -> dict:
     """Three fused MAFED windows of VL-Pythia-`preset` at full width and depth
-    (bench.py's shape); with `plain_check`, then the kernels against the
-    plain versions on one small window (`check_window_against_plain`).
-    Returns the launches by head_dim of the three windows."""
+    (bench.py's shape) at `compute_dtype`, every launch of that dtype; with
+    `plain_check`, then the kernels against the plain versions on one small
+    window (`check_window_against_plain`). At float32 the MFU is against the
+    card's float32 peak, and `reference`, the metrics of the bf16 windows
+    from the same weights and data, gives the relative differences of the
+    metrics; the first window's (before any update) within STEP_RTOL.
+    Returns the emitted line (its "launches" by head_dim)."""
     cfg = model_config(preset)
     n_ce, b, text_len, windows = 3, 16, 80, 3
     model = init_model(cfg, seed=0, device="cuda")
     step, state, teacher, ce, distill, lang = window_setup(
-        cfg, model, n_ce, b, text_len, torch.Generator().manual_seed(2), "cuda")
+        cfg, model, n_ce, b, text_len, torch.Generator().manual_seed(2), "cuda", compute_dtype=compute_dtype)
     before = {n: p.detach().clone() for n, p in trainable_parameters(model).items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -832,7 +912,7 @@ def phase_window(smi: str, preset: str, phase: str, plain_check: bool = False):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - start) * 1e3)
         history.append({k: float(m[k]) for k in ("loss", "ce_loss", "distill_loss", "grad_norm")})
-    launches = launches_by_dim()
+    launches, by_dtype = launches_by_dim(), dict(A.LAUNCHES_BY_DTYPE)
 
     for h in history:
         bad = [k for k, v in h.items() if not torch.isfinite(torch.tensor(v))]
@@ -843,25 +923,34 @@ def phase_window(smi: str, preset: str, phase: str, plain_check: bool = False):
         raise AssertionError(f"parameters that no update moved: {unchanged[:5]} ({len(unchanged)})")
     layers = cfg.num_hidden_layers
     expected = window_launches(cfg, windows)
-    if launches != expected:
-        raise AssertionError(f"{phase}: kernel launches {launches}, expected {expected}")
+    if launches != expected or by_dtype != {compute_dtype: expected[cfg.head_dim]}:
+        raise AssertionError(f"{phase}: kernel launches {launches}, by dtype {by_dtype}, expected {expected}, "
+                             f"all {compute_dtype}")
 
     ms_window = sum(times[1:]) / (windows - 1)  # the first window pays cuBLAS and allocator warm-up
     examples = (n_ce + 1) * b
     ex_per_s = examples / (ms_window / 1e3)
     flops = framework_window_flops(cfg, text_len, n_ce, b) / examples
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    line = {"phase": phase, "card": smi, "preset": preset, "layers": layers, "hidden": cfg.hidden_size,
-            "heads": cfg.num_attention_heads, "head_dim": cfg.head_dim, "intermediate": cfg.intermediate_size,
-            "vocab": cfg.vocab_size, "n_ce": n_ce, "batch": b, "text_len": text_len, "window_ms": times,
-            "ms_per_window": ms_window, "examples_per_s": ex_per_s, "mfu": mfu(ex_per_s, flops),
-            "peak_memory_gb": peak_gb, "metrics": history, "launches": launches, "expected_launches": expected}
+    peak = FP32_FLOPS_PER_S if compute_dtype == "float32" else BF16_FLOPS_PER_S
+    line = {"phase": phase, "card": smi, "preset": preset, "compute_dtype": compute_dtype, "layers": layers,
+            "hidden": cfg.hidden_size, "heads": cfg.num_attention_heads, "head_dim": cfg.head_dim,
+            "intermediate": cfg.intermediate_size, "vocab": cfg.vocab_size, "n_ce": n_ce, "batch": b,
+            "text_len": text_len, "window_ms": times, "ms_per_window": ms_window, "examples_per_s": ex_per_s,
+            "mfu": mfu(ex_per_s, flops, peak), "mfu_peak_flops": peak, "peak_memory_gb": peak_gb,
+            "metrics": history, "launches": launches, "launches_by_dtype": by_dtype, "expected_launches": expected}
+    if reference is not None:
+        line["rel_diff_vs_bf16"] = [{k: abs(h[k] - r[k]) / abs(r[k]) for k in h} for h, r in zip(history, reference)]
+        first = line["rel_diff_vs_bf16"][0]
+        if not all(e <= STEP_RTOL for e in first.values()):
+            raise AssertionError(f"{phase}: the first window's metrics {history[0]} against the bf16 window's "
+                                 f"{reference[0]}: relative differences {first}, above {STEP_RTOL}")
     if plain_check:
         del step, state, teacher, ce, distill
         free_device_memory()
-        line["against_plain"] = check_window_against_plain(cfg, model, before)
+        line["against_plain"] = check_window_against_plain(cfg, model, before, compute_dtype=compute_dtype)
     emit(line)
-    return launches
+    return line
 
 
 # kernels against plain versions through a whole window, bf16 on the card: the attention outputs
@@ -874,6 +963,9 @@ def phase_window(smi: str, preset: str, phase: str, plain_check: bool = False):
 PLAIN_WINDOW_RTOL = 3e-3
 PLAIN_ATTN_NORM_RTOL = 1.5e-2
 PLAIN_ATTN_DIFF_RTOL = 0.4
+# the same at float32 (phase window_f32): the attention outputs differ by float32 rounding only
+# (F32_ATOL), so the limits are 30x (window) and 15x / 40x (attention weights) tighter
+PLAIN_F32_LIMITS = (1e-4, 1e-3, 1e-2)
 
 
 def _attention_grad_parts(name: str, grad: torch.Tensor, cfg) -> dict:
@@ -886,7 +978,7 @@ def _attention_grad_parts(name: str, grad: torch.Tensor, cfg) -> dict:
     return {f"{name}[{part}]": g[:, i] for i, part in enumerate("qkv")}
 
 
-def check_window_against_plain(cfg, model, snapshot: dict, b: int = 2) -> dict:
+def check_window_against_plain(cfg, model, snapshot: dict, b: int = 2, compute_dtype: str = "bfloat16") -> dict:
     """One fused MAFED window of `model` at `b` rows a microbatch (text 80,
     3 CE microbatches and a memory one) from the trainable weights
     `snapshot`, twice: through the kernels, then with FlashAttention's
@@ -896,9 +988,13 @@ def check_window_against_plain(cfg, model, snapshot: dict, b: int = 2) -> dict:
     its q, k and v rows, and dense: what dQ, dK and dV reach first) against
     the plain run's: its norm within PLAIN_ATTN_NORM_RTOL (a scaled or
     partly missing gradient), |kernels - plain| / |plain| within
-    PLAIN_ATTN_DIFF_RTOL (a wrong sign or a wrong row, whatever the norm).
-    The kernels' launches as computed, the plain run's none."""
-    runs, launches, grads, attn = {}, {}, {}, {}
+    PLAIN_ATTN_DIFF_RTOL (a wrong sign or a wrong row, whatever the norm);
+    at float32 `compute_dtype` within PLAIN_F32_LIMITS instead. The
+    kernels' launches as computed, all of `compute_dtype`, the plain run's
+    none."""
+    window_rtol, norm_rtol, diff_rtol = (PLAIN_F32_LIMITS if compute_dtype == "float32" else
+                                         (PLAIN_WINDOW_RTOL, PLAIN_ATTN_NORM_RTOL, PLAIN_ATTN_DIFF_RTOL))
+    runs, launches, grads, attn, by_dtype = {}, {}, {}, {}, {}
 
     def record(route, name, grad):
         for part, g in _attention_grad_parts(name, grad.float(), cfg).items():
@@ -914,7 +1010,7 @@ def check_window_against_plain(cfg, model, snapshot: dict, b: int = 2) -> dict:
             for name, p in trainable_parameters(model).items():
                 p.copy_(snapshot[name])
         step, state, teacher, ce, distill, lang = window_setup(
-            cfg, model, 3, b, 80, torch.Generator().manual_seed(8), "cuda")
+            cfg, model, 3, b, 80, torch.Generator().manual_seed(8), "cuda", compute_dtype=compute_dtype)
         hooks = [p.register_post_accumulate_grad_hook(lambda p, n=n, r=route: record(r, n, p.grad))
                  for n, p in trainable_parameters(model).items() if ".attention." in n and n.endswith(".weight")]
         A.reset_launches()
@@ -925,12 +1021,14 @@ def check_window_against_plain(cfg, model, snapshot: dict, b: int = 2) -> dict:
             for h in hooks:
                 h.remove()
         runs[route] = {k: float(m[k]) for k in ("loss", "ce_loss", "distill_loss", "grad_norm")}
-        launches[route] = launches_by_dim()
+        launches[route], by_dtype[route] = launches_by_dim(), dict(A.LAUNCHES_BY_DTYPE)
         del step, state, teacher, ce, distill
         free_device_memory()
     expected = window_launches(cfg)
-    if launches["kernels"] != expected or launches["plain"] != at_head_dim(cfg.head_dim, _kernels(0, 0)):
-        raise AssertionError(f"window against plain: launches {launches}, expected {expected} and none")
+    if (launches["kernels"] != expected or launches["plain"] != at_head_dim(cfg.head_dim, _kernels(0, 0))
+            or by_dtype["kernels"] != {compute_dtype: expected[cfg.head_dim]}):
+        raise AssertionError(f"window against plain: launches {launches}, by dtype {by_dtype}, expected {expected} "
+                             f"({compute_dtype}) and none")
     if grads or len(attn) != 4 * cfg.num_hidden_layers:
         raise AssertionError(f"window against plain: attention gradients compared {sorted(attn)}, "
                              f"unmatched {sorted(grads)}; expected 4 parts a layer")
@@ -940,13 +1038,12 @@ def check_window_against_plain(cfg, model, snapshot: dict, b: int = 2) -> dict:
         key = part.split(".attention.")[1]
         by_part[key] = [max(x, y) for x, y in zip(e, by_part.get(key, (0.0, 0.0)))]
     norm_err, diff_err = (max(e[i] for e in by_part.values()) for i in (0, 1))
-    if (not all(e <= PLAIN_WINDOW_RTOL for e in errs.values()) or norm_err > PLAIN_ATTN_NORM_RTOL
-            or diff_err > PLAIN_ATTN_DIFF_RTOL):
-        raise AssertionError(f"window against plain: {runs}, relative errors {errs} (limit {PLAIN_WINDOW_RTOL}); "
+    if not all(e <= window_rtol for e in errs.values()) or norm_err > norm_rtol or diff_err > diff_rtol:
+        raise AssertionError(f"window against plain: {runs}, relative errors {errs} (limit {window_rtol}); "
                              f"attention weight gradients (norm, difference) by part {by_part} "
-                             f"(limits {PLAIN_ATTN_NORM_RTOL}, {PLAIN_ATTN_DIFF_RTOL})")
-    return {"batch": b, **runs, "rel_err": errs, "rtol": PLAIN_WINDOW_RTOL, "attn_grads": len(attn),
-            "attn_grad_norm_diff_err": by_part, "attn_rtol": [PLAIN_ATTN_NORM_RTOL, PLAIN_ATTN_DIFF_RTOL]}
+                             f"(limits {norm_rtol}, {diff_rtol})")
+    return {"batch": b, **runs, "rel_err": errs, "rtol": window_rtol, "attn_grads": len(attn),
+            "attn_grad_norm_diff_err": by_part, "attn_rtol": [norm_rtol, diff_rtol]}
 
 
 @contextlib.contextmanager
@@ -1393,7 +1490,8 @@ def drive_sequence(argv, device, model_cfg, keep_checkpoints: str = "first", pre
     if preempt_after is not None and preempted is None:
         raise AssertionError(f"no preemption after {preempt_after} updates")
     return {"cfg": cfg, "model_cfg": model_cfg, "trainer": trainer, "result": result, "wall": wall,
-            "launches": launches_by_dim(), "saved": saved, "bundles": bundles,
+            "launches": launches_by_dim(), "launches_by_dtype": dict(A.LAUNCHES_BY_DTYPE), "saved": saved,
+            "bundles": bundles,
             "losses": logged_losses(cfg.output_dir) if trainer.is_main else None,  # rank 0 writes them
             "bundle_save_s": trainer.runner.bundle_save_s,
             "train_ex_per_s": [[h["train_ex_per_s"] for h in log["history"]] for log in trainer.fit_logs]}
@@ -1462,39 +1560,57 @@ def check_sequence(phase: str, run: dict, n_train: int, n_val: int, device: str,
     teacher_batches = math.ceil(cfg.cl_memory / cfg.batch_size) if tables else 0
     expected = sequence_launches(cfg, model_cfg, steps[0]["ce_window"], steps[1]["mafed_window"], decode_batches,
                                  tower_batches, teacher_batches, in_step_teacher=not tables)
-    if device == "cuda" and run["launches"] != expected:
-        raise AssertionError(f"{phase}: kernel launches {run['launches']}, expected {expected}")
+    # the windows run at the compute dtype; eval, the tower and teacher priming at bfloat16
+    by_dtype = {}
+    for dtype, part in ((cfg.compute_dtype, sequence_launches(cfg, model_cfg, steps[0]["ce_window"],
+                                                              steps[1]["mafed_window"], 0, 0, 0, not tables)),
+                        ("bfloat16", sequence_launches(cfg, model_cfg, 0, 0, decode_batches, tower_batches,
+                                                       teacher_batches, False))):
+        into = by_dtype.setdefault(dtype, _kernels(0, 0))
+        for counts in part.values():
+            for k, n in counts.items():
+                into[k] += n
+    if device == "cuda" and (run["launches"] != expected or run["launches_by_dtype"] != by_dtype):
+        raise AssertionError(f"{phase}: kernel launches {run['launches']}, by dtype {run['launches_by_dtype']}, "
+                             f"expected {expected}, by dtype {by_dtype}")
     return {"decode_batches": decode_batches, "tower_batches": tower_batches, "teacher_batches": teacher_batches,
-            "val_batches": val_batches, "expected_launches": expected}
+            "val_batches": val_batches, "expected_launches": expected, "expected_launches_by_dtype": by_dtype}
 
 
-def phase_cl_sequence(smi: str, device: str = "cuda", model_cfg=None, n_train: int = 128, n_val: int = 32):
+def phase_cl_sequence(smi: str, device: str = "cuda", model_cfg=None, n_train: int = 128, n_val: int = 32,
+                      compute_dtype: str = "bfloat16", phase: str = "cl_sequence"):
     """A two-task MAFED sequence through the trainer's entry points with the
-    features streamed and the in-step teacher (STREAMING_SWITCHES); returns
-    the run. `model_cfg` replaces the shipped config's model and `device`
-    the card, for a rehearsal at a tiny size on the CPU (where no kernel
-    launches, so launches are not checked)."""
+    features streamed and the in-step teacher (STREAMING_SWITCHES) at
+    `compute_dtype` (`--compute_dtype float32`: phase cl_sequence_f32, its
+    launches of each dtype checked apart); returns the run. `model_cfg`
+    replaces the shipped config's model and `device` the card, for a
+    rehearsal at a tiny size on the CPU (where no kernel launches, so
+    launches are not checked)."""
+    switches = STREAMING_SWITCHES + ([] if compute_dtype == "bfloat16" else ["--compute_dtype", compute_dtype])
     with tempfile.TemporaryDirectory(prefix="cl_sequence_") as root:
         write_synthetic_vqa(root, ("taskA", "taskB"), n_train, n_val)
-        run = drive_sequence(cl_sequence_argv(root) + STREAMING_SWITCHES, device, model_cfg)
+        run = drive_sequence(cl_sequence_argv(root) + switches, device, model_cfg)
         cfg, model_cfg, trainer = run["cfg"], run["model_cfg"], run["trainer"]
-        counts = check_sequence("cl_sequence", run, n_train, n_val, device, tables=False)
+        if cfg.compute_dtype != compute_dtype:
+            raise AssertionError(f"{phase}: the trainer's compute dtype {cfg.compute_dtype}, not {compute_dtype}")
+        counts = check_sequence(phase, run, n_train, n_val, device, tables=False)
         if trainer.vision_tables or trainer.runner.vision_table is not None or trainer.strategy.teacher_cache_log:
-            raise AssertionError("cl_sequence: a device table engaged with the streaming switches")
+            raise AssertionError(f"{phase}: a device table engaged with the streaming switches")
         (path0, want), = run["saved"].items()
         start = time.perf_counter()
         got = load_task_checkpoint(os.path.join(cfg.output_dir, "ckpt", path0))
         load_s = time.perf_counter() - start
         if set(got) != set(want) or not all(torch.equal(got[k], want[k]) for k in want):
-            raise AssertionError("cl_sequence: the reloaded task-0 checkpoint differs from the one saved")
+            raise AssertionError(f"{phase}: the reloaded task-0 checkpoint differs from the one saved")
         # the teacher is the bf16 of task 0's best model, untouched by task 1's training
         teacher = trainer.strategy.teacher.state_dict()
         moved = [k for k, v in teacher.items()
                  if not k.startswith("vision_encoder.") and not torch.equal(v.cpu(), want[k].to(torch.bfloat16))]
         if moved:
-            raise AssertionError(f"cl_sequence: teacher tensors that differ from task 0's best: {moved[:5]}")
+            raise AssertionError(f"{phase}: teacher tensors that differ from task 0's best: {moved[:5]}")
 
-    emit({"phase": "cl_sequence", "card": smi, "config": SHIPPED_CONFIG, "switches": STREAMING_SWITCHES,
+    emit({"phase": phase, "card": smi, "config": SHIPPED_CONFIG, "switches": switches,
+          "compute_dtype": cfg.compute_dtype,
           "model_config": cfg.model_config, "layers": model_cfg.num_hidden_layers, "hidden": model_cfg.hidden_size,
           "tasks": cfg.tasks, "train_questions": n_train, "val_questions": n_val, "batch": cfg.batch_size,
           "accumulate": cfg.accumulate_grad_batches,
@@ -1504,7 +1620,7 @@ def phase_cl_sequence(smi: str, device: str = "cuda", model_cfg=None, n_train: i
                       "bundle_save": trainer.runner.bundle_save_s},
           "train_ex_per_s": run["train_ex_per_s"], "images_primed": trainer.primed,
           "steps": [log["steps"] for log in trainer.fit_logs], "bundles": run["bundles"], "losses": run["losses"],
-          **counts, "launches": run["launches"]})
+          **counts, "launches": run["launches"], "launches_by_dtype": run["launches_by_dtype"]})
     del run["trainer"]  # its model and optimizer leave the card
     return run
 
@@ -2907,7 +3023,7 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs, timing = phase_kernels(gen)
+    errs, timing, errs_f32, timing_f32 = phase_kernels(gen)
     for head_dim in TINY_DECODERS:
         phase_reference(head_dim)
     phase_reference_steps()
@@ -2928,30 +3044,46 @@ def main() -> int:
         by_path["pretrain_to_cl"] = phase_pretrain_to_cl(smi, pretrain, root)
         del pretrain
     free_device_memory()
-    by_path.update({"window": phase_window(smi, "410m", "window"), "decode": phase_decode(smi, "410m", "decode"),
+    window = phase_window(smi, "410m", "window")
+    by_path.update({"window": window["launches"], "decode": phase_decode(smi, "410m", "decode"),
                     **phase_train_steps(smi)})
+    free_device_memory()
+    # the float32 kernels' paths: by_path keeps the bf16 launches by head_dim, by_path_f32 the f32 ones
+    window_f32 = phase_window(smi, "410m", "window_f32", plain_check=True, compute_dtype="float32",
+                              reference=window["metrics"])
+    by_path_f32 = {"window_f32": window_f32["launches_by_dtype"]["float32"]}
     free_device_memory()
     by_path["remat_policies"] = phase_remat_policies(smi)
     free_device_memory()
     by_path["clip_eval"] = phase_clip_eval(smi, gen)
     # VL-Pythia-1B, with the 410M models and their caches gone
     # then VL-Pythia-1.4B (heads of 128) and the decoder at GPT-NeoX-20B's width (heads of 96)
-    for path, run in (("window_1b", lambda: phase_window(smi, "1b", "window_1b")),
+    for path, run in (("window_1b", lambda: phase_window(smi, "1b", "window_1b")["launches"]),
                       ("ce_window_1b", lambda: phase_ce_window(smi, "1b", "ce_window_1b")),
                       ("decode_1b", lambda: phase_decode(smi, "1b", "decode_1b")),
-                      ("window_1_4b", lambda: phase_window(smi, "1.4b", "window_1_4b", plain_check=True)),
+                      ("window_1_4b", lambda: phase_window(smi, "1.4b", "window_1_4b", plain_check=True)["launches"]),
                       ("ce_window_1_4b", lambda: phase_ce_window(smi, "1.4b", "ce_window_1_4b")),
                       ("decode_1_4b", lambda: phase_decode(smi, "1.4b", "decode_1_4b")),
-                      ("window_d96", lambda: phase_window(smi, "neox20b_4l", "window_d96", plain_check=True)),
+                      ("window_d96",
+                       lambda: phase_window(smi, "neox20b_4l", "window_d96", plain_check=True)["launches"]),
                       # the wide kernels: 1B's decoder as 4 heads of 512, the 20B-width cut as 16 of 384
-                      ("window_d512", lambda: phase_window(smi, "1b_d512", "window_d512", plain_check=True)),
+                      ("window_d512",
+                       lambda: phase_window(smi, "1b_d512", "window_d512", plain_check=True)["launches"]),
                       ("decode_d512", lambda: phase_decode(smi, "1b_d512", "decode_d512")),
-                      ("window_d384", lambda: phase_window(smi, "neox20b_4l_d384", "window_d384", plain_check=True))):
+                      ("window_d384",
+                       lambda: phase_window(smi, "neox20b_4l_d384", "window_d384", plain_check=True)["launches"])):
         free_device_memory()
         by_path[path] = run()
     free_device_memory()
     streaming = phase_cl_sequence(smi)
     by_path["cl_sequence"] = streaming["launches"]
+    free_device_memory()
+    # the same sequence at --compute_dtype float32: its windows through the f32 kernels, eval and the
+    # tower (all at head_dim 64) through the bf16 ones
+    run_f32 = phase_cl_sequence(smi, compute_dtype="float32", phase="cl_sequence_f32")
+    by_path["cl_sequence_f32"] = at_head_dim(64, run_f32["launches_by_dtype"]["bfloat16"])
+    by_path_f32["cl_sequence_f32"] = run_f32["launches_by_dtype"]["float32"]
+    del run_f32
     free_device_memory()
     with tempfile.TemporaryDirectory(prefix="cl_default_") as root:
         default = phase_cl_sequence_default(smi, streaming, root)
@@ -2978,6 +3110,7 @@ def main() -> int:
     launched = _sum_launches(by_path.values())
     idle = [f"{name}<{d}>" for d in (*build.HEAD_DIMS, 384, 512) for name in KERNELS
             if not launched.get(d, {}).get(name)]
+    idle += [f"{name}_f32" for name in KERNELS if not sum(path[name] for path in by_path_f32.values())]
     if idle:
         raise AssertionError(f"kernels that the main path never launched: {idle}")
     kernels = [
@@ -2994,6 +3127,22 @@ def main() -> int:
          **({"at_tp_rank_shape": {key: timing[tp_shape[d]][key][name] for key in
                                   ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} if d in tp_shape else {})}
         for name, (replaces, design) in KERNELS.items() for d in launched
+    ]
+    # the float32 kernels: one instantiation each, every head_dim at run time; launched on the main
+    # path at head_dim 64 (410M), timed at every head_dim's CE shape, the entry's own numbers at 64's
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels += [
+        {"name": f"{name}_f32", "dtype": "float32", "head_dim": 64, "route": "cuda",
+         "source": "mafed_tpu_torch/csrc/flash_attn_f32.cu",
+         "instantiation": build.route(name, "float32", 64).instantiation, "replaces": replaces, "design": SM90_F32,
+         "launches": sum(path[name] for path in by_path_f32.values()),
+         "launches_by_path": {p: path[name] for p, path in by_path_f32.items()},
+         "max_abs_err": max(e for (k, _), e in errs_f32.items() if k == name),
+         **{key: timing_f32[64][key][name] for key in timed},
+         "library_backend": timing_f32[64]["library_backend"], "library_covers": LIBRARY_COVERS[name],
+         "at_head_dims": {d: {"max_abs_err": errs_f32[name, d], **{key: t[key][name] for key in timed}}
+                          for d, t in timing_f32.items()}}
+        for name, (replaces, _) in KERNELS.items()
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

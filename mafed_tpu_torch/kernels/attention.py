@@ -4,9 +4,12 @@ Counterpart of mafed_tpu/kernels/attention.py. Layout: q, k, v are
 [batch, heads, seq, head_dim].
 
   * `flash_forward` / `flash_backward` launch the kernels of
-    `csrc/flash_attn.cu` on CUDA tensors and run the dense plain versions
-    (`flash_forward_plain` / `flash_backward_plain`) on CPU tensors. A CUDA
-    call the kernels cannot take raises; there is no fallback.
+    `csrc/flash_attn.cu` (bfloat16 inputs) or `csrc/flash_attn_f32.cu`
+    (float32 inputs, a `--compute_dtype float32` run) on CUDA tensors and
+    run the dense plain versions (`flash_forward_plain` /
+    `flash_backward_plain`) on CPU tensors. A CUDA call the kernels cannot
+    take (float16, mixed dtypes, an odd head_dim) raises; there is no
+    fallback.
   * `FlashAttention` is the autograd function: its forward saves
     (q, k, v, mask, o, lse) and its backward computes delta = rowsum(do * o)
     and launches the dK/dV and dQ kernels. Inside a layer under a named
@@ -25,11 +28,16 @@ kernels: 64 (the 160M and 410M decoders, the EVA-02 tower), 96 (GPT-NeoX-20B's
 width), 128 (Pythia-1.4B, 6.9B, 12B), 256 (the 1B decoder), each a kernel of
 its own, and every multiple of 128 from 384 on (heads of 384 or 512 of a
 regrouped decoder), which the wide kernels take with a grid axis over
-128-column slices of the output.
+128-column slices of the output. Those are the bfloat16 kernels; at float32
+inputs one kernel each takes every such head_dim, with a grid axis over
+slices of at most 128 output columns and float32 products on the CUDA cores
+(the Pallas kernels keep the matmul operands in the input dtype).
 
 `LAUNCHES` counts kernel launches, one per launch, for callers that check
 which path ran; `LAUNCHES_BY_HEAD_DIM[d]` counts the same launches at head_dim d,
-and holds a head_dim from its first launch until `reset_launches()`.
+and holds a head_dim from its first launch until `reset_launches()`;
+`LAUNCHES_BY_DTYPE["bfloat16" | "float32"]` counts them by input dtype, and
+holds a dtype likewise.
 """
 
 from __future__ import annotations
@@ -39,12 +47,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from mafed_tpu_torch.kernels.build import HEAD_DIMS, load_library, takes_head_dim
+from mafed_tpu_torch.kernels.build import HEAD_DIMS, load_library, route, takes_head_dim
 
 _NEG = torch.finfo(torch.float32).min
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 LAUNCHES_BY_HEAD_DIM: dict = {}
+LAUNCHES_BY_DTYPE: dict = {}
 # the stash of the remat policy of the decoder layer being run (models/gpt_neox.py
 # RematPolicy), or None: FlashAttention's forward asks it for (o, lse)
 REMAT_STASH: contextvars.ContextVar = contextvars.ContextVar("mafed_torch_remat_stash", default=None)
@@ -54,11 +63,13 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     LAUNCHES_BY_HEAD_DIM.clear()
+    LAUNCHES_BY_DTYPE.clear()
 
 
-def _count(name: str, head_dim: int) -> None:
+def _count(name: str, head_dim: int, dtype: str) -> None:
     LAUNCHES[name] += 1
     LAUNCHES_BY_HEAD_DIM.setdefault(head_dim, dict.fromkeys(LAUNCHES, 0))[name] += 1
+    LAUNCHES_BY_DTYPE.setdefault(dtype, dict.fromkeys(LAUNCHES, 0))[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +150,8 @@ def _check_cuda(name: str, t: torch.Tensor, shape, dtype) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype} (the CUDA kernels take bfloat16)")
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype} (the CUDA kernels take bfloat16 or float32, "
+                        "q, k, v, do and o of one call alike)")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
@@ -162,13 +174,18 @@ def _mask_ptr(mask: Optional[torch.Tensor], batch: int, kv_len: int, device):
     return mask.data_ptr()
 
 
+def _dtype_name(t: torch.Tensor) -> str:
+    """"bfloat16", "float32", ...: the name build.route takes (it refuses a dtype no kernel takes)."""
+    return str(t.dtype).removeprefix("torch.")
+
+
 def _check_qkv(q, k, v, causal: bool):
     """Shape, type and layout rules of the kernels; returns (batch, heads, q_len, kv_len, head_dim)."""
     batch, heads, q_len, d = q.shape
     kv_len = k.shape[2]
-    _check_cuda("q", q, q.shape, torch.bfloat16)
-    _check_cuda("k", k, (batch, heads, kv_len, d), torch.bfloat16)
-    _check_cuda("v", v, (batch, heads, kv_len, d), torch.bfloat16)
+    _check_cuda("q", q, q.shape, q.dtype)
+    _check_cuda("k", k, (batch, heads, kv_len, d), q.dtype)
+    _check_cuda("v", v, (batch, heads, kv_len, d), q.dtype)
     if not takes_head_dim(d):
         dims = ", ".join(str(x) for x in HEAD_DIMS)
         raise ValueError(f"head_dim {d}: the CUDA flash kernels take head_dim {dims} and every multiple of 128 "
@@ -181,22 +198,24 @@ def _check_qkv(q, k, v, causal: bool):
 def _flash_forward_cuda(q, k, v, mask, causal: bool, scale: float):
     batch, heads, q_len, kv_len, d = _check_qkv(q, k, v, causal)
     mask_ptr = _mask_ptr(mask, batch, kv_len, q.device)
+    dtype = _dtype_name(q)
+    entry = route("flash_fwd", dtype, d).entry
     lib = load_library()
     o = torch.empty_like(q)
     lse = torch.empty((batch, heads, q_len), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = lib.flash_attn_fwd(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, o.data_ptr(), lse.data_ptr(),
             batch * heads, heads, q_len, kv_len, d, int(causal), scale, torch.cuda.current_stream().cuda_stream,
         )
-    _check_launch(err, "flash_attn_fwd")
-    _count("flash_fwd", d)
+    _check_launch(err, entry)
+    _count("flash_fwd", d, dtype)
     return o, lse
 
 
 def _check_bwd_inputs(q, k, v, mask, do, lse, delta, causal: bool):
     batch, heads, q_len, kv_len, d = _check_qkv(q, k, v, causal)
-    _check_cuda("do", do, q.shape, torch.bfloat16)
+    _check_cuda("do", do, q.shape, q.dtype)
     _check_cuda("lse", lse, (batch, heads, q_len), torch.float32)
     _check_cuda("delta", delta, (batch, heads, q_len), torch.float32)
     return batch, heads, q_len, kv_len, d, _mask_ptr(mask, batch, kv_len, q.device)
@@ -205,38 +224,42 @@ def _check_bwd_inputs(q, k, v, mask, do, lse, delta, causal: bool):
 def flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal: bool, scale: float):
     """(dk, dv) from the dK/dV kernel; delta = rowsum(do * o) in f32."""
     batch, heads, q_len, kv_len, d, mask_ptr = _check_bwd_inputs(q, k, v, mask, do, lse, delta, causal)
+    dtype = _dtype_name(q)
+    entry = route("flash_bwd_dkv", dtype, d).entry
     lib = load_library()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
-        err = lib.flash_attn_bwd_dkv(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             mask_ptr, dk.data_ptr(), dv.data_ptr(),
             batch * heads, heads, q_len, kv_len, d, int(causal), scale, torch.cuda.current_stream().cuda_stream,
         )
-    _check_launch(err, "flash_attn_bwd_dkv")
-    _count("flash_bwd_dkv", d)
+    _check_launch(err, entry)
+    _count("flash_bwd_dkv", d, dtype)
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, mask, do, lse, delta, causal: bool, scale: float):
     """dq from the dQ kernel; delta = rowsum(do * o) in f32."""
     batch, heads, q_len, kv_len, d, mask_ptr = _check_bwd_inputs(q, k, v, mask, do, lse, delta, causal)
+    dtype = _dtype_name(q)
+    entry = route("flash_bwd_dq", dtype, d).entry
     lib = load_library()
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = lib.flash_attn_bwd_dq(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             mask_ptr, dq.data_ptr(),
             batch * heads, heads, q_len, kv_len, d, int(causal), scale, torch.cuda.current_stream().cuda_stream,
         )
-    _check_launch(err, "flash_attn_bwd_dq")
-    _count("flash_bwd_dq", d)
+    _check_launch(err, entry)
+    _count("flash_bwd_dq", d, dtype)
     return dq
 
 
 def _flash_backward_cuda(q, k, v, mask, o, lse, do, causal: bool, scale: float):
-    _check_cuda("o", o, q.shape, torch.bfloat16)
+    _check_cuda("o", o, q.shape, q.dtype)
     delta = (do.float() * o.float()).sum(dim=-1)
     dk, dv = flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal, scale)
     dq = flash_bwd_dq(q, k, v, mask, do, lse, delta, causal, scale)
@@ -295,7 +318,8 @@ def dot_product_attention(q, k, v, *, key_padding_mask=None, causal=False, causa
     every other shape (head_dim 80, say, or a KV-cache decode step) takes
     `masked_attention`, its counterpart of `xla_attention`, on every device.
     The CUDA kernels take every flash head_dim: 64, 96, 128 and 256, and
-    every multiple of 128 from 384 on in the wide kernels.
+    every multiple of 128 from 384 on in the wide kernels, at bfloat16; at
+    float32 the float32 kernels take all of them.
     """
     head_dim = q.shape[-1]
     scale_f = float((head_dim ** -0.5) if scale is None else scale)

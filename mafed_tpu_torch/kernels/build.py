@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels of the port.
 
-`load_library()` compiles `csrc/flash_attn.cu` (which includes
-`csrc/sm90.cuh`) with nvcc for sm_90a into a shared library with a plain C
-interface under `mafed_tpu_torch/_build/`, keyed by a hash of every file under
-`csrc/`, and binds it with ctypes. Nothing is built when this module is
+`load_library()` compiles `csrc/flash_attn.cu` (the bfloat16 kernels, which
+include `csrc/sm90.cuh`) and `csrc/flash_attn_f32.cu` (the float32 kernels)
+with nvcc for sm_90a into one shared library with a plain C interface under
+`mafed_tpu_torch/_build/`, keyed by a hash of every file under `csrc/`, and
+binds it with ctypes. Nothing is built when this module is
 imported: the first launch builds. The library does not link `libcuda`: the
 one libcuda call it needs (`cuTensorMapEncodeTiled`) is looked up through the
 CUDA runtime.
@@ -16,7 +17,11 @@ argument of the mangled name (`...flash_fwd_kernelILi256E...`), so every
 head_dim of a kernel is reported, and checked, on its own. The wide kernels,
 which take every multiple of 128 from 384 on as a runtime argument, are
 keyed by their template argument, the width of the output slice of one CTA
-(`flash_fwd_wide_kernel<128>`).
+(`flash_fwd_wide_kernel<128>`), and so are the float32 kernels, which take
+every head_dim at run time (`flash_fwd_f32_kernel<128>`). `route()` names the
+entry point, the kernel and the grid's slices of a call; `sass_faults()` says
+what an instantiation's SASS lacks: TMA loads and wgmma (HGMMA) for the
+bfloat16 kernels, float32 FMAs and no wgmma for the float32 ones.
 """
 
 from __future__ import annotations
@@ -27,12 +32,13 @@ import os
 import re
 import shutil
 import subprocess
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCE = CSRC / "flash_attn.cu"
+SOURCES = (CSRC / "flash_attn.cu", CSRC / "flash_attn_f32.cu")
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 HEAD_DIMS = (64, 96, 128, 256)  # the head_dims the library instantiates a kernel for
@@ -40,6 +46,14 @@ HEAD_DIMS = (64, 96, 128, 256)  # the head_dims the library instantiates a kerne
 # WIDE_SLICE)
 WIDE_KERNELS = ("flash_fwd_wide_kernel", "flash_bwd_dkv_wide_kernel", "flash_bwd_dq_wide_kernel")
 WIDE_SLICE = 128
+# the float32 kernels: head_dim at run time, a grid axis over output slices of at most F32_SLICE columns
+# (flash_attn_f32.cu SLICE); CUDA-core FMAs, no wgmma
+F32_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel")
+F32_SLICE = 128
+# the C entry point of each kernel at bfloat16; the float32 one adds "_f32"
+ENTRY_POINTS = {"flash_fwd": "flash_attn_fwd", "flash_bwd_dkv": "flash_attn_bwd_dkv",
+                "flash_bwd_dq": "flash_attn_bwd_dq"}
+DTYPES = ("bfloat16", "float32")  # the input dtypes the kernels take
 
 
 def wide_head_dim(head_dim: int) -> bool:
@@ -56,8 +70,39 @@ def instantiation(kernel: str, head_dim: int) -> str:
     return f"{kernel}<{head_dim}>"
 
 
-INSTANTIATIONS = (tuple(instantiation(k, d) for k in KERNELS for d in HEAD_DIMS)
-                  + tuple(instantiation(k, WIDE_SLICE) for k in WIDE_KERNELS))
+BF16_INSTANTIATIONS = (tuple(instantiation(k, d) for k in KERNELS for d in HEAD_DIMS)
+                       + tuple(instantiation(k, WIDE_SLICE) for k in WIDE_KERNELS))
+F32_INSTANTIATIONS = tuple(instantiation(k, F32_SLICE) for k in F32_KERNELS)
+INSTANTIATIONS = BF16_INSTANTIATIONS + F32_INSTANTIATIONS
+
+
+@dataclass(frozen=True)
+class Route:
+    """Where a launch goes: the C entry point, the kernel instantiation it
+    launches, and the CTAs a tile takes on the grid axis over output slices."""
+    entry: str
+    instantiation: str
+    slices: int
+
+
+def route(name: str, dtype: str, head_dim: int) -> Route:
+    """The route of kernel `name` ("flash_fwd", "flash_bwd_dkv",
+    "flash_bwd_dq") at input dtype `dtype` ("bfloat16" or "float32") and
+    `head_dim`, as the C launchers choose it: at bfloat16 the kernel of that
+    head_dim (one CTA a tile) or, from 384 on, the wide kernel (head_dim / 128
+    slices); at float32 the float32 kernel (ceil(head_dim / 128) slices)."""
+    if dtype not in DTYPES:
+        raise TypeError(f"the CUDA kernels take {' or '.join(DTYPES)}, not {dtype}")
+    if not takes_head_dim(head_dim):
+        raise ValueError(f"head_dim {head_dim}: the CUDA kernels take head_dim "
+                         f"{', '.join(str(x) for x in HEAD_DIMS)} and every multiple of 128 from 384 on")
+    if dtype == "float32":
+        return Route(ENTRY_POINTS[name] + "_f32", instantiation(f"{name}_f32_kernel", F32_SLICE),
+                     -(-head_dim // F32_SLICE))
+    if wide_head_dim(head_dim):
+        return Route(ENTRY_POINTS[name], instantiation(f"{name}_wide_kernel", WIDE_SLICE), head_dim // WIDE_SLICE)
+    return Route(ENTRY_POINTS[name], instantiation(f"{name}_kernel", head_dim), 1)
+
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -86,18 +131,18 @@ def build_log() -> str:
     return path.read_text() if path.exists() else ""
 
 
-def nvcc_command(source: Path, out: Path) -> list:
-    """nvcc's command line that builds `source` into the shared library `out`."""
+def nvcc_command(sources, out: Path) -> list:
+    """nvcc's command line that builds `sources` into the shared library `out`."""
     return [
         _cuda_tool("nvcc"), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out), str(source),
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out), *map(str, sources),
     ]
 
 
 def _compile(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(nvcc_command(SOURCE, tmp), capture_output=True, text=True)
+    proc = subprocess.run(nvcc_command(SOURCES, tmp), capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
@@ -110,8 +155,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, p]
     lib.flash_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, p]
     lib.flash_attn_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, p]
-    for fn in (lib.flash_attn_fwd, lib.flash_attn_bwd_dkv, lib.flash_attn_bwd_dq):
-        fn.restype = ctypes.c_int
+    lib.flash_attn_fwd_f32.argtypes = lib.flash_attn_fwd.argtypes
+    lib.flash_attn_bwd_dkv_f32.argtypes = lib.flash_attn_bwd_dkv.argtypes
+    lib.flash_attn_bwd_dq_f32.argtypes = lib.flash_attn_bwd_dq.argtypes
+    for entry in ENTRY_POINTS.values():
+        for fn in (getattr(lib, entry), getattr(lib, entry + "_f32")):
+            fn.restype = ctypes.c_int
 
 
 def load_library() -> ctypes.CDLL:
@@ -129,7 +178,7 @@ def load_library() -> ctypes.CDLL:
 
 def _kernel_of(mangled: str) -> Optional[str]:
     """The instantiation (`flash_fwd_kernel<256>`) that a mangled name is of, or None."""
-    for kernel in KERNELS + WIDE_KERNELS:
+    for kernel in KERNELS + WIDE_KERNELS + F32_KERNELS:
         found = re.search(rf"{kernel}ILi(\d+)E", mangled)
         if found:
             return instantiation(kernel, int(found.group(1)))
@@ -157,9 +206,12 @@ def kernel_resources(log: str) -> Dict[str, Dict[str, int]]:
     return out
 
 
+SASS_OPCODES = ("HGMMA", "UTMALDG", "FFMA")  # wgmma, TMA loads, float32 FMAs
+
+
 def sass_counts() -> Optional[Dict[str, Dict[str, int]]]:
-    """{instantiation: {"HGMMA": n, "UTMALDG": n}} (wgmma and TMA-load
-    instructions) in the built library's SASS, or None without cuobjdump."""
+    """{instantiation: {opcode: n}} for SASS_OPCODES in the built library's
+    SASS, or None without cuobjdump."""
     try:
         tool = _cuda_tool("cuobjdump")
     except RuntimeError:
@@ -169,8 +221,7 @@ def sass_counts() -> Optional[Dict[str, Dict[str, int]]]:
 
 
 def parse_sass(sass: str) -> Dict[str, Dict[str, int]]:
-    """{instantiation: {"HGMMA": n, "UTMALDG": n}} from `cuobjdump -sass` output."""
-    opcodes = ("HGMMA", "UTMALDG")
+    """{instantiation: {opcode: n}} for SASS_OPCODES from `cuobjdump -sass` output."""
     out: Dict[str, Dict[str, int]] = {}
     current = None
     for line in sass.splitlines():
@@ -178,10 +229,27 @@ def parse_sass(sass: str) -> Dict[str, Dict[str, int]]:
         if func:
             current = _kernel_of(func.group(1))
             if current is not None:
-                out[current] = {op: 0 for op in opcodes}
+                out[current] = {op: 0 for op in SASS_OPCODES}
             continue
         if current is not None:
-            for op in opcodes:
+            for op in SASS_OPCODES:
                 if re.search(rf"\b{op}\b", line):
                     out[current][op] += 1
     return out
+
+
+def sass_faults(sass: Dict[str, Dict[str, int]]) -> List[str]:
+    """What the SASS of each instantiation lacks, as `parse_sass` counts it:
+    a bfloat16 kernel without HGMMA or UTMALDG, a float32 kernel without FFMA
+    or with HGMMA (its products are float32, never tf32), an instantiation
+    missing from the dump."""
+    faults = []
+    for kernel in INSTANTIATIONS:
+        counts = sass.get(kernel)
+        if counts is None:
+            faults.append(f"{kernel}: not in the SASS")
+        elif kernel in F32_INSTANTIATIONS and not (counts["FFMA"] and not counts["HGMMA"]):
+            faults.append(f"{kernel}: needs FFMA and no HGMMA, has {counts}")
+        elif kernel in BF16_INSTANTIATIONS and not (counts["HGMMA"] and counts["UTMALDG"]):
+            faults.append(f"{kernel}: needs HGMMA and UTMALDG, has {counts}")
+    return faults

@@ -3,7 +3,9 @@
     python3 scripts/flash_variants.py VARIANTS.json [--out PATH]
 
 VARIANTS.json maps a variant's name to a list of [old, new] text
-substitutions applied to mafed_tpu_torch/csrc/flash_attn.cu; a first pair
+substitutions applied to mafed_tpu_torch/csrc/flash_attn.cu (the bfloat16
+kernels; each variant's library also holds csrc/flash_attn_f32.cu as it
+stands, which the script does not time); a first pair
 ["FILE", path] starts from another source file instead (for example the
 parent commit's, unpacked with `git archive`). `{"base": []}` is the source
 as it stands. Every variant is built with nvcc in parallel into its own
@@ -43,7 +45,7 @@ CE_SHAPES = {64: (48, 16), 96: (48, 64), 128: (48, 16), 256: (48, 8), 384: (48, 
 def _build(variants, workdir):
     from mafed_tpu_torch.kernels import build
 
-    src = build.SOURCE.read_text()
+    src, f32_source = build.SOURCES[0].read_text(), build.SOURCES[1]
     for header in build.CSRC.glob("*.cuh"):
         shutil.copy(header, workdir)
     procs = {}
@@ -57,7 +59,7 @@ def _build(variants, workdir):
             text = text.replace(old, new)
         cu = os.path.join(workdir, f"{name}.cu")
         open(cu, "w").write(text)
-        procs[name] = subprocess.Popen(build.nvcc_command(cu, cu[:-3] + ".so"), stdout=subprocess.PIPE,
+        procs[name] = subprocess.Popen(build.nvcc_command([cu, f32_source], cu[:-3] + ".so"), stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     return {name: (p.communicate()[0], p.returncode, os.path.join(workdir, f"{name}.so")) for name, p in procs.items()}
 

@@ -1,13 +1,15 @@
 """Where the time of the port's main paths goes on an NVIDIA GPU.
 
     python3 scripts/profile_torch.py [--path window|window_unfused|ce_window|train_step|decode|cl_sequence|pretrain_step]
-                                     [--preset 410m|1b|1.4b|neox20b_4l|1b_d512|neox20b_4l_d384] [--reps 2] [--train-questions 1024] [--out PATH]
+                                     [--preset 410m|1b|1.4b|neox20b_4l|1b_d512|neox20b_4l_d384] [--reps 2] [--train-questions 1024]
+                                     [--compute_dtype bfloat16|float32] [--out PATH]
 
 window: the fused MAFED window of chip_smoke.py (VL-Pythia-410M at full width
 and depth, 3 CE microbatches of 16 + 1 memory microbatch of 16, 256 cached
 patches + 80 text tokens, bf16), two warm-up windows, then `--reps` profiled
 windows. window_unfused: the same window with fuse_ce_batch=False (one pass
-and one backward per CE microbatch).
+and one backward per CE microbatch). --compute_dtype float32 runs either
+window at float32 (chip_smoke.py's window_f32: the float32 flash kernels).
 
 ce_window: the CE window of chip_smoke.py's train_steps phase (the same
 model, 4 CE microbatches of 16 merged into one pass with per-layer remat, one
@@ -69,7 +71,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def category(name: str) -> str:
     for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
-        if f"{kernel}_kernel" in name or f"{kernel}_wide_kernel" in name:
+        if any(f"{kernel}_{form}kernel" in name for form in ("", "wide_", "f32_")):
             return kernel
     lowered = name.lower()
     if any(s in lowered for s in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
@@ -129,14 +131,14 @@ def profile(fn, reps: int, warmup: int = 2) -> dict:
     }
 
 
-def window_units(reps: int, preset: str, fuse: bool = True) -> dict:
+def window_units(reps: int, preset: str, fuse: bool = True, compute_dtype: str = "bfloat16") -> dict:
     from chip_smoke import model_config, window_setup
     from mafed_tpu_torch.models.vl_pythia import init_model
 
     cfg = model_config(preset)
     model = init_model(cfg, seed=0, device="cuda")
     step, state, teacher, ce, distill, lang = window_setup(cfg, model, 3, 16, 80, torch.Generator().manual_seed(2), "cuda",
-                                                           fuse_ce_batch=fuse)
+                                                           fuse_ce_batch=fuse, compute_dtype=compute_dtype)
     box = [state]
 
     def window():
@@ -314,6 +316,8 @@ def main() -> int:
                         default="410m")
     parser.add_argument("--reps", type=int, default=2)
     parser.add_argument("--train-questions", type=int, default=1024, help="cl_sequence: train questions a task")
+    parser.add_argument("--compute_dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                        help="window, window_unfused: the compute dtype")
     parser.add_argument("--out", help="also write the JSON object to this file")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -327,7 +331,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.path in ("window", "window_unfused"):
-        units = window_units(args.reps, args.preset, fuse=args.path == "window")
+        units = window_units(args.reps, args.preset, fuse=args.path == "window", compute_dtype=args.compute_dtype)
     elif args.path == "decode":
         units = decode_units(args.reps, args.preset)
     elif args.path == "cl_sequence":
@@ -336,7 +340,8 @@ def main() -> int:
         units = pretrain_units(args.reps)
     else:
         units = ce_units(args.path, args.reps, args.preset)
-    result = {"card": smi, "path": args.path, "preset": args.preset, "reps": args.reps, "units": units}
+    result = {"card": smi, "path": args.path, "preset": args.preset, "compute_dtype": args.compute_dtype,
+              "reps": args.reps, "units": units}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

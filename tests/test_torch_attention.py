@@ -2,8 +2,10 @@
 package's Pallas flash kernels, run in interpret mode on the CPU.
 
 The port's dense plain versions are what its wrappers run on CPU tensors and
-what the CUDA kernels are held against on the card. Here they are held
-against `_flash_forward` / `_flash_backward` in float32 with atol 1e-5,
+what the CUDA kernels are held against on the card: the bfloat16 kernels,
+and at float32 inputs (a `--compute_dtype float32` run) the float32 ones.
+Here they are held against `_flash_forward` / `_flash_backward` in float32,
+as those kernels take it, with atol 1e-5,
 rtol 1e-4: both sum f32 products, in different orders (online softmax over
 64-key tiles against one dense softmax), so they differ by float32 rounding
 only. Both forwards are also held, at the same tolerance, against a float64
@@ -81,6 +83,7 @@ CASES = [
     ("causal_tile_edge_129_d256", 1, 2, 129, 129, True, True, False, 256),
     ("noncausal_100x257_d256", 1, 2, 100, 257, False, True, False, 256),
     ("noncausal_empty_rows_d256", 2, 2, 40, 40, False, True, True, 256),
+    ("causal_unaligned_20_d256", 2, 2, 20, 20, True, True, False, 256),
     ("causal_padded_d128", 2, 2, 64, 64, True, True, False, 128),
     ("causal_tile_edge_65_d128", 2, 2, 65, 65, True, True, False, 128),
     ("noncausal_empty_rows_d128", 2, 2, 40, 40, False, True, True, 128),
@@ -89,6 +92,7 @@ CASES = [
     ("causal_tile_edge_65_d96", 2, 2, 65, 65, True, True, False, 96),
     ("noncausal_empty_rows_d96", 2, 2, 40, 40, False, True, True, 96),
     ("noncausal_100x257_d96", 1, 2, 100, 257, False, True, False, 96),
+    ("causal_tile_edge_129_d96", 1, 2, 129, 129, True, True, False, 96),
     # the wide kernels' head_dims: 384 and 512 (the regrouped decoders), 640 (five 128-column slices)
     ("causal_padded_d384", 2, 2, 64, 64, True, True, False, 384),
     ("causal_tile_edge_65_d384", 2, 2, 65, 65, True, True, False, 384),
@@ -96,6 +100,8 @@ CASES = [
     ("causal_padded_d512", 2, 2, 64, 64, True, True, False, 512),
     ("causal_tile_edge_65_d512", 2, 2, 65, 65, True, True, False, 512),
     ("noncausal_100x257_d512", 1, 2, 100, 257, False, True, False, 512),
+    ("noncausal_empty_rows_d512", 2, 2, 40, 40, False, True, True, 512),
+    ("causal_unaligned_20_d512", 2, 2, 20, 20, True, True, False, 512),
     ("causal_tile_edge_65_d640", 1, 2, 65, 65, True, True, False, 640),
 ]
 CASE_ARGS = "name,b,h,t,kv_len,causal,masked,empty,d"

@@ -1,7 +1,11 @@
 """The port's kernel build helpers (mafed_tpu_torch/kernels/build.py) on the CPU:
 the library's name follows every source file, and the ptxas report and the
 SASS dump are read per instantiation (kernel and head_dim; a wide kernel and
-its slice width). Nothing here compiles."""
+its slice width; a float32 kernel and its slice width), and the SASS check
+asks TMA loads and wgmma of the bfloat16 kernels and float32 FMAs without
+wgmma of the float32 ones. Nothing here compiles."""
+
+import pytest
 
 from mafed_tpu_torch.kernels import build
 
@@ -16,15 +20,17 @@ ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_bwd_dkv_kernelI
 ptxas info    : Used 255 registers, used 1 barriers
 """
 
-# nvcc's report of a library with every head_dim of all three kernels and the
-# three wide kernels, the instantiations of a kernel in a different order for
-# each kernel (ptxas orders entries by neither kernel nor head_dim): each
-# kernel's warpgroups (the *_WG_* of flash_attn.cu) and its registers as
-# ptxas read them for sm_90a on an H100, with a spill made up at dK/dV 256 so
-# that one is read. A wide kernel has one template argument, the width of its
-# output slice (128), and takes head_dim at run time.
+# nvcc's report of a library with every head_dim of all three kernels, the
+# three wide kernels and the three float32 kernels, the instantiations of a
+# kernel in a different order for each kernel (ptxas orders entries by neither
+# kernel nor head_dim): each kernel's warpgroups (the *_WG_* of flash_attn.cu)
+# and its registers as ptxas read them for sm_90a on an H100, with a spill made
+# up at dK/dV 256 so that one is read. A wide kernel has one template argument,
+# the width of its output slice (128), and takes head_dim at run time; so does
+# a float32 kernel (wg "f32" below: its mangled name takes float pointers).
 _MANGLED = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}ELi{wg}EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16Pfiiiif"
 _MANGLED_WIDE = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16Pfiiiiif"
+_MANGLED_F32 = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}EEEvPKfS2_S2_PKiPfS5_iiiiiif"
 _ENTRIES = [("flash_fwd_kernel", 64, 1, 92, 0), ("flash_fwd_kernel", 96, 2, 100, 0),
             ("flash_fwd_kernel", 128, 1, 128, 0), ("flash_fwd_kernel", 256, 2, 128, 0),
             ("flash_bwd_dkv_kernel", 256, 2, 234, 24), ("flash_bwd_dkv_kernel", 128, 1, 234, 0),
@@ -32,11 +38,14 @@ _ENTRIES = [("flash_fwd_kernel", 64, 1, 92, 0), ("flash_fwd_kernel", 96, 2, 100,
             ("flash_bwd_dq_kernel", 128, 1, 154, 0), ("flash_bwd_dq_kernel", 64, 1, 122, 0),
             ("flash_bwd_dq_kernel", 256, 1, 218, 0), ("flash_bwd_dq_kernel", 96, 1, 154, 0),
             ("flash_bwd_dq_wide_kernel", 128, None, 177, 0), ("flash_fwd_wide_kernel", 128, None, 140, 0),
-            ("flash_bwd_dkv_wide_kernel", 128, None, 243, 0)]
+            ("flash_bwd_dkv_wide_kernel", 128, None, 243, 0), ("flash_bwd_dq_f32_kernel", 128, "f32", 155, 0),
+            ("flash_bwd_dkv_f32_kernel", 128, "f32", 192, 0), ("flash_fwd_f32_kernel", 128, "f32", 128, 0)]
 
 def _mangled(name, d, wg):
     if wg is None:
         return _MANGLED_WIDE.format(n=len(name), name=name, d=d)
+    if wg == "f32":
+        return _MANGLED_F32.format(n=len(name), name=name, d=d)
     return _MANGLED.format(n=len(name), name=name, d=d, wg=wg)
 
 
@@ -48,14 +57,22 @@ PTXAS_BOTH = "".join(
     for name, d, wg, regs, spill in _ENTRIES
 )
 
-SASS_BOTH = "".join(
-    f"\n\tcode for sm_90a\n\t\tFunction : {_mangled(name, d, wg)}\n"
-    "\t.headerflags\t@\"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)\"\n"
-    + "        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;\n" * -(-d // 64)
-    + "        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24 ;\n" * (d // 16 + regs % 7)
-    + "        /*0300*/                   EXIT ;\n"
-    for name, d, wg, regs, _ in _ENTRIES
-)
+def _sass_of(name, d, wg, regs, hgmma=True):
+    """A function's SASS: a bfloat16 kernel's TMA loads and wgmma, a float32
+    kernel's FFMAs (with `hgmma`, also a wgmma of the bfloat16 kind)."""
+    head = (f"\n\tcode for sm_90a\n\t\tFunction : {_mangled(name, d, wg)}\n"
+            "\t.headerflags\t@\"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)\"\n")
+    if wg == "f32":
+        body = "        /*0400*/                   FFMA R12, R40, R52, R12 ;\n" * (regs % 11 + 1)
+        body += "        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24 ;\n" * hgmma
+    else:
+        body = ("        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;\n" * -(-d // 64)
+                + "        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24 ;\n"
+                * (d // 16 + regs % 7))
+    return head + body + "        /*0300*/                   EXIT ;\n"
+
+
+SASS_BOTH = "".join(_sass_of(name, d, wg, regs, hgmma=False) for name, d, wg, regs, _ in _ENTRIES)
 
 
 def test_library_name_follows_every_source_file(tmp_path, monkeypatch):
@@ -78,7 +95,7 @@ def test_kernel_resources_reads_the_ptxas_report():
 
 def test_kernel_resources_keeps_every_instantiation_apart():
     got = build.kernel_resources(PTXAS_BOTH)
-    assert sorted(got) == sorted(build.INSTANTIATIONS) and len(got) == 15
+    assert sorted(got) == sorted(build.INSTANTIATIONS) and len(got) == 18
     for name, d, _, regs, spill in _ENTRIES:
         assert got[build.instantiation(name, d)] == {
             "spill_store_bytes": spill, "spill_load_bytes": spill // 2, "registers": regs}
@@ -87,8 +104,10 @@ def test_kernel_resources_keeps_every_instantiation_apart():
 def test_sass_counts_keep_every_instantiation_apart():
     got = build.parse_sass(SASS_BOTH)
     assert sorted(got) == sorted(build.INSTANTIATIONS)
-    for name, d, _, regs, _ in _ENTRIES:
-        assert got[build.instantiation(name, d)] == {"UTMALDG": -(-d // 64), "HGMMA": d // 16 + regs % 7}
+    for name, d, wg, regs, _ in _ENTRIES:
+        want = ({"UTMALDG": 0, "HGMMA": 0, "FFMA": regs % 11 + 1} if wg == "f32" else
+                {"UTMALDG": -(-d // 64), "HGMMA": d // 16 + regs % 7, "FFMA": 0})
+        assert got[build.instantiation(name, d)] == want
 
 
 def test_the_wide_kernels_are_instantiations_of_their_own():
@@ -96,7 +115,7 @@ def test_the_wide_kernels_are_instantiations_of_their_own():
     slice width, beside the twelve fixed instantiations."""
     wide = [build.instantiation(k, build.WIDE_SLICE) for k in build.WIDE_KERNELS]
     assert wide == ["flash_fwd_wide_kernel<128>", "flash_bwd_dkv_wide_kernel<128>", "flash_bwd_dq_wide_kernel<128>"]
-    assert build.INSTANTIATIONS[-3:] == tuple(wide) and len(set(build.INSTANTIATIONS)) == 15
+    assert build.BF16_INSTANTIATIONS[-3:] == tuple(wide) and len(set(build.BF16_INSTANTIATIONS)) == 15
     assert build._kernel_of(_mangled("flash_fwd_wide_kernel", 128, None)) == "flash_fwd_wide_kernel<128>"
     assert build._kernel_of(_mangled("flash_fwd_kernel", 256, 2)) == "flash_fwd_kernel<256>"
 
@@ -105,3 +124,62 @@ def test_the_launchers_take_every_multiple_of_128_from_384():
     assert [d for d in range(16, 2049, 16) if build.takes_head_dim(d)] == (
         [64, 96, 128, 256] + list(range(384, 2049, 128)))
     assert [d for d in range(16, 2049, 16) if build.wide_head_dim(d)] == list(range(384, 2049, 128))
+
+
+def test_the_f32_kernels_are_a_group_of_their_own():
+    """The three float32 kernels are reported under their own names, at their
+    slice width, after the fifteen bfloat16 instantiations; their mangled
+    names are not taken for a bfloat16 kernel's."""
+    assert build.F32_INSTANTIATIONS == (
+        "flash_fwd_f32_kernel<128>", "flash_bwd_dkv_f32_kernel<128>", "flash_bwd_dq_f32_kernel<128>")
+    assert build.INSTANTIATIONS == build.BF16_INSTANTIATIONS + build.F32_INSTANTIATIONS
+    assert len(set(build.INSTANTIATIONS)) == 18
+    for name in build.F32_KERNELS:
+        assert build._kernel_of(_mangled(name, 128, "f32")) == f"{name}<128>"
+
+
+def test_sass_check_asks_wgmma_of_bf16_and_ffma_without_wgmma_of_f32():
+    """sass_faults over a canned `cuobjdump -sass` dump: none for the whole
+    library as built; a bfloat16 kernel without HGMMA or UTMALDG, a float32
+    kernel with an HGMMA (a tensor-core product) or without FFMA, and a
+    missing instantiation are each named."""
+    assert build.sass_faults(build.parse_sass(SASS_BOTH)) == []
+    entries = {build.instantiation(name, d): (name, d, wg, regs) for name, d, wg, regs, _ in _ENTRIES}
+
+    def faults(replace):
+        text = "".join(replace.get(key, _sass_of(*entry, hgmma=False)) for key, entry in entries.items())
+        return build.sass_faults(build.parse_sass(text))
+
+    no_tma = _sass_of(*entries["flash_fwd_kernel<96>"], hgmma=False).replace("UTMALDG", "LDG")
+    assert faults({"flash_fwd_kernel<96>": no_tma}) == [
+        "flash_fwd_kernel<96>: needs HGMMA and UTMALDG, has {'HGMMA': 8, 'UTMALDG': 0, 'FFMA': 0}"]
+    key = "flash_bwd_dq_f32_kernel<128>"
+    assert faults({key: _sass_of(*entries[key], hgmma=True)}) == [
+        f"{key}: needs FFMA and no HGMMA, has {{'HGMMA': 1, 'UTMALDG': 0, 'FFMA': 2}}"]
+    key = "flash_fwd_f32_kernel<128>"
+    assert faults({key: _sass_of(*entries[key], hgmma=False).replace("FFMA", "FMUL")}) == [
+        f"{key}: needs FFMA and no HGMMA, has {{'HGMMA': 0, 'UTMALDG': 0, 'FFMA': 0}}"]
+    assert faults({"flash_bwd_dkv_f32_kernel<128>": ""}) == ["flash_bwd_dkv_f32_kernel<128>: not in the SASS"]
+
+
+ROUTE_CASES = [(64, 1, "flash_fwd_kernel<64>"), (96, 1, "flash_fwd_kernel<96>"), (128, 1, "flash_fwd_kernel<128>"),
+               (256, 1, "flash_fwd_kernel<256>"), (384, 3, "flash_fwd_wide_kernel<128>"),
+               (512, 4, "flash_fwd_wide_kernel<128>"), (640, 5, "flash_fwd_wide_kernel<128>")]
+
+
+@pytest.mark.parametrize("head_dim,bf16_slices,bf16_kernel", ROUTE_CASES)
+def test_route_names_the_entry_kernel_and_slices(head_dim, bf16_slices, bf16_kernel):
+    """At every head_dim the JAX dispatcher sends to Pallas: bfloat16 to the
+    kernel of its head_dim (one CTA a tile) or a wide kernel (head_dim / 128
+    slices), float32 to the float32 kernels (ceil(head_dim / 128) slices)."""
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        bf16 = build.route(name, "bfloat16", head_dim)
+        assert (bf16.entry, bf16.instantiation, bf16.slices) == (
+            build.ENTRY_POINTS[name], bf16_kernel.replace("flash_fwd", name), bf16_slices)
+        f32 = build.route(name, "float32", head_dim)
+        assert (f32.entry, f32.instantiation, f32.slices) == (
+            build.ENTRY_POINTS[name] + "_f32", f"{name}_f32_kernel<128>", -(-head_dim // 128))
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        build.route("flash_fwd", "float16", head_dim)
+    with pytest.raises(ValueError, match="head_dim 320"):
+        build.route("flash_fwd", "float32", 320)

@@ -12,6 +12,12 @@ bf16 ulps. lse is float32 in both (atol 1e-4). Every kernel check runs at
 each head_dim the kernels are built for (64, 96, 128 and 256) and at the two
 that the regrouped decoders give the wide kernels (384 and 512), with the
 models' scale head_dim^-0.5.
+
+The float32 kernels (a `--compute_dtype float32` run) are held against the
+plain versions at float32 at atol = rtol = 1e-4 (lse 1e-5): both multiply
+float32 operands in float32 (TF32 is off for the plain versions' matmuls),
+in different orders, so they differ by float32 rounding only; at every
+head_dim above and 640 (five output slices).
 """
 
 import numpy as np
@@ -31,14 +37,15 @@ def gpu():
         pytest.skip("needs an NVIDIA GPU and nvcc")
 
 
-def _inputs(b, h, t, seed, kv_len=None, masked=None, d=64):
-    """bf16 q, k, v, do of head_dim d on the card and an int32 key mask: 3
-    left-padded keys in every sample, the keys of the range `masked` (start,
-    stop) if given, and sample 0 masked entirely (its rows are empty)."""
+def _inputs(b, h, t, seed, kv_len=None, masked=None, d=64, dtype=torch.bfloat16):
+    """q, k, v, do of head_dim d on the card (bf16, or `dtype`) and an int32
+    key mask: 3 left-padded keys in every sample, the keys of the range
+    `masked` (start, stop) if given, and sample 0 masked entirely (its rows
+    are empty)."""
     rng = np.random.default_rng(seed)
     kv_len = t if kv_len is None else kv_len
     q, k, v, g = (
-        torch.from_numpy(rng.normal(size=(b, h, n, d)).astype(np.float32)).cuda().to(torch.bfloat16)
+        torch.from_numpy(rng.normal(size=(b, h, n, d)).astype(np.float32)).cuda().to(dtype)
         for n in (t, kv_len, kv_len, t)
     )
     mask = np.ones((b, kv_len), np.int32)
@@ -98,16 +105,115 @@ def test_autograd_goes_through_the_kernels(gpu, head_dim):
         torch.testing.assert_close(leaf.grad.transpose(1, 2).float(), y.float(), atol=ATOL, rtol=RTOL)
 
 
+F32_ATOL = F32_RTOL = 1e-4
+F32_LSE_ATOL = 1e-5
+F32_HEAD_DIMS = HEAD_DIMS + [640]
+F32_CASES = [(63, 63, True, None), (65, 65, False, None), (129, 129, True, None), (336, 336, True, None),
+             (100, 257, False, None), (200, 200, True, (64, 128))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", F32_HEAD_DIMS)
+@pytest.mark.parametrize("q_len,kv_len,causal,masked", F32_CASES)
+def test_f32_kernels_match_plain(gpu, q_len, kv_len, causal, masked, head_dim):
+    """The float32 kernels against the plain versions at float32, one launch
+    of each, counted under "float32"."""
+    q, k, v, g, mask = _inputs(2, 4, q_len, seed=15, kv_len=kv_len, masked=masked, d=head_dim, dtype=torch.float32)
+    scale = head_dim ** -0.5
+    tattn.reset_launches()
+    o, lse = tattn.flash_forward(q, k, v, mask, causal, scale)
+    o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, causal, scale)
+    assert o.dtype == torch.float32
+    torch.testing.assert_close(o, o_p, atol=F32_ATOL, rtol=F32_RTOL)
+    fin = torch.isfinite(lse_p)
+    assert torch.equal(torch.isinf(lse), ~fin)
+    assert not fin[0].any() and (o[0] == 0).all()
+    torch.testing.assert_close(lse[fin], lse_p[fin], atol=F32_LSE_ATOL, rtol=0)
+    got = tattn.flash_backward(q, k, v, mask, o_p, lse_p, g, causal, scale)
+    want = tattn.flash_backward_plain(q, k, v, mask, o_p, lse_p, g, causal, scale)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == torch.float32
+        torch.testing.assert_close(x, y, atol=F32_ATOL, rtol=F32_RTOL, msg=name)
+    torch.cuda.synchronize()
+    assert tattn.LAUNCHES_BY_DTYPE == {"float32": {"flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}}
+
+
+@pytest.mark.cuda
+def test_f32_window_on_card_matches_cpu(gpu):
+    """A tiny fused MAFED window at compute_dtype float32 on the card (the
+    float32 kernels) against the same window on the CPU (plain versions):
+    losses and grad norm within rtol 1e-4; every launch a float32 one, 5 L - 2
+    forwards and 2 L of each backward."""
+    from mafed_tpu_torch.core.config import ModelConfig, TrainConfig, VisionConfig
+    from mafed_tpu_torch.models.vl_pythia import init_model
+    from mafed_tpu_torch.optim.optimizer import build_optimizer, set_schedule
+    from mafed_tpu_torch.training.step import make_mafed_window_step
+    from mafed_tpu_torch.training.train_state import TrainState, make_teacher, trainable_parameters
+
+    cfg = ModelConfig(vocab_size=512, num_attention_heads=2, **DECODERS[64],
+                      vision=VisionConfig(img_size=56, embed_dim=128, depth=2, num_heads=2))
+    train_cfg = TrainConfig(optim="adamw", compute_dtype="float32", distillation_coeff=1.0,
+                            distillation_modality_weighing_strategy="balanced",
+                            distillation_layer_weighing_strategy="discounted", distillation_layer_discount=0.5)
+    batches = [_tiny_train_batch(20 + i) for i in range(4)]
+    got = {}
+    for device in ("cpu", "cuda"):
+        model = init_model(cfg, seed=0, device="cpu").to(device)
+        teacher = make_teacher(model)
+        trainable = trainable_parameters(model)
+        opt = build_optimizer(train_cfg, trainable)
+        state = TrainState(0, model, set_schedule(opt.init(trainable), 0, 10))
+        ce = {k: torch.stack([b[k] for b in batches[:3]]).to(device) for k in batches[0]}
+        distill = {k: v.to(device) for k, v in batches[3].items()}
+        lang = torch.full((cfg.num_hidden_layers - 1,), 0.5, device=device)
+        tattn.reset_launches()
+        step = make_mafed_window_step(cfg, train_cfg, opt, n_ce=3, device=device)
+        _, m = step(state, teacher, ce, distill, lang)
+        got[device] = [float(m[k]) for k in ("loss", "ce_loss", "distill_loss", "grad_norm")]
+    layers = cfg.num_hidden_layers
+    assert tattn.LAUNCHES_BY_DTYPE == {"float32": {"flash_fwd": 5 * layers - 2, "flash_bwd_dkv": 2 * layers,
+                                                   "flash_bwd_dq": 2 * layers}}
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_trainer_cli_trains_at_float32_on_card(gpu, tmp_path):
+    """The shipped config through the CLI's parser with --compute_dtype
+    float32 and a tiny model on the card (it raised TypeError at the first
+    attention before the float32 kernels): a CE task and a MAFED task, every
+    window launch a float32 one, eval's and the tower's bfloat16."""
+    import chip_smoke  # its synthetic data writer and the sequence's command line (it imports the port only)
+    from mafed_tpu_torch.core.config import build_arg_parser, parse_with_config
+    from mafed_tpu_torch.trainer.continual import ContinualLearningTrainer
+
+    root = str(tmp_path)
+    chip_smoke.write_synthetic_vqa(root, ("taskA", "taskB"), 32, 8)
+    argv = chip_smoke.cl_sequence_argv(root) + chip_smoke.STREAMING_SWITCHES + [
+        "--compute_dtype", "float32", "--batch_size", "4", "--cl_memory", "8", "--val_batch_size", "4"]
+    cfg = parse_with_config(build_arg_parser(), argv)
+    model_cfg = chip_smoke.tiny_config(64)
+    tattn.reset_launches()
+    result = ContinualLearningTrainer(cfg, model_cfg=model_cfg, synthetic_images=True, device="cuda").main()
+    assert np.isfinite(result["accuracy_matrix"]).all()
+    windows = chip_smoke.sequence_launches(cfg, model_cfg, 2, 2, 0, 0, 0, in_step_teacher=True)[64]
+    assert tattn.LAUNCHES_BY_DTYPE["float32"] == windows
+    assert tattn.LAUNCHES_BY_DTYPE["bfloat16"]["flash_fwd"] > 0
+    assert tattn.LAUNCHES_BY_DTYPE["bfloat16"]["flash_bwd_dq"] == 0
+
+
 @pytest.mark.cuda
 def test_cuda_calls_the_kernels_cannot_take_raise(gpu):
-    """The wrappers raise on what the kernels do not take: a float32 tensor, a
-    head_dim that is neither one of 64, 96, 128, 256 nor a multiple of 128
+    """The wrappers raise on what the kernels do not take: a float16 tensor
+    (the kernels take bfloat16 and float32), a float32 k beside a bfloat16 q,
+    a head_dim that is neither one of 64, 96, 128, 256 nor a multiple of 128
     from 384 on (320: dot_product_attention sends it to masked_attention, as
     the JAX dispatcher sends it to xla_attention, so only a direct call
     reaches the wrapper), a non-contiguous tensor."""
     q, k, v, _, mask = _inputs(1, 2, 64, seed=13)
     with pytest.raises(TypeError, match="bfloat16"):
-        tattn.flash_forward(q.float(), k.float(), v.float(), mask, True, SCALE)
+        tattn.flash_forward(q.half(), k.half(), v.half(), mask, True, SCALE)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tattn.flash_forward(q, k.float(), v, mask, True, SCALE)
     odd = torch.zeros(1, 2, 64, 320, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="head_dim 320"):
         tattn.flash_forward(odd, odd, odd, None, True, SCALE)
