@@ -6,13 +6,15 @@ Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: compiles csrc/flash_attn.cu and csrc/flash_attn_f32.cu with nvcc
      for sm_90a into one library and prints the registers and spill bytes
-     (-Xptxas -v) and the HGMMA, UTMALDG and FFMA instruction counts
+     (-Xptxas -v) and the HGMMA, UTMALDG, FFMA and HMMA instruction counts
      (cuobjdump -sass, where the toolkit has it) of each instantiation: the
      three bf16 kernels at head_dim 64, 96, 128 and 256 and the three wide
      kernels (every multiple of 128 from 384 on, a grid axis over
      128-column output slices), fifteen TMA + wgmma kernels that may lack
-     neither; and the three float32 kernels (every head_dim at run time),
-     FFMA kernels with no HGMMA; none may spill;
+     neither; and the three float32 kernels (every head_dim at run time):
+     the forward an FFMA kernel with no HGMMA or HMMA, the dK/dV and dQ
+     kernels 3xTF32 mma.sync kernels (HMMA of the TF32 kind, no HGMMA);
+     none may spill;
   3. kernels: the three flash kernels against their plain PyTorch versions on
      the card, in bf16, at the shapes of the 410M window and CE window (and
      EVA-02 shapes), at pretraining's ([128, 16, 356, 64], right padding of
@@ -33,9 +35,12 @@ Phases, each printing one JSON line:
      forward for the forward kernel, its whole backward, which also computes
      dq, for each backward kernel); then every case again at float32, the
      float32 kernels against the plain versions at float32 (F32_ATOL), and
-     their times at each head_dim's CE shape beside their bound (bytes at 4
-     an element, operations at the card's float32 rate outside the tensor
-     cores) and SDPA at float32 with TF32 off on the backend it takes; then
+     their times at each head_dim's CE shape beside their bound (the
+     larger of the bytes at 4 an element and the kept pairs' products in
+     3xTF32 at the tensor cores' TF32 rate, the card's least time for
+     float32-accurate products; the CUDA-core bound, the products at the
+     card's float32 rate outside the tensor cores, beside it) and SDPA at
+     float32 with TF32 off on the backend it takes; then
      one shape that the JAX package sends to xla_attention (32 heads of 80,
      Pythia-2.8B's width): dot_product_attention equal to masked_attention,
      no launch;
@@ -261,9 +266,12 @@ F32_LSE_ATOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16
 FP32_FLOPS_PER_S = 67e12  # H100 SXM dense float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores; a 3xTF32 product takes three
 
 SM90 = "sm90 tma+wgmma"
-SM90_F32 = "sm90 cuda-core ffma, cp.async"
+# the float32 kernels' designs: the forward on the CUDA cores, the backward pair in 3xTF32 on the tensor cores
+SM90_F32 = {"flash_fwd": "sm90 cuda-core ffma, cp.async", "flash_bwd_dkv": "sm90 3xtf32 mma.sync, cp.async",
+            "flash_bwd_dq": "sm90 3xtf32 mma.sync, cp.async"}
 # name (its CUDA kernel is name + "_kernel"): (the TPU kernel it replaces, its design)
 KERNELS = {
     "flash_fwd": ("mafed_tpu/kernels/attention.py:81", SM90),
@@ -325,7 +333,8 @@ def phase_build() -> None:
         res = resources.get(kernel, {})
         if res.get("spill_store_bytes") != 0 or res.get("spill_load_bytes") != 0:
             raise AssertionError(f"{kernel}: spills or no ptxas report: {res}")
-    # the bfloat16 kernels are TMA + wgmma kernels; the float32 ones FFMA kernels with no wgmma
+    # the bfloat16 kernels are TMA + wgmma kernels; the float32 forward an FFMA kernel with no tensor-core
+    # instruction, the float32 backward pair 3xTF32 mma.sync kernels with no wgmma
     faults = build.sass_faults(sass) if sass is not None else []
     if faults:
         raise AssertionError(f"SASS: {faults}")
@@ -456,7 +465,8 @@ LIBRARY_COVERS = {"flash_fwd": "o", "flash_bwd_dkv": "dq+dk+dv", "flash_bwd_dq":
 def check_case(gen, name, b, h, t, d, causal, pad, empty, dtype=torch.bfloat16) -> dict:
     """One case, the three kernels against the plain versions at `dtype`
     (bf16 at ATOL / RTOL, f32 at F32_ATOL / F32_RTOL), at the models' scale
-    head_dim^-0.5; emitted, and returns the largest error of each kernel."""
+    head_dim^-0.5; emitted, and returns the largest error of each kernel
+    and of each of dq, dk and dv."""
     atol, rtol, lse_atol = (ATOL, RTOL, LSE_ATOL) if dtype == torch.bfloat16 else (F32_ATOL, F32_RTOL, F32_LSE_ATOL)
     scale = d ** -0.5
     q, k, v, do, mask = _qkv(gen, b, h, t, pad, empty, d, dtype)
@@ -476,15 +486,16 @@ def check_case(gen, name, b, h, t, d, causal, pad, empty, dtype=torch.bfloat16) 
             raise AssertionError(f"{name}: a gradient of dtype {got.dtype} from {dtype} inputs")
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
     torch.cuda.synchronize()
+    grad_err = {"dq": _err(dq, dq_p), "dk": _err(dk, dk_p), "dv": _err(dv, dv_p)}
     case_err = {
         "flash_fwd": max(_err(o, o_p), (lse[fin] - lse_p[fin]).abs().max().item()),
-        "flash_bwd_dkv": max(_err(dk, dk_p), _err(dv, dv_p)),
-        "flash_bwd_dq": _err(dq, dq_p),
+        "flash_bwd_dkv": max(grad_err["dk"], grad_err["dv"]),
+        "flash_bwd_dq": grad_err["dq"],
     }
     emit({"phase": "kernels", "case": name, "dtype": str(dtype).split(".")[1], "shape": [b, h, t, d],
-          "causal": causal, "empty_rows": int((~fin).sum().item()), "max_abs_err": case_err, "atol": atol,
-          "rtol": rtol, "lse_atol": lse_atol})
-    return case_err
+          "causal": causal, "empty_rows": int((~fin).sum().item()), "max_abs_err": {**case_err, **grad_err},
+          "atol": atol, "rtol": rtol, "lse_atol": lse_atol})
+    return {**case_err, **grad_err}
 
 
 def phase_kernels(gen):
@@ -499,7 +510,8 @@ def phase_kernels(gen):
                 into[kname, d] = max(into.get((kname, d), 0.0), e)
     emit({"phase": "kernels", "case": "f32_largest_errors", "atol": F32_ATOL, "rtol": F32_RTOL,
           "lse_atol": F32_LSE_ATOL,
-          "max_abs_err": {k: {d: e for (kn, d), e in sorted(errs_f32.items()) if kn == k} for k in KERNELS}})
+          "max_abs_err": {k: {d: e for (kn, d), e in sorted(errs_f32.items()) if kn == k}
+                          for k in (*KERNELS, "dq", "dk", "dv")}})
 
     timing = {64: kernel_timing(gen, "timing_ce_410m", 48, 16, 336, 64),
               96: kernel_timing(gen, "timing_ce_neox20b", 48, 64, 336, 96),
@@ -520,7 +532,8 @@ def phase_kernels(gen):
                                           ("timing_decode_prefill_1_4b", 32, 16, 320, 128, True, (256, 272)),
                                           ("timing_decode_prefill_1b_d512", 32, 4, 320, 512, True, (256, 272))):
         emit({"phase": "kernels", "case": case, **_fwd_timing(gen, b, h, t, d, causal, pad)})
-    # the f32 kernels at each head_dim's CE shape (the bound: float32 operations on the CUDA cores)
+    # the f32 kernels at each head_dim's CE shape (the bound: float32-accurate products in 3xTF32 on the
+    # tensor cores, or the bytes; the CUDA-core bound beside it)
     timing_f32 = {d: kernel_timing(gen, f"timing_f32_ce_{d}", 48, h, 336, d, dtype=torch.float32)
                   for d, h in ((64, 16), (96, 64), (128, 16), (256, 8), (384, 16), (512, 4))}
     check_xla_routing(gen)
@@ -576,8 +589,10 @@ def kernel_timing(gen, case, b, h, t, d, pad=(256, 276), dtype=torch.bfloat16) -
     forward kernel, its whole backward, which computes dq, dk and dv,
     against each backward kernel; at float32 on the backend sdpa_backend
     names, TF32 off) and each kernel's bound (at float32: 4 bytes an
-    element, operations at the CUDA cores' float32 rate); emitted, and
-    returned with the bounds' causes."""
+    element, and the products three times over at the tensor cores' TF32
+    rate, as 3xTF32 forms them, the card's least time for float32-accurate
+    products; beside it `bound_ffma_ms`, the products at the CUDA cores'
+    float32 rate); emitted, and returned with the bounds' causes."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     scale = d ** -0.5
@@ -608,17 +623,21 @@ def kernel_timing(gen, case, b, h, t, d, pad=(256, 276), dtype=torch.bfloat16) -
     # once; products counted over the (query, key) pairs this mask keeps
     pairs = h * int((torch.ones(t, t, device="cuda").tril()[None] * (mask > 0)[:, None, :]).sum().item())
     act, row, msk = b * h * t * d * q.element_size(), b * h * t * 4, b * t * 4
-    peak = FP32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S
-    bounds = {
-        "flash_fwd": _bound(3 * act + msk + act + row, 4 * d * pairs, peak),
-        "flash_bwd_dkv": _bound(4 * act + 2 * row + msk + 2 * act, 8 * d * pairs, peak),
-        "flash_bwd_dq": _bound(4 * act + 2 * row + msk + act, 6 * d * pairs, peak),
+    work = {  # (bytes, operations)
+        "flash_fwd": (3 * act + msk + act + row, 4 * d * pairs),
+        "flash_bwd_dkv": (4 * act + 2 * row + msk + 2 * act, 8 * d * pairs),
+        "flash_bwd_dq": (4 * act + 2 * row + msk + act, 6 * d * pairs),
     }
+    # f32: three TF32 products per float32-accurate one
+    bounds = {n: _bound(nb, 3 * ops, TF32_FLOPS_PER_S) if f32 else _bound(nb, ops) for n, (nb, ops) in work.items()}
     res = {"ms": ms, "plain_ms": plain_ms, "library_ms": library, "library_backend": backend,
            "bound_ms": {n: v[0] for n, v in bounds.items()}, "bound_by": {n: v[1] for n, v in bounds.items()}}
+    if f32:
+        res["bound_ffma_ms"] = {n: _bound(nb, ops, FP32_FLOPS_PER_S)[0] for n, (nb, ops) in work.items()}
     emit({"phase": "kernels", "case": case, "dtype": str(dtype).split(".")[1], "shape": [b, h, t, d], "ms": ms,
           "plain_ms": plain_ms, "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd, "sdpa_backend": backend,
-          "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "kept_pairs": pairs})
+          "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+          **({"bound_ffma_ms": res["bound_ffma_ms"]} if f32 else {}), "kept_pairs": pairs})
     return res
 
 
@@ -3130,11 +3149,12 @@ def main() -> int:
     ]
     # the float32 kernels: one instantiation each, every head_dim at run time; launched on the main
     # path at head_dim 64 (410M), timed at every head_dim's CE shape, the entry's own numbers at 64's
-    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_ffma_ms", "library_ms")
     kernels += [
         {"name": f"{name}_f32", "dtype": "float32", "head_dim": 64, "route": "cuda",
          "source": "mafed_tpu_torch/csrc/flash_attn_f32.cu",
-         "instantiation": build.route(name, "float32", 64).instantiation, "replaces": replaces, "design": SM90_F32,
+         "instantiation": build.route(name, "float32", 64).instantiation, "replaces": replaces,
+         "design": SM90_F32[name],
          "launches": sum(path[name] for path in by_path_f32.values()),
          "launches_by_path": {p: path[name] for p, path in by_path_f32.items()},
          "max_abs_err": max(e for (k, _), e in errs_f32.items() if k == name),

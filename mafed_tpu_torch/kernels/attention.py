@@ -30,8 +30,10 @@ its own, and every multiple of 128 from 384 on (heads of 384 or 512 of a
 regrouped decoder), which the wide kernels take with a grid axis over
 128-column slices of the output. Those are the bfloat16 kernels; at float32
 inputs one kernel each takes every such head_dim, with a grid axis over
-slices of at most 128 output columns and float32 products on the CUDA cores
-(the Pallas kernels keep the matmul operands in the input dtype).
+slices of at most 128 output columns and float32-accurate products (the
+Pallas kernels keep the matmul operands in the input dtype): float32 FMAs on
+the CUDA cores in the forward, 3xTF32 on the tensor cores in the dK/dV and
+dQ kernels.
 
 `LAUNCHES` counts kernel launches, one per launch, for callers that check
 which path ran; `LAUNCHES_BY_HEAD_DIM[d]` counts the same launches at head_dim d,
@@ -222,7 +224,9 @@ def _check_bwd_inputs(q, k, v, mask, do, lse, delta, causal: bool):
 
 
 def flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal: bool, scale: float):
-    """(dk, dv) from the dK/dV kernel; delta = rowsum(do * o) in f32."""
+    """(dk, dv) from the dK/dV kernel; delta = rowsum(do * o) in f32. At
+    float32 inputs the kernel forms its products in 3xTF32 on the tensor
+    cores (csrc/flash_attn_f32.cu)."""
     batch, heads, q_len, kv_len, d, mask_ptr = _check_bwd_inputs(q, k, v, mask, do, lse, delta, causal)
     dtype = _dtype_name(q)
     entry = route("flash_bwd_dkv", dtype, d).entry
@@ -241,7 +245,9 @@ def flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal: bool, scale: float):
 
 
 def flash_bwd_dq(q, k, v, mask, do, lse, delta, causal: bool, scale: float):
-    """dq from the dQ kernel; delta = rowsum(do * o) in f32."""
+    """dq from the dQ kernel; delta = rowsum(do * o) in f32. At float32
+    inputs the kernel forms its products in 3xTF32 on the tensor cores
+    (csrc/flash_attn_f32.cu)."""
     batch, heads, q_len, kv_len, d, mask_ptr = _check_bwd_inputs(q, k, v, mask, do, lse, delta, causal)
     dtype = _dtype_name(q)
     entry = route("flash_bwd_dq", dtype, d).entry

@@ -21,7 +21,9 @@ keyed by their template argument, the width of the output slice of one CTA
 every head_dim at run time (`flash_fwd_f32_kernel<128>`). `route()` names the
 entry point, the kernel and the grid's slices of a call; `sass_faults()` says
 what an instantiation's SASS lacks: TMA loads and wgmma (HGMMA) for the
-bfloat16 kernels, float32 FMAs and no wgmma for the float32 ones.
+bfloat16 kernels; float32 FMAs and no tensor-core instruction for the
+float32 forward; TF32 mma.sync (HMMA ... TF32, the 3xTF32 products) and no
+wgmma for the two float32 backward kernels.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ HEAD_DIMS = (64, 96, 128, 256)  # the head_dims the library instantiates a kerne
 WIDE_KERNELS = ("flash_fwd_wide_kernel", "flash_bwd_dkv_wide_kernel", "flash_bwd_dq_wide_kernel")
 WIDE_SLICE = 128
 # the float32 kernels: head_dim at run time, a grid axis over output slices of at most F32_SLICE columns
-# (flash_attn_f32.cu SLICE); CUDA-core FMAs, no wgmma
+# (flash_attn_f32.cu SLICE); the forward on CUDA-core FMAs, the backward pair in 3xTF32 mma.sync, no wgmma
 F32_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel")
 F32_SLICE = 128
 # the C entry point of each kernel at bfloat16; the float32 one adds "_f32"
@@ -73,6 +75,7 @@ def instantiation(kernel: str, head_dim: int) -> str:
 BF16_INSTANTIATIONS = (tuple(instantiation(k, d) for k in KERNELS for d in HEAD_DIMS)
                        + tuple(instantiation(k, WIDE_SLICE) for k in WIDE_KERNELS))
 F32_INSTANTIATIONS = tuple(instantiation(k, F32_SLICE) for k in F32_KERNELS)
+F32_TENSOR_CORE_INSTANTIATIONS = F32_INSTANTIATIONS[1:]  # the dK/dV and dQ kernels: 3xTF32
 INSTANTIATIONS = BF16_INSTANTIATIONS + F32_INSTANTIATIONS
 
 
@@ -206,7 +209,10 @@ def kernel_resources(log: str) -> Dict[str, Dict[str, int]]:
     return out
 
 
-SASS_OPCODES = ("HGMMA", "UTMALDG", "FFMA")  # wgmma, TMA loads, float32 FMAs
+# wgmma, TMA loads, float32 FMAs, mma.sync of any kind, and mma.sync on TF32 operands (HMMA.1688.F32.TF32)
+SASS_OPCODES = ("HGMMA", "UTMALDG", "FFMA", "HMMA", "HMMA.TF32")
+_SASS_PATTERNS = {op: rf"\b{op}\b" for op in SASS_OPCODES[:4]}
+_SASS_PATTERNS["HMMA.TF32"] = r"\bHMMA\.\S*\bTF32\b"
 
 
 def sass_counts() -> Optional[Dict[str, Dict[str, int]]]:
@@ -232,24 +238,36 @@ def parse_sass(sass: str) -> Dict[str, Dict[str, int]]:
                 out[current] = {op: 0 for op in SASS_OPCODES}
             continue
         if current is not None:
-            for op in SASS_OPCODES:
-                if re.search(rf"\b{op}\b", line):
+            for op, pattern in _SASS_PATTERNS.items():
+                if re.search(pattern, line):
                     out[current][op] += 1
     return out
 
 
+def sass_fault(kernel: str, counts: Dict[str, int]) -> Optional[str]:
+    """What one instantiation's SASS lacks, or None: a bfloat16 kernel needs
+    HGMMA and UTMALDG; the float32 forward FFMA and neither HGMMA nor HMMA
+    (its products are float32 FMAs, never tf32); the float32 backward
+    kernels HMMA of the TF32 kind only (the 3xTF32 products) and no HGMMA."""
+    if kernel in F32_TENSOR_CORE_INSTANTIATIONS:
+        ok = counts["HMMA.TF32"] and counts["HMMA"] == counts["HMMA.TF32"] and not counts["HGMMA"]
+        need = "HMMA of the TF32 kind only and no HGMMA"
+    elif kernel in F32_INSTANTIATIONS:
+        ok = counts["FFMA"] and not counts["HGMMA"] and not counts["HMMA"]
+        need = "FFMA, no HGMMA and no HMMA"
+    else:
+        ok = counts["HGMMA"] and counts["UTMALDG"]
+        need = "HGMMA and UTMALDG"
+    return None if ok else f"{kernel}: needs {need}, has {counts}"
+
+
 def sass_faults(sass: Dict[str, Dict[str, int]]) -> List[str]:
-    """What the SASS of each instantiation lacks, as `parse_sass` counts it:
-    a bfloat16 kernel without HGMMA or UTMALDG, a float32 kernel without FFMA
-    or with HGMMA (its products are float32, never tf32), an instantiation
-    missing from the dump."""
+    """What the SASS of each instantiation lacks, as `parse_sass` counts it
+    and `sass_fault` judges it, and each instantiation missing from the dump."""
     faults = []
     for kernel in INSTANTIATIONS:
         counts = sass.get(kernel)
-        if counts is None:
-            faults.append(f"{kernel}: not in the SASS")
-        elif kernel in F32_INSTANTIATIONS and not (counts["FFMA"] and not counts["HGMMA"]):
-            faults.append(f"{kernel}: needs FFMA and no HGMMA, has {counts}")
-        elif kernel in BF16_INSTANTIATIONS and not (counts["HGMMA"] and counts["UTMALDG"]):
-            faults.append(f"{kernel}: needs HGMMA and UTMALDG, has {counts}")
+        fault = f"{kernel}: not in the SASS" if counts is None else sass_fault(kernel, counts)
+        if fault:
+            faults.append(fault)
     return faults

@@ -1,23 +1,25 @@
 """Time source variants of the port's flash kernels side by side on one NVIDIA GPU.
 
-    python3 scripts/flash_variants.py VARIANTS.json [--out PATH]
+    python3 scripts/flash_variants.py VARIANTS.json [--dtype float32] [--out PATH]
 
 VARIANTS.json maps a variant's name to a list of [old, new] text
 substitutions applied to mafed_tpu_torch/csrc/flash_attn.cu (the bfloat16
 kernels; each variant's library also holds csrc/flash_attn_f32.cu as it
-stands, which the script does not time); a first pair
-["FILE", path] starts from another source file instead (for example the
-parent commit's, unpacked with `git archive`). `{"base": []}` is the source
-as it stands. Every variant is built with nvcc in parallel into its own
-library and held against the plain versions (o, dk, dv and dq at
-chip_smoke's tolerances, lse's empty rows exactly) at every head_dim of
-CE_SHAPES: those the kernels are built for (kernels/build.py HEAD_DIMS) and
-the two wide head_dims the models run (384 and 512, the wide kernels), each
-in a small unaligned case with empty rows, a non-causal 100 x 257 case and
-its model's CE shape (410M [48, 16, 336, 64], a decoder at GPT-NeoX-20B's
-width [48, 64, 336, 96], 1.4B [48, 16, 336, 128], 1B [48, 8, 336, 256],
-that width as 16 heads of 384 [48, 16, 336, 384], 1B as 4 heads of 512
-[48, 4, 336, 512]).
+stands, which the script does not time) or, with `--dtype float32`, to
+csrc/flash_attn_f32.cu (the float32 kernels, checked and timed at float32
+inputs, beside flash_attn.cu as it stands); a first pair ["FILE", path]
+starts from another source file instead (for example the parent commit's,
+unpacked with `git archive`). `{"base": []}` is the source as it stands.
+Every variant is built with nvcc in parallel into its own library and held
+against the plain versions (o, dk, dv and dq at chip_smoke's tolerances of
+the dtype, lse's empty rows exactly) at every head_dim of CE_SHAPES: those
+the kernels are built for (kernels/build.py HEAD_DIMS) and the two wide
+head_dims the models run (384 and 512, the wide kernels), each in a small
+unaligned case with empty rows, a non-causal 100 x 257 case and its model's
+CE shape (410M [48, 16, 336, 64], a decoder at
+GPT-NeoX-20B's width [48, 64, 336, 96], 1.4B [48, 16, 336, 128], 1B [48, 8,
+336, 256], that width as 16 heads of 384 [48, 16, 336, 384], 1B as 4 heads
+of 512 [48, 4, 336, 512]).
 Then the forward, dK/dV and dQ kernels are timed at those CE shapes in
 turns, three rounds of 50 launches each, so every variant sees the same
 card. Prints one JSON line per variant (ptxas report, largest errors and
@@ -42,10 +44,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CE_SHAPES = {64: (48, 16), 96: (48, 64), 128: (48, 16), 256: (48, 8), 384: (48, 16), 512: (48, 4)}
 
 
-def _build(variants, workdir):
+def _build(variants, workdir, varied):
+    """Build each variant of build.SOURCES[varied] beside the other source as it stands."""
     from mafed_tpu_torch.kernels import build
 
-    src, f32_source = build.SOURCES[0].read_text(), build.SOURCES[1]
+    src, fixed = build.SOURCES[varied].read_text(), build.SOURCES[1 - varied]
     for header in build.CSRC.glob("*.cuh"):
         shutil.copy(header, workdir)
     procs = {}
@@ -59,7 +62,8 @@ def _build(variants, workdir):
             text = text.replace(old, new)
         cu = os.path.join(workdir, f"{name}.cu")
         open(cu, "w").write(text)
-        procs[name] = subprocess.Popen(build.nvcc_command([cu, f32_source], cu[:-3] + ".so"), stdout=subprocess.PIPE,
+        sources = [cu, fixed] if varied == 0 else [fixed, cu]
+        procs[name] = subprocess.Popen(build.nvcc_command(sources, cu[:-3] + ".so"), stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     return {name: (p.communicate()[0], p.returncode, os.path.join(workdir, f"{name}.so")) for name, p in procs.items()}
 
@@ -67,6 +71,8 @@ def _build(variants, workdir):
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("variants", help="JSON file: {name: [[old, new], ...]}")
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                        help="vary and time the kernels of this input dtype")
     parser.add_argument("--out", help="also write the results to this file")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -83,13 +89,17 @@ def main() -> int:
     results = {}
     with tempfile.TemporaryDirectory() as workdir:
         libs = {}
-        for name, (log, rc, path) in _build(variants, workdir).items():
+        f32 = args.dtype == "float32"
+        torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' float32 products in float32
+        dtype = torch.float32 if f32 else torch.bfloat16
+        atol, rtol = (chip_smoke.F32_ATOL, chip_smoke.F32_RTOL) if f32 else (chip_smoke.ATOL, chip_smoke.RTOL)
+        for name, (log, rc, path) in _build(variants, workdir, int(f32)).items():
             if rc != 0:
                 raise RuntimeError(f"variant {name} failed to build:\n{log[-3000:]}")
             lib = ctypes.CDLL(path)
             build._bind(lib)
             libs[name] = lib
-            results[name] = {"card": smi, "ptxas": build.kernel_resources(log), "max_abs_err": {},
+            results[name] = {"card": smi, "dtype": args.dtype, "ptxas": build.kernel_resources(log), "max_abs_err": {},
                              "fwd_ms": {}, "dkv_ms": {}, "dq_ms": {}}
 
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -101,9 +111,9 @@ def main() -> int:
                       (batch, heads, 336, 336, d, True, (256, 276), False)]
         data = []
         for b, h, tq, tk, d, causal, pad, empty in cases:
-            q = torch.randn(b, h, tq, d, generator=gen, device="cuda").bfloat16()
-            k, v = (torch.randn(b, h, tk, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
-            do = torch.randn(b, h, tq, d, generator=gen, device="cuda").bfloat16()
+            q = torch.randn(b, h, tq, d, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(b, h, tk, d, generator=gen, device="cuda").to(dtype) for _ in range(2))
+            do = torch.randn(b, h, tq, d, generator=gen, device="cuda").to(dtype)
             mask = torch.ones(b, tk, dtype=torch.int32, device="cuda")
             if pad:
                 mask[:, pad[0]:pad[1]] = 0
@@ -126,7 +136,7 @@ def main() -> int:
                     if not torch.equal(torch.isinf(lse), ~fin):
                         raise AssertionError(f"variant {name}: empty rows differ from the plain version")
                     for label, got, want in (("o", o, o_p), ("dk", dk, dk_p), ("dv", dv, dv_p), ("dq", dq, dq_p)):
-                        torch.testing.assert_close(got.float(), want.float(), atol=chip_smoke.ATOL, rtol=chip_smoke.RTOL,
+                        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol,
                                                    msg=lambda m: f"variant {name}, {label}: {m}")
                     errs = [chip_smoke._err(o, o_p), (lse[fin] - lse_p[fin]).abs().max().item(),
                             chip_smoke._err(dk, dk_p), chip_smoke._err(dv, dv_p), chip_smoke._err(dq, dq_p)]

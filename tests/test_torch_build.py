@@ -2,8 +2,10 @@
 the library's name follows every source file, and the ptxas report and the
 SASS dump are read per instantiation (kernel and head_dim; a wide kernel and
 its slice width; a float32 kernel and its slice width), and the SASS check
-asks TMA loads and wgmma of the bfloat16 kernels and float32 FMAs without
-wgmma of the float32 ones. Nothing here compiles."""
+asks TMA loads and wgmma of the bfloat16 kernels, float32 FMAs without any
+tensor-core instruction of the float32 forward, and TF32 mma.sync (the
+3xTF32 products) without wgmma of the float32 backward kernels. Nothing here
+compiles."""
 
 import pytest
 
@@ -57,13 +59,25 @@ PTXAS_BOTH = "".join(
     for name, d, wg, regs, spill in _ENTRIES
 )
 
-def _sass_of(name, d, wg, regs, hgmma=True):
-    """A function's SASS: a bfloat16 kernel's TMA loads and wgmma, a float32
-    kernel's FFMAs (with `hgmma`, also a wgmma of the bfloat16 kind)."""
+_HMMA_TF32 = "        /*0500*/                   HMMA.1688.F32.TF32 R4, R16, R20, R4 ;\n"
+
+
+def _hmma_count(name, regs):
+    """The TF32 HMMAs of a float32 backward kernel's canned SASS; none in the forward."""
+    return 0 if name.startswith("flash_fwd") else regs % 5 + 3
+
+
+def _sass_of(name, d, wg, regs, hgmma=True, hmma=None):
+    """A function's SASS: a bfloat16 kernel's TMA loads and wgmma; a float32
+    kernel's FFMAs and, in the backward pair, its 3xTF32 mma.sync
+    (HMMA.1688.F32.TF32; with `hmma` False none, with `hmma` True one in the
+    forward too); with `hgmma`, also a wgmma of the bfloat16 kind."""
     head = (f"\n\tcode for sm_90a\n\t\tFunction : {_mangled(name, d, wg)}\n"
             "\t.headerflags\t@\"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)\"\n")
     if wg == "f32":
         body = "        /*0400*/                   FFMA R12, R40, R52, R12 ;\n" * (regs % 11 + 1)
+        n_hmma = _hmma_count(name, regs)
+        body += _HMMA_TF32 * (n_hmma if hmma is None else (n_hmma or 1) if hmma else 0)
         body += "        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24 ;\n" * hgmma
     else:
         body = ("        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;\n" * -(-d // 64)
@@ -105,9 +119,10 @@ def test_sass_counts_keep_every_instantiation_apart():
     got = build.parse_sass(SASS_BOTH)
     assert sorted(got) == sorted(build.INSTANTIATIONS)
     for name, d, wg, regs, _ in _ENTRIES:
+        hmma = _hmma_count(name, regs) if wg == "f32" else 0
         want = ({"UTMALDG": 0, "HGMMA": 0, "FFMA": regs % 11 + 1} if wg == "f32" else
                 {"UTMALDG": -(-d // 64), "HGMMA": d // 16 + regs % 7, "FFMA": 0})
-        assert got[build.instantiation(name, d)] == want
+        assert got[build.instantiation(name, d)] == {**want, "HMMA": hmma, "HMMA.TF32": hmma}
 
 
 def test_the_wide_kernels_are_instantiations_of_their_own():
@@ -140,9 +155,11 @@ def test_the_f32_kernels_are_a_group_of_their_own():
 
 def test_sass_check_asks_wgmma_of_bf16_and_ffma_without_wgmma_of_f32():
     """sass_faults over a canned `cuobjdump -sass` dump: none for the whole
-    library as built; a bfloat16 kernel without HGMMA or UTMALDG, a float32
-    kernel with an HGMMA (a tensor-core product) or without FFMA, and a
-    missing instantiation are each named."""
+    library as built; each instantiation judged by its own rule: a bfloat16
+    kernel without HGMMA or UTMALDG, a float32 backward kernel with an HGMMA
+    (a wgmma product), without HMMA or with an HMMA of another kind than
+    TF32, a float32 forward without FFMA or with an HMMA (its products are
+    float32 FMAs), and a missing instantiation are each named."""
     assert build.sass_faults(build.parse_sass(SASS_BOTH)) == []
     entries = {build.instantiation(name, d): (name, d, wg, regs) for name, d, wg, regs, _ in _ENTRIES}
 
@@ -150,15 +167,27 @@ def test_sass_check_asks_wgmma_of_bf16_and_ffma_without_wgmma_of_f32():
         text = "".join(replace.get(key, _sass_of(*entry, hgmma=False)) for key, entry in entries.items())
         return build.sass_faults(build.parse_sass(text))
 
+    def counts(hgmma=0, utmaldg=0, ffma=0, hmma=0, tf32=None):
+        return {"HGMMA": hgmma, "UTMALDG": utmaldg, "FFMA": ffma, "HMMA": hmma,
+                "HMMA.TF32": hmma if tf32 is None else tf32}
+
     no_tma = _sass_of(*entries["flash_fwd_kernel<96>"], hgmma=False).replace("UTMALDG", "LDG")
     assert faults({"flash_fwd_kernel<96>": no_tma}) == [
-        "flash_fwd_kernel<96>: needs HGMMA and UTMALDG, has {'HGMMA': 8, 'UTMALDG': 0, 'FFMA': 0}"]
+        f"flash_fwd_kernel<96>: needs HGMMA and UTMALDG, has {counts(hgmma=8)}"]
     key = "flash_bwd_dq_f32_kernel<128>"
     assert faults({key: _sass_of(*entries[key], hgmma=True)}) == [
-        f"{key}: needs FFMA and no HGMMA, has {{'HGMMA': 1, 'UTMALDG': 0, 'FFMA': 2}}"]
+        f"{key}: needs HMMA of the TF32 kind only and no HGMMA, has {counts(hgmma=1, ffma=2, hmma=3)}"]
+    assert faults({key: _sass_of(*entries[key], hgmma=False, hmma=False)}) == [
+        f"{key}: needs HMMA of the TF32 kind only and no HGMMA, has {counts(ffma=2)}"]
+    key = "flash_bwd_dkv_f32_kernel<128>"
+    other_kind = _sass_of(*entries[key], hgmma=False).replace("F32.TF32", "F32.BF16", 1)
+    assert faults({key: other_kind}) == [
+        f"{key}: needs HMMA of the TF32 kind only and no HGMMA, has {counts(ffma=6, hmma=5, tf32=4)}"]
     key = "flash_fwd_f32_kernel<128>"
     assert faults({key: _sass_of(*entries[key], hgmma=False).replace("FFMA", "FMUL")}) == [
-        f"{key}: needs FFMA and no HGMMA, has {{'HGMMA': 0, 'UTMALDG': 0, 'FFMA': 0}}"]
+        f"{key}: needs FFMA, no HGMMA and no HMMA, has {counts()}"]
+    assert faults({key: _sass_of(*entries[key], hgmma=False, hmma=True)}) == [
+        f"{key}: needs FFMA, no HGMMA and no HMMA, has {counts(ffma=8, hmma=1)}"]
     assert faults({"flash_bwd_dkv_f32_kernel<128>": ""}) == ["flash_bwd_dkv_f32_kernel<128>: not in the SASS"]
 
 

@@ -14,10 +14,16 @@ that the regrouped decoders give the wide kernels (384 and 512), with the
 models' scale head_dim^-0.5.
 
 The float32 kernels (a `--compute_dtype float32` run) are held against the
-plain versions at float32 at atol = rtol = 1e-4 (lse 1e-5): both multiply
-float32 operands in float32 (TF32 is off for the plain versions' matmuls),
-in different orders, so they differ by float32 rounding only; at every
-head_dim above and 640 (five output slices).
+plain versions at float32 at atol = rtol = 1e-4 (lse 1e-5): the forward
+multiplies float32 operands with float32 FMAs, the dK/dV and dQ kernels in
+3xTF32 on the tensor cores (each product within a few 2^-21 of its size,
+tests/test_torch_tf32_split.py), the plain versions in float32 (TF32 off
+for their matmuls), in different orders, so they differ by float32-level
+rounding only; at every head_dim above and 640 (five output slices). At
+the CE shapes of head_dim 384 and 512 the backward stays within 4e-5, a
+limit that one truncating accumulation chain over all of D and the keys
+(6.0e-5 / 7.3e-5) would not meet. Two
+launches of each 3xTF32 kernel give the same bits.
 """
 
 import numpy as np
@@ -136,6 +142,49 @@ def test_f32_kernels_match_plain(gpu, q_len, kv_len, causal, masked, head_dim):
         torch.testing.assert_close(x, y, atol=F32_ATOL, rtol=F32_RTOL, msg=name)
     torch.cuda.synchronize()
     assert tattn.LAUNCHES_BY_DTYPE == {"float32": {"flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}}
+
+
+# The tensor core sums each mma.sync's products into its accumulator with
+# truncation, so a chain of them drifts; the kernels add each stage's short
+# chain to their sums with a rounding float32 add. At the 384 and 512 CE
+# shapes one chain over all of D and the keys drifted to 6.0e-5 and 7.3e-5
+# off the plain versions (scripts/flash_variants.py), within F32_ATOL; a
+# chain a stage keeps the kernels under 2e-5, and this limit tells the two
+# apart.
+F32_DRIFT_ATOL = 4e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,batch,heads", [(384, 48, 16), (512, 48, 4)])
+def test_f32_backward_kernels_do_not_drift_at_wide_heads(gpu, head_dim, batch, heads):
+    """dq, dk and dv of the 3xTF32 kernels at a wide model's CE shape
+    (causal, 336 rows, 20 padded keys) within F32_DRIFT_ATOL of the plain
+    versions at float32."""
+    q, k, v, g, mask = _inputs(batch, heads, 336, seed=17, masked=(256, 276), d=head_dim, dtype=torch.float32)
+    scale = head_dim ** -0.5
+    o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, True, scale)
+    got = tattn.flash_backward(q, k, v, mask, o_p, lse_p, g, True, scale)
+    want = tattn.flash_backward_plain(q, k, v, mask, o_p, lse_p, g, True, scale)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        err = (x - y).abs().max().item()
+        assert err <= F32_DRIFT_ATOL, f"{name}: largest |kernel - plain| {err:.3g} > {F32_DRIFT_ATOL}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", F32_HEAD_DIMS)
+def test_f32_backward_kernels_are_bit_equal_across_launches(gpu, head_dim):
+    """Two launches of each 3xTF32 backward kernel on the same inputs give
+    the same bits (no atomics; the slices of a tile run the same
+    instructions), as the bit-equal resumes of a float32 run need."""
+    q, k, v, g, mask = _inputs(2, 4, 200, seed=16, masked=(64, 128), d=head_dim, dtype=torch.float32)
+    scale = head_dim ** -0.5
+    o, lse = tattn.flash_forward_plain(q, k, v, mask, True, scale)
+    delta = (g * o).sum(-1)
+    runs = [(*tattn.flash_bwd_dkv(q, k, v, mask, g, lse, delta, True, scale),
+             tattn.flash_bwd_dq(q, k, v, mask, g, lse, delta, True, scale)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, first, second in zip(("dk", "dv", "dq"), *runs):
+        assert torch.equal(first, second), name
 
 
 @pytest.mark.cuda

@@ -148,3 +148,61 @@ def write_synthetic_vqa(root: str, tasks=("taskA", "taskB"), n_train: int = 24, 
         n_workers=2, val_num_workers=2, learning_rate=1e-3, optim="adamw", weight_decay=0.01,
         text_pad_multiple=8, mesh_shape=[1, 1], log_every=1, seed=42, allow_tokenizer_fallback=True,
     )
+
+
+# ---------------------------------------------------------------------------
+# 3xTF32 on the CPU: a plain emulation of the float32 backward kernels'
+# tensor-core products (csrc/flash_attn_f32.cu), for tests only
+# ---------------------------------------------------------------------------
+
+def round_to_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 `x` rounded to TF32 as `cvt.rna.tf32.f32` rounds it: 10
+    mantissa bits, to nearest, ties away from zero (for finite x; the 13 low
+    bits of the result are 0). Adding half of the dropped unit to the
+    magnitude bits carries on a tie, away from zero whatever the sign."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def truncate_to_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 `x` with its 13 low mantissa bits cleared: the TF32 value the
+    tensor core reads from a float32 register (truncation toward zero)."""
+    return (x.to(torch.float32).contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(big, small) as the kernels split x: big = x rounded to TF32 as
+    cvt.rna rounds it, small = x - big (exact in float32) as the tensor core
+    reads it, truncated to TF32."""
+    big = round_to_tf32(x)
+    return big, truncate_to_tf32(x - big)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b from the kernels' split operands: a_small b_big + a_big b_small +
+    a_big b_big, each a float32 matmul of TF32-valued tensors (whose products
+    are exact in float32), summed in that order; small x small is dropped.
+    The sums are torch's float32 sums, rounded to nearest: the tensor core's
+    truncating accumulation is not modelled."""
+    a_big, a_small = split_tf32(a)
+    b_big, b_small = split_tf32(b)
+    return torch.matmul(a_small, b_big) + torch.matmul(a_big, b_small) + torch.matmul(a_big, b_big)
+
+
+def flash_backward_3xtf32(q, k, v, mask, o, lse, do, causal: bool, scale: float):
+    """(dq, dk, dv) of float32 inputs with every product from the float32
+    backward kernels' 3xTF32 split: S = Q K^T and dP = dO V^T, P = exp(S scale
+    - lse) where kept, dS = P (dP - delta), dV = P^T dO, dK = dS^T Q scale, dQ
+    = dS K scale (the port's flash_backward_plain with matmul_3xtf32 for each
+    of its five matmuls). It models the operands' rounding, not the kernels'
+    accumulation (matmul_3xtf32), so it cannot show the drift of a truncating
+    accumulation chain: tests/test_torch_cuda.py bounds that on the card."""
+    from mafed_tpu_torch.kernels.attention import _keep
+
+    keep = _keep(mask, causal, q.shape[2], k.shape[2], q.device)
+    p = torch.where(keep, torch.exp(matmul_3xtf32(q, k.transpose(-1, -2)) * scale - lse[..., None]), 0.0)
+    dv = matmul_3xtf32(p.transpose(-1, -2), do)
+    dp = matmul_3xtf32(do, v.transpose(-1, -2))
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    return matmul_3xtf32(ds, k) * scale, matmul_3xtf32(ds.transpose(-1, -2), q) * scale, dv
