@@ -11,10 +11,11 @@ Phases, each printing one JSON line:
      three bf16 kernels at head_dim 64, 96, 128 and 256 and the three wide
      kernels (every multiple of 128 from 384 on, a grid axis over
      128-column output slices), fifteen TMA + wgmma kernels that may lack
-     neither; and the three float32 kernels (every head_dim at run time):
-     the forward an FFMA kernel with no HGMMA or HMMA, the dK/dV and dQ
-     kernels 3xTF32 mma.sync kernels (HMMA of the TF32 kind, no HGMMA);
-     none may spill;
+     neither; and the float32 kernels (the forward one slice of all of
+     head_dim up to 512: an instantiation at each of 64, 96 and 128 and one
+     at 512 for every head_dim above; the dK/dV and dQ kernels every
+     head_dim at run time, at 128-column slices), six 3xTF32 mma.sync
+     kernels (HMMA of the TF32 kind only, no HGMMA); none may spill;
   3. kernels: the three flash kernels against their plain PyTorch versions on
      the card, in bf16, at the shapes of the 410M window and CE window (and
      EVA-02 shapes), at pretraining's ([128, 16, 356, 64], right padding of
@@ -269,8 +270,10 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM dense float32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores; a 3xTF32 product takes three
 
 SM90 = "sm90 tma+wgmma"
-# the float32 kernels' designs: the forward on the CUDA cores, the backward pair in 3xTF32 on the tensor cores
-SM90_F32 = {"flash_fwd": "sm90 cuda-core ffma, cp.async", "flash_bwd_dkv": "sm90 3xtf32 mma.sync, cp.async",
+# the float32 kernels' designs: all three in 3xTF32 on the tensor cores, the forward's score tile formed once
+# over all of head_dim (one CTA a query tile and up to 512 output columns)
+SM90_F32 = {"flash_fwd": "sm90 3xtf32 mma.sync, score tile once over head_dim, cp.async",
+            "flash_bwd_dkv": "sm90 3xtf32 mma.sync, cp.async",
             "flash_bwd_dq": "sm90 3xtf32 mma.sync, cp.async"}
 # name (its CUDA kernel is name + "_kernel"): (the TPU kernel it replaces, its design)
 KERNELS = {
@@ -333,8 +336,7 @@ def phase_build() -> None:
         res = resources.get(kernel, {})
         if res.get("spill_store_bytes") != 0 or res.get("spill_load_bytes") != 0:
             raise AssertionError(f"{kernel}: spills or no ptxas report: {res}")
-    # the bfloat16 kernels are TMA + wgmma kernels; the float32 forward an FFMA kernel with no tensor-core
-    # instruction, the float32 backward pair 3xTF32 mma.sync kernels with no wgmma
+    # the bfloat16 kernels are TMA + wgmma kernels; the float32 kernels 3xTF32 mma.sync kernels with no wgmma
     faults = build.sass_faults(sass) if sass is not None else []
     if faults:
         raise AssertionError(f"SASS: {faults}")

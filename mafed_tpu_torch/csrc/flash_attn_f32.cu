@@ -12,9 +12,8 @@
 // at the end. expf and logf are the accurate library functions (the build has
 // no --use_fast_math).
 //
-// Which unit multiplies. The forward multiplies with float32 FMAs on the CUDA
-// cores. The two backward kernels multiply on the tensor cores, in 3xTF32
-// (mma.sync.m16n8k8 .tf32, the Sm80 tensor-op instruction, which Hopper
+// Which unit multiplies. All three kernels multiply on the tensor cores, in
+// 3xTF32 (mma.sync.m16n8k8 .tf32, the Sm80 tensor-op instruction, which Hopper
 // keeps): each f32 operand x is split into big = x rounded to TF32 (as
 // cvt.rna rounds it: 10 mantissa bits, nearest, ties away from zero) and
 // small = x - big, which the tensor core reads truncated to TF32, and a
@@ -30,42 +29,48 @@
 // tensor core accumulates with truncation, so each stage's products start a
 // fresh accumulator that a rounding FADD adds to the sums (split below).
 // wgmma is not used: its 32-bit operands must both be K-major in shared
-// memory, and three of the five backward products (dV = P^T dO, dK = dS^T Q,
-// dQ = dS K) read their B operand N-major from the row-major [seq][D]
-// tensors; mma.sync fragments are gathered by each thread from any layout.
+// memory, and four of the seven products (O = P V in the forward, dV = P^T
+// dO, dK = dS^T Q, dQ = dS K) read their B operand N-major from the row-major
+// [seq][D] tensors; mma.sync fragments are gathered by each thread from any
+// layout.
 //
 // Layout: q, k, v, o, do, dq, dk, dv are contiguous [batch*heads, seq, D]
 // float32; lse and delta [batch*heads, q_len] float32; the key-padding mask
 // [batch, kv_len] int32 (or null). Causal calls need kv_len == q_len.
 //
-// Grid, shared by the three kernels. One instantiation per kernel, head_dim D
-// a runtime argument (any multiple of 32 from 64 on whose slices below are 64
-// columns or more: 64, 96, 128, 256 and every multiple of 128). The grid is
-// (slices, tiles, batch x heads): a CTA (256 threads in the forward, 512 in
-// the backward kernels) owns one 64-row tile (of queries for the forward and
-// dQ, of keys for dK/dV) and one slice of at most SLICE = 128 output columns,
-// so neither the accumulators nor shared memory grow with D. Each CTA
-// computes the whole 64 x 64 score tile over all of D itself, from panels of
-// both operands staged in shared memory (32 columns in the forward, 64 in
-// the backward kernels), then forms only its slice's products; the slices of
-// one tile run the same instructions on the same data in the same order, so
-// they agree on every score (and in the forward on m and l) bit for bit, and
-// slice 0 writes lse. The work is a sequence of stages, each one cp.async
-// group in one of two shared buffers: per streamed tile, a score stage per
-// panel (a panel of each operand) and then a slice stage (the V, K, or dO and
-// Q rows of the slice). The next stage's copies start before the current
-// stage is computed. P and dS pass to the slice products through shared
-// memory. No atomics: every output element is written once, by one thread, so
-// two runs agree bit for bit.
+// Grids. Head_dim D is a runtime argument of every kernel (any multiple of 32
+// from 64 on whose slices below are 64 columns or more: 64, 96, 128, 256 and
+// every multiple of 128). A CTA of 16 warps (512 threads) owns one 64-row tile
+// (of queries for the forward and dQ, of keys for dK/dV) and one slice of the
+// output columns; the grid is (slices, tiles, batch x heads).
+// - The forward's slice is all of D up to FWD_SLICE = 512 columns (an
+//   instantiation at each of 64, 96 and 128, and one at 512 for every D
+//   above), so the CTA of a query tile forms each 64 x 64 score tile once,
+//   over all of D, and no two CTAs form the same one; only past 512 columns
+//   do the slices of a tile (512 columns each, the last one fewer) each form
+//   it again, which bounds the accumulators for any D.
+// - The backward kernels' slice is at most SLICE = 128 columns, so neither
+//   the accumulators nor shared memory grow with D. Each CTA computes the
+//   whole 64 x 64 score tile over all of D itself, from 64-column panels of
+//   both operands, then forms only its slice's products; the slices of one
+//   tile run the same instructions on the same data in the same order, so
+//   they agree on every score bit for bit.
+// The work of a CTA is a sequence of stages, each one cp.async group in one
+// of two shared buffers: per streamed tile, score stages (panels of both
+// operands) and then slice stages (the V, K, or dO and Q rows of the slice).
+// The next stage's copies start before the current stage is computed. P and
+// dS pass to the slice products through shared memory. No atomics: every
+// output element is written once, by one thread, so two runs agree bit for
+// bit.
 //
 // Bound on the H100, at the 410M CE shape (48 x 16 heads, 336 tokens,
 // head_dim 64, causal): the kept pairs' products are ~11 GFLOP for the
-// forward, ~0.17 ms at the 67 TFLOP/s of the CUDA cores; the backward kernels
-// do 2x and 1.5x the forward's products, three times over in 3xTF32, at 495
-// TFLOP/s: ~0.13 and ~0.10 ms, where moving their bytes takes ~0.12 and ~0.10
-// ms. Each kernel's design note says what it does about its bound; PERF.md
-// has their times (scripts/flash_variants.py --dtype float32 compares
-// versions of this file on the card).
+// forward, three times over in 3xTF32 at the 495 TFLOP/s of TF32: ~0.07 ms,
+// where moving its bytes takes ~0.08 ms; the backward kernels do 2x and 1.5x
+// the forward's products: ~0.13 and ~0.10 ms, where moving their bytes takes
+// ~0.12 and ~0.10 ms. Each kernel's design note says what it does about its
+// bound; PERF.md has their times (scripts/flash_variants.py --dtype float32
+// compares versions of this file on the card).
 //
 // Nothing is allocated on the device here: the Python wrapper allocates the
 // outputs, and every launch goes on the stream it is given.
@@ -77,21 +82,10 @@
 namespace {
 
 constexpr int BLOCK = 64;                  // rows of a query tile and of a key tile
-constexpr int THREADS = 256;               // the forward's: 16 x 16
-constexpr int MMA_THREADS = 512;           // the backward kernels': 16 warps
-constexpr int SLICE = 128;                 // most output columns of one CTA
-constexpr int PANEL_COLS = 32;             // head_dim columns of a staged score panel (the forward)
+constexpr int MMA_THREADS = 512;           // every kernel's: 16 warps
+constexpr int SLICE = 128;                 // most output columns of a backward CTA, and of a piece of the forward's
+constexpr int FWD_SLICE = 512;             // most output columns of a forward CTA
 constexpr float NEG = -3.4028234663852886e38f;  // finfo(float32).min
-
-// The forward's strides. A panel row: 36 floats, nine 16-byte chunks, so that rows tx + 16 j of 8
-// consecutive lanes start in 8 different 16-byte bank groups
-constexpr int PANEL_LD = 36;
-constexpr int PANEL = BLOCK * PANEL_LD;    // floats of one panel
-constexpr int SLICE_TILE = BLOCK * SLICE;  // floats of one staged slice (rows of SLICE floats)
-// Row stride of the P tile: 80 floats, so the rows ty + 16 i of a warp's two ty lie 16 banks apart
-// and a warp's scalar stores of one (i, j) hit 32 different banks
-constexpr int TILE_LD = 80;
-constexpr int PTILE = BLOCK * TILE_LD;
 
 // The backward kernels' panels are 64 head_dim columns wide (half the stages, and the barriers, of
 // 32-column panels). Strides, for the mma fragments of lane (g, t) = (lane / 4, lane % 4), whose
@@ -118,15 +112,24 @@ template <int PANELS_FLOATS, int SLICE_FLOATS, int TILES, int TILE_FLOATS, int V
   static constexpr int VEC0 = TILE0 + TILES * TILE_FLOATS;
   static constexpr size_t BYTES = (size_t)(VEC0 + VEC) * sizeof(float);
 };
-using FwdSmem = Smem<2 * PANEL, SLICE_TILE, 1, PTILE, 0>;  // Q, K panels; P
+// The forward at slices of SW columns (SW = head_dim up to 128, else FWD_SLICE): at SW = 64 and 96 two
+// CTAs an SM, each with ~108 KB of shared memory and at most 64 registers a thread, whose score stages
+// hold 64 head_dim columns of the Q and K tiles (COLS); at SW = 128 and 512 one CTA an SM with 128
+// registers a thread (the 16 or 64 output accumulators), whose score stages hold 128 columns. Shared
+// memory: Q, K panels or a V piece; the two halves of S (the first then P); alpha and l of the query
+// tile's rows, then the key tile's mask, by tile parity
+template <int SW> struct FwdShape {
+  static constexpr int CTAS = SW < SLICE ? 2 : 1;  // CTAs an SM
+  static constexpr int COLS = SW < SLICE ? MMA_PANEL_COLS : SLICE;
+  static constexpr int LD = COLS + 8;
+  static constexpr int PANEL = BLOCK * LD;
+  using Mem = Smem<2 * PANEL, MMA_SLICE_TILE, 2, MMA_PTILE, 4 * BLOCK>;
+};
 // K, Q, V, dO panels or dO, Q slices; S^T then P^T, dP^T then dS^T; lse and delta of the query
 // tile, by tile parity
 using DkvSmem = Smem<4 * MMA_PANEL, 2 * MMA_SLICE_TILE, 2, MMA_PTILE, 4 * BLOCK>;
 // Q, K, dO, V panels or a K slice; S, dP then dS; the key tile's mask, by tile parity
 using DqSmem = Smem<4 * MMA_PANEL, MMA_SLICE_TILE, 2, MMA_PTILE, 2 * BLOCK>;
-
-__device__ __forceinline__ int thread_row() { return threadIdx.x >> 4; }  // ty
-__device__ __forceinline__ int thread_col() { return threadIdx.x & 15; }  // tx
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
   const uint32_t addr = (uint32_t)__cvta_generic_to_shared(dst);
@@ -143,7 +146,7 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 // Columns col0 .. col0 + COLS - 1 of rows row0 .. row0 + 63 of a [len][d] matrix into a panel of row
 // stride LD, by the NTHREADS threads of the CTA; rows at or past len and columns at or past d are
 // zero-filled.
-template <int LD, int NTHREADS, int COLS = PANEL_COLS>
+template <int LD, int NTHREADS, int COLS>
 __device__ __forceinline__ void load_panel(float* dst, const float* __restrict__ src, int row0, int len, int d,
                                            int col0) {
   for (int idx = threadIdx.x; idx < BLOCK * (COLS / 4); idx += NTHREADS) {
@@ -171,100 +174,20 @@ __device__ __forceinline__ bool key_kept(const int* __restrict__ mask_row, int k
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core products of the forward
-// ---------------------------------------------------------------------------
-
-// s[i][j] += sum over the panels' 32 columns of A[ty + 16 i][k] B[tx + 16 j][k], in column order.
-__device__ __forceinline__ void score_panel(float (&s)[4][4], const float* a, const float* b) {
-  const int ty = thread_row(), tx = thread_col();
-#pragma unroll
-  for (int k = 0; k < PANEL_COLS; k += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * PANEL_LD + k);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * PANEL_LD + k);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(av[i].x, bv[j].x, s[i][j]);
-        s[i][j] = fmaf(av[i].y, bv[j].y, s[i][j]);
-        s[i][j] = fmaf(av[i].z, bv[j].z, s[i][j]);
-        s[i][j] = fmaf(av[i].w, bv[j].w, s[i][j]);
-      }
-  }
-}
-
-// acc[i][h][c] += sum over the 64 rows k of X[ty + 16 i][k] Y[k][4 tx + 64 h + c]: X the P tile
-// (TILE_LD), Y a staged slice w columns wide; the second column group only below w.
-__device__ __forceinline__ void slice_product(float (&acc)[4][2][4], const float* x, const float* y, int w) {
-  const int ty = thread_row(), tx = thread_col();
-  const bool hi = 4 * tx + 64 < w;
-#pragma unroll 2
-  for (int k = 0; k < BLOCK; k += 4) {
-    float xv[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(xv[i]) = *reinterpret_cast<const float4*>(x + (ty + 16 * i) * TILE_LD + k);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 y0 = *reinterpret_cast<const float4*>(y + (k + kk) * SLICE + 4 * tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][0][0] = fmaf(xv[i][kk], y0.x, acc[i][0][0]);
-        acc[i][0][1] = fmaf(xv[i][kk], y0.y, acc[i][0][1]);
-        acc[i][0][2] = fmaf(xv[i][kk], y0.z, acc[i][0][2]);
-        acc[i][0][3] = fmaf(xv[i][kk], y0.w, acc[i][0][3]);
-      }
-      if (hi) {
-        const float4 y1 = *reinterpret_cast<const float4*>(y + (k + kk) * SLICE + 64 + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][1][0] = fmaf(xv[i][kk], y1.x, acc[i][1][0]);
-          acc[i][1][1] = fmaf(xv[i][kk], y1.y, acc[i][1][1]);
-          acc[i][1][2] = fmaf(xv[i][kk], y1.z, acc[i][1][2]);
-          acc[i][1][3] = fmaf(xv[i][kk], y1.w, acc[i][1][3]);
-        }
-      }
-    }
-  }
-}
-
-// Rows row0 + ty + 16 i below n_rows of an output block into columns c0 + 4 tx + 64 h of a [.][d]
-// matrix, row i divided by f[i]; the second group only below w.
-__device__ __forceinline__ void store_block(float* __restrict__ dst, const float (&acc)[4][2][4], int row0,
-                                            int n_rows, int d, int c0, int w, const float (&f)[4]) {
-  const int ty = thread_row(), tx = thread_col();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= n_rows) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (4 * tx + 64 * h >= w) continue;
-      float4 out;
-      out.x = acc[i][h][0] / f[i];
-      out.y = acc[i][h][1] / f[i];
-      out.z = acc[i][h][2] / f[i];
-      out.w = acc[i][h][3] / f[i];
-      *reinterpret_cast<float4*>(dst + (size_t)row * d + c0 + 4 * tx + 64 * h) = out;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 3xTF32 tensor-core products of the backward kernels
+// 3xTF32 tensor-core products
 //
-// A CTA of 16 warps. In a score stage, warps 0-7 form the first product (S
-// or S^T) and warps 8-15 the second (dP or dP^T), each warp a 16 x 32 share
+// A CTA of 16 warps. In a backward score stage, warps 0-7 form the first
+// product (S or S^T) and warps 8-15 the second (dP or dP^T), each warp a 16 x 32 share
 // of its 64 x 64 tile (rows 16 ((w / 2) % 4), columns 32 (w % 2)). In dK/dV's
 // slice stage warps 0-7 form dV and warps 8-15 dK, each warp rows 16 ((w / 2)
 // % 4) and the 32-column groups 2 h + w % 2 below w (pair_product_mma); in
 // dQ's every warp forms a 16 x 32 share of the 64 x w output: rows 16 (w /
 // 4), the 32-column group w % 4; at w = 64 the warps of groups 2 and 3 take
 // groups 0 and 1 over the second half of the 64 k, and their sums are added
-// in at the end; at w = 96 group 3 has none (slice_product_mma). Fragments
+// in at the end; at w = 96 group 3 has none (slice_product_mma). The
+// forward's score stage takes the shares of a backward one, its two halves
+// of the stage's columns in place of the two products; its P V the shares
+// of out_col (its design note says how). Fragments
 // follow the PTX layout of mma.m16n8k8 (lane (g, t): A rows g and g + 8, B
 // column g, C columns 2t and 2t + 1); which column or row of shared memory a
 // k-slot or an n-slot reads is the kernel's choice, made so that each
@@ -425,6 +348,87 @@ __device__ __forceinline__ void slice_product_mma(float (&acc)[4][4], const floa
   add_chain(acc, part);
 }
 
+// The forward's output shares: of a piece NT x 32 columns wide (NT = 2, 3 or 4: the 64-, 96- and
+// 128-column slices), warp w holds rows 16 (w / 4) + g (+ 8) of the columns from col = 8 NT (w % 4); its
+// n-tile jj's column g is column col + NT g + jj, so its accumulators hold columns col + 2 NT t .. + 2 NT
+// - 1 of rows g and g + 8 (c0, c2 of n-tile jj at + jj; c1, c3 at + NT + jj).
+template <int NT> __device__ __forceinline__ int out_col() { return 8 * NT * (warp_id() & 3); }
+__device__ __forceinline__ int out_row() { return 16 * (warp_id() >> 2); }
+
+// b = NT consecutive floats from p: one 64- or 128-bit read at NT = 2 or 4, so that the B reads of a
+// share's k-row hit 32 banks a phase (rows t at a stride == 8 mod 32, columns NT g), and three at NT = 3
+// (banks 8 t + 3 g + jj: 32 different banks in a warp)
+template <int NT> __device__ __forceinline__ void load_cols(float (&b)[NT], const float* p) {
+  if constexpr (NT == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    b[0] = v.x, b[1] = v.y, b[2] = v.z, b[3] = v.w;
+  } else if constexpr (NT == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    b[0] = v.x, b[1] = v.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < NT; ++i) b[i] = p[i];
+  }
+}
+
+// O_piece = alpha O_piece + P V_piece: acc = acc alpha + the warp's share of X Y over the 64 keys (X the P
+// tile, Y a staged V piece of row stride MMA_SLICE_LD), alpha_lo in its rows g, alpha_hi in rows g + 8;
+// k-slots t, t + 4 of the step from k are keys k + t, k + t + 4, so a thread's B values of one key are
+// NT consecutive floats. The products of the piece form one chain from zero; to hold the registers of
+// the output accumulators, the k-steps are not unrolled and each n-tile's B pair is split just before
+// its three products.
+template <int NT>
+__device__ __forceinline__ void pv_piece_mma(float (&acc)[NT][4], const float* x, const float* y, float alpha_lo,
+                                             float alpha_hi) {
+  const int g = lane_g(), t = lane_t();
+  const float* xr = x + (out_row() + g) * MMA_TILE_LD + t;
+  const float* yr = y + t * MMA_SLICE_LD + out_col<NT>() + NT * g;
+  float part[NT][4];
+  zero(part);
+#pragma unroll 1
+  for (int k = 0; k < BLOCK; k += 8) {
+    const FragA fa = frag_a_slice<MMA_TILE_LD>(xr, k);
+    float b0[NT], b1[NT];
+    load_cols<NT>(b0, yr + k * MMA_SLICE_LD);
+    load_cols<NT>(b1, yr + (k + 4) * MMA_SLICE_LD);
+#pragma unroll
+    for (int jj = 0; jj < NT; ++jj) {
+      const FragB fb = frag_b(b0[jj], b1[jj]);
+      mma_tf32(part[jj], fa.small, fb.big);
+      mma_tf32(part[jj], fa.big, fb.small);
+      mma_tf32(part[jj], fa.big, fb.big);
+    }
+  }
+#pragma unroll
+  for (int jj = 0; jj < NT; ++jj) {
+    acc[jj][0] = acc[jj][0] * alpha_lo + part[jj][0];
+    acc[jj][1] = acc[jj][1] * alpha_lo + part[jj][1];
+    acc[jj][2] = acc[jj][2] * alpha_hi + part[jj][2];
+    acc[jj][3] = acc[jj][3] * alpha_hi + part[jj][3];
+  }
+}
+
+// The warp's share of an output piece divided by l_lo in rows g and by l_hi in rows g + 8, into rows
+// row0 + out_row() + g (+ 8) below n_rows and columns c0 + out_col() + 2 NT t .. of a [.][d] matrix.
+template <int NT>
+__device__ __forceinline__ void store_piece(float* __restrict__ dst, const float (&acc)[NT][4], int row0, int n_rows,
+                                            int d, int c0, float l_lo, float l_hi) {
+  const int g = lane_g(), t = lane_t();
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + out_row() + g + 8 * half;
+    if (row >= n_rows) continue;
+    const int e = 2 * half;
+    const float l = half ? l_hi : l_lo;
+    float out[2 * NT];
+#pragma unroll
+    for (int jj = 0; jj < NT; ++jj) out[jj] = acc[jj][e] / l, out[NT + jj] = acc[jj][e + 1] / l;
+    float* p = dst + (size_t)row * d + c0 + out_col<NT>() + 2 * NT * t;
+#pragma unroll
+    for (int i = 0; i < NT; ++i) *reinterpret_cast<float2*>(p + 2 * i) = make_float2(out[2 * i], out[2 * i + 1]);
+  }
+}
+
 // acc[h][jj] += a warp's 16-row share of X Y over the 64 k, for products that 8 warps form together
 // (the dK/dV kernel's dV and dK): X a P or dS tile (rows 16 wr + g (+ 8)), Y a staged slice or panel
 // w columns wide of row stride LD. The warp takes the 32-column groups G = 2 h + wc below w; in group
@@ -532,36 +536,71 @@ __device__ __forceinline__ void store_slice_mma(float* __restrict__ dst, float (
   }
 }
 
-__device__ __forceinline__ void zero_acc(float (&a)[4][2][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) a[i][h][c] = 0.0f;
-}
-
-
 // ---------------------------------------------------------------------------
 // Forward. Replaces _flash_kernel (mafed_tpu/kernels/attention.py:81-153) at
-// float32. Per key tile: D / 32 score stages (Q and K panels), the online
-// softmax of the 64 x 64 tile into P, then one stage of O_s += P V_s.
-// Design: CUDA-core FMAs, bound by operations (~0.17 ms at the 410M CE
-// shape): thread (ty, tx) = (tid / 16, tid % 16) holds rows ty + 16 i (i < 4)
-// of the query tile; in a score block the keys tx + 16 j (j < 4), so a row's
-// 64 scores lie in the 16 lanes of one half-warp (row reductions are 4
-// shuffles); in an output block the columns 4 tx + 64 h .. + 3 (h < 2, the
-// second group only where the slice is wider than 64). Operands come from
-// shared memory as 16-byte vectors.
+// float32. The CTA owns a query tile and a slice of SW output columns (SW =
+// head_dim for D = 64, 96 and 128, else FWD_SLICE = 512); per key tile:
+// ceil(D / COLS) score stages (COLS columns of the Q and K tiles each), the
+// online softmax of the 64 x 64 score tile into P, then a stage for each
+// 128-column piece of the slice: O_piece = alpha O_piece + P V_piece; o = O /
+// l at the end.
+// Design: every product in 3xTF32 on the tensor cores, the score tile formed
+// once over all of D (bound ~0.08 ms by bytes at the 410M CE shape). In a
+// score stage warps 0-7 sum the first half of the stage's columns and warps
+// 8-15 the second, each warp a 16 x 32 share of the tile as a fresh chain
+// (score_half_mma) that it adds to its half's running sums in shared memory
+// (the first stage of a tile stores them); every reader takes S as the first
+// half plus the second. The softmax pass runs on all 512 threads, eight a row
+// (8 keys each; a row's max and sum are three shuffles, whose xor pairs give
+// each of the eight the same bits): the row's m and l stay in the registers of
+// its eight threads, P goes over the first half's sums and the row's alpha to
+// shared memory. In a piece's stage every warp forms a share of P V_piece, 16
+// rows by a quarter of the piece's columns (out_col), over all 64 keys as a
+// fresh chain, added to its accumulators times alpha. The accumulators are
+// SW / 32 x 4 floats a thread (64 at SW = 512, within the 128 registers of 512
+// threads). The instantiations of D up to 128 have every width as a constant;
+// at 64 and 96 two CTAs share an SM (64 registers, 64-column score stages,
+// ~108 KB of shared memory each), so that one CTA's loads and softmax overlap
+// the other's products (PERF.md has the variants' times); at 128 and 512 one
+// CTA holds an SM (~171 KB: two stages of 128-column Q and K panels or a V
+// piece, the two score halves, alpha and l of the rows and the key tile's
+// mask). Slice 0 writes lse.
 // ---------------------------------------------------------------------------
+
+// part = the warp's 16 x 32 share of Q K^T over columns k_begin .. k_end - 1 of a score stage (a Q and
+// a K panel of row stride LD): rows score_row() + g (+ 8) of Q; n-tile j's column g is key score_col()
+// + 8 j + g; k-slots t, t + 4 of the step from k are columns k + 2t, k + 2t + 1 of both.
+template <int LD>
+__device__ __forceinline__ void score_half_mma(float (&part)[4][4], const float* buf, int k_begin, int k_end) {
+  const int g = lane_g(), t = lane_t();
+  const float* ar = buf + (score_row() + g) * LD + 2 * t;
+  const float* br = buf + BLOCK * LD + (score_col() + g) * LD + 2 * t;
+  zero(part);
+#pragma unroll 2
+  for (int k = k_begin; k < k_end; k += 8) {
+    const FragA fa = frag_a<LD>(ar, k);
+    FragB fb[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 v = *reinterpret_cast<const float2*>(br + 8 * j * LD + k);
+      fb[j] = frag_b(v.x, v.y);
+    }
+    mma3(part, fa, fb);
+  }
+}
+
 template <int SW>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(MMA_THREADS, FwdShape<SW>::CTAS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                      const int* __restrict__ mask, float* __restrict__ o, float* __restrict__ lse, int heads,
-                     int q_len, int kv_len, int d, int causal, float scale) {
-  const int slice = blockIdx.x, qt = blockIdx.y, bh = blockIdx.z;
+                     int q_len, int kv_len, int head_dim, int causal, float scale) {
+  constexpr int PIECES = SW <= SLICE ? 1 : SW / SLICE, COLS = FwdShape<SW>::COLS, LD = FwdShape<SW>::LD;
+  constexpr int NT = SW <= SLICE ? SW / 32 : 4;  // n-tiles of a warp's share of a piece
+  using FwdSmem = typename FwdShape<SW>::Mem;
+  // up to 128 columns the instantiation is of head_dim itself: one slice, every width a constant
+  const int d = SW <= SLICE ? SW : head_dim, slice = SW <= SLICE ? 0 : blockIdx.x;
+  const int qt = blockIdx.y, bh = blockIdx.z;
   const int c0 = slice * SW, w = min(SW, d - c0), q0 = qt * BLOCK;
-  const int ty = thread_row(), tx = thread_col();
   q += (size_t)bh * q_len * d;
   k += (size_t)bh * kv_len * d;
   v += (size_t)bh * kv_len * d;
@@ -570,28 +609,44 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
   const int* mask_row = mask == nullptr ? nullptr : mask + (size_t)(bh / heads) * kv_len;
 
   extern __shared__ __align__(16) float smem[];
-  float* const ptile = smem + FwdSmem::TILE0;
+  float* const s_lo = smem + FwdSmem::TILE0;  // the first half's sums of S, then P
+  float* const s_hi = s_lo + MMA_PTILE;       // the second half's
+  float* const row_alpha = smem + FwdSmem::VEC0;
+  float* const row_l = row_alpha + BLOCK;
+  int* const kmask = reinterpret_cast<int*>(row_l + BLOCK);  // [tile parity][64]
   const int n_kt = (kv_len + BLOCK - 1) / BLOCK;
   const int upper = causal ? min(qt + 1, n_kt) : n_kt;
-  const int np = d / PANEL_COLS, per_tile = np + 1, n_stages = upper * per_tile;
+  const int ns = (d + COLS - 1) / COLS;  // score stages a key tile
+  const int per_tile = ns + (w + SLICE - 1) / SLICE, n_stages = upper * per_tile;
 
   auto load_stage = [&](int st) {
     const int kt = st / per_tile, p = st - kt * per_tile;
     float* buf = smem + (st & 1) * FwdSmem::STAGE;
-    if (p < np) {
-      load_panel<PANEL_LD, THREADS>(buf, q, q0, q_len, d, p * PANEL_COLS);
-      load_panel<PANEL_LD, THREADS>(buf + PANEL, k, kt * BLOCK, kv_len, d, p * PANEL_COLS);
+    if (p < ns) {
+      const int col = p * COLS, sc = min(COLS, d - col);
+      load_slice<LD, MMA_THREADS>(buf, q, q0, q_len, d, col, sc);
+      load_slice<LD, MMA_THREADS>(buf + BLOCK * LD, k, kt * BLOCK, kv_len, d, col, sc);
+      if (p == 0 && mask_row != nullptr && threadIdx.x < BLOCK) {  // the key tile's mask (0 past kv_len)
+        const int key = kt * BLOCK + threadIdx.x;
+        cp_async4(kmask + (kt & 1) * BLOCK + threadIdx.x, key < kv_len ? mask_row + key : mask_row, key < kv_len);
+      }
     } else {
-      load_slice<SLICE, THREADS>(buf, v, kt * BLOCK, kv_len, d, c0, w);
+      const int col = c0 + (p - ns) * SLICE;
+      load_slice<MMA_SLICE_LD, MMA_THREADS>(buf, v, kt * BLOCK, kv_len, d, col, min(SLICE, c0 + w - col));
     }
     cp_async_commit();
   };
 
-  float acc[4][2][4], s[4][4];
-  float m[4], l[4];
-  zero_acc(acc);
+  const int g = lane_g(), t = lane_t();
+  const int r_loc = score_row() + g, c_loc = score_col() + 2 * t;  // the thread's first score row, column
+  float* const s_mine = first_product() ? s_lo : s_hi;            // the half the warp sums
+  // the softmax pass: the thread's query row and its columns 4 (tid % 8) + 32 h .. + 3
+  const int e_row = threadIdx.x >> 3, e_col = 4 * (threadIdx.x & 7), row = q0 + e_row;
+  const int o_row = out_row() + g;  // the warp's output rows: o_row and o_row + 8
+  float m = -INFINITY, l = 0.0f;    // row e_row's
+  float acc[PIECES][NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.0f;
+  for (int pp = 0; pp < PIECES; ++pp) zero(acc[pp]);
 
   if (n_stages > 0) load_stage(0);
   for (int st = 0; st < n_stages; ++st) {
@@ -600,62 +655,83 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
     if (st + 1 < n_stages) load_stage(st + 1);
     const int kt = st / per_tile, p = st - kt * per_tile;
     const float* buf = smem + (st & 1) * FwdSmem::STAGE;
-    if (p == np) {  // O_s += P V_s
-      slice_product(acc, ptile, buf, w);
+    if (p >= ns) {  // O_piece = alpha O_piece + P V_piece
+      const int piece = p - ns;
+      const float a_lo = row_alpha[o_row], a_hi = row_alpha[o_row + 8];
+#pragma unroll
+      for (int pp = 0; pp < PIECES; ++pp)
+        if (pp == piece) pv_piece_mma<NT>(acc[pp], s_lo, buf, a_lo, a_hi);
       continue;
     }
-    if (p == 0) zero(s);
-    score_panel(s, buf, buf + PANEL);
-    if (p + 1 < np) continue;
-    // the tile's online softmax, as _flash_kernel's body
-    bool keep[4];
+    const int sc = min(COLS, d - p * COLS), half = sc >> 1;
+    float part[4][4];
+    score_half_mma<LD>(part, buf, first_product() ? 0 : half, first_product() ? half : sc);
+    // accumulator (j, 2 hf + e) is row r_loc + 8 hf, key c_loc + 8 j + e: into the half's running sums
 #pragma unroll
-    for (int j = 0; j < 4; ++j) keep[j] = key_kept(mask_row, kt * BLOCK + tx + 16 * j, kv_len);
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      bool kp[4];
-      float mx = NEG;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kp[j] = keep[j] && (!causal || kt * BLOCK + tx + 16 * j <= row);
-        s[i][j] = kp[j] ? s[i][j] * scale : NEG;
-        mx = fmaxf(mx, s[i][j]);
+      for (int hf = 0; hf < 2; ++hf) {
+        float2* at = reinterpret_cast<float2*>(s_mine + (r_loc + 8 * hf) * MMA_TILE_LD + c_loc + 8 * j);
+        float2 x = make_float2(part[j][2 * hf], part[j][2 * hf + 1]);
+        if (p > 0) {
+          const float2 sum = *at;
+          x = make_float2(sum.x + x.x, sum.y + x.y);
+        }
+        *at = x;
       }
+    if (p + 1 < ns) continue;
+    __syncthreads();
+    // the tile's online softmax, as _flash_kernel's body: row e_row, keys e_col + 32 h + i
+    const int* const km = kmask + (kt & 1) * BLOCK;
+    float s[8];
+    bool kp[8];
+    float mx = NEG;
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.0f;
+    for (int h = 0; h < 2; ++h) {
+      const int c = e_col + 32 * h, at = e_row * MMA_TILE_LD + c;
+      const float4 lo4 = *reinterpret_cast<const float4*>(s_lo + at);
+      const float4 hi4 = *reinterpret_cast<const float4*>(s_hi + at);
+      const float lo[4] = {lo4.x, lo4.y, lo4.z, lo4.w}, hi[4] = {hi4.x, hi4.y, hi4.z, hi4.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = kp[j] ? expf(s[i][j] - m_new) : 0.0f;
-        sum += s[i][j];
+      for (int i = 0; i < 4; ++i) {
+        const int key = kt * BLOCK + c + i, n = 4 * h + i;
+        kp[n] = key < kv_len && (mask_row == nullptr || km[c + i] > 0) && (!causal || key <= row);
+        s[n] = kp[n] ? (lo[i] + hi[i]) * scale : NEG;
+        mx = fmaxf(mx, s[n]);
       }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][h][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ptile[(ty + 16 * i) * TILE_LD + tx + 16 * j] = s[i][j];
     }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = expf(m - m_new);
+    float sum = 0.0f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      s[n] = kp[n] ? expf(s[n] - m_new) : 0.0f;
+      sum += s[n];
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    l = l * alpha + sum;
+    m = m_new;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(s_lo + e_row * MMA_TILE_LD + e_col + 32 * h) =
+          make_float4(s[4 * h], s[4 * h + 1], s[4 * h + 2], s[4 * h + 3]);
+    if ((threadIdx.x & 7) == 0) row_alpha[e_row] = alpha;
   }
 
-  float l_safe[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) l_safe[i] = l[i] == 0.0f ? 1.0f : l[i];
-  store_block(o, acc, q0, q_len, d, c0, w, l_safe);  // o = acc / l, as _flash_kernel
-  if (slice == 0 && tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      if (row < q_len) lse[row] = l[i] == 0.0f ? INFINITY : m[i] + logf(l_safe[i]);
-    }
+  // o = acc / l, as _flash_kernel (l of the warp's rows through shared memory); slice 0 writes lse
+  const float l_safe = l == 0.0f ? 1.0f : l;
+  if ((threadIdx.x & 7) == 0) {
+    row_l[e_row] = l_safe;
+    if (slice == 0 && row < q_len) lse[row] = l == 0.0f ? INFINITY : m + logf(l_safe);
   }
+  __syncthreads();
+  const float l_lo = row_l[o_row], l_hi = row_l[o_row + 8];
+#pragma unroll
+  for (int pp = 0; pp < PIECES; ++pp)
+    if (pp * SLICE < w) store_piece<NT>(o, acc[pp], q0, q_len, d, c0 + pp * SLICE, l_lo, l_hi);
 }
 
 // ---------------------------------------------------------------------------
@@ -921,13 +997,28 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 // head_dims the kernels take: whole 32-column panels, and slices of 64 columns or more
 __host__ __forceinline__ bool takes_head_dim(int d) { return d >= 64 && d % 32 == 0 && (d <= SLICE || d % SLICE == 0); }
 
-__host__ __forceinline__ dim3 f32_grid(int head_dim, int len, int batch_heads) {
-  return dim3((head_dim + SLICE - 1) / SLICE, (len + BLOCK - 1) / BLOCK, batch_heads);
+__host__ __forceinline__ dim3 f32_grid(int head_dim, int len, int batch_heads, int slice = SLICE) {
+  return dim3((head_dim + slice - 1) / slice, (len + BLOCK - 1) / BLOCK, batch_heads);
 }
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The forward at slices of SW columns: head_dim itself up to 128, else FWD_SLICE
+template <int SW>
+cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, const void* mask, void* o, void* lse,
+                           int batch_heads, int heads, int q_len, int kv_len, int head_dim, int causal,
+                           float scale, void* stream) {
+  constexpr size_t bytes = FwdShape<SW>::Mem::BYTES;
+  cudaError_t err = allow_smem(flash_fwd_f32_kernel<SW>, bytes);
+  if (err != cudaSuccess) return err;
+  flash_fwd_f32_kernel<SW><<<f32_grid(head_dim, q_len, batch_heads, SW), MMA_THREADS, bytes,
+                             (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)mask, (float*)o, (float*)lse, heads, q_len,
+      kv_len, head_dim, causal, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -942,12 +1033,9 @@ extern "C" cudaError_t flash_attn_fwd_f32(const void* q, const void* k, const vo
                                           void* lse, int batch_heads, int heads, int q_len, int kv_len,
                                           int head_dim, int causal, float scale, void* stream) {
   if (!takes_head_dim(head_dim)) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(flash_fwd_f32_kernel<SLICE>, FwdSmem::BYTES);
-  if (err != cudaSuccess) return err;
-  flash_fwd_f32_kernel<SLICE><<<f32_grid(head_dim, q_len, batch_heads), THREADS, FwdSmem::BYTES, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)mask, (float*)o, (float*)lse, heads, q_len,
-      kv_len, head_dim, causal, scale);
-  return cudaGetLastError();
+  auto launch = head_dim == 64 ? launch_fwd_f32<64> : head_dim == 96 ? launch_fwd_f32<96>
+              : head_dim == SLICE ? launch_fwd_f32<SLICE> : launch_fwd_f32<FWD_SLICE>;
+  return launch(q, k, v, mask, o, lse, batch_heads, heads, q_len, kv_len, head_dim, causal, scale, stream);
 }
 
 extern "C" cudaError_t flash_attn_bwd_dkv_f32(const void* q, const void* k, const void* v, const void* dout,

@@ -29,11 +29,11 @@ width), 128 (Pythia-1.4B, 6.9B, 12B), 256 (the 1B decoder), each a kernel of
 its own, and every multiple of 128 from 384 on (heads of 384 or 512 of a
 regrouped decoder), which the wide kernels take with a grid axis over
 128-column slices of the output. Those are the bfloat16 kernels; at float32
-inputs one kernel each takes every such head_dim, with a grid axis over
-slices of at most 128 output columns and float32-accurate products (the
-Pallas kernels keep the matmul operands in the input dtype): float32 FMAs on
-the CUDA cores in the forward, 3xTF32 on the tensor cores in the dK/dV and
-dQ kernels.
+inputs the float32 kernels take every such head_dim with float32-accurate
+products (the Pallas kernels keep the matmul operands in the input dtype),
+3xTF32 on the tensor cores in all three: the forward one CTA a query tile
+over all of head_dim up to 512 (so each score tile is formed once), the dK/dV
+and dQ kernels with a grid axis over slices of at most 128 output columns.
 
 `LAUNCHES` counts kernel launches, one per launch, for callers that check
 which path ran; `LAUNCHES_BY_HEAD_DIM[d]` counts the same launches at head_dim d,

@@ -18,12 +18,13 @@ head_dim of a kernel is reported, and checked, on its own. The wide kernels,
 which take every multiple of 128 from 384 on as a runtime argument, are
 keyed by their template argument, the width of the output slice of one CTA
 (`flash_fwd_wide_kernel<128>`), and so are the float32 kernels, which take
-every head_dim at run time (`flash_fwd_f32_kernel<128>`). `route()` names the
-entry point, the kernel and the grid's slices of a call; `sass_faults()` says
-what an instantiation's SASS lacks: TMA loads and wgmma (HGMMA) for the
-bfloat16 kernels; float32 FMAs and no tensor-core instruction for the
-float32 forward; TF32 mma.sync (HMMA ... TF32, the 3xTF32 products) and no
-wgmma for the two float32 backward kernels.
+every head_dim at run time (`flash_bwd_dq_f32_kernel<128>`; the float32
+forward one slice of all of head_dim, `flash_fwd_f32_kernel<64>`, `<96>`
+and `<128>` at those head_dims and `<512>` above). `route()` names the
+entry point, the kernel and the grid's slices of a call; `sass_faults()`
+says what an instantiation's SASS lacks: TMA loads and wgmma (HGMMA) for
+the bfloat16 kernels; TF32 mma.sync (HMMA ... TF32, the 3xTF32 products),
+no other HMMA and no wgmma for the float32 kernels.
 """
 
 from __future__ import annotations
@@ -48,10 +49,14 @@ HEAD_DIMS = (64, 96, 128, 256)  # the head_dims the library instantiates a kerne
 # WIDE_SLICE)
 WIDE_KERNELS = ("flash_fwd_wide_kernel", "flash_bwd_dkv_wide_kernel", "flash_bwd_dq_wide_kernel")
 WIDE_SLICE = 128
-# the float32 kernels: head_dim at run time, a grid axis over output slices of at most F32_SLICE columns
-# (flash_attn_f32.cu SLICE); the forward on CUDA-core FMAs, the backward pair in 3xTF32 mma.sync, no wgmma
+# the float32 kernels, all three in 3xTF32 mma.sync, no wgmma: head_dim at run time, a grid axis over
+# output slices of at most F32_SLICE columns (flash_attn_f32.cu SLICE); the forward's slice is all of
+# head_dim up to F32_FWD_SLICE (FWD_SLICE): an instantiation at each of F32_FWD_HEAD_DIMS (its slice
+# width), and one at F32_FWD_SLICE for every head_dim above
 F32_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel")
 F32_SLICE = 128
+F32_FWD_SLICE = 512
+F32_FWD_HEAD_DIMS = (64, 96, 128)
 # the C entry point of each kernel at bfloat16; the float32 one adds "_f32"
 ENTRY_POINTS = {"flash_fwd": "flash_attn_fwd", "flash_bwd_dkv": "flash_attn_bwd_dkv",
                 "flash_bwd_dq": "flash_attn_bwd_dq"}
@@ -74,8 +79,8 @@ def instantiation(kernel: str, head_dim: int) -> str:
 
 BF16_INSTANTIATIONS = (tuple(instantiation(k, d) for k in KERNELS for d in HEAD_DIMS)
                        + tuple(instantiation(k, WIDE_SLICE) for k in WIDE_KERNELS))
-F32_INSTANTIATIONS = tuple(instantiation(k, F32_SLICE) for k in F32_KERNELS)
-F32_TENSOR_CORE_INSTANTIATIONS = F32_INSTANTIATIONS[1:]  # the dK/dV and dQ kernels: 3xTF32
+F32_INSTANTIATIONS = (tuple(instantiation(F32_KERNELS[0], w) for w in (*F32_FWD_HEAD_DIMS, F32_FWD_SLICE))
+                      + tuple(instantiation(k, F32_SLICE) for k in F32_KERNELS[1:]))
 INSTANTIATIONS = BF16_INSTANTIATIONS + F32_INSTANTIATIONS
 
 
@@ -93,15 +98,20 @@ def route(name: str, dtype: str, head_dim: int) -> Route:
     "flash_bwd_dq") at input dtype `dtype` ("bfloat16" or "float32") and
     `head_dim`, as the C launchers choose it: at bfloat16 the kernel of that
     head_dim (one CTA a tile) or, from 384 on, the wide kernel (head_dim / 128
-    slices); at float32 the float32 kernel (ceil(head_dim / 128) slices)."""
+    slices); at float32 the float32 kernel (ceil(head_dim / 128) slices; the
+    forward all of head_dim in one slice up to 512 columns, at its
+    instantiation of head_dim 64, 96 or 128, else its <512> with
+    ceil(head_dim / 512) slices)."""
     if dtype not in DTYPES:
         raise TypeError(f"the CUDA kernels take {' or '.join(DTYPES)}, not {dtype}")
     if not takes_head_dim(head_dim):
         raise ValueError(f"head_dim {head_dim}: the CUDA kernels take head_dim "
                          f"{', '.join(str(x) for x in HEAD_DIMS)} and every multiple of 128 from 384 on")
     if dtype == "float32":
-        return Route(ENTRY_POINTS[name] + "_f32", instantiation(f"{name}_f32_kernel", F32_SLICE),
-                     -(-head_dim // F32_SLICE))
+        width = F32_SLICE
+        if name == "flash_fwd":
+            width = head_dim if head_dim in F32_FWD_HEAD_DIMS else F32_FWD_SLICE
+        return Route(ENTRY_POINTS[name] + "_f32", instantiation(f"{name}_f32_kernel", width), -(-head_dim // width))
     if wide_head_dim(head_dim):
         return Route(ENTRY_POINTS[name], instantiation(f"{name}_wide_kernel", WIDE_SLICE), head_dim // WIDE_SLICE)
     return Route(ENTRY_POINTS[name], instantiation(f"{name}_kernel", head_dim), 1)
@@ -246,15 +256,11 @@ def parse_sass(sass: str) -> Dict[str, Dict[str, int]]:
 
 def sass_fault(kernel: str, counts: Dict[str, int]) -> Optional[str]:
     """What one instantiation's SASS lacks, or None: a bfloat16 kernel needs
-    HGMMA and UTMALDG; the float32 forward FFMA and neither HGMMA nor HMMA
-    (its products are float32 FMAs, never tf32); the float32 backward
-    kernels HMMA of the TF32 kind only (the 3xTF32 products) and no HGMMA."""
-    if kernel in F32_TENSOR_CORE_INSTANTIATIONS:
+    HGMMA and UTMALDG; a float32 kernel HMMA of the TF32 kind only (the
+    3xTF32 products) and no HGMMA."""
+    if kernel in F32_INSTANTIATIONS:
         ok = counts["HMMA.TF32"] and counts["HMMA"] == counts["HMMA.TF32"] and not counts["HGMMA"]
         need = "HMMA of the TF32 kind only and no HGMMA"
-    elif kernel in F32_INSTANTIATIONS:
-        ok = counts["FFMA"] and not counts["HGMMA"] and not counts["HMMA"]
-        need = "FFMA, no HGMMA and no HMMA"
     else:
         ok = counts["HGMMA"] and counts["UTMALDG"]
         need = "HGMMA and UTMALDG"

@@ -20,6 +20,9 @@ CE shape (410M [48, 16, 336, 64], a decoder at
 GPT-NeoX-20B's width [48, 64, 336, 96], 1.4B [48, 16, 336, 128], 1B [48, 8,
 336, 256], that width as 16 heads of 384 [48, 16, 336, 384], 1B as 4 heads
 of 512 [48, 4, 336, 512]).
+A variant whose name starts with "probe" is a deliberately wrong copy
+that takes some work out of a kernel, to see what that work costs: its
+errors are recorded and it is timed, but it does not stop the run.
 Then the forward, dK/dV and dQ kernels are timed at those CE shapes in
 turns, three rounds of 50 launches each, so every variant sees the same
 card. Prints one JSON line per variant (ptxas report, largest errors and
@@ -133,11 +136,13 @@ def main() -> int:
                     dk, dv = A.flash_bwd_dkv(q, k, v, mask, do, lse_p, delta, causal, scale)
                     dq = A.flash_bwd_dq(q, k, v, mask, do, lse_p, delta, causal, scale)
                     fin = torch.isfinite(lse_p)
-                    if not torch.equal(torch.isinf(lse), ~fin):
-                        raise AssertionError(f"variant {name}: empty rows differ from the plain version")
-                    for label, got, want in (("o", o, o_p), ("dk", dk, dk_p), ("dv", dv, dv_p), ("dq", dq, dq_p)):
-                        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol,
-                                                   msg=lambda m: f"variant {name}, {label}: {m}")
+                    if not name.startswith("probe"):
+                        if not torch.equal(torch.isinf(lse), ~fin):
+                            raise AssertionError(f"variant {name}: empty rows differ from the plain version")
+                        for label, got, want in (("o", o, o_p), ("dk", dk, dk_p), ("dv", dv, dv_p),
+                                                 ("dq", dq, dq_p)):
+                            torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol,
+                                                       msg=lambda m: f"variant {name}, {label}: {m}")
                     errs = [chip_smoke._err(o, o_p), (lse[fin] - lse_p[fin]).abs().max().item(),
                             chip_smoke._err(dk, dk_p), chip_smoke._err(dv, dv_p), chip_smoke._err(dq, dq_p)]
                     results[name]["max_abs_err"].setdefault(q.shape[-1], []).append(errs)

@@ -1,12 +1,12 @@
-"""Measure the card's rate for the two instructions the float32 flash kernels multiply with.
+"""Measure the card's rate for the instruction the float32 flash kernels multiply with, and its float32 FMA rate.
 
     python3 scripts/mma_tf32_rate.py [--out PATH]
 
 Builds a small CUDA library with nvcc (sm_90a) that holds two loops with no
 memory traffic inside them: `mma.sync.aligned.m16n8k8` on TF32 operands
-with float32 accumulators (the instruction of the 3xTF32 dK/dV and dQ
-kernels of csrc/flash_attn_f32.cu) and float32 FMA on the CUDA cores (the
-float32 forward). Each warp keeps CHAINS independent accumulators so that
+with float32 accumulators (the instruction of the 3xTF32 kernels of
+csrc/flash_attn_f32.cu) and float32 FMA on the CUDA cores (the CUDA-core
+bound beside theirs). Each warp keeps CHAINS independent accumulators so that
 the instruction's latency is hidden; the grid is the card's SMs times 1, 2,
 4 and 8 CTAs of 256 threads. Every configuration is timed with CUDA events
 over one launch after a warm-up launch; the rate is the operations done

@@ -2,10 +2,9 @@
 the library's name follows every source file, and the ptxas report and the
 SASS dump are read per instantiation (kernel and head_dim; a wide kernel and
 its slice width; a float32 kernel and its slice width), and the SASS check
-asks TMA loads and wgmma of the bfloat16 kernels, float32 FMAs without any
-tensor-core instruction of the float32 forward, and TF32 mma.sync (the
-3xTF32 products) without wgmma of the float32 backward kernels. Nothing here
-compiles."""
+asks TMA loads and wgmma of the bfloat16 kernels and TF32 mma.sync (the
+3xTF32 products) without wgmma of the float32 kernels, the forward's two
+instantiations among them. Nothing here compiles."""
 
 import pytest
 
@@ -29,7 +28,8 @@ ptxas info    : Used 255 registers, used 1 barriers
 # and its registers as ptxas read them for sm_90a on an H100, with a spill made
 # up at dK/dV 256 so that one is read. A wide kernel has one template argument,
 # the width of its output slice (128), and takes head_dim at run time; so does
-# a float32 kernel (wg "f32" below: its mangled name takes float pointers).
+# a float32 kernel (wg "f32" below: its mangled name takes float pointers),
+# whose forward is built at four slice widths (64, 96, 128 and 512).
 _MANGLED = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}ELi{wg}EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16Pfiiiif"
 _MANGLED_WIDE = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16Pfiiiiif"
 _MANGLED_F32 = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}EEEvPKfS2_S2_PKiPfS5_iiiiiif"
@@ -41,7 +41,9 @@ _ENTRIES = [("flash_fwd_kernel", 64, 1, 92, 0), ("flash_fwd_kernel", 96, 2, 100,
             ("flash_bwd_dq_kernel", 256, 1, 218, 0), ("flash_bwd_dq_kernel", 96, 1, 154, 0),
             ("flash_bwd_dq_wide_kernel", 128, None, 177, 0), ("flash_fwd_wide_kernel", 128, None, 140, 0),
             ("flash_bwd_dkv_wide_kernel", 128, None, 243, 0), ("flash_bwd_dq_f32_kernel", 128, "f32", 155, 0),
-            ("flash_bwd_dkv_f32_kernel", 128, "f32", 192, 0), ("flash_fwd_f32_kernel", 128, "f32", 128, 0)]
+            ("flash_bwd_dkv_f32_kernel", 128, "f32", 192, 0), ("flash_fwd_f32_kernel", 128, "f32", 115, 0),
+            ("flash_fwd_f32_kernel", 512, "f32", 127, 0), ("flash_fwd_f32_kernel", 96, "f32", 63, 0),
+            ("flash_fwd_f32_kernel", 64, "f32", 64, 0)]
 
 def _mangled(name, d, wg):
     if wg is None:
@@ -63,21 +65,20 @@ _HMMA_TF32 = "        /*0500*/                   HMMA.1688.F32.TF32 R4, R16, R20
 
 
 def _hmma_count(name, regs):
-    """The TF32 HMMAs of a float32 backward kernel's canned SASS; none in the forward."""
-    return 0 if name.startswith("flash_fwd") else regs % 5 + 3
+    """The TF32 HMMAs of a float32 kernel's canned SASS."""
+    return regs % 5 + 3
 
 
-def _sass_of(name, d, wg, regs, hgmma=True, hmma=None):
+def _sass_of(name, d, wg, regs, hgmma=True, hmma=True):
     """A function's SASS: a bfloat16 kernel's TMA loads and wgmma; a float32
-    kernel's FFMAs and, in the backward pair, its 3xTF32 mma.sync
-    (HMMA.1688.F32.TF32; with `hmma` False none, with `hmma` True one in the
-    forward too); with `hgmma`, also a wgmma of the bfloat16 kind."""
+    kernel's FFMAs and its 3xTF32 mma.sync (HMMA.1688.F32.TF32; with `hmma`
+    False none); with `hgmma`, also a wgmma of the bfloat16 kind."""
     head = (f"\n\tcode for sm_90a\n\t\tFunction : {_mangled(name, d, wg)}\n"
             "\t.headerflags\t@\"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)\"\n")
     if wg == "f32":
         body = "        /*0400*/                   FFMA R12, R40, R52, R12 ;\n" * (regs % 11 + 1)
         n_hmma = _hmma_count(name, regs)
-        body += _HMMA_TF32 * (n_hmma if hmma is None else (n_hmma or 1) if hmma else 0)
+        body += _HMMA_TF32 * (n_hmma if hmma else 0)
         body += "        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24 ;\n" * hgmma
     else:
         body = ("        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;\n" * -(-d // 64)
@@ -109,7 +110,7 @@ def test_kernel_resources_reads_the_ptxas_report():
 
 def test_kernel_resources_keeps_every_instantiation_apart():
     got = build.kernel_resources(PTXAS_BOTH)
-    assert sorted(got) == sorted(build.INSTANTIATIONS) and len(got) == 18
+    assert sorted(got) == sorted(build.INSTANTIATIONS) and len(got) == 21
     for name, d, _, regs, spill in _ENTRIES:
         assert got[build.instantiation(name, d)] == {
             "spill_store_bytes": spill, "spill_load_bytes": spill // 2, "registers": regs}
@@ -143,23 +144,29 @@ def test_the_launchers_take_every_multiple_of_128_from_384():
 
 def test_the_f32_kernels_are_a_group_of_their_own():
     """The three float32 kernels are reported under their own names, at their
-    slice width, after the fifteen bfloat16 instantiations; their mangled
-    names are not taken for a bfloat16 kernel's."""
+    slice width (the forward at 64, 96, 128 and 512), after the fifteen
+    bfloat16 instantiations; their mangled names are not taken for a
+    bfloat16 kernel's."""
     assert build.F32_INSTANTIATIONS == (
-        "flash_fwd_f32_kernel<128>", "flash_bwd_dkv_f32_kernel<128>", "flash_bwd_dq_f32_kernel<128>")
+        "flash_fwd_f32_kernel<64>", "flash_fwd_f32_kernel<96>", "flash_fwd_f32_kernel<128>",
+        "flash_fwd_f32_kernel<512>", "flash_bwd_dkv_f32_kernel<128>", "flash_bwd_dq_f32_kernel<128>")
     assert build.INSTANTIATIONS == build.BF16_INSTANTIATIONS + build.F32_INSTANTIATIONS
-    assert len(set(build.INSTANTIATIONS)) == 18
+    assert len(set(build.INSTANTIATIONS)) == 21
     for name in build.F32_KERNELS:
         assert build._kernel_of(_mangled(name, 128, "f32")) == f"{name}<128>"
+    for width in (64, 96, 512):
+        assert build._kernel_of(_mangled("flash_fwd_f32_kernel", width, "f32")) == f"flash_fwd_f32_kernel<{width}>"
 
 
 def test_sass_check_asks_wgmma_of_bf16_and_ffma_without_wgmma_of_f32():
     """sass_faults over a canned `cuobjdump -sass` dump: none for the whole
     library as built; each instantiation judged by its own rule: a bfloat16
-    kernel without HGMMA or UTMALDG, a float32 backward kernel with an HGMMA
-    (a wgmma product), without HMMA or with an HMMA of another kind than
-    TF32, a float32 forward without FFMA or with an HMMA (its products are
-    float32 FMAs), and a missing instantiation are each named."""
+    kernel without HGMMA or UTMALDG, a float32 kernel with an HGMMA (a wgmma
+    product), without HMMA (products on the CUDA cores: the float32 forward
+    before its 3xTF32 form) or with an HMMA of another kind than TF32, at
+    each of the forward's instantiations, and a missing instantiation are
+    each named. (The name is the test's first one, from when the float32
+    forward was an FFMA kernel.)"""
     assert build.sass_faults(build.parse_sass(SASS_BOTH)) == []
     entries = {build.instantiation(name, d): (name, d, wg, regs) for name, d, wg, regs, _ in _ENTRIES}
 
@@ -183,11 +190,12 @@ def test_sass_check_asks_wgmma_of_bf16_and_ffma_without_wgmma_of_f32():
     other_kind = _sass_of(*entries[key], hgmma=False).replace("F32.TF32", "F32.BF16", 1)
     assert faults({key: other_kind}) == [
         f"{key}: needs HMMA of the TF32 kind only and no HGMMA, has {counts(ffma=6, hmma=5, tf32=4)}"]
-    key = "flash_fwd_f32_kernel<128>"
-    assert faults({key: _sass_of(*entries[key], hgmma=False).replace("FFMA", "FMUL")}) == [
-        f"{key}: needs FFMA, no HGMMA and no HMMA, has {counts()}"]
-    assert faults({key: _sass_of(*entries[key], hgmma=False, hmma=True)}) == [
-        f"{key}: needs FFMA, no HGMMA and no HMMA, has {counts(ffma=8, hmma=1)}"]
+    key = "flash_fwd_f32_kernel<64>"
+    assert faults({key: _sass_of(*entries[key], hgmma=False, hmma=False)}) == [
+        f"{key}: needs HMMA of the TF32 kind only and no HGMMA, has {counts(ffma=10)}"]
+    key = "flash_fwd_f32_kernel<512>"
+    assert faults({key: _sass_of(*entries[key], hgmma=True)}) == [
+        f"{key}: needs HMMA of the TF32 kind only and no HGMMA, has {counts(hgmma=1, ffma=7, hmma=5)}"]
     assert faults({"flash_bwd_dkv_f32_kernel<128>": ""}) == ["flash_bwd_dkv_f32_kernel<128>: not in the SASS"]
 
 
@@ -200,14 +208,18 @@ ROUTE_CASES = [(64, 1, "flash_fwd_kernel<64>"), (96, 1, "flash_fwd_kernel<96>"),
 def test_route_names_the_entry_kernel_and_slices(head_dim, bf16_slices, bf16_kernel):
     """At every head_dim the JAX dispatcher sends to Pallas: bfloat16 to the
     kernel of its head_dim (one CTA a tile) or a wide kernel (head_dim / 128
-    slices), float32 to the float32 kernels (ceil(head_dim / 128) slices)."""
+    slices), float32 to the float32 kernels: the backward pair at
+    ceil(head_dim / 128) slices, the forward at one slice up to 512 columns
+    (its instantiation of head_dim 64, 96 or 128; its <512> above:
+    ceil(head_dim / 512))."""
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         bf16 = build.route(name, "bfloat16", head_dim)
         assert (bf16.entry, bf16.instantiation, bf16.slices) == (
             build.ENTRY_POINTS[name], bf16_kernel.replace("flash_fwd", name), bf16_slices)
+        width = (head_dim if head_dim <= 128 else 512) if name == "flash_fwd" else 128
         f32 = build.route(name, "float32", head_dim)
         assert (f32.entry, f32.instantiation, f32.slices) == (
-            build.ENTRY_POINTS[name] + "_f32", f"{name}_f32_kernel<128>", -(-head_dim // 128))
+            build.ENTRY_POINTS[name] + "_f32", f"{name}_f32_kernel<{width}>", -(-head_dim // width))
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         build.route("flash_fwd", "float16", head_dim)
     with pytest.raises(ValueError, match="head_dim 320"):

@@ -14,16 +14,16 @@ that the regrouped decoders give the wide kernels (384 and 512), with the
 models' scale head_dim^-0.5.
 
 The float32 kernels (a `--compute_dtype float32` run) are held against the
-plain versions at float32 at atol = rtol = 1e-4 (lse 1e-5): the forward
-multiplies float32 operands with float32 FMAs, the dK/dV and dQ kernels in
-3xTF32 on the tensor cores (each product within a few 2^-21 of its size,
-tests/test_torch_tf32_split.py), the plain versions in float32 (TF32 off
-for their matmuls), in different orders, so they differ by float32-level
-rounding only; at every head_dim above and 640 (five output slices). At
-the CE shapes of head_dim 384 and 512 the backward stays within 4e-5, a
-limit that one truncating accumulation chain over all of D and the keys
-(6.0e-5 / 7.3e-5) would not meet. Two
-launches of each 3xTF32 kernel give the same bits.
+plain versions at float32 at atol = rtol = 1e-4 (lse 1e-5): the three
+kernels multiply in 3xTF32 on the tensor cores (each product within a few
+2^-21 of its size, tests/test_torch_tf32_split.py), the plain versions in
+float32 (TF32 off for their matmuls), in different orders, so they differ by
+float32-level rounding only; at every head_dim above and 640 (five output
+slices of the backward kernels, two of the forward). At the CE shapes of
+head_dim 384 and 512 the backward and the forward stay within 4e-5, a limit
+that one truncating accumulation chain over all of D and the keys (6.0e-5 /
+7.3e-5 in the backward) would not meet. Two launches of each 3xTF32 kernel
+give the same bits.
 """
 
 import numpy as np
@@ -168,6 +168,38 @@ def test_f32_backward_kernels_do_not_drift_at_wide_heads(gpu, head_dim, batch, h
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         err = (x - y).abs().max().item()
         assert err <= F32_DRIFT_ATOL, f"{name}: largest |kernel - plain| {err:.3g} > {F32_DRIFT_ATOL}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,batch,heads", [(384, 48, 16), (512, 48, 4)])
+def test_f32_forward_kernel_does_not_drift_at_wide_heads(gpu, head_dim, batch, heads):
+    """o and lse of the 3xTF32 forward (one CTA a query tile over all of D)
+    at a wide model's CE shape (causal, 336 rows, 20 padded keys) within
+    F32_DRIFT_ATOL of the plain version at float32, empty rows alike."""
+    q, k, v, _, mask = _inputs(batch, heads, 336, seed=17, masked=(256, 276), d=head_dim, dtype=torch.float32)
+    scale = head_dim ** -0.5
+    o, lse = tattn.flash_forward(q, k, v, mask, True, scale)
+    o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, True, scale)
+    fin = torch.isfinite(lse_p)
+    assert torch.equal(torch.isinf(lse), ~fin)
+    for name, x, y in (("o", o, o_p), ("lse", lse[fin], lse_p[fin])):
+        err = (x - y).abs().max().item()
+        assert err <= F32_DRIFT_ATOL, f"{name}: largest |kernel - plain| {err:.3g} > {F32_DRIFT_ATOL}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", F32_HEAD_DIMS)
+def test_f32_forward_kernel_is_bit_equal_across_launches(gpu, head_dim):
+    """Two launches of the 3xTF32 forward on the same inputs give the same
+    o and lse bits (no atomics; every reader of a score takes the two
+    halves' sums in one order; at 640 the two slices of a tile run the same
+    score instructions)."""
+    q, k, v, _, mask = _inputs(2, 4, 200, seed=16, masked=(64, 128), d=head_dim, dtype=torch.float32)
+    scale = head_dim ** -0.5
+    runs = [tattn.flash_forward(q, k, v, mask, True, scale) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, first, second in zip(("o", "lse"), *runs):
+        assert torch.equal(first, second), name
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
-"""The 3xTF32 products of the port's float32 backward kernels
+"""The 3xTF32 products of the port's float32 kernels
 (mafed_tpu_torch/csrc/flash_attn_f32.cu), emulated on the CPU.
 
-The dK/dV and dQ kernels at float32 inputs multiply on the tensor cores:
+The forward, dK/dV and dQ kernels at float32 inputs multiply on the tensor
+cores:
 each f32 operand x is split into big = x rounded to TF32 as cvt.rna rounds
 it (10 mantissa bits, nearest, ties away from zero) and small = x - big,
 which the tensor core reads truncated to TF32, and each product is summed as
@@ -21,7 +22,13 @@ TF32-valued tensors (whose products are exact in float32). With it:
   products) and within F32_ATOL = 1e-4, the card's tolerance for the
   kernels (chip_smoke.py), of the JAX package's Pallas backward run in
   interpret mode under `_PALLAS_BWD_MODE = "always"`, in causal, padded and
-  empty-row cases at head_dim 64 and 256.
+  empty-row cases at head_dim 64 and 256;
+* the float32 forward with both products (S = q k^T, O = P V) through the
+  emulation (`flash_forward_3xtf32`) stays within 1e-5 of
+  flash_forward_plain, o and lse, and within F32_ATOL of the JAX package's
+  Pallas forward (`_flash_forward`, interpret mode) at float32 inputs, in
+  the same cases at every head_dim from 64 to 512; empty rows have lse +inf
+  and o exactly 0 in all three.
 
 What the emulation leaves out: the tensor core sums each mma.sync's
 products into its accumulator with truncation, where these matmuls sum in
@@ -46,7 +53,7 @@ from jax._src import compilation_cache
 from mafed_tpu.kernels import attention as jattn
 from mafed_tpu_torch.kernels import attention as tattn
 from tests.torch_helpers import (  # noqa: F401 (one_torch_thread is a fixture)
-    flash_backward_3xtf32, matmul_3xtf32, one_torch_thread, round_to_tf32, split_tf32,
+    flash_backward_3xtf32, flash_forward_3xtf32, matmul_3xtf32, one_torch_thread, round_to_tf32, split_tf32,
 )
 
 # The split's largest error against float64 within this factor of a float32 matmul's (measured: 0.73-1.55
@@ -184,3 +191,49 @@ def test_emulated_backward_matches_pallas(interpret_mode, name, b, h, t, causal,
     )
     for label, x, y in zip(("dq", "dk", "dv"), emulated, ref):
         np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=F32_ATOL, rtol=F32_RTOL, err_msg=label)
+
+
+FWD_CASE_IDS = [f"{c[0]}_d{d}" for d in HEAD_DIMS for c in CASES]
+FWD_CASE_ARGS = [(*c, d) for d in HEAD_DIMS for c in CASES]
+
+
+def _emulated_and_plain_forward(q, k, v, mask, causal):
+    scale = q.shape[-1] ** -0.5
+    t = [torch.from_numpy(x) for x in (q, k, v, mask)]
+    return flash_forward_3xtf32(*t, causal, scale), tattn.flash_forward_plain(*t, causal, scale)
+
+
+def _check_empty_rows(o, lse, want_lse):
+    """lse +inf exactly where the reference's is, and o 0 on those rows."""
+    inf = np.isinf(want_lse)
+    np.testing.assert_array_equal(np.isinf(lse), inf)
+    assert (o[inf] == 0).all()
+
+
+@pytest.mark.parametrize("name,b,h,t,causal,padded,empty,d", FWD_CASE_ARGS, ids=FWD_CASE_IDS)
+def test_emulated_forward_matches_plain(name, b, h, t, causal, padded, empty, d):
+    """Both forward products in 3xTF32 against both in float32: o and lse
+    within 1e-5; a row with no kept key has lse +inf and o 0 in both."""
+    q, k, v, _, mask = _inputs(b, h, t, padded, empty, d)
+    (o, lse), (o_p, lse_p) = _emulated_and_plain_forward(q, k, v, mask, causal)
+    np.testing.assert_allclose(o.numpy(), o_p.numpy(), atol=PLAIN_ATOL, rtol=PLAIN_RTOL, err_msg="o")
+    fin = np.isfinite(lse_p.numpy())
+    np.testing.assert_allclose(lse.numpy()[fin], lse_p.numpy()[fin], atol=PLAIN_ATOL, rtol=PLAIN_RTOL, err_msg="lse")
+    _check_empty_rows(o.numpy(), lse.numpy(), lse_p.numpy())
+    assert (o_p.numpy()[~fin] == 0).all()
+
+
+@pytest.mark.parametrize("name,b,h,t,causal,padded,empty,d", FWD_CASE_ARGS, ids=FWD_CASE_IDS)
+def test_emulated_forward_matches_pallas(interpret_mode, name, b, h, t, causal, padded, empty, d):
+    """The emulated 3xTF32 forward against the JAX package's Pallas forward
+    (interpret mode, exact float32 products at float32 inputs), o and lse
+    within the card's F32_ATOL, empty rows alike."""
+    q, k, v, _, mask = _inputs(b, h, t, padded, empty, d)
+    (o, lse), _ = _emulated_and_plain_forward(q, k, v, mask, causal)
+    ref_o, ref_lse = (np.asarray(x) for x in jattn._flash_forward(
+        *(jnp.asarray(x) for x in (q, k, v, mask)), causal=causal, scale=d ** -0.5, block_q=64, block_k=64,
+        use_mask=True))
+    np.testing.assert_allclose(o.numpy(), ref_o, atol=F32_ATOL, rtol=F32_RTOL, err_msg="o")
+    fin = np.isfinite(ref_lse)
+    np.testing.assert_allclose(lse.numpy()[fin], ref_lse[fin], atol=F32_ATOL, rtol=F32_RTOL, err_msg="lse")
+    _check_empty_rows(o.numpy(), lse.numpy(), ref_lse)

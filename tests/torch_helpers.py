@@ -151,8 +151,8 @@ def write_synthetic_vqa(root: str, tasks=("taskA", "taskB"), n_train: int = 24, 
 
 
 # ---------------------------------------------------------------------------
-# 3xTF32 on the CPU: a plain emulation of the float32 backward kernels'
-# tensor-core products (csrc/flash_attn_f32.cu), for tests only
+# 3xTF32 on the CPU: a plain emulation of the float32 kernels' tensor-core
+# products (csrc/flash_attn_f32.cu), for tests only
 # ---------------------------------------------------------------------------
 
 def round_to_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -206,3 +206,24 @@ def flash_backward_3xtf32(q, k, v, mask, o, lse, do, causal: bool, scale: float)
     delta = (do * o).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
     return matmul_3xtf32(ds, k) * scale, matmul_3xtf32(ds.transpose(-1, -2), q) * scale, dv
+
+
+def flash_forward_3xtf32(q, k, v, mask, causal: bool, scale: float):
+    """(o, lse) of float32 inputs with both products from the float32
+    forward kernel's 3xTF32 split: S = Q K^T and O = P V / l (the port's
+    flash_forward_plain with matmul_3xtf32 for each of its two matmuls, its
+    finfo(float32).min fill, keep zeroing and empty rows). The softmax is the
+    dense one, not the kernel's online one over 64-key tiles, and the
+    accumulation is rounded (matmul_3xtf32)."""
+    from mafed_tpu_torch.kernels.attention import _NEG, _keep
+
+    keep = _keep(mask, causal, q.shape[2], k.shape[2], q.device)
+    s = torch.where(keep, matmul_3xtf32(q, k.transpose(-1, -2)) * scale, _NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * keep
+    l = p.sum(dim=-1)
+    empty = l == 0.0
+    l_safe = torch.where(empty, torch.ones_like(l), l)
+    o = matmul_3xtf32(p, v) / l_safe[..., None]
+    lse = torch.where(empty, torch.full_like(l, float("inf")), m[..., 0] + torch.log(l_safe))
+    return o, lse
