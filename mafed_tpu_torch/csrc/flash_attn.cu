@@ -35,15 +35,20 @@
 // D = 256 needs it (dK and dV are 256 registers together); at D = 128 one
 // warpgroup holds dK and dV beside S^T and dP^T in 234 registers. The
 // warpgroups of each kernel and head_dim are FWD_WG_*, DKV_WG_*, DQ_WG_*
-// below.
+// below. The forward at D = 96 is the exception: its warpgroups split the
+// query rows, not the output's panels (next paragraph).
 //
-// D = 96 runs the D = 128 tile: its tensor maps are 96 columns wide, so TMA
-// fills columns 96..127 of the second panel with zeros (as it fills rows past
-// a sequence's end). The score products S and dP stop at column 96 (6 of the
-// 8 k-steps); the products into 64-column panels (O, dV, dK, dQ) run the whole
-// second panel, whose columns 96..127 come out zero and are never stored. A
-// third of that panel work is wasted; a 32-column panel with the 64-byte
-// swizzle would remove it.
+// D = 96. The forward has a layout of its own (fwd96_cta): tiles of [64][96]
+// as three 32-column panels with the 64-byte swizzle, nothing padded; one
+// warpgroup forms each 64 x 64 score tile once (6 k-steps of m64n64k16) and
+// O += P V in one m64n96k16 a k-step; two warpgroups a CTA, each with a query
+// tile of its own, share each K/V tile. The dK/dV and dQ kernels run the
+// D = 128 tile: their tensor maps are 96 columns wide, so TMA fills columns
+// 96..127 of the second panel with zeros (as it fills rows past a sequence's
+// end). Their score products S and dP stop at column 96 (6 of the 8 k-steps);
+// their products into 64-column panels (dV, dK, dQ) run the whole second
+// panel, whose columns 96..127 come out zero and are never stored: a third
+// of that panel's work is wasted.
 //
 // Every multiple of 128 from 384 on (a runtime head_dim) takes the wide
 // kernels further down (flash_*_wide_kernel): a grid axis over 128-column
@@ -81,11 +86,20 @@ constexpr int FWD_WG_256 = 2, DKV_WG_256 = 2, DQ_WG_256 = 1;
 // rounds in turns): dK/dV 0.224-0.247 / 0.753-0.783 ms with one against
 // 0.371-0.372 / 1.298-1.305 with two (two warpgroups of 168 registers fit one
 // CTA per SM, one of 234 fits two); dQ 0.154-0.167 / 0.532-0.560 with one
-// against 0.185-0.192 / 0.603-0.625 with two; the forward 0.187-0.212 /
-// 0.767-0.794 with one against 0.195-0.206 / 0.743-0.771 with two (at 128
-// the ranges overlap and the smaller count stays).
+// against 0.185-0.192 / 0.603-0.625 with two; the forward at 128
+// 0.187-0.212 with one against 0.195-0.206 with two (the ranges overlap and
+// the smaller count stays).
 constexpr int FWD_WG_128 = 1, DKV_WG_128 = 1, DQ_WG_128 = 1;
-constexpr int FWD_WG_96 = 2, DKV_WG_96 = 1, DQ_WG_96 = 1;
+constexpr int DKV_WG_96 = 1, DQ_WG_96 = 1;
+// The forward at 96 has a design of its own (fwd96_cta): FWD_WG_96 warpgroups
+// a CTA, each with its own 64-row query tile, sharing each K/V tile. At the
+// CE shape [48, 64, 336, 96] on an H100 SXM at 700 W (scripts/flash_variants.py,
+// two calls of three rounds in turns): 0.402-0.412 ms with two (123 registers,
+// 74 KB: two CTAs an SM), 0.404-0.408 with two and FWD96_STAGES = 3,
+// 0.481-0.486 with one (61 KB: three CTAs an SM), 0.564-0.566 with one and
+// three stages (85 KB: two CTAs an SM), 0.508 with three warpgroups (one CTA
+// an SM by registers).
+constexpr int FWD_WG_96 = 2;
 
 // The warp of this thread within its warpgroup: rows 16 warp .. 16 warp + 15.
 __device__ __forceinline__ int wg_warp() { return (threadIdx.x % THREADS) / 32; }
@@ -162,9 +176,26 @@ __device__ __forceinline__ void store_acc_rows(bf16* __restrict__ dst, const flo
 // registers a thread, 5 CTAs per SM. At D = 256: 165 KB (one CTA per SM) and
 // two warpgroups, each with half of O (64 registers) beside its own S, 128
 // registers a thread (one warpgroup with all of O took 202). At D = 128: 81
-// KB (two CTAs per SM), one warpgroup, 128 registers; at D = 96 two
-// warpgroups of 100 registers. (Issuing S of tile j + 1 while P V of tile
-// j runs measured slower on the H100.)
+// KB (two CTAs per SM), one warpgroup, 128 registers. (Issuing S of tile
+// j + 1 while P V of tile j runs measured slower on the H100: at D = 64, and
+// at D = 96 0.538-0.540 ms against 0.481 with one warpgroup a CTA, 0.80
+// against 0.40 with two, whose 150 registers fit one CTA an SM.)
+//
+// At D = 96 (fwd96_cta) a CTA's time is set by its serial chain (wait for
+// the tile, S, softmax, P V, barrier, refill) more than by its bytes: the
+// earlier form (the D = 128 tile with 96-wide maps, two warpgroups, each
+// forming S itself beside its own 64-column O panel) took as long a CTA as
+// <128> while moving three quarters of its bytes. So the tiles lose their
+// padding (12 KB instead of 16: three 32-column panels with the 64-byte
+// swizzle, read by TMA in 32 x 64 boxes), each warpgroup forms its S once and
+// O += P V in m64n96k16 (48 accumulators a thread), and two warpgroups, each
+// with its own 64-row query tile, share each K/V tile (FWD_WG_96), so a CTA
+// streams half the K/V bytes a query row. Q plus two K/V stages take ~74 KB,
+// 123 registers a thread: two CTAs an SM, four warpgroups that each compute
+// their own query tile (the padded form's two CTAs held four warpgroups that
+// formed each S twice).
+// Products a key tile and query tile, in m64n64k16-equivalents: 6 for S and 6
+// for P V (4 of m64n96k16), where the padded form issued 12 + 8.
 // ---------------------------------------------------------------------------
 constexpr int STAGES = 2;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -212,10 +243,10 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], flo
   }
 }
 
-// Shared memory of the forward and dQ kernels, byte offsets from the
-// 1024-aligned base: ONCE query-side tiles loaded once (Q; Q and dO), the K
-// and V stages of the ring, each stage's keep bits, and the barriers (the
-// once-loaded tiles', then one per stage).
+// Shared memory of the forward (at D = 96: Fwd96Smem) and dQ kernels, byte
+// offsets from the 1024-aligned base: ONCE query-side tiles loaded once (Q; Q
+// and dO), the K and V stages of the ring, each stage's keep bits, and the
+// barriers (the once-loaded tiles', then one per stage).
 template <int D, int ONCE> struct QTileSmem {
   static constexpr uint32_t TILE = panels(D) * sm90::PANEL_BYTES;
   static constexpr uint32_t K = ONCE * TILE;
@@ -287,107 +318,247 @@ template <int D, int ONCE> struct KvRing {
   }
 };
 
-template <int D, int WG>
-__global__ void __launch_bounds__(THREADS * WG)
-flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                 const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ mask, bf16* __restrict__ o,
-                 float* __restrict__ lse, int heads, int q_len, int kv_len, int causal, float scale) {
-  static_assert(D % 16 == 0 && panels(D) % WG == 0, "tiles are 64-column panels, split evenly over warpgroups");
-  constexpr int NPW = panels(D) / WG;  // O panels of each warpgroup
-  const int qt = blockIdx.x, bh = blockIdx.y, b = bh / heads;
-  const int wg = threadIdx.x / THREADS, lane = threadIdx.x % 32, p0 = wg * NPW;
-  const int q0 = qt * BLOCK;
+// The forward at D = 96 (flash_fwd_kernel<96>, below): tiles of [64][96],
+// three 32-column panels with the 64-byte swizzle (no padded panel), 12 KB a
+// tile. FWD_WG_96 warpgroups own a 64-row query tile each and share each K/V
+// tile of the FWD96_STAGES ring; thread 0 issues every load.
+constexpr int FWD96_STAGES = 2;
+constexpr int FWD96_COLS = 96;
+
+struct Fwd96Smem {  // byte offsets from the 1024-aligned base: the Q tiles, then as QTileSmem
+  static constexpr uint32_t TILE = FWD96_COLS / sm90::PANEL_SW64 * sm90::PANEL_SW64_BYTES;
+  static constexpr uint32_t K = FWD_WG_96 * TILE;
+  static constexpr uint32_t V = K + FWD96_STAGES * TILE;
+  static constexpr uint32_t KEEP = V + FWD96_STAGES * TILE;  // FWD96_STAGES x uint64 keep bits
+  static constexpr uint32_t BAR = KEEP + FWD96_STAGES * 8;    // the Q tiles', then one per stage
+  static constexpr size_t ALLOC = BAR + (1 + FWD96_STAGES) * 8 + 1024;
+};
+
+// One CTA of flash_fwd_kernel<96, WG>: query tiles WG x.. WG x + WG - 1 of
+// one (batch, head); warpgroup w computes tile WG x + w from the key tiles it
+// needs (causal: up to its diagonal), and the CTA streams the key tiles its
+// last warpgroup needs.
+template <int WG>
+__device__ __forceinline__ void fwd96_cta(const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                          const int* __restrict__ mask, bf16* __restrict__ o,
+                                          float* __restrict__ lse, int heads, int q_len, int kv_len, int causal,
+                                          float scale) {
+  static_assert(WG == FWD_WG_96, "Fwd96Smem holds FWD_WG_96 query tiles");
+  using L = Fwd96Smem;
+  constexpr int D = FWD96_COLS, ST = FWD96_STAGES;
+  const int tid = threadIdx.x, wg = tid / THREADS, lane = tid % 32;
+  const int bh = blockIdx.y, b = bh / heads;
+  const int n_qt = (q_len + BLOCK - 1) / BLOCK, n_kt = (kv_len + BLOCK - 1) / BLOCK;
+  const int qt_first = blockIdx.x * WG, n_tiles = min(WG, n_qt - qt_first), qt = qt_first + wg;
+  const int upper = causal ? min(qt_first + n_tiles, n_kt) : n_kt;         // key tiles of the CTA
+  const int mine = qt >= n_qt ? 0 : causal ? min(qt + 1, n_kt) : n_kt;     // of this warpgroup
   o += (size_t)bh * q_len * D;
   lse += (size_t)bh * q_len;
   const int* mask_row = mask == nullptr ? nullptr : mask + (size_t)b * kv_len;
 
   extern __shared__ unsigned char smem_raw[];
-  const int n_kt = (kv_len + BLOCK - 1) / BLOCK;
-  const KvRing<D, 1> ring{aligned_smem(smem_raw), &tm_k, &tm_v, mask_row, bh, kv_len,
-                          causal ? min(qt + 1, n_kt) : n_kt};
-  ring.start({&tm_q}, q0);
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* keep_slot = reinterpret_cast<uint64_t*>(smem + L::KEEP);
+  const auto load_kv = [&](int kt, int s) {
+    sm90::mbar_expect_tx(&bar[1 + s], 2 * L::TILE);
+    sm90::tma_load_tile_sw64<D>(smem + L::K + s * L::TILE, tm_k, &bar[1 + s], kt * BLOCK, bh);
+    sm90::tma_load_tile_sw64<D>(smem + L::V + s * L::TILE, tm_v, &bar[1 + s], kt * BLOCK, bh);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 1 + ST; ++i) sm90::mbar_init(&bar[i], 1);
+    sm90::fence_mbar_init();
+  }
+  if (tid < 64 && upper > 0) store_keep_bits(&keep_slot[0], keep_key(mask_row, 0, kv_len));
+  __syncthreads();
+  if (tid == 0) {
+    sm90::mbar_expect_tx(&bar[0], n_tiles * L::TILE);
+    for (int w = 0; w < n_tiles; ++w)
+      sm90::tma_load_tile_sw64<D>(smem + w * L::TILE, tm_q, &bar[0], (qt_first + w) * BLOCK, bh);
+    for (int s = 0; s < ST && s < upper; ++s) load_kv(s, s);
+  }
 
-  float acc[NPW][32];
+  float acc[48];  // O, m64n96: d[4 j + 2 i + c] = (row r_i, column 8 j + 2 (lane % 4) + c)
 #pragma unroll
-  for (int n = 0; n < NPW; ++n)
-#pragma unroll
-    for (int r = 0; r < 32; ++r) acc[n][r] = 0.0f;
+  for (int r = 0; r < 48; ++r) acc[r] = 0.0f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};  // row max (log2 domain) and sum
   const float scale_log2 = scale * LOG2E;
-  ring.wait_once();
+  sm90::mbar_wait(&bar[0], 0);
 
-  for (int kt = 0; kt < ring.upper; ++kt) {
-    const int s = kt % STAGES;
+  for (int kt = 0; kt < upper; ++kt) {
+    const int s = kt % ST;
     // the next tile's keep bits: fetched now, stored after this tile's products
-    const bool next_keep = ring.next_keep(kt);
-    ring.wait(kt);
-    const uint32_t sQ = sm90::opaque(ring.once_tile(0));
-    const uint32_t sK = ring.k_tile(s);
-    const uint32_t sV = ring.v_tile(s);
+    const bool next_keep = tid < 64 && kt + 1 < upper && keep_key(mask_row, (kt + 1) * BLOCK, kv_len);
+    sm90::mbar_wait(&bar[1 + s], (kt / ST) & 1);
+    if (kt < mine) {  // the same for the whole warpgroup
+      const uint32_t sQ = sm90::opaque(sm90::smem_addr(smem + wg * L::TILE));
+      const uint32_t sK = sm90::smem_addr(smem + L::K + s * L::TILE);
+      const uint32_t sV = sm90::smem_addr(smem + L::V + s * L::TILE);
 
-    float sc[32];
+      // S = Q K^T once: 6 k-steps over the three panels
+      float sc[32];
 #pragma unroll
-    for (int r = 0; r < 32; ++r) sc[r] = 0.0f;
-    sm90::fence_regs(sc);
-    sm90::wgmma_fence();
+      for (int r = 0; r < 32; ++r) sc[r] = 0.0f;
+      sm90::fence_regs(sc);
+      sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      sm90::wgmma_ss(sc, sm90::desc_k_major(sQ, kk), sm90::desc_k_major(sK, kk), kk > 0);
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-    sm90::fence_regs(sc);
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss(sc, sm90::desc_k_major_sw64(sQ, kk), sm90::desc_k_major_sw64(sK, kk), kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
 
-    // online softmax in registers; a tile needs masking on the diagonal or
-    // when one of its keys is dropped
-    const uint64_t kbits = ring.keep_bits(kt);
-    const bool diag = causal && kt == qt;
-    float alpha[2];
-    if (diag || kbits != ~0ull)
-      softmax_tile<true>(sc, m, l, alpha, kbits, diag, scale_log2);
-    else
-      softmax_tile<false>(sc, m, l, alpha, kbits, false, scale_log2);
+      const uint64_t kbits = keep_slot[s];
+      const bool diag = causal && kt == qt;
+      float alpha[2];
+      if (diag || kbits != ~0ull)
+        softmax_tile<true>(sc, m, l, alpha, kbits, diag, scale_log2);
+      else
+        softmax_tile<false>(sc, m, l, alpha, kbits, false, scale_log2);
 #pragma unroll
-    for (int n = 0; n < NPW; ++n)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 12; ++j)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          acc[n][4 * j + 2 * i] *= alpha[i];
-          acc[n][4 * j + 2 * i + 1] *= alpha[i];
+          acc[4 * j + 2 * i] *= alpha[i];
+          acc[4 * j + 2 * i + 1] *= alpha[i];
         }
 
-    // O += P V on this warpgroup's panels, P (bf16) from registers
-    uint32_t pa[4][4];
-    sm90::acc_to_a(sc, pa);
+      // O += P V: m64n96k16 over all 96 columns, P (bf16) from registers
+      uint32_t pa[4][4];
+      sm90::acc_to_a(sc, pa);
+      sm90::fence_regs(acc);
+      sm90::wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NPW; ++n) sm90::fence_regs(acc[n]);
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int n = 0; n < NPW; ++n)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs(acc[n], pa[kk], sm90::desc_mn_major(sV, p0 + n, kk));
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-#pragma unroll
-    for (int n = 0; n < NPW; ++n) sm90::fence_regs(acc[n]);
-    ring.advance(kt, next_keep);
+      for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs_n96(acc, pa[kk], sm90::desc_mn_major_sw64(sV, kk));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+    }
+    if (tid < 64 && kt + 1 < upper) store_keep_bits(&keep_slot[(kt + 1) % ST], next_keep);
+    __syncthreads();  // every warp is done with tile kt's stage
+    if (tid == 0 && kt + ST < upper) load_kv(kt + ST, s);
   }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const bool empty = l[i] == 0.0f;
     const float l_safe = empty ? 1.0f : l[i];
+    const int row = qt * BLOCK + wg_warp() * 16 + lane / 4 + 8 * i;
+    if (row >= q_len) continue;
+    if (lane % 4 == 0) lse[row] = empty ? INFINITY : m[i] * LN2 + logf(l_safe);
+    bf16* out = o + (size_t)row * D + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 12; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j) =
+          sm90::pack_bf16(acc[4 * j + 2 * i] / l_safe, acc[4 * j + 2 * i + 1] / l_safe);
+  }
+}
+
+template <int D, int WG>
+__global__ void __launch_bounds__(THREADS * WG)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ mask, bf16* __restrict__ o,
+                 float* __restrict__ lse, int heads, int q_len, int kv_len, int causal, float scale) {
+  if constexpr (D == 96) {  // its own layout and design (fwd96_cta)
+    fwd96_cta<WG>(&tm_q, &tm_k, &tm_v, mask, o, lse, heads, q_len, kv_len, causal, scale);
+  } else {
+    static_assert(D % 16 == 0 && panels(D) % WG == 0, "tiles are 64-column panels, split evenly over warpgroups");
+    constexpr int NPW = panels(D) / WG;  // O panels of each warpgroup
+    const int qt = blockIdx.x, bh = blockIdx.y, b = bh / heads;
+    const int wg = threadIdx.x / THREADS, lane = threadIdx.x % 32, p0 = wg * NPW;
+    const int q0 = qt * BLOCK;
+    o += (size_t)bh * q_len * D;
+    lse += (size_t)bh * q_len;
+    const int* mask_row = mask == nullptr ? nullptr : mask + (size_t)b * kv_len;
+
+    extern __shared__ unsigned char smem_raw[];
+    const int n_kt = (kv_len + BLOCK - 1) / BLOCK;
+    const KvRing<D, 1> ring{aligned_smem(smem_raw), &tm_k, &tm_v, mask_row, bh, kv_len,
+                            causal ? min(qt + 1, n_kt) : n_kt};
+    ring.start({&tm_q}, q0);
+
+    float acc[NPW][32];
 #pragma unroll
     for (int n = 0; n < NPW; ++n)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        acc[n][4 * j + 2 * i] /= l_safe;
-        acc[n][4 * j + 2 * i + 1] /= l_safe;
-      }
-    const int row = q0 + wg_warp() * 16 + lane / 4 + 8 * i;
-    if (wg == 0 && lane % 4 == 0 && row < q_len) lse[row] = empty ? INFINITY : m[i] * LN2 + logf(l_safe);
+      for (int r = 0; r < 32; ++r) acc[n][r] = 0.0f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};  // row max (log2 domain) and sum
+    const float scale_log2 = scale * LOG2E;
+    ring.wait_once();
+
+    for (int kt = 0; kt < ring.upper; ++kt) {
+      const int s = kt % STAGES;
+      // the next tile's keep bits: fetched now, stored after this tile's products
+      const bool next_keep = ring.next_keep(kt);
+      ring.wait(kt);
+      const uint32_t sQ = sm90::opaque(ring.once_tile(0));
+      const uint32_t sK = ring.k_tile(s);
+      const uint32_t sV = ring.v_tile(s);
+
+      float sc[32];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) sc[r] = 0.0f;
+      sm90::fence_regs(sc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss(sc, sm90::desc_k_major(sQ, kk), sm90::desc_k_major(sK, kk), kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+
+      // online softmax in registers; a tile needs masking on the diagonal or
+      // when one of its keys is dropped
+      const uint64_t kbits = ring.keep_bits(kt);
+      const bool diag = causal && kt == qt;
+      float alpha[2];
+      if (diag || kbits != ~0ull)
+        softmax_tile<true>(sc, m, l, alpha, kbits, diag, scale_log2);
+      else
+        softmax_tile<false>(sc, m, l, alpha, kbits, false, scale_log2);
+#pragma unroll
+      for (int n = 0; n < NPW; ++n)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            acc[n][4 * j + 2 * i] *= alpha[i];
+            acc[n][4 * j + 2 * i + 1] *= alpha[i];
+          }
+
+      // O += P V on this warpgroup's panels, P (bf16) from registers
+      uint32_t pa[4][4];
+      sm90::acc_to_a(sc, pa);
+#pragma unroll
+      for (int n = 0; n < NPW; ++n) sm90::fence_regs(acc[n]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int n = 0; n < NPW; ++n)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs(acc[n], pa[kk], sm90::desc_mn_major(sV, p0 + n, kk));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int n = 0; n < NPW; ++n) sm90::fence_regs(acc[n]);
+      ring.advance(kt, next_keep);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool empty = l[i] == 0.0f;
+      const float l_safe = empty ? 1.0f : l[i];
+#pragma unroll
+      for (int n = 0; n < NPW; ++n)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[n][4 * j + 2 * i] /= l_safe;
+          acc[n][4 * j + 2 * i + 1] /= l_safe;
+        }
+      const int row = q0 + wg_warp() * 16 + lane / 4 + 8 * i;
+      if (wg == 0 && lane % 4 == 0 && row < q_len) lse[row] = empty ? INFINITY : m[i] * LN2 + logf(l_safe);
+    }
+    store_acc_rows<D, NPW>(o, acc, q0, q_len, 1.0f, p0);
   }
-  store_acc_rows<D, NPW>(o, acc, q0, q_len, 1.0f, p0);
 }
 
 // ---------------------------------------------------------------------------
@@ -1238,6 +1409,26 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// The forward at 96: tensor maps of 32-column boxes, FWD_WG_96 query tiles a CTA.
+cudaError_t launch_fwd_96(const void* q, const void* k, const void* v, const void* mask, void* o, void* lse,
+                          int batch_heads, int heads, int q_len, int kv_len, int causal, float scale,
+                          cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  cudaError_t err;
+  if ((err = sm90_host::make_map_3d_sw64(&tm_q, q, batch_heads, q_len, 96)) != cudaSuccess) return err;
+  if ((err = sm90_host::make_map_3d_sw64(&tm_k, k, batch_heads, kv_len, 96)) != cudaSuccess) return err;
+  if ((err = sm90_host::make_map_3d_sw64(&tm_v, v, batch_heads, kv_len, 96)) != cudaSuccess) return err;
+  constexpr size_t smem = Fwd96Smem::ALLOC;
+  err = cudaFuncSetAttribute(flash_fwd_kernel<96, FWD_WG_96>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (q_len + BLOCK - 1) / BLOCK;
+  const dim3 grid((n_qt + FWD_WG_96 - 1) / FWD_WG_96, batch_heads);
+  flash_fwd_kernel<96, FWD_WG_96><<<grid, THREADS * FWD_WG_96, smem, stream>>>(
+      tm_q, tm_k, tm_v, (const int*)mask, (bf16*)o, (float*)lse, heads, q_len, kv_len, causal, scale);
+  return cudaGetLastError();
+}
+
 template <int D, int WG>
 cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                            const void* delta, const void* mask, void* dk, void* dv, int batch_heads, int heads,
@@ -1360,8 +1551,7 @@ extern "C" cudaError_t flash_attn_fwd(const void* q, const void* k, const void* 
     case 64:
       return launch_fwd<64, 1>(q, k, v, mask, o, lse, batch_heads, heads, q_len, kv_len, causal, scale, st);
     case 96:
-      return launch_fwd<96, FWD_WG_96>(q, k, v, mask, o, lse, batch_heads, heads, q_len, kv_len, causal, scale,
-                                        st);
+      return launch_fwd_96(q, k, v, mask, o, lse, batch_heads, heads, q_len, kv_len, causal, scale, st);
     case 128:
       return launch_fwd<128, FWD_WG_128>(q, k, v, mask, o, lse, batch_heads, heads, q_len, kv_len, causal, scale,
                                          st);

@@ -17,6 +17,18 @@
 //   MN-major (rows are K, the 64 columns are N; B of P.V, P^T.dO, dS^T.Q):
 //     k-step kk starts 16 rows (2048 bytes) further down; SBO = 1024 bytes
 //     (the next 8 rows of K), LBO = the next 64-column panel (unused at N = 64).
+//
+// The bf16 forward at D = 96 stores its tiles without padding: three panels
+// of [64 rows][32 columns], a row 64 bytes, written by TMA with the 64-byte
+// swizzle (the 16-byte chunk c of row r lands at chunk c ^ ((r / 2) % 4); the
+// pattern repeats every 512 bytes, 8 rows). A panel is 4 KB. Its descriptors
+// (layout type 2, `desc_sw64`):
+//   K-major (Q and K of S = Q K^T): k-step kk is panel kk / 2, 32 bytes along
+//     the row for odd kk; SBO = 512 bytes (the next 8 rows), LBO unused.
+//   MN-major (V of O += P V, N = 96 in one product): k-step kk starts 16 rows
+//     (1024 bytes) further down; SBO = 512 bytes (the next 8 rows of K), LBO =
+//     the next 32-column panel (4 KB: N runs over three panels).
+// tests/test_torch_d96_layout.py emulates the TMA writes and these reads.
 
 #pragma once
 
@@ -29,6 +41,8 @@ namespace sm90 {
 
 constexpr int PANEL = 64;                          // columns of a panel (128 bytes of bf16)
 constexpr uint32_t PANEL_BYTES = 64 * PANEL * 2;   // one [64][64] bf16 panel
+constexpr int PANEL_SW64 = 32;                               // columns of a 64-byte-swizzled panel
+constexpr uint32_t PANEL_SW64_BYTES = 64 * PANEL_SW64 * 2;   // one [64][32] bf16 panel
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -101,6 +115,17 @@ __device__ __forceinline__ void tma_load_tile(unsigned char* dst, const CUtensor
     tma_load_3d(dst + p * PANEL_BYTES, map, bar, p * PANEL, row, plane);
 }
 
+// A [64][D] tile as D / 32 panels of [64][32], one box each of a map made by
+// make_map_3d_sw64, all on one barrier.
+template <int D>
+__device__ __forceinline__ void tma_load_tile_sw64(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int row,
+                                                   int plane) {
+  static_assert(D % PANEL_SW64 == 0, "no padded panel");
+#pragma unroll
+  for (int p = 0; p < D / PANEL_SW64; ++p)
+    tma_load_3d(dst + p * PANEL_SW64_BYTES, map, bar, p * PANEL_SW64, row, plane);
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -131,6 +156,25 @@ __device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int kk) {
 // MN-major B operand: rows [16 kk, 16 kk + 16) of panel n of a [64][D] tile.
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int n, int kk) {
   return desc_sw128(tile + n * PANEL_BYTES + kk * 2048, PANEL_BYTES, 1024);
+}
+
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes) {
+  uint64_t d = (addr & 0x3FFFF) >> 4;
+  d |= (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32;
+  d |= 2ull << 62;  // 64-byte swizzle
+  return d;
+}
+
+// K-major operand: k-step kk of a [64][D] tile of 32-column panels at shared address `tile`.
+__device__ __forceinline__ uint64_t desc_k_major_sw64(uint32_t tile, int kk) {
+  return desc_sw64(tile + (kk / 2) * PANEL_SW64_BYTES + (kk % 2) * 32, 16, 512);
+}
+
+// MN-major B operand: rows [16 kk, 16 kk + 16) of a [64][D] tile of 32-column
+// panels, all of its D columns.
+__device__ __forceinline__ uint64_t desc_mn_major_sw64(uint32_t tile, int kk) {
+  return desc_sw64(tile + kk * 1024, PANEL_SW64_BYTES, 512);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -182,6 +226,36 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+#define SM90_D48                                                                                                \
+  SM90_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]),        \
+      "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), \
+      "+f"(d[47])
+#define SM90_D48_LIST                                                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, " \
+  "%23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47}"
+
+__device__ __forceinline__ void fence_regs(float (&d)[48]) {
+#pragma unroll
+  for (int i = 0; i < 48; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A . B, m64n96k16, A from registers (as in wgmma_rs), B MN-major in
+// shared memory (desc_mn_major_sw64: 96 columns over three 32-column panels).
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " SM90_D48_LIST
+      ", {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n"
+      "}\n"
+      : SM90_D48
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+#undef SM90_D48
+#undef SM90_D48_LIST
 #undef SM90_D32
 #undef SM90_D32_LIST
 
@@ -255,6 +329,24 @@ inline cudaError_t make_map_3d(CUtensorMap* map, const void* ptr, int planes, in
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
                             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The same tensor as make_map_3d's, read in boxes of {32, 64, 1} with the
+// 64-byte swizzle (tma_load_tile_sw64): d a multiple of 32, so no box reaches
+// past column d - 1.
+inline cudaError_t make_map_3d_sw64(CUtensorMap* map, const void* ptr, int planes, int rows, int d) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return cudaErrorMisalignedAddress;
+  if (d % 32 != 0) return cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {32, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

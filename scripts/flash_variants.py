@@ -25,8 +25,11 @@ that takes some work out of a kernel, to see what that work costs: its
 errors are recorded and it is timed, but it does not stop the run.
 Then the forward, dK/dV and dQ kernels are timed at those CE shapes in
 turns, three rounds of 50 launches each, so every variant sees the same
-card. Prints one JSON line per variant (ptxas report, largest errors and
-times by head_dim); with --out, the list also goes to that file.
+card, and in each round SDPA's forward at each CE shape after the variants
+(a yardstick: torch's scaled_dot_product_attention with the same boolean
+keep mask, as chip_smoke.py times it). Prints one JSON line per variant
+(ptxas report, largest errors and times by head_dim) and one for SDPA; with
+--out, all of them also go to that file.
 """
 
 from __future__ import annotations
@@ -146,6 +149,7 @@ def main() -> int:
                     errs = [chip_smoke._err(o, o_p), (lse[fin] - lse_p[fin]).abs().max().item(),
                             chip_smoke._err(dk, dk_p), chip_smoke._err(dv, dv_p), chip_smoke._err(dq, dq_p)]
                     results[name]["max_abs_err"].setdefault(q.shape[-1], []).append(errs)
+            sdpa = {"card": smi, "dtype": args.dtype, "fwd_ms": {}}
             for _ in range(3):
                 for name, lib in libs.items():
                     A.load_library = lambda lib=lib: lib
@@ -157,8 +161,16 @@ def main() -> int:
                             lambda: A.flash_bwd_dkv(q, k, v, mask, do, lse_p, delta, True, scale), iters=50))
                         results[name]["dq_ms"].setdefault(d, []).append(chip_smoke.time_ms(
                             lambda: A.flash_bwd_dq(q, k, v, mask, do, lse_p, delta, True, scale), iters=50))
+                for q, k, v, _, mask, _, scale, _, _, _, _, _, _ in data[2::3]:
+                    t = q.shape[2]
+                    keep = torch.ones(t, t, dtype=torch.bool, device="cuda").tril()[None, None] & (
+                        mask > 0)[:, None, None, :]
+                    sdpa["fwd_ms"].setdefault(q.shape[-1], []).append(chip_smoke.time_ms(
+                        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=keep,
+                                                                                 scale=scale), iters=50))
         finally:
             A.load_library = build.load_library
+    results["sdpa"] = sdpa
     for name, res in results.items():
         print(json.dumps({"variant": name, **res}), flush=True)
     if args.out:

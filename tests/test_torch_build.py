@@ -29,11 +29,13 @@ ptxas info    : Used 255 registers, used 1 barriers
 # up at dK/dV 256 so that one is read. A wide kernel has one template argument,
 # the width of its output slice (128), and takes head_dim at run time; so does
 # a float32 kernel (wg "f32" below: its mangled name takes float pointers),
-# whose forward is built at four slice widths (64, 96, 128 and 512).
+# whose forward is built at four slice widths (64, 96, 128 and 512). The
+# bf16 forward at 96 is its own design (two warpgroups, each with its own query
+# tile; unpadded tiles of three 32-column boxes).
 _MANGLED = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}ELi{wg}EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16Pfiiiif"
 _MANGLED_WIDE = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16Pfiiiiif"
 _MANGLED_F32 = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}EEEvPKfS2_S2_PKiPfS5_iiiiiif"
-_ENTRIES = [("flash_fwd_kernel", 64, 1, 92, 0), ("flash_fwd_kernel", 96, 2, 100, 0),
+_ENTRIES = [("flash_fwd_kernel", 64, 1, 92, 0), ("flash_fwd_kernel", 96, 2, 123, 0),
             ("flash_fwd_kernel", 128, 1, 128, 0), ("flash_fwd_kernel", 256, 2, 128, 0),
             ("flash_bwd_dkv_kernel", 256, 2, 234, 24), ("flash_bwd_dkv_kernel", 128, 1, 234, 0),
             ("flash_bwd_dkv_kernel", 96, 1, 234, 0), ("flash_bwd_dkv_kernel", 64, 1, 163, 0),
@@ -64,6 +66,12 @@ PTXAS_BOTH = "".join(
 _HMMA_TF32 = "        /*0500*/                   HMMA.1688.F32.TF32 R4, R16, R20, R4 ;\n"
 
 
+def _boxes(name, d):
+    """TMA boxes a tile of a bfloat16 kernel's canned SASS: 64-column boxes,
+    32-column ones for the forward at 96."""
+    return d // 32 if (name, d) == ("flash_fwd_kernel", 96) else -(-d // 64)
+
+
 def _hmma_count(name, regs):
     """The TF32 HMMAs of a float32 kernel's canned SASS."""
     return regs % 5 + 3
@@ -81,7 +89,7 @@ def _sass_of(name, d, wg, regs, hgmma=True, hmma=True):
         body += _HMMA_TF32 * (n_hmma if hmma else 0)
         body += "        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24 ;\n" * hgmma
     else:
-        body = ("        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;\n" * -(-d // 64)
+        body = ("        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;\n" * _boxes(name, d)
                 + "        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24 ;\n"
                 * (d // 16 + regs % 7))
     return head + body + "        /*0300*/                   EXIT ;\n"
@@ -122,7 +130,7 @@ def test_sass_counts_keep_every_instantiation_apart():
     for name, d, wg, regs, _ in _ENTRIES:
         hmma = _hmma_count(name, regs) if wg == "f32" else 0
         want = ({"UTMALDG": 0, "HGMMA": 0, "FFMA": regs % 11 + 1} if wg == "f32" else
-                {"UTMALDG": -(-d // 64), "HGMMA": d // 16 + regs % 7, "FFMA": 0})
+                {"UTMALDG": _boxes(name, d), "HGMMA": d // 16 + regs % 7, "FFMA": 0})
         assert got[build.instantiation(name, d)] == {**want, "HMMA": hmma, "HMMA.TF32": hmma}
 
 
@@ -180,7 +188,7 @@ def test_sass_check_asks_wgmma_of_bf16_and_ffma_without_wgmma_of_f32():
 
     no_tma = _sass_of(*entries["flash_fwd_kernel<96>"], hgmma=False).replace("UTMALDG", "LDG")
     assert faults({"flash_fwd_kernel<96>": no_tma}) == [
-        f"flash_fwd_kernel<96>: needs HGMMA and UTMALDG, has {counts(hgmma=8)}"]
+        f"flash_fwd_kernel<96>: needs HGMMA and UTMALDG, has {counts(hgmma=10)}"]
     key = "flash_bwd_dq_f32_kernel<128>"
     assert faults({key: _sass_of(*entries[key], hgmma=True)}) == [
         f"{key}: needs HMMA of the TF32 kind only and no HGMMA, has {counts(hgmma=1, ffma=2, hmma=3)}"]
@@ -224,3 +232,32 @@ def test_route_names_the_entry_kernel_and_slices(head_dim, bf16_slices, bf16_ker
         build.route("flash_fwd", "float16", head_dim)
     with pytest.raises(ValueError, match="head_dim 320"):
         build.route("flash_fwd", "float32", 320)
+
+
+def test_compare_sass_reads_each_instantiation_apart_from_library_wide_text():
+    """scripts/compare_sass.py: a function's SASS is keyed by instantiation and
+    compared without what the dump sets across the library (label numbers,
+    column padding, blank lines, the next ELF image's header), so one kernel
+    more or another kernel order leaves the others the same; a changed
+    instruction is not."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "scripts" / "compare_sass.py"
+    spec = importlib.util.spec_from_file_location("compare_sass", path)
+    compare_sass = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(compare_sass)
+    body = ("        /*0000*/                   BRA `(.L_x_{a}) ;{pad}   /* 0x0 */\n"
+            ".L_x_{a}:\n        /*0010*/                   BRA `(.L_x_{b}) ;\n.L_x_{b}:\n")
+    head = "\t\tFunction : {}\n"
+    one = (head.format(_mangled("flash_fwd_kernel", 64, 1)) + body.format(a=3, b=4, pad="")
+           + head.format(_mangled("flash_bwd_dq_kernel", 64, 1)) + body.format(a=5, b=6, pad="")
+           + "\nFatbin elf code:\n================\narch = sm_90a\n")
+    two = (head.format(_mangled("flash_bwd_dq_kernel", 64, 1)) + body.format(a=0, b=1, pad="  ")
+           + head.format(_mangled("flash_fwd_kernel", 64, 1)) + body.format(a=7, b=9, pad="  "))
+    here, there = compare_sass.functions(one), compare_sass.functions(two)
+    assert sorted(here) == ["flash_bwd_dq_kernel<64>", "flash_fwd_kernel<64>"] and here == there
+    changed = compare_sass.functions(two.replace("BRA `(.L_x_9)", "BRA `(.L_x_7)"))
+    assert changed["flash_bwd_dq_kernel<64>"] == here["flash_bwd_dq_kernel<64>"]
+    assert changed["flash_fwd_kernel<64>"] != here["flash_fwd_kernel<64>"]
+    assert compare_sass.first_difference(here["flash_fwd_kernel<64>"], changed["flash_fwd_kernel<64>"])["line"] == 2

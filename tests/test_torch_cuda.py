@@ -11,7 +11,10 @@ the plain versions against the final one, so single elements differ by a few
 bf16 ulps. lse is float32 in both (atol 1e-4). Every kernel check runs at
 each head_dim the kernels are built for (64, 96, 128 and 256) and at the two
 that the regrouped decoders give the wide kernels (384 and 512), with the
-models' scale head_dim^-0.5.
+models' scale head_dim^-0.5. The forward at 96 (its own design: unpadded
+tiles, two query tiles a CTA) also takes non-causal calls with more keys
+than queries, gives the same bits in two launches, and its (o, lse) feed the
+<96> backward kernels to the plain backward's gradients.
 
 The float32 kernels (a `--compute_dtype float32` run) are held against the
 plain versions at float32 at atol = rtol = 1e-4 (lse 1e-5): the three
@@ -109,6 +112,55 @@ def test_autograd_goes_through_the_kernels(gpu, head_dim):
     torch.testing.assert_close(out.float(), o_p.float(), atol=ATOL, rtol=RTOL)
     for leaf, y in zip(leaves, want):
         torch.testing.assert_close(leaf.grad.transpose(1, 2).float(), y.float(), atol=ATOL, rtol=RTOL)
+
+
+# head_dim 96's forward: non-causal calls with more keys than queries and a masked key range (CLIP-L/14-336's
+# 577 keys; a one-row last query tile; a masked last key tile)
+D96_CASES = [(129, 577, (500, 577)), (65, 577, (40, 80)), (320, 577, (560, 577))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_len,kv_len,masked", D96_CASES)
+def test_d96_forward_takes_more_keys_than_queries(gpu, q_len, kv_len, masked):
+    q, k, v, _, mask = _inputs(2, 4, q_len, seed=21, kv_len=kv_len, masked=masked, d=96)
+    scale = 96 ** -0.5
+    tattn.reset_launches()
+    o, lse = tattn.flash_forward(q, k, v, mask, False, scale)
+    assert tattn.LAUNCHES_BY_HEAD_DIM == {96: {"flash_fwd": 1, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}}
+    o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, False, scale)
+    torch.testing.assert_close(o.float(), o_p.float(), atol=ATOL, rtol=RTOL)
+    fin = torch.isfinite(lse_p)
+    assert torch.equal(torch.isinf(lse), ~fin) and not fin[0].any() and fin[1].all()
+    torch.testing.assert_close(lse[fin], lse_p[fin], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,q_len,kv_len,causal", [(48, 64, 336, 336, True), (3, 2, 77, 77, True),
+                                                      (2, 4, 129, 577, False)])
+def test_d96_forward_is_bit_equal_across_launches(gpu, b, h, q_len, kv_len, causal):
+    """Two launches of the forward at 96 give the same o and lse, bit for
+    bit (no atomics; each warpgroup sums its own rows in one order), at the
+    CE shape [48, 64, 336, 96] too."""
+    q, k, v, _, mask = _inputs(b, h, q_len, seed=22, kv_len=kv_len, masked=(256, 276) if q_len == 336 else None, d=96)
+    first = tattn.flash_forward(q, k, v, mask, causal, 96 ** -0.5)
+    second = tattn.flash_forward(q, k, v, mask, causal, 96 ** -0.5)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,q_len,kv_len,causal", [(8, 16, 336, 336, True), (2, 4, 129, 577, False)])
+def test_d96_forward_feeds_the_backward_kernels(gpu, b, h, q_len, kv_len, causal):
+    """The forward's (o, lse) at 96 into the <96> dK/dV and dQ kernels
+    (their padded 128-column tile) give dq, dk, dv within the bf16
+    tolerance of the plain backward from the plain forward's (o, lse)."""
+    q, k, v, g, mask = _inputs(b, h, q_len, seed=23, kv_len=kv_len, masked=(256, 276) if causal else None, d=96)
+    scale = 96 ** -0.5
+    o, lse = tattn.flash_forward(q, k, v, mask, causal, scale)
+    o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, causal, scale)
+    got = tattn.flash_backward(q, k, v, mask, o, lse, g, causal, scale)
+    want = tattn.flash_backward_plain(q, k, v, mask, o_p, lse_p, g, causal, scale)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(x.float(), y.float(), atol=ATOL, rtol=RTOL, msg=name)
 
 
 F32_ATOL = F32_RTOL = 1e-4
