@@ -270,9 +270,12 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM dense float32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores; a 3xTF32 product takes three
 
 SM90 = "sm90 tma+wgmma"
-# the bf16 forward at 96: unpadded [64][96] tiles (three 32-column panels, 64-byte swizzle), each score tile
-# formed once, two warpgroups a CTA with a query tile each (flash_attn.cu fwd96_cta)
-SM90_FWD96 = "sm90 tma+wgmma, unpadded 64-byte-swizzled tiles, S once, two query tiles a CTA"
+# the bf16 forward at 96, 128 and 256 (flash_attn.cu fwd_cta): two warpgroups a CTA with a query tile each,
+# each score tile formed once, P V in one m64nDk16 a k-step; at 96 unpadded [64][96] tiles (three 32-column
+# panels, 64-byte swizzle)
+SM90_FWD_SPLIT = {96: "sm90 tma+wgmma, unpadded 64-byte-swizzled tiles, S once, two query tiles a CTA",
+                  128: "sm90 tma+wgmma, S once, P V m64n128k16, two query tiles a CTA",
+                  256: "sm90 tma+wgmma, S once, P V m64n256k16, two query tiles a CTA"}
 # the float32 kernels' designs: all three in 3xTF32 on the tensor cores, the forward's score tile formed once
 # over all of head_dim (one CTA a query tile and up to 512 output columns)
 SM90_F32 = {"flash_fwd": "sm90 3xtf32 mma.sync, score tile once over head_dim, cp.async",
@@ -541,26 +544,30 @@ def phase_kernels(gen):
     # tensor cores, or the bytes; the CUDA-core bound beside it)
     timing_f32 = {d: kernel_timing(gen, f"timing_f32_ce_{d}", 48, h, 336, d, dtype=torch.float32)
                   for d, h in ((64, 16), (96, 64), (128, 16), (256, 8), (384, 16), (512, 4))}
-    errs["flash_fwd", 96] = max(errs["flash_fwd", 96], check_fwd_d96(gen, timing[96]))
+    for d in SM90_FWD_SPLIT:
+        errs["flash_fwd", d] = max(errs["flash_fwd", d], check_fwd_query_split(gen, d, timing[d]))
     check_xla_routing(gen)
     return errs, timing, errs_f32, timing_f32
 
 
-# the forward at 96 beyond KERNEL_CASES: (batch, heads, q_len, kv_len, masked key range) of non-causal calls
-# with more keys than queries (CLIP-L/14-336's 577 keys; a one-row last query tile; a masked last key tile)
-D96_NONCAUSAL_CASES = [(4, 16, 129, 577, (500, 577)), (4, 16, 65, 577, (3, 40)), (2, 8, 320, 577, (560, 577))]
+# the forward at 96, 128 and 256 beyond KERNEL_CASES: (batch, heads, q_len, kv_len, masked key range) of
+# non-causal calls with more keys than queries (CLIP-L/14-336's 577 keys; a one-row last query tile; a masked
+# last key tile; an odd count of query tiles)
+SPLIT_NONCAUSAL_CASES = [(4, 16, 129, 577, (500, 577)), (4, 16, 65, 577, (3, 40)), (2, 8, 320, 577, (560, 577))]
+# (batch, heads) of each head_dim's CE shape [48, H, 336, D]
+CE_HEADS = {96: 64, 128: 16, 256: 8}
 
 
-def check_fwd_d96(gen, timing96: dict) -> float:
-    """flash_fwd_kernel<96> (its own design) beyond KERNEL_CASES: the
-    non-causal calls of D96_NONCAUSAL_CASES against the plain version; (o,
-    lse) bit-equal across two launches at the CE shape and at 577 keys; its
-    (o, lse) into the <96> backward kernels against the plain backward; its
-    time at the CE shape against SDPA's forward and its bound (emitted, from
-    `timing96`, kernel_timing's at [48, 64, 336, 96]). Returns the largest
-    |o, lse - plain|."""
-    d, scale, largest = 96, 96 ** -0.5, 0.0
-    for b, h, tq, tk, masked in D96_NONCAUSAL_CASES:
+def check_fwd_query_split(gen, d: int, timing_d: dict) -> float:
+    """flash_fwd_kernel<d> at 96, 128 or 256 (two query tiles a CTA, fwd_cta)
+    beyond KERNEL_CASES: the non-causal calls of SPLIT_NONCAUSAL_CASES
+    against the plain version; (o, lse) bit-equal across two launches at the
+    CE shape and a small one; its (o, lse) into the <d> backward kernels
+    against the plain backward; its time at the CE shape against SDPA's
+    forward and its bound (emitted, from `timing_d`, kernel_timing's at
+    [48, H, 336, d]). Returns the largest |o, lse - plain|."""
+    scale, largest = d ** -0.5, 0.0
+    for b, h, tq, tk, masked in SPLIT_NONCAUSAL_CASES:
         q = torch.randn(b, h, tq, d, generator=gen, device="cuda").bfloat16()
         k, v = (torch.randn(b, h, tk, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
         mask = torch.ones(b, tk, dtype=torch.int32, device="cuda")
@@ -571,29 +578,30 @@ def check_fwd_d96(gen, timing96: dict) -> float:
         torch.testing.assert_close(lse, lse_p, atol=LSE_ATOL, rtol=0)
         err = max(_err(o, o_p), _err(lse, lse_p))
         largest = max(largest, err)
-        emit({"phase": "kernels", "case": "fwd_d96_noncausal", "shape": [b, h, tq, tk, d], "masked": list(masked),
+        emit({"phase": "kernels", "case": f"fwd_d{d}_noncausal", "shape": [b, h, tq, tk, d], "masked": list(masked),
               "max_abs_err": err, "atol": ATOL, "rtol": RTOL, "lse_atol": LSE_ATOL})
     bit_equal = {}
-    for name, (b, h, t, pad, causal) in {"ce_neox20b": (48, 64, 336, (256, 276), True),
+    ce = f"ce_d{d}"
+    for name, (b, h, t, pad, causal) in {ce: (48, CE_HEADS[d], 336, (256, 276), True),
                                          "small_unaligned_empty_rows": (3, 2, 77, (0, 3), True)}.items():
         q, k, v, do, mask = _qkv(gen, b, h, t, pad, name.endswith("empty_rows"), d)
         o, lse = A.flash_forward(q, k, v, mask, causal, scale)
         o2, lse2 = A.flash_forward(q, k, v, mask, causal, scale)
         bit_equal[name] = torch.equal(o, o2) and torch.equal(lse, lse2)
-        # the new forward's (o, lse) into the <96> backward kernels, against the plain forward and backward
+        # the forward's (o, lse) into the <d> backward kernels, against the plain forward and backward
         o_p, lse_p = A.flash_forward_plain(q, k, v, mask, causal, scale)
         got = A.flash_backward(q, k, v, mask, o, lse, do, causal, scale)
         want = A.flash_backward_plain(q, k, v, mask, o_p, lse_p, do, causal, scale)
         for label, x, y in zip(("dq", "dk", "dv"), got, want):
             torch.testing.assert_close(x.float(), y.float(), atol=ATOL, rtol=RTOL, msg=lambda m: f"{label}: {m}")
-        emit({"phase": "kernels", "case": f"fwd_d96_into_backward_{name}", "shape": [b, h, t, d],
+        emit({"phase": "kernels", "case": f"fwd_d{d}_into_backward_{name}", "shape": [b, h, t, d],
               "max_abs_err": {label: _err(x, y) for label, x, y in zip(("dq", "dk", "dv"), got, want)}})
     if not all(bit_equal.values()):
-        raise AssertionError(f"flash_fwd_kernel<96>: two launches differ: {bit_equal}")
-    ms, sdpa = timing96["ms"]["flash_fwd"], timing96["library_ms"]["flash_fwd"]
-    emit({"phase": "kernels", "case": "fwd_d96_against_sdpa", "shape": [48, 64, 336, d], "ms": ms, "sdpa_fwd_ms": sdpa,
-          "ratio_to_sdpa": ms / sdpa, "bound_ms": timing96["bound_ms"]["flash_fwd"],
-          "ratio_to_bound": ms / timing96["bound_ms"]["flash_fwd"], "bound_by": timing96["bound_by"]["flash_fwd"],
+        raise AssertionError(f"flash_fwd_kernel<{d}>: two launches differ: {bit_equal}")
+    ms, sdpa = timing_d["ms"]["flash_fwd"], timing_d["library_ms"]["flash_fwd"]
+    emit({"phase": "kernels", "case": f"fwd_d{d}_against_sdpa", "shape": [48, CE_HEADS[d], 336, d], "ms": ms,
+          "sdpa_fwd_ms": sdpa, "ratio_to_sdpa": ms / sdpa, "bound_ms": timing_d["bound_ms"]["flash_fwd"],
+          "ratio_to_bound": ms / timing_d["bound_ms"]["flash_fwd"], "bound_by": timing_d["bound_by"]["flash_fwd"],
           "bit_equal": bit_equal})
     return largest
 
@@ -3194,7 +3202,7 @@ def main() -> int:
         {"name": f"{name}<{d}>", "head_dim": d, "route": "cuda", "source": "mafed_tpu_torch/csrc/flash_attn.cu",
          "instantiation": (build.instantiation(f"{name}_wide_kernel", build.WIDE_SLICE) if build.wide_head_dim(d)
                            else build.instantiation(f"{name}_kernel", d)),
-         "replaces": replaces, "design": SM90_FWD96 if (name, d) == ("flash_fwd", 96) else design,
+         "replaces": replaces, "design": SM90_FWD_SPLIT[d] if name == "flash_fwd" and d in SM90_FWD_SPLIT else design,
          "launches": launched[d][name],
          "launches_by_path": {p: path.get(d, {}).get(name, 0) for p, path in by_path.items()},
          "max_abs_err": errs[name, d], "ms": timing[d]["ms"][name], "plain_ms": timing[d]["plain_ms"][name],

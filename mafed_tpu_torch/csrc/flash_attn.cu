@@ -13,8 +13,9 @@
 // [batch, kv_len] int32 (or null). Causal calls need kv_len == q_len.
 //
 // Design. Each CTA owns one 64-row tile: of queries for the forward and dQ,
-// of keys for dK/dV. The other operands stream through shared memory in
-// 64-row tiles, loaded by TMA through a 2-stage mbarrier ring. Every product
+// of keys for dK/dV (the forward at 96, 128 and 256: FWD_WG_* query tiles).
+// The other operands stream through shared memory in 64-row tiles, loaded by
+// TMA through a 2-stage mbarrier ring. Every product
 // is wgmma; scores, softmax statistics and accumulators stay in registers,
 // and P and dS pass from one product's accumulator to the next product as
 // register A fragments, never through shared memory (sm90.cuh holds the TMA,
@@ -24,31 +25,39 @@
 //
 // Head dims. Every kernel is a template over D (64, 96, 128 and 256 are
 // instantiated) and over WG, the number of warpgroups (128 threads each) in
-// the CTA. A tile is ceil(D / 64) panels of 64 columns (`panels`); a thread of
-// a warpgroup holds panels x 32 f32 of a 64-row accumulator, so at D = 256 one
-// accumulator is 128 registers of the 255 a thread may have. With WG > 1 each
-// warpgroup owns panels / WG of the output's panels, and every warpgroup
-// computes the whole 64 x 64 score tile (S, and dP in the backward) over the
-// full D itself: the products that make the scores are repeated WG times, but
+// the CTA. A thread of a warpgroup holds D / 2 f32 of a 64-row x D
+// accumulator, so at D = 256 one accumulator is 128 registers of the 255 a
+// thread may have.
+//
+// The forward at D = 96, 128 and 256 (fwd_cta) splits query rows over its
+// warpgroups: a CTA holds FWD_WG_* warpgroups, each with its own 64-row query
+// tile and all of its O, and each forms each 64 x 64 score tile once over all
+// of D; the warpgroups share each K/V tile of the CTA's ring, so a CTA streams
+// K and V once for all of its query tiles. Its tiles are [64][D] with nothing
+// padded: at D = 96 three 32-column panels with the 64-byte swizzle (O += P V
+// in one m64n96k16 a k-step), at 128 and 256 D / 64 panels of 64 columns
+// (one m64n128k16 or m64n256k16 a k-step). At D = 64 a CTA is one warpgroup
+// with one query tile.
+//
+// The backward kernels split the output's panels instead. Their tiles are
+// ceil(D / 64) panels of 64 columns (`panels`); with WG > 1 each warpgroup
+// owns panels / WG of the output's panels, and every warpgroup computes the
+// whole 64 x 64 score tile (S^T and dP^T, or S and dP) over the full D
+// itself: the products that make the scores are repeated WG times, but
 // nothing passes between warpgroups (an exchange of scores through shared
 // memory would not fit beside the 192 KB of tiles at D = 256). dK/dV at
 // D = 256 needs it (dK and dV are 256 registers together); at D = 128 one
 // warpgroup holds dK and dV beside S^T and dP^T in 234 registers. The
 // warpgroups of each kernel and head_dim are FWD_WG_*, DKV_WG_*, DQ_WG_*
-// below. The forward at D = 96 is the exception: its warpgroups split the
-// query rows, not the output's panels (next paragraph).
+// below.
 //
-// D = 96. The forward has a layout of its own (fwd96_cta): tiles of [64][96]
-// as three 32-column panels with the 64-byte swizzle, nothing padded; one
-// warpgroup forms each 64 x 64 score tile once (6 k-steps of m64n64k16) and
-// O += P V in one m64n96k16 a k-step; two warpgroups a CTA, each with a query
-// tile of its own, share each K/V tile. The dK/dV and dQ kernels run the
-// D = 128 tile: their tensor maps are 96 columns wide, so TMA fills columns
-// 96..127 of the second panel with zeros (as it fills rows past a sequence's
-// end). Their score products S and dP stop at column 96 (6 of the 8 k-steps);
-// their products into 64-column panels (dV, dK, dQ) run the whole second
-// panel, whose columns 96..127 come out zero and are never stored: a third
-// of that panel's work is wasted.
+// D = 96 in the backward. The dK/dV and dQ kernels run the D = 128 tile:
+// their tensor maps are 96 columns wide, so TMA fills columns 96..127 of the
+// second panel with zeros (as it fills rows past a sequence's end). Their
+// score products S and dP stop at column 96 (6 of the 8 k-steps); their
+// products into 64-column panels (dV, dK, dQ) run the whole second panel,
+// whose columns 96..127 come out zero and are never stored: a third of that
+// panel's work is wasted.
 //
 // Every multiple of 128 from 384 on (a runtime head_dim) takes the wide
 // kernels further down (flash_*_wide_kernel): a grid axis over 128-column
@@ -76,30 +85,32 @@ constexpr float NEG = -3.4028234663852886e38f;  // finfo(float32).min
 // 64-column panels of a [64][D] tile: D = 96 is padded to two
 __host__ __device__ constexpr int panels(int d) { return (d + 63) / 64; }
 
-// Warpgroups of each kernel at head_dim 256 (64 takes one everywhere). At the
-// 1B CE shape [48, 8, 336, 256] on an H100 SXM at 700 W
-// (scripts/flash_variants.py, each pair timed in turns): forward 0.218 ms
-// with two against 0.248 with one; dQ 0.182 with one against 0.200 with two.
-constexpr int FWD_WG_256 = 2, DKV_WG_256 = 2, DQ_WG_256 = 1;
+// Warpgroups of the backward kernels at head_dim 256 (64 takes one
+// everywhere). At the 1B CE shape [48, 8, 336, 256] on an H100 SXM at 700 W
+// (scripts/flash_variants.py, each pair timed in turns): dQ 0.182 ms with one
+// against 0.200 with two.
+constexpr int DKV_WG_256 = 2, DQ_WG_256 = 1;
 // At head_dim 128 and 96, at the 1.4B CE shape [48, 16, 336, 128] and the
 // GPT-NeoX-20B-width one [48, 64, 336, 96] (the same card and script, three
 // rounds in turns): dK/dV 0.224-0.247 / 0.753-0.783 ms with one against
 // 0.371-0.372 / 1.298-1.305 with two (two warpgroups of 168 registers fit one
 // CTA per SM, one of 234 fits two); dQ 0.154-0.167 / 0.532-0.560 with one
-// against 0.185-0.192 / 0.603-0.625 with two; the forward at 128
-// 0.187-0.212 with one against 0.195-0.206 with two (the ranges overlap and
-// the smaller count stays).
-constexpr int FWD_WG_128 = 1, DKV_WG_128 = 1, DQ_WG_128 = 1;
+// against 0.185-0.192 / 0.603-0.625 with two.
+constexpr int DKV_WG_128 = 1, DQ_WG_128 = 1;
 constexpr int DKV_WG_96 = 1, DQ_WG_96 = 1;
-// The forward at 96 has a design of its own (fwd96_cta): FWD_WG_96 warpgroups
-// a CTA, each with its own 64-row query tile, sharing each K/V tile. At the
-// CE shape [48, 64, 336, 96] on an H100 SXM at 700 W (scripts/flash_variants.py,
-// two calls of three rounds in turns): 0.402-0.412 ms with two (123 registers,
-// 74 KB: two CTAs an SM), 0.404-0.408 with two and FWD96_STAGES = 3,
-// 0.481-0.486 with one (61 KB: three CTAs an SM), 0.564-0.566 with one and
-// three stages (85 KB: two CTAs an SM), 0.508 with three warpgroups (one CTA
-// an SM by registers).
-constexpr int FWD_WG_96 = 2;
+// The forward at 96, 128 and 256 (fwd_cta): FWD_WG_* warpgroups a CTA, each
+// with its own 64-row query tile, sharing each K/V tile of a ring of STAGES
+// stages. On an H100 SXM at 700 W (scripts/flash_variants.py,
+// three rounds in turns), at the CE shape [48, 64, 336, 96]: 0.402-0.412 ms
+// with two (~121 registers, 74 KB: two CTAs an SM), 0.404-0.408 with two and
+// three stages, 0.481-0.486 with one (61 KB: three CTAs an SM), 0.564-0.566
+// with one and three stages, 0.508 with three warpgroups. At [48, 16, 336,
+// 128]: 0.129-0.134 with two held to 128 registers (97 KB: two CTAs an SM),
+// 0.180-0.184 with two at 138 registers (one CTA an SM), 0.176-0.192 with
+// two and three stages (one CTA an SM), 0.165-0.171 with one, 0.154-0.160
+// with three. At [48, 8, 336, 256]: 0.143-0.154 with two (195 registers,
+// 193 KB: one CTA an SM), 0.209-0.217 with one.
+constexpr int FWD_WG_96 = 2, FWD_WG_128 = 2, FWD_WG_256 = 2;
 
 // The warp of this thread within its warpgroup: rows 16 warp .. 16 warp + 15.
 __device__ __forceinline__ int wg_warp() { return (threadIdx.x % THREADS) / 32; }
@@ -161,41 +172,42 @@ __device__ __forceinline__ void store_acc_rows(bf16* __restrict__ dst, const flo
 // what counts is that every SM keeps loads in flight and never waits on its
 // own arithmetic.
 //
-// Design. One CTA owns one 64-row query tile of one (batch, head). Thread 0
-// loads Q once and streams 64-key K/V tiles with TMA through a ring of
-// STAGES stages, one mbarrier each, so tile j + 1 is in flight while tile j
-// is computed. S = Q K^T is wgmma with both operands K-major in shared
-// memory; the scores, the online-softmax statistics m and l, and the O
-// accumulator stay in registers: a thread holds two rows of each warp's
-// 16-row slice, so a row reduction is two shuffles within its quad. The
-// softmax runs in the log2 domain (the scale folded into log2(e), exp2 on the
-// special-function unit) and masks only the tiles that need it: the diagonal
-// one, where the loop stops, and those with a dropped key. P, rounded to
-// bf16, goes from the S accumulator straight into the A fragment of O += P V
-// (V read MN-major). At D = 64: about 41 KB of shared memory and under 100
-// registers a thread, 5 CTAs per SM. At D = 256: 165 KB (one CTA per SM) and
-// two warpgroups, each with half of O (64 registers) beside its own S, 128
-// registers a thread (one warpgroup with all of O took 202). At D = 128: 81
-// KB (two CTAs per SM), one warpgroup, 128 registers. (Issuing S of tile
+// Design. A CTA owns one 64-row query tile (at D = 96, 128 and 256: FWD_WG_*
+// of them) of one (batch, head). Thread 0 loads Q once and streams 64-key K/V
+// tiles with TMA through a ring of stages, one mbarrier each, so tile j + 1
+// is in flight while tile j is computed. S = Q K^T is wgmma with both
+// operands K-major in shared memory; the scores, the online-softmax
+// statistics m and l, and the O accumulator stay in registers: a thread holds
+// two rows of each warp's 16-row slice, so a row reduction is two shuffles
+// within its quad. The softmax runs in the log2 domain (the scale folded into
+// log2(e), exp2 on the special-function unit); at D = 64 it masks only the
+// tiles that need it (the diagonal one, where the loop stops, and those with
+// a dropped key), at 96, 128 and 256 every tile. P, rounded to bf16, goes
+// from the S accumulator straight into the A fragment of O += P V (V read
+// MN-major). At D = 64: about 41 KB of shared memory and under 100 registers
+// a thread, 5 CTAs per SM. (Issuing S of tile
 // j + 1 while P V of tile j runs measured slower on the H100: at D = 64, and
 // at D = 96 0.538-0.540 ms against 0.481 with one warpgroup a CTA, 0.80
 // against 0.40 with two, whose 150 registers fit one CTA an SM.)
 //
-// At D = 96 (fwd96_cta) a CTA's time is set by its serial chain (wait for
-// the tile, S, softmax, P V, barrier, refill) more than by its bytes: the
-// earlier form (the D = 128 tile with 96-wide maps, two warpgroups, each
-// forming S itself beside its own 64-column O panel) took as long a CTA as
-// <128> while moving three quarters of its bytes. So the tiles lose their
-// padding (12 KB instead of 16: three 32-column panels with the 64-byte
-// swizzle, read by TMA in 32 x 64 boxes), each warpgroup forms its S once and
-// O += P V in m64n96k16 (48 accumulators a thread), and two warpgroups, each
-// with its own 64-row query tile, share each K/V tile (FWD_WG_96), so a CTA
-// streams half the K/V bytes a query row. Q plus two K/V stages take ~74 KB,
-// 123 registers a thread: two CTAs an SM, four warpgroups that each compute
-// their own query tile (the padded form's two CTAs held four warpgroups that
-// formed each S twice).
-// Products a key tile and query tile, in m64n64k16-equivalents: 6 for S and 6
-// for P V (4 of m64n96k16), where the padded form issued 12 + 8.
+// At D = 96, 128 and 256 (fwd_cta) a CTA's time is set by its serial chain
+// (wait for the tile, S, softmax, P V, barrier, refill) more than by its
+// bytes, and a wide O leaves room for few warpgroups an SM. Splitting O's
+// panels over two warpgroups (the earlier form at 256, and at 96 on the
+// padded 128 tile) let each warpgroup hold half of O but made each form the
+// whole score tile itself, so every S was computed twice. Here each
+// warpgroup owns a 64-row query tile and all of its O (48, 64 or 128
+// accumulators a thread), forms each S once over all of D, and adds P V in
+// one m64nDk16 a k-step, V read MN-major across its panels (LBO); FWD_WG_*
+// warpgroups a CTA share each K/V tile, so a CTA streams half the K/V bytes a
+// query row. Products a key tile and query tile, in m64n64k16-equivalents:
+// D / 16 for S and D / 16 for P V (at 256: 16 + 16, where the panel split
+// issued 2 x (16 + 8)). At 96 the tiles lose their padding (12 KB instead of
+// 16: three 32-column panels with the 64-byte swizzle, read by TMA in
+// 32 x 64 boxes); Q plus two K/V stages take ~74 KB, 121 registers a thread:
+// two CTAs an SM. At 128 two query tiles and two stages take ~97 KB and, held
+// to 128 registers (flash_fwd_kernel<128, 2>), two CTAs share an SM; at 256
+// ~193 KB and 195 registers, one CTA an SM.
 // ---------------------------------------------------------------------------
 constexpr int STAGES = 2;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -243,7 +255,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], flo
   }
 }
 
-// Shared memory of the forward (at D = 96: Fwd96Smem) and dQ kernels, byte
+// Shared memory of the forward at D = 64 and of the dQ kernels, byte
 // offsets from the 1024-aligned base: ONCE query-side tiles loaded once (Q; Q
 // and dO), the K and V stages of the ring, each stage's keep bits, and the
 // barriers (the once-loaded tiles', then one per stage).
@@ -318,42 +330,68 @@ template <int D, int ONCE> struct KvRing {
   }
 };
 
-// The forward at D = 96 (flash_fwd_kernel<96>, below): tiles of [64][96],
-// three 32-column panels with the 64-byte swizzle (no padded panel), 12 KB a
-// tile. FWD_WG_96 warpgroups own a 64-row query tile each and share each K/V
-// tile of the FWD96_STAGES ring; thread 0 issues every load.
-constexpr int FWD96_STAGES = 2;
-constexpr int FWD96_COLS = 96;
-
-struct Fwd96Smem {  // byte offsets from the 1024-aligned base: the Q tiles, then as QTileSmem
-  static constexpr uint32_t TILE = FWD96_COLS / sm90::PANEL_SW64 * sm90::PANEL_SW64_BYTES;
-  static constexpr uint32_t K = FWD_WG_96 * TILE;
-  static constexpr uint32_t V = K + FWD96_STAGES * TILE;
-  static constexpr uint32_t KEEP = V + FWD96_STAGES * TILE;  // FWD96_STAGES x uint64 keep bits
-  static constexpr uint32_t BAR = KEEP + FWD96_STAGES * 8;    // the Q tiles', then one per stage
-  static constexpr size_t ALLOC = BAR + (1 + FWD96_STAGES) * 8 + 1024;
+// The forward at D = 96, 128 and 256 (flash_fwd_kernel<D, WG>, below): WG
+// warpgroups own a 64-row query tile each and share each K/V tile of a ring
+// of STAGES stages; thread 0 issues every load. Its tiles are [64][D] with
+// nothing padded: at 96 three 32-column panels with the 64-byte swizzle, at
+// 128 and 256 D / 64 panels of 64 columns with the 128-byte swizzle
+// (sm90.cuh).
+template <int D, int WG> struct FwdSmem {  // byte offsets from the 1024-aligned base
+  static constexpr uint32_t TILE = BLOCK * D * 2;      // a [64][D] bf16 tile
+  static constexpr uint32_t K = WG * TILE;             // after the WG query tiles
+  static constexpr uint32_t V = K + STAGES * TILE;
+  static constexpr uint32_t KEEP = V + STAGES * TILE;  // STAGES x uint64 keep bits
+  static constexpr uint32_t BAR = KEEP + STAGES * 8;   // the Q tiles', then one per stage
+  static constexpr size_t ALLOC = BAR + (1 + STAGES) * 8 + 1024;
 };
 
-// One CTA of flash_fwd_kernel<96, WG>: query tiles WG x.. WG x + WG - 1 of
-// one (batch, head); warpgroup w computes tile WG x + w from the key tiles it
-// needs (causal: up to its diagonal), and the CTA streams the key tiles its
-// last warpgroup needs.
-template <int WG>
-__device__ __forceinline__ void fwd96_cta(const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
-                                          const int* __restrict__ mask, bf16* __restrict__ o,
-                                          float* __restrict__ lse, int heads, int q_len, int kv_len, int causal,
-                                          float scale) {
-  static_assert(WG == FWD_WG_96, "Fwd96Smem holds FWD_WG_96 query tiles");
-  using L = Fwd96Smem;
-  constexpr int D = FWD96_COLS, ST = FWD96_STAGES;
+template <int D>
+__device__ __forceinline__ void fwd_load_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int row,
+                                              int plane) {
+  if constexpr (D == 96)
+    sm90::tma_load_tile_sw64<D>(dst, map, bar, row, plane);
+  else
+    sm90::tma_load_tile<D>(dst, map, bar, row, plane);
+}
+
+// K-major descriptor of k-step kk of a Q or K tile, for S = Q K^T.
+template <int D>
+__device__ __forceinline__ uint64_t fwd_desc_k(uint32_t tile, int kk) {
+  if constexpr (D == 96)
+    return sm90::desc_k_major_sw64(tile, kk);
+  else
+    return sm90::desc_k_major(tile, kk);
+}
+
+// k-step kk of O += P V over all D columns: one m64nDk16, P (bf16) from
+// registers, V MN-major across its panels.
+template <int D>
+__device__ __forceinline__ void fwd_pv(float (&acc)[D / 2], const uint32_t (&a)[4], uint32_t sV, int kk) {
+  if constexpr (D == 96)
+    sm90::wgmma_rs_n96(acc, a, sm90::desc_mn_major_sw64(sV, kk));
+  else if constexpr (D == 128)
+    sm90::wgmma_rs_n128(acc, a, sm90::desc_mn_major(sV, 0, kk));
+  else
+    sm90::wgmma_rs_n256(acc, a, sm90::desc_mn_major(sV, 0, kk));
+}
+
+// One CTA of flash_fwd_kernel<D, WG> at D = 96, 128 or 256: query tiles
+// WG x .. WG x + WG - 1 of one (batch, head); warpgroup w computes tile
+// WG x + w from the key tiles it needs (causal: up to its diagonal), and the
+// CTA streams the key tiles its last warpgroup needs.
+template <int D, int WG>
+__device__ __forceinline__ void fwd_cta(const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                        const int* __restrict__ mask, bf16* __restrict__ o,
+                                        float* __restrict__ lse, int heads, int q_len, int kv_len, int causal,
+                                        float scale) {
+  static_assert(D == 96 || D == 128 || D == 256, "fwd_cta's tiles and products are built for 96, 128 and 256");
+  using L = FwdSmem<D, WG>;
   const int tid = threadIdx.x, wg = tid / THREADS, lane = tid % 32;
   const int bh = blockIdx.y, b = bh / heads;
   const int n_qt = (q_len + BLOCK - 1) / BLOCK, n_kt = (kv_len + BLOCK - 1) / BLOCK;
   const int qt_first = blockIdx.x * WG, n_tiles = min(WG, n_qt - qt_first), qt = qt_first + wg;
   const int upper = causal ? min(qt_first + n_tiles, n_kt) : n_kt;         // key tiles of the CTA
   const int mine = qt >= n_qt ? 0 : causal ? min(qt + 1, n_kt) : n_kt;     // of this warpgroup
-  o += (size_t)bh * q_len * D;
-  lse += (size_t)bh * q_len;
   const int* mask_row = mask == nullptr ? nullptr : mask + (size_t)b * kv_len;
 
   extern __shared__ unsigned char smem_raw[];
@@ -362,11 +400,11 @@ __device__ __forceinline__ void fwd96_cta(const CUtensorMap* tm_q, const CUtenso
   uint64_t* keep_slot = reinterpret_cast<uint64_t*>(smem + L::KEEP);
   const auto load_kv = [&](int kt, int s) {
     sm90::mbar_expect_tx(&bar[1 + s], 2 * L::TILE);
-    sm90::tma_load_tile_sw64<D>(smem + L::K + s * L::TILE, tm_k, &bar[1 + s], kt * BLOCK, bh);
-    sm90::tma_load_tile_sw64<D>(smem + L::V + s * L::TILE, tm_v, &bar[1 + s], kt * BLOCK, bh);
+    fwd_load_tile<D>(smem + L::K + s * L::TILE, tm_k, &bar[1 + s], kt * BLOCK, bh);
+    fwd_load_tile<D>(smem + L::V + s * L::TILE, tm_v, &bar[1 + s], kt * BLOCK, bh);
   };
   if (tid == 0) {
-    for (int i = 0; i < 1 + ST; ++i) sm90::mbar_init(&bar[i], 1);
+    for (int i = 0; i < 1 + STAGES; ++i) sm90::mbar_init(&bar[i], 1);
     sm90::fence_mbar_init();
   }
   if (tid < 64 && upper > 0) store_keep_bits(&keep_slot[0], keep_key(mask_row, 0, kv_len));
@@ -374,28 +412,28 @@ __device__ __forceinline__ void fwd96_cta(const CUtensorMap* tm_q, const CUtenso
   if (tid == 0) {
     sm90::mbar_expect_tx(&bar[0], n_tiles * L::TILE);
     for (int w = 0; w < n_tiles; ++w)
-      sm90::tma_load_tile_sw64<D>(smem + w * L::TILE, tm_q, &bar[0], (qt_first + w) * BLOCK, bh);
-    for (int s = 0; s < ST && s < upper; ++s) load_kv(s, s);
+      fwd_load_tile<D>(smem + w * L::TILE, tm_q, &bar[0], (qt_first + w) * BLOCK, bh);
+    for (int s = 0; s < STAGES && s < upper; ++s) load_kv(s, s);
   }
 
-  float acc[48];  // O, m64n96: d[4 j + 2 i + c] = (row r_i, column 8 j + 2 (lane % 4) + c)
+  float acc[D / 2];  // O, m64nDk16: d[4 j + 2 i + c] = (row r_i, column 8 j + 2 (lane % 4) + c)
 #pragma unroll
-  for (int r = 0; r < 48; ++r) acc[r] = 0.0f;
+  for (int r = 0; r < D / 2; ++r) acc[r] = 0.0f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};  // row max (log2 domain) and sum
   const float scale_log2 = scale * LOG2E;
   sm90::mbar_wait(&bar[0], 0);
 
   for (int kt = 0; kt < upper; ++kt) {
-    const int s = kt % ST;
+    const int s = kt % STAGES;
     // the next tile's keep bits: fetched now, stored after this tile's products
     const bool next_keep = tid < 64 && kt + 1 < upper && keep_key(mask_row, (kt + 1) * BLOCK, kv_len);
-    sm90::mbar_wait(&bar[1 + s], (kt / ST) & 1);
+    sm90::mbar_wait(&bar[1 + s], (kt / STAGES) & 1);
     if (kt < mine) {  // the same for the whole warpgroup
       const uint32_t sQ = sm90::opaque(sm90::smem_addr(smem + wg * L::TILE));
       const uint32_t sK = sm90::smem_addr(smem + L::K + s * L::TILE);
       const uint32_t sV = sm90::smem_addr(smem + L::V + s * L::TILE);
 
-      // S = Q K^T once: 6 k-steps over the three panels
+      // S = Q K^T once, D / 16 k-steps
       float sc[32];
 #pragma unroll
       for (int r = 0; r < 32; ++r) sc[r] = 0.0f;
@@ -403,52 +441,54 @@ __device__ __forceinline__ void fwd96_cta(const CUtensorMap* tm_q, const CUtenso
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        sm90::wgmma_ss(sc, sm90::desc_k_major_sw64(sQ, kk), sm90::desc_k_major_sw64(sK, kk), kk > 0);
+        sm90::wgmma_ss(sc, fwd_desc_k<D>(sQ, kk), fwd_desc_k<D>(sK, kk), kk > 0);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(sc);
 
-      const uint64_t kbits = keep_slot[s];
-      const bool diag = causal && kt == qt;
+      // every tile through the masked softmax: an unmasked copy for tiles
+      // with no dropped key measured no faster, and its code took <128> past
+      // the 128 registers of two CTAs an SM
       float alpha[2];
-      if (diag || kbits != ~0ull)
-        softmax_tile<true>(sc, m, l, alpha, kbits, diag, scale_log2);
-      else
-        softmax_tile<false>(sc, m, l, alpha, kbits, false, scale_log2);
+      softmax_tile<true>(sc, m, l, alpha, keep_slot[s], causal && kt == qt, scale_log2);
 #pragma unroll
-      for (int j = 0; j < 12; ++j)
+      for (int j = 0; j < D / 8; ++j)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           acc[4 * j + 2 * i] *= alpha[i];
           acc[4 * j + 2 * i + 1] *= alpha[i];
         }
 
-      // O += P V: m64n96k16 over all 96 columns, P (bf16) from registers
+      // O += P V over all D columns, P (bf16) from registers
       uint32_t pa[4][4];
       sm90::acc_to_a(sc, pa);
       sm90::fence_regs(acc);
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs_n96(acc, pa[kk], sm90::desc_mn_major_sw64(sV, kk));
+      for (int kk = 0; kk < 4; ++kk) fwd_pv<D>(acc, pa[kk], sV, kk);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc);
     }
-    if (tid < 64 && kt + 1 < upper) store_keep_bits(&keep_slot[(kt + 1) % ST], next_keep);
+    if (tid < 64 && kt + 1 < upper) store_keep_bits(&keep_slot[(kt + 1) % STAGES], next_keep);
     __syncthreads();  // every warp is done with tile kt's stage
-    if (tid == 0 && kt + ST < upper) load_kv(kt + ST, s);
+    if (tid == 0 && kt + STAGES < upper) load_kv(kt + STAGES, s);
   }
 
+  // each warpgroup stores o and lse of its own rows; a warpgroup without a
+  // tile (the last CTA's, at an odd count of tiles) stores nothing. (The
+  // output pointers are formed here, not held through the loop.)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const bool empty = l[i] == 0.0f;
     const float l_safe = empty ? 1.0f : l[i];
     const int row = qt * BLOCK + wg_warp() * 16 + lane / 4 + 8 * i;
     if (row >= q_len) continue;
-    if (lane % 4 == 0) lse[row] = empty ? INFINITY : m[i] * LN2 + logf(l_safe);
-    bf16* out = o + (size_t)row * D + 2 * (lane % 4);
+    const size_t at = (size_t)bh * q_len + row;  // row of the [batch*heads, q_len] outputs
+    if (lane % 4 == 0) lse[at] = empty ? INFINITY : m[i] * LN2 + logf(l_safe);
+    bf16* out = o + at * D + 2 * (lane % 4);
 #pragma unroll
-    for (int j = 0; j < 12; ++j)
+    for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(out + 8 * j) =
           sm90::pack_bf16(acc[4 * j + 2 * i] / l_safe, acc[4 * j + 2 * i + 1] / l_safe);
   }
@@ -459,13 +499,14 @@ __global__ void __launch_bounds__(THREADS * WG)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ mask, bf16* __restrict__ o,
                  float* __restrict__ lse, int heads, int q_len, int kv_len, int causal, float scale) {
-  if constexpr (D == 96) {  // its own layout and design (fwd96_cta)
-    fwd96_cta<WG>(&tm_q, &tm_k, &tm_v, mask, o, lse, heads, q_len, kv_len, causal, scale);
+  if constexpr (D != 64) {  // WG query tiles a CTA (fwd_cta)
+    fwd_cta<D, WG>(&tm_q, &tm_k, &tm_v, mask, o, lse, heads, q_len, kv_len, causal, scale);
   } else {
-    static_assert(D % 16 == 0 && panels(D) % WG == 0, "tiles are 64-column panels, split evenly over warpgroups");
-    constexpr int NPW = panels(D) / WG;  // O panels of each warpgroup
+    static_assert(WG == 1, "at D = 64 a CTA is one warpgroup with one query tile");
     const int qt = blockIdx.x, bh = blockIdx.y, b = bh / heads;
-    const int wg = threadIdx.x / THREADS, lane = threadIdx.x % 32, p0 = wg * NPW;
+    // wg is 0; its index arithmetic stays as the panel-split form had it,
+    // which keeps this kernel's SASS
+    const int wg = threadIdx.x / THREADS, lane = threadIdx.x % 32;
     const int q0 = qt * BLOCK;
     o += (size_t)bh * q_len * D;
     lse += (size_t)bh * q_len;
@@ -477,11 +518,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
                             causal ? min(qt + 1, n_kt) : n_kt};
     ring.start({&tm_q}, q0);
 
-    float acc[NPW][32];
+    float acc[1][32];  // O: one 64-column panel
 #pragma unroll
-    for (int n = 0; n < NPW; ++n)
-#pragma unroll
-      for (int r = 0; r < 32; ++r) acc[n][r] = 0.0f;
+    for (int r = 0; r < 32; ++r) acc[0][r] = 0.0f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};  // row max (log2 domain) and sum
     const float scale_log2 = scale * LOG2E;
     ring.wait_once();
@@ -517,29 +556,23 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       else
         softmax_tile<false>(sc, m, l, alpha, kbits, false, scale_log2);
 #pragma unroll
-      for (int n = 0; n < NPW; ++n)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            acc[n][4 * j + 2 * i] *= alpha[i];
-            acc[n][4 * j + 2 * i + 1] *= alpha[i];
-          }
+        for (int i = 0; i < 2; ++i) {
+          acc[0][4 * j + 2 * i] *= alpha[i];
+          acc[0][4 * j + 2 * i + 1] *= alpha[i];
+        }
 
-      // O += P V on this warpgroup's panels, P (bf16) from registers
+      // O += P V, P (bf16) from registers
       uint32_t pa[4][4];
       sm90::acc_to_a(sc, pa);
-#pragma unroll
-      for (int n = 0; n < NPW; ++n) sm90::fence_regs(acc[n]);
+      sm90::fence_regs(acc[0]);
       sm90::wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < NPW; ++n)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs(acc[n], pa[kk], sm90::desc_mn_major(sV, p0 + n, kk));
+      for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs(acc[0], pa[kk], sm90::desc_mn_major(sV, wg, kk));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
-#pragma unroll
-      for (int n = 0; n < NPW; ++n) sm90::fence_regs(acc[n]);
+      sm90::fence_regs(acc[0]);
       ring.advance(kt, next_keep);
     }
 
@@ -548,17 +581,27 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       const bool empty = l[i] == 0.0f;
       const float l_safe = empty ? 1.0f : l[i];
 #pragma unroll
-      for (int n = 0; n < NPW; ++n)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          acc[n][4 * j + 2 * i] /= l_safe;
-          acc[n][4 * j + 2 * i + 1] /= l_safe;
-        }
+      for (int j = 0; j < 8; ++j) {
+        acc[0][4 * j + 2 * i] /= l_safe;
+        acc[0][4 * j + 2 * i + 1] /= l_safe;
+      }
       const int row = q0 + wg_warp() * 16 + lane / 4 + 8 * i;
       if (wg == 0 && lane % 4 == 0 && row < q_len) lse[row] = empty ? INFINITY : m[i] * LN2 + logf(l_safe);
     }
-    store_acc_rows<D, NPW>(o, acc, q0, q_len, 1.0f, p0);
+    store_acc_rows<D, 1>(o, acc, q0, q_len, 1.0f, wg);
   }
+}
+
+// At 128 two CTAs share an SM: 2 x 256 threads, at most 128 registers a
+// thread. (A minimum-CTA bound on the template itself changes the SASS of
+// <64>, whose register count it does not need.)
+template <>
+__global__ void __launch_bounds__(THREADS * FWD_WG_128, 2)
+flash_fwd_kernel<128, FWD_WG_128>(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                                  const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ mask,
+                                  bf16* __restrict__ o, float* __restrict__ lse, int heads, int q_len, int kv_len,
+                                  int causal, float scale) {
+  fwd_cta<128, FWD_WG_128>(&tm_q, &tm_k, &tm_v, mask, o, lse, heads, q_len, kv_len, causal, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -1395,36 +1438,19 @@ template <int D, int WG>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* mask, void* o, void* lse,
                        int batch_heads, int heads, int q_len, int kv_len, int causal, float scale,
                        cudaStream_t stream) {
+  // at 96 boxes of 32 columns with the 64-byte swizzle (fwd_cta's unpadded tiles)
+  const auto make_map = D == 96 ? sm90_host::make_map_3d_sw64 : sm90_host::make_map_3d;
   CUtensorMap tm_q, tm_k, tm_v;
   cudaError_t err;
-  if ((err = sm90_host::make_map_3d(&tm_q, q, batch_heads, q_len, D)) != cudaSuccess) return err;
-  if ((err = sm90_host::make_map_3d(&tm_k, k, batch_heads, kv_len, D)) != cudaSuccess) return err;
-  if ((err = sm90_host::make_map_3d(&tm_v, v, batch_heads, kv_len, D)) != cudaSuccess) return err;
-  constexpr size_t smem = QTileSmem<D, 1>::ALLOC;
+  if ((err = make_map(&tm_q, q, batch_heads, q_len, D)) != cudaSuccess) return err;
+  if ((err = make_map(&tm_k, k, batch_heads, kv_len, D)) != cudaSuccess) return err;
+  if ((err = make_map(&tm_v, v, batch_heads, kv_len, D)) != cudaSuccess) return err;
+  constexpr size_t smem = D == 64 ? QTileSmem<D, 1>::ALLOC : FwdSmem<D, WG>::ALLOC;
   err = cudaFuncSetAttribute(flash_fwd_kernel<D, WG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((q_len + BLOCK - 1) / BLOCK, batch_heads);
-  flash_fwd_kernel<D, WG><<<grid, THREADS * WG, smem, stream>>>(
-      tm_q, tm_k, tm_v, (const int*)mask, (bf16*)o, (float*)lse, heads, q_len, kv_len, causal, scale);
-  return cudaGetLastError();
-}
-
-// The forward at 96: tensor maps of 32-column boxes, FWD_WG_96 query tiles a CTA.
-cudaError_t launch_fwd_96(const void* q, const void* k, const void* v, const void* mask, void* o, void* lse,
-                          int batch_heads, int heads, int q_len, int kv_len, int causal, float scale,
-                          cudaStream_t stream) {
-  CUtensorMap tm_q, tm_k, tm_v;
-  cudaError_t err;
-  if ((err = sm90_host::make_map_3d_sw64(&tm_q, q, batch_heads, q_len, 96)) != cudaSuccess) return err;
-  if ((err = sm90_host::make_map_3d_sw64(&tm_k, k, batch_heads, kv_len, 96)) != cudaSuccess) return err;
-  if ((err = sm90_host::make_map_3d_sw64(&tm_v, v, batch_heads, kv_len, 96)) != cudaSuccess) return err;
-  constexpr size_t smem = Fwd96Smem::ALLOC;
-  err = cudaFuncSetAttribute(flash_fwd_kernel<96, FWD_WG_96>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
   const int n_qt = (q_len + BLOCK - 1) / BLOCK;
-  const dim3 grid((n_qt + FWD_WG_96 - 1) / FWD_WG_96, batch_heads);
-  flash_fwd_kernel<96, FWD_WG_96><<<grid, THREADS * FWD_WG_96, smem, stream>>>(
+  const dim3 grid((n_qt + WG - 1) / WG, batch_heads);  // WG query tiles a CTA
+  flash_fwd_kernel<D, WG><<<grid, THREADS * WG, smem, stream>>>(
       tm_q, tm_k, tm_v, (const int*)mask, (bf16*)o, (float*)lse, heads, q_len, kv_len, causal, scale);
   return cudaGetLastError();
 }
@@ -1551,7 +1577,8 @@ extern "C" cudaError_t flash_attn_fwd(const void* q, const void* k, const void* 
     case 64:
       return launch_fwd<64, 1>(q, k, v, mask, o, lse, batch_heads, heads, q_len, kv_len, causal, scale, st);
     case 96:
-      return launch_fwd_96(q, k, v, mask, o, lse, batch_heads, heads, q_len, kv_len, causal, scale, st);
+      return launch_fwd<96, FWD_WG_96>(q, k, v, mask, o, lse, batch_heads, heads, q_len, kv_len, causal, scale,
+                                       st);
     case 128:
       return launch_fwd<128, FWD_WG_128>(q, k, v, mask, o, lse, batch_heads, heads, q_len, kv_len, causal, scale,
                                          st);

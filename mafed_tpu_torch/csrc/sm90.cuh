@@ -16,7 +16,9 @@
 //     further along the row; SBO = 1024 bytes (the next 8 rows), LBO unused.
 //   MN-major (rows are K, the 64 columns are N; B of P.V, P^T.dO, dS^T.Q):
 //     k-step kk starts 16 rows (2048 bytes) further down; SBO = 1024 bytes
-//     (the next 8 rows of K), LBO = the next 64-column panel (unused at N = 64).
+//     (the next 8 rows of K), LBO = the next 64-column panel: the forward at
+//     D = 128 and 256 reads V's N over all of its panels in one m64n128k16 or
+//     m64n256k16 (`wgmma_rs_n128`, `wgmma_rs_n256`); unused at N = 64.
 //
 // The bf16 forward at D = 96 stores its tiles without padding: three panels
 // of [64 rows][32 columns], a row 64 bytes, written by TMA with the 64-byte
@@ -28,7 +30,8 @@
 //   MN-major (V of O += P V, N = 96 in one product): k-step kk starts 16 rows
 //     (1024 bytes) further down; SBO = 512 bytes (the next 8 rows of K), LBO =
 //     the next 32-column panel (4 KB: N runs over three panels).
-// tests/test_torch_d96_layout.py emulates the TMA writes and these reads.
+// tests/test_torch_d96_layout.py and tests/test_torch_fwd_layout.py emulate
+// the TMA writes and these reads.
 
 #pragma once
 
@@ -186,9 +189,10 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
 
 // Pins the order of register reads and writes of an accumulator against the
 // asynchronous wgmma that owns it.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define SM90_D32                                                                                              \
@@ -235,11 +239,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
   "%23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
   "%44, %45, %46, %47}"
 
-__device__ __forceinline__ void fence_regs(float (&d)[48]) {
-#pragma unroll
-  for (int i = 0; i < 48; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d += A . B, m64n96k16, A from registers (as in wgmma_rs), B MN-major in
 // shared memory (desc_mn_major_sw64: 96 columns over three 32-column panels).
 __device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)[4], uint64_t desc_b) {
@@ -254,6 +253,65 @@ __device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+#define SM90_D64 SM90_D32,                                                                                   \
+    "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+    "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+    "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
+    "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define SM90_D64_LIST "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "           \
+    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "           \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define SM90_D128 SM90_D64,                                                                                          \
+    "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),          \
+    "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),          \
+    "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),          \
+    "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),          \
+    "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),      \
+    "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),  \
+    "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),  \
+    "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+#define SM90_D128_LIST "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "       \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                 \
+    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                 \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "                 \
+    "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "                 \
+    "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "                 \
+    "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "     \
+    "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+
+// d += A . B, m64n128k16, A from registers (as in wgmma_rs), B MN-major in
+// shared memory (desc_mn_major: 128 columns over two 64-column panels, LBO).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_D64_LIST
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : SM90_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d += A . B, m64n256k16, A from registers (as in wgmma_rs), B MN-major in
+// shared memory (desc_mn_major: 256 columns over four 64-column panels, LBO).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SM90_D128_LIST
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : SM90_D128
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+#undef SM90_D128
+#undef SM90_D128_LIST
+#undef SM90_D64
+#undef SM90_D64_LIST
 #undef SM90_D48
 #undef SM90_D48_LIST
 #undef SM90_D32

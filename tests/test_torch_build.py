@@ -30,13 +30,13 @@ ptxas info    : Used 255 registers, used 1 barriers
 # the width of its output slice (128), and takes head_dim at run time; so does
 # a float32 kernel (wg "f32" below: its mangled name takes float pointers),
 # whose forward is built at four slice widths (64, 96, 128 and 512). The
-# bf16 forward at 96 is its own design (two warpgroups, each with its own query
-# tile; unpadded tiles of three 32-column boxes).
+# bf16 forward at 96, 128 and 256 takes two warpgroups a CTA, each with its own
+# query tile (at 96 unpadded tiles of three 32-column boxes).
 _MANGLED = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}ELi{wg}EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16Pfiiiif"
 _MANGLED_WIDE = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16Pfiiiiif"
 _MANGLED_F32 = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}EEEvPKfS2_S2_PKiPfS5_iiiiiif"
-_ENTRIES = [("flash_fwd_kernel", 64, 1, 92, 0), ("flash_fwd_kernel", 96, 2, 123, 0),
-            ("flash_fwd_kernel", 128, 1, 128, 0), ("flash_fwd_kernel", 256, 2, 128, 0),
+_ENTRIES = [("flash_fwd_kernel", 64, 1, 92, 0), ("flash_fwd_kernel", 96, 2, 121, 0),
+            ("flash_fwd_kernel", 128, 2, 128, 0), ("flash_fwd_kernel", 256, 2, 195, 0),
             ("flash_bwd_dkv_kernel", 256, 2, 234, 24), ("flash_bwd_dkv_kernel", 128, 1, 234, 0),
             ("flash_bwd_dkv_kernel", 96, 1, 234, 0), ("flash_bwd_dkv_kernel", 64, 1, 163, 0),
             ("flash_bwd_dq_kernel", 128, 1, 154, 0), ("flash_bwd_dq_kernel", 64, 1, 122, 0),
@@ -188,7 +188,7 @@ def test_sass_check_asks_wgmma_of_bf16_and_ffma_without_wgmma_of_f32():
 
     no_tma = _sass_of(*entries["flash_fwd_kernel<96>"], hgmma=False).replace("UTMALDG", "LDG")
     assert faults({"flash_fwd_kernel<96>": no_tma}) == [
-        f"flash_fwd_kernel<96>: needs HGMMA and UTMALDG, has {counts(hgmma=10)}"]
+        f"flash_fwd_kernel<96>: needs HGMMA and UTMALDG, has {counts(hgmma=8)}"]
     key = "flash_bwd_dq_f32_kernel<128>"
     assert faults({key: _sass_of(*entries[key], hgmma=True)}) == [
         f"{key}: needs HMMA of the TF32 kind only and no HGMMA, has {counts(hgmma=1, ffma=2, hmma=3)}"]

@@ -11,10 +11,13 @@ the plain versions against the final one, so single elements differ by a few
 bf16 ulps. lse is float32 in both (atol 1e-4). Every kernel check runs at
 each head_dim the kernels are built for (64, 96, 128 and 256) and at the two
 that the regrouped decoders give the wide kernels (384 and 512), with the
-models' scale head_dim^-0.5. The forward at 96 (its own design: unpadded
-tiles, two query tiles a CTA) also takes non-causal calls with more keys
-than queries, gives the same bits in two launches, and its (o, lse) feed the
-<96> backward kernels to the plain backward's gradients.
+models' scale head_dim^-0.5. The forward at 96 (unpadded tiles, two query
+tiles a CTA) also takes non-causal calls with more keys than queries, gives
+the same bits in two launches, and its (o, lse) feed the <96> backward
+kernels to the plain backward's gradients; likewise the forward at 128 and
+256 (two query tiles a CTA, each score tile formed once), at one query row,
+at both sides of a tile edge and at odd counts of tiles, with and without
+key padding.
 
 The float32 kernels (a `--compute_dtype float32` run) are held against the
 plain versions at float32 at atol = rtol = 1e-4 (lse 1e-5): the three
@@ -155,6 +158,65 @@ def test_d96_forward_feeds_the_backward_kernels(gpu, b, h, q_len, kv_len, causal
     tolerance of the plain backward from the plain forward's (o, lse)."""
     q, k, v, g, mask = _inputs(b, h, q_len, seed=23, kv_len=kv_len, masked=(256, 276) if causal else None, d=96)
     scale = 96 ** -0.5
+    o, lse = tattn.flash_forward(q, k, v, mask, causal, scale)
+    o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, causal, scale)
+    got = tattn.flash_backward(q, k, v, mask, o, lse, g, causal, scale)
+    want = tattn.flash_backward_plain(q, k, v, mask, o_p, lse_p, g, causal, scale)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(x.float(), y.float(), atol=ATOL, rtol=RTOL, msg=name)
+
+
+# the forward at 128 and 256 (query tiles split over two warpgroups a CTA): one query row, both sides of a
+# tile edge, an odd count of tiles (the prefill's 320: five) and the window's 336
+SPLIT_Q_LENS = [1, 63, 64, 65, 320, 336]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [128, 256])
+@pytest.mark.parametrize("q_len", SPLIT_Q_LENS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("padded", [True, False])
+def test_query_split_forward_matches_plain(gpu, head_dim, q_len, causal, padded):
+    """The forward at 128 and 256 against the plain forward: o within the
+    bf16 tolerance, lse in every row (+inf exactly on the empty rows of the
+    masked sample, within 1e-4 elsewhere), with the key-padding mask or
+    none."""
+    q, k, v, _, mask = _inputs(3, 4, q_len, seed=24, d=head_dim)
+    mask = mask if padded else None
+    scale = head_dim ** -0.5
+    o, lse = tattn.flash_forward(q, k, v, mask, causal, scale)
+    o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, causal, scale)
+    torch.testing.assert_close(o.float(), o_p.float(), atol=ATOL, rtol=RTOL)
+    fin = torch.isfinite(lse_p)
+    assert torch.equal(torch.isinf(lse), ~fin) and torch.equal(lse[~fin], lse_p[~fin])
+    assert fin.all() if not padded else not fin[0].any() and (o[0] == 0).all()
+    torch.testing.assert_close(lse[fin], lse_p[fin], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,b,h", [(128, 48, 16), (256, 48, 8)])
+@pytest.mark.parametrize("q_len", [77, 320, 336])
+def test_query_split_forward_is_bit_equal_across_launches(gpu, head_dim, b, h, q_len):
+    """Two launches of the forward at 128 and 256 give the same o and lse,
+    bit for bit (each warpgroup sums its own rows in one order), at the CE
+    shape and the prefill's five query tiles too."""
+    q, k, v, _, mask = _inputs(b, h, q_len, seed=25, masked=(256, 276) if q_len > 276 else None, d=head_dim)
+    first = tattn.flash_forward(q, k, v, mask, True, head_dim ** -0.5)
+    second = tattn.flash_forward(q, k, v, mask, True, head_dim ** -0.5)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [128, 256])
+@pytest.mark.parametrize("b,h,q_len,kv_len,causal", [(8, 8, 336, 336, True), (4, 4, 320, 320, True),
+                                                      (2, 4, 129, 577, False)])
+def test_query_split_forward_feeds_the_backward_kernels(gpu, head_dim, b, h, q_len, kv_len, causal):
+    """The forward's (o, lse) at 128 and 256 into the <128> / <256> dK/dV and
+    dQ kernels give dq, dk, dv within the bf16 tolerance of the plain
+    backward from the plain forward's (o, lse)."""
+    q, k, v, g, mask = _inputs(b, h, q_len, seed=26, kv_len=kv_len, masked=(256, 276) if causal else None,
+                               d=head_dim)
+    scale = head_dim ** -0.5
     o, lse = tattn.flash_forward(q, k, v, mask, causal, scale)
     o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, causal, scale)
     got = tattn.flash_backward(q, k, v, mask, o, lse, g, causal, scale)

@@ -1,5 +1,5 @@
 """The shared-memory layout of the bf16 forward kernel at head_dim 96
-(`flash_fwd_kernel<96>`, mafed_tpu_torch/csrc/flash_attn.cu `fwd96_cta`),
+(`flash_fwd_kernel<96>`, mafed_tpu_torch/csrc/flash_attn.cu `fwd_cta` at D = 96),
 emulated on the CPU.
 
 That kernel keeps its [64][96] tiles without padding: three panels of
@@ -21,7 +21,7 @@ describes them and runs the source's own arithmetic through the model:
 
 The descriptor functions (`desc_sw64`, `desc_k_major_sw64`,
 `desc_mn_major_sw64` in csrc/sm90.cuh), the panel constants, the box and
-swizzle of `make_map_3d_sw64` and the kernel's tile offsets (`Fwd96Smem`)
+swizzle of `make_map_3d_sw64` and the kernel's tile offsets (`FwdSmem`)
 are read from the sources and evaluated here, so the tests pin them: every
 element of a tile is read exactly once, in wgmma's order (k-step kk, its k
 or row 16 kk + k), and no column past 95 is written or read. The same model
@@ -79,10 +79,11 @@ def _py(expr: str) -> str:
 
 
 def _constants(src: str, names) -> dict:
-    """Evaluate `constexpr ... NAME = expr;` of each name, in order."""
+    """Evaluate `constexpr ... NAME = expr;` (or NAME = expr in a list of
+    `constexpr int A = 1, NAME = expr, ...;`) of each name, in order."""
     env: dict = {}
     for name in names:
-        expr = re.search(rf"constexpr\s+\w+\s+{name}\s*=\s*([^;]+);", src).group(1)
+        expr = re.search(rf"constexpr\s+\w+\s+(?:\w+\s*=\s*[^,;]+,\s*)*{name}\s*=\s*([^,;]+)[,;]", src).group(1)
         env[name] = eval(_py(expr), {}, dict(env, **_SM90_CONSTANTS))
     return env
 
@@ -116,15 +117,23 @@ def _descriptor_maker(name: str):
     return build_desc
 
 
-FLASH_CONSTANTS = _constants(FLASH, ("BLOCK", "FWD_WG_96", "FWD96_STAGES", "FWD96_COLS"))
+FLASH_CONSTANTS = _constants(FLASH, ("BLOCK", "STAGES", "FWD_WG_96", "FWD_WG_128", "FWD_WG_256"))
 
 
-def _fwd96_smem() -> dict:
-    """Fwd96Smem's byte offsets, evaluated from the source."""
-    env = dict(FLASH_CONSTANTS)
-    for name, expr in re.findall(r"static constexpr \w+ (\w+) = ([^;]+);", _body(FLASH, "struct Fwd96Smem")):
+def fwd_smem(d: int = D) -> dict:
+    """FwdSmem<d, FWD_WG_d>'s byte offsets (and WG, STAGES), evaluated from the source."""
+    env = {"BLOCK": FLASH_CONSTANTS["BLOCK"], "STAGES": FLASH_CONSTANTS["STAGES"], "D": d,
+           "WG": FLASH_CONSTANTS[f"FWD_WG_{d}"]}
+    for name, expr in re.findall(r"static constexpr \w+ (\w+) = ([^;]+);", _body(FLASH, "struct FwdSmem")):
         env[name] = eval(_py(expr), {}, dict(env, **_SM90_CONSTANTS))
     return env
+
+
+def tile_bases(smem: dict) -> dict:
+    """The tiles of one CTA at its 1024-aligned base: each warpgroup's Q, each stage's K and V."""
+    return ({f"q{w}": smem["TILE"] * w for w in range(smem["WG"])}
+            | {f"k{s}": smem["K"] + s * smem["TILE"] for s in range(smem["STAGES"])}
+            | {f"v{s}": smem["V"] + s * smem["TILE"] for s in range(smem["STAGES"])})
 
 
 # ---------------------------------------------------------------------------
@@ -197,17 +206,14 @@ def _map_box_and_swizzle(name: str):
 MAP_BOX, MAP_SWIZZLE = _map_box_and_swizzle("make_map_3d_sw64")
 K_MAJOR_SW64 = _descriptor_maker("desc_k_major_sw64")
 MN_MAJOR_SW64 = _descriptor_maker("desc_mn_major_sw64")
-SMEM = _fwd96_smem()
-# the tiles of one CTA at its 1024-aligned base: each warpgroup's Q, each stage's K and V
-TILE_BASES = ({f"q{w}": SMEM["TILE"] * w for w in range(FLASH_CONSTANTS["FWD_WG_96"])}
-              | {f"k{s}": SMEM["K"] + s * SMEM["TILE"] for s in range(FLASH_CONSTANTS["FWD96_STAGES"])}
-              | {f"v{s}": SMEM["V"] + s * SMEM["TILE"] for s in range(FLASH_CONSTANTS["FWD96_STAGES"])})
+SMEM = fwd_smem()
+TILE_BASES = tile_bases(SMEM)
 BASE = 0x8000  # a 1024-aligned shared address for the CTA's base
 
 
-def s_reads(smem: dict, base: int, k_major=K_MAJOR_SW64) -> list:
+def s_reads(smem: dict, base: int, k_major=K_MAJOR_SW64, d: int = D) -> list:
     """The (row, col) each k-step of S = Q K^T reads from one K-major operand tile."""
-    return [k_major_read(smem, k_major(base, kk)) for kk in range(D // 16)]
+    return [k_major_read(smem, k_major(base, kk)) for kk in range(d // 16)]
 
 
 def pv_reads(smem: dict, base: int, mn_major=MN_MAJOR_SW64, n: int = D) -> list:
@@ -215,13 +221,13 @@ def pv_reads(smem: dict, base: int, mn_major=MN_MAJOR_SW64, n: int = D) -> list:
     return [mn_major_read(smem, mn_major(base, kk), n) for kk in range(4)]
 
 
-def _read_exactly_once_in_order(reads, want) -> None:
+def read_exactly_once_in_order(reads, want, d: int = D) -> None:
     seen = []
     for kk, got in enumerate(reads):
         for idx in np.ndindex(got.shape):
             assert got[idx] == want(kk, *idx), f"k-step {kk} at {idx}: read {got[idx]}, wants {want(kk, *idx)}"
             seen.append(got[idx])
-    assert sorted(seen) == [(r, c) for r in range(64) for c in range(D)]
+    assert sorted(seen) == [(r, c) for r in range(64) for c in range(d)]
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +245,7 @@ def test_sw64_descriptors_encode_the_fields_of_the_ptx_layout():
 
 
 def test_tiles_are_unpadded_and_swizzle_aligned():
-    """Fwd96Smem's tiles are 12 KB ([64][96] bf16, nothing padded), each at a
+    """FwdSmem's tiles at 96 are 12 KB ([64][96] bf16, nothing padded), each at a
     multiple of 512 bytes from the 1024-aligned base (the 64-byte swizzle's
     period), and two CTAs fit an SM's shared memory."""
     assert SMEM["TILE"] == 64 * D * 2 == 12288
@@ -266,7 +272,7 @@ def test_score_product_reads_q_and_k_once_in_k_order(tile):
     """S = Q K^T: k-step kk (0..5) of desc_k_major_sw64 reads (row, 16 kk + k)
     of the tile, so every element once, in wgmma's order."""
     base = BASE + TILE_BASES[tile]
-    _read_exactly_once_in_order(s_reads(sw64_tile(base), base), lambda kk, r, k: (r, 16 * kk + k))
+    read_exactly_once_in_order(s_reads(sw64_tile(base), base), lambda kk, r, k: (r, 16 * kk + k))
 
 
 @pytest.mark.parametrize("tile", [t for t in sorted(TILE_BASES) if t[0] == "v"])
@@ -274,7 +280,7 @@ def test_pv_product_reads_v_once_over_all_96_columns(tile):
     """O += P V: k-step kk (0..3) of desc_mn_major_sw64 reads (16 kk + k, n)
     for n < 96 across the three panels (LBO), so every element once."""
     base = BASE + TILE_BASES[tile]
-    _read_exactly_once_in_order(pv_reads(sw64_tile(base), base), lambda kk, k, n: (16 * kk + k, n))
+    read_exactly_once_in_order(pv_reads(sw64_tile(base), base), lambda kk, k, n: (16 * kk + k, n))
 
 
 def test_the_model_passes_the_128_byte_layout_the_other_kernels_run():
@@ -327,18 +333,25 @@ def _case_96(entry: str) -> str:
 
 
 def test_forward_launcher_at_96_takes_the_unpadded_tile():
-    """flash_attn_fwd at 96 goes to launch_fwd_96: three 32-column maps,
-    Fwd96Smem, FWD_WG_96 query tiles a CTA, the kernel flash_fwd_kernel<96>
-    (kernels/build.py reads it under that name)."""
-    assert _case_96("flash_attn_fwd") == "launch_fwd_96"
-    body = _body(FLASH, "cudaError_t launch_fwd_96(")
-    assert body.count("make_map_3d_sw64(") == 3 and "make_map_3d(" not in body
-    assert "Fwd96Smem::ALLOC" in body and "flash_fwd_kernel<96, FWD_WG_96><<<" in body
-    assert "(n_qt + FWD_WG_96 - 1) / FWD_WG_96" in body
+    """flash_attn_fwd at 96 goes to launch_fwd<96, FWD_WG_96>: three
+    32-column maps, FwdSmem, FWD_WG_96 query tiles a CTA, the kernel
+    flash_fwd_kernel<96> (kernels/build.py reads it under that name), whose
+    fwd_cta loads, reads and multiplies the tiles at 96 as the model does."""
+    assert _case_96("flash_attn_fwd") == "launch_fwd<96, FWD_WG_96>"
+    body = _body(FLASH, "cudaError_t launch_fwd(")
+    assert "const auto make_map = D == 96 ? sm90_host::make_map_3d_sw64 : sm90_host::make_map_3d;" in body
+    assert body.count("make_map(") == 3
+    assert "FwdSmem<D, WG>::ALLOC" in body and "flash_fwd_kernel<D, WG><<<" in body
+    assert "(n_qt + WG - 1) / WG" in body
     assert build.route("flash_fwd", "bfloat16", 96).instantiation == "flash_fwd_kernel<96>"
-    cta = _body(FLASH, "void fwd96_cta(")
-    assert "sm90::desc_k_major_sw64(sQ, kk), sm90::desc_k_major_sw64(sK, kk)" in cta
-    assert "sm90::wgmma_rs_n96(acc, pa[kk], sm90::desc_mn_major_sw64(sV, kk))" in cta
+    assert re.search(r"if constexpr \(D == 96\)\s*sm90::tma_load_tile_sw64<D>\(", _body(FLASH, "void fwd_load_tile("))
+    assert re.search(r"if constexpr \(D == 96\)\s*return sm90::desc_k_major_sw64\(tile, kk\);",
+                     _body(FLASH, "uint64_t fwd_desc_k("))
+    assert re.search(r"if constexpr \(D == 96\)\s*sm90::wgmma_rs_n96\(acc, a, sm90::desc_mn_major_sw64\(sV, kk\)\);",
+                     _body(FLASH, "void fwd_pv("))
+    cta = _body(FLASH, "void fwd_cta(")
+    assert "sm90::wgmma_ss(sc, fwd_desc_k<D>(sQ, kk), fwd_desc_k<D>(sK, kk), kk > 0)" in cta
+    assert "for (int kk = 0; kk < 4; ++kk) fwd_pv<D>(acc, pa[kk], sV, kk);" in cta
     assert "m64n96k16" in _body(SM90, "void wgmma_rs_n96(")
 
 
@@ -377,13 +390,31 @@ def _bf16(x: np.ndarray) -> np.ndarray:
     return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).bfloat16().float().numpy()
 
 
-def emulated_forward_d96(q, k, v, mask, causal: bool, scale: float):
-    """(o, lse) of fwd96_cta with every operand read through the model: the
-    kernel's CTAs of FWD_WG_96 query tiles, each warpgroup up to its own
-    diagonal, the log2-domain online softmax over 64-key tiles (masked tiles
-    filled with finfo(f32).min, keep zeroing), P rounded to bf16."""
-    (q_maps, k_maps, v_maps), wg = _operand_maps(), FLASH_CONSTANTS["FWD_WG_96"]
-    b_, h_, q_len, _ = q.shape
+def cta_plan(wg: int):
+    """fwd_cta's split of a CTA of `wg` query tiles: for warpgroup w of CTA
+    x, its query tile, the key tiles the CTA streams (its last warpgroup's)
+    and those the warpgroup computes (causal: up to its own diagonal)."""
+    def plan(cta, w, n_qt, n_kt, causal):
+        first = cta * wg
+        n_tiles = min(wg, n_qt - first)
+        upper = min(first + n_tiles, n_kt) if causal else n_kt
+        qt = first + w
+        mine = 0 if qt >= n_qt else min(qt + 1, n_kt) if causal else n_kt
+        return qt, upper, mine
+    return plan
+
+
+def emulated_forward(q, k, v, mask, causal: bool, scale: float, maps=None, wg=None, plan=None):
+    """(o, lse) of fwd_cta with every operand read through the model (`maps`,
+    as _operand_maps gives them; at 96 by default): the kernel's CTAs of
+    `wg` query tiles (FWD_WG_96 by default), split as `plan` says (cta_plan
+    by default), each warpgroup up to its own diagonal, the log2-domain
+    online softmax over 64-key tiles (masked tiles filled with
+    finfo(f32).min, keep zeroing), P rounded to bf16."""
+    q_maps, k_maps, v_maps = _operand_maps() if maps is None else maps
+    wg = FLASH_CONSTANTS["FWD_WG_96"] if wg is None else wg
+    plan = cta_plan(wg) if plan is None else plan
+    b_, h_, q_len, d = q.shape
     kv_len = k.shape[2]
     n_qt, n_kt = -(-q_len // 64), -(-kv_len // 64)
     neg, log2e = np.float32(np.finfo(np.float32).min), np.float32(1.4426950408889634)
@@ -391,7 +422,7 @@ def emulated_forward_d96(q, k, v, mask, causal: bool, scale: float):
     lse = np.zeros(q.shape[:3], np.float32)
 
     def tile(x, t):  # rows 64 t .. 64 t + 63, zeros past the end (TMA's fill)
-        out = np.zeros((64, D), np.float32)
+        out = np.zeros((64, d), np.float32)
         part = x[64 * t:64 * t + 64]
         out[:len(part)] = part
         return out
@@ -401,16 +432,12 @@ def emulated_forward_d96(q, k, v, mask, causal: bool, scale: float):
         keep_keys[:kv_len] = mask[b] > 0
         for h in range(h_):
             for cta in range(-(-n_qt // wg)):
-                first = cta * wg
-                n_tiles = min(wg, n_qt - first)
-                upper = min(first + n_tiles, n_kt) if causal else n_kt
                 for w in range(wg):
-                    qt = first + w
-                    mine = 0 if qt >= n_qt else min(qt + 1, n_kt) if causal else n_kt
+                    qt, upper, mine = plan(cta, w, n_qt, n_kt, causal)
                     if qt >= n_qt:
                         continue
                     qtile = tile(q[b, h], qt)
-                    acc = np.zeros((64, D), np.float32)
+                    acc = np.zeros((64, d), np.float32)
                     m = np.full(64, -np.inf, np.float32)
                     l = np.zeros(64, np.float32)
                     for kt in range(min(mine, upper)):
@@ -463,7 +490,7 @@ def test_emulated_forward_matches_pallas(case):
     if empty:
         mask[-1] = 0
     scale = D ** -0.5
-    o, lse = emulated_forward_d96(q, k, v, mask, causal, scale)
+    o, lse = emulated_forward(q, k, v, mask, causal, scale)
     prev = jattn._INTERPRET
     jattn._INTERPRET = True
     try:
