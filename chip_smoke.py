@@ -41,7 +41,11 @@ Phases, each printing one JSON line:
      3xTF32 at the tensor cores' TF32 rate, the card's least time for
      float32-accurate products; the CUDA-core bound, the products at the
      card's float32 rate outside the tensor cores, beside it) and SDPA at
-     float32 with TF32 off on the backend it takes; then
+     float32 with TF32 off on the backend it takes; then the forward at
+     96, 128 and 256 and dK/dV at 96 and 256 beyond those cases (query
+     lengths from 1 to 336, 577 keys, two launches bit-equal, the whole
+     backward from the kernels' forward; their ms against SDPA's and their
+     bounds: the fwd_d* and bwd_dkv_d* lines); then
      one shape that the JAX package sends to xla_attention (32 heads of 80,
      Pythia-2.8B's width): dot_product_attention equal to masked_attention,
      no launch;
@@ -165,31 +169,36 @@ Phases, each printing one JSON line:
  18. multiprocess (after cl_resume): data parallelism over torch.distributed,
      two ranks of this script (--mp-worker) sharing cuda:0 over gloo (the
      machine has one card; NCCL refuses two ranks on one), each failure or
-     timeout of a rank failing the phase: process_reduce_sum on known
-     values; phase window's three 410M MAFED windows on 8 of the 16 rows a
-     rank against one process on all 16 (the ranks bit-equal; metrics within
-     bf16's resolution; parameters within 5 % of one process's update
-     length; 118 / 48 / 48 launches a window on each rank), beside the
-     spread of one process on the rows reordered; a SIGTERM to rank 1 alone
+     timeout of a rank failing the phase; at full width, cut in depth
+     (MP_LAYERS of the 410M model's 24 layers), each check against one
+     process at the same depth: process_reduce_sum on known values; phase
+     window's three 410M MAFED windows on 8 of the 16 rows a rank against
+     one process on all 16 (the ranks bit-equal; metrics within bf16's
+     resolution; parameters within 5 % of one process's update length;
+     5 L - 2 / 2 L / 2 L launches a window on each rank), beside the spread
+     of one process on the rows reordered; a SIGTERM to rank 1 alone
      stopping both after the same window; cl_sequence_default's sequence
-     over both ranks (the caches primed by both into one directory; no
-     epoch-end bundles), its accuracy matrix beside the one-process one,
-     then preempted by the countdown after 2 updates and resumed, bit-equal
+     (with no epoch-end bundles) once in one process (cl_reference), then
+     over both ranks (the caches primed by both into one directory), its
+     accuracy matrix beside the one-process one and its losses within
+     bf16's resolution, then preempted by the countdown after 2 updates and
+     resumed, bit-equal
      (these runs write only the bundle: no task checkpoint); two pretraining
      updates at a global batch of 64 (the pair cannot hold 128) against one
      process. The NCCL windows run on two cards; on one the phase prints
      {"phase": "multiprocess_nccl", "run": false, "cards": 1}.
  19. tensor_parallel (after multiprocess): the (data, model) grid of
      core/mesh.py, ranks of this script on cuda:0 over gloo as in phase
-     multiprocess: VL-Pythia-1B at full width and depth under mesh_shape
-     [1, 2] (4 heads of 256 a rank), phase window_1b's three MAFED windows
-     against one process on the same weights and rows (metrics within
-     bf16's resolution, the gathered parameters within 5 % of one process's
-     update length and 2.02 lr an update, the replicated parameters
-     bit-equal on the ranks, 78 / 32 / 32 launches a window a rank, ms a
-     window and peak GB a rank); cl_sequence_default's sequence under
-     [2, 2] (four ranks), its accuracy matrix equal to the one-process one
-     and its losses within bf16's resolution, the best checkpoint, read by
+     multiprocess: VL-Pythia-1B at full width, cut to TP_WINDOW_LAYERS of
+     its 16 layers, under mesh_shape [1, 2] (4 heads of 256 a rank), phase
+     window_1b's three MAFED windows against one process on the same
+     weights, rows and depth (metrics within bf16's resolution, the
+     gathered parameters within 5 % of one process's update length and
+     2.02 lr an update, the replicated parameters bit-equal on the ranks,
+     5 L - 2 / 2 L / 2 L launches a window a rank, ms a window and peak GB a
+     rank); phase multiprocess's sequence (its model cut to MP_LAYERS) under
+     [2, 2] (four ranks), its accuracy matrix equal to that phase's one
+     process's and its losses within bf16's resolution, the best checkpoint, read by
      rank 0 as one process reads it, bit-equal to the gathered model, then a SIGTERM
      to rank 1 alone stopping all four at one update and the resume
      bit-equal to the uninterrupted run; two pretraining updates at a
@@ -212,6 +221,7 @@ package beside it, the script exits non-zero before printing anything.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -281,6 +291,11 @@ SM90_FWD_SPLIT = {96: "sm90 tma+wgmma, unpadded 64-byte-swizzled tiles, S once, 
 SM90_F32 = {"flash_fwd": "sm90 3xtf32 mma.sync, score tile once over head_dim, cp.async",
             "flash_bwd_dkv": "sm90 3xtf32 mma.sync, cp.async",
             "flash_bwd_dq": "sm90 3xtf32 mma.sync, cp.async"}
+# the bf16 dK/dV at 96 and 256 (flash_attn.cu dkv_cta): at 96 unpadded tiles, at 256 two warpgroups that split
+# each score tile's queries and exchange P^T and dS^T through shared memory
+SM90_DKV_CTA = {96: "sm90 tma+wgmma, unpadded 64-byte-swizzled tiles, dV and dK m64n96k16",
+                256: "sm90 tma+wgmma, 2 warpgroups split each score tile's queries (m64n32k16), P^T and dS^T "
+                     "exchanged in bf16 through shared memory, dK and dV m64n128k16"}
 # name (its CUDA kernel is name + "_kernel"): (the TPU kernel it replaces, its design)
 KERNELS = {
     "flash_fwd": ("mafed_tpu/kernels/attention.py:81", SM90),
@@ -546,6 +561,8 @@ def phase_kernels(gen):
                   for d, h in ((64, 16), (96, 64), (128, 16), (256, 8), (384, 16), (512, 4))}
     for d in SM90_FWD_SPLIT:
         errs["flash_fwd", d] = max(errs["flash_fwd", d], check_fwd_query_split(gen, d, timing[d]))
+    for d in SM90_DKV_CTA:
+        errs["flash_bwd_dkv", d] = max(errs["flash_bwd_dkv", d], check_bwd_dkv(gen, d, timing))
     check_xla_routing(gen)
     return errs, timing, errs_f32, timing_f32
 
@@ -604,6 +621,78 @@ def check_fwd_query_split(gen, d: int, timing_d: dict) -> float:
           "ratio_to_bound": ms / timing_d["bound_ms"]["flash_fwd"], "bound_by": timing_d["bound_by"]["flash_fwd"],
           "bit_equal": bit_equal})
     return largest
+
+
+# dK/dV at 96 and 256 (flash_attn.cu dkv_cta) beyond KERNEL_CASES: query lengths from one row to the
+# window's 336 (both sides of a tile edge, odd counts of tiles), causal or not, right-padded keys with an
+# all-masked sample or no mask
+DKV_Q_LENS = (1, 63, 64, 65, 130, 320, 336)
+# |dq, dk, dv - plain| of the whole backward from the kernels' forward at the CE shape and a small one: one
+# bf16 step at magnitudes 2 to 4 (reported beside the largest errors; the check is ATOL / RTOL)
+DKV_BACKWARD_ATOL = 2.0 ** -6
+
+
+def check_bwd_dkv(gen, d: int, timing: dict) -> float:
+    """flash_bwd_dkv_kernel<d> at 96 or 256 (dkv_cta) beyond KERNEL_CASES:
+    DKV_Q_LENS causal and not, padded or not, and the non-causal calls of
+    SPLIT_NONCAUSAL_CASES (577 keys) against the plain backward at ATOL /
+    RTOL; dk, dv bit-equal across two launches at the CE shape and a small
+    one; the whole backward there (the forward's (o, lse), dq from
+    flash_bwd_dq_kernel<d>) against the plain one (its largest errors beside
+    DKV_BACKWARD_ATOL); its
+    time at the CE shape against its bound, and the dK/dV + dQ pair's against
+    SDPA's whole backward (emitted, from `timing`, kernel_timing's at [48, H,
+    336, d]). Returns the largest |dk, dv - plain|."""
+    scale, errs = d ** -0.5, {}
+    cases = [(4, 4, t, t, causal, padded) for t in DKV_Q_LENS for causal in (True, False) for padded in (True, False)]
+    cases += [(b, h, tq, tk, False, masked) for b, h, tq, tk, masked in SPLIT_NONCAUSAL_CASES]
+    for b, h, tq, tk, causal, padded in cases:
+        if tq == tk:  # right padding, at least half the keys kept, and the last sample all masked
+            q, k, v, do, mask = _qkv(gen, b, h, tq, ("right", max(1, tq // 2)) if padded else None, padded, d)
+        else:
+            q, do = (torch.randn(b, h, tq, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
+            k, v = (torch.randn(b, h, tk, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
+            mask = torch.ones(b, tk, dtype=torch.int32, device="cuda")
+            mask[:, padded[0]:padded[1]] = 0
+        o_p, lse_p = A.flash_forward_plain(q, k, v, mask, causal, scale)
+        delta = (do.float() * o_p.float()).sum(-1)
+        dk, dv = A.flash_bwd_dkv(q, k, v, mask, do, lse_p, delta, causal, scale)
+        _, dk_p, dv_p = A.flash_backward_plain(q, k, v, mask, o_p, lse_p, do, causal, scale)
+        for label, x, y in (("dk", dk, dk_p), ("dv", dv, dv_p)):
+            torch.testing.assert_close(x.float(), y.float(), atol=ATOL, rtol=RTOL,
+                                       msg=lambda m: f"dkv<{d}> {[b, h, tq, tk, causal]} {label}: {m}")
+        errs[f"{tq}x{tk}_{'causal' if causal else 'noncausal'}_{'padded' if padded else 'unmasked'}"] = max(
+            _err(dk, dk_p), _err(dv, dv_p))
+    bit_equal, backward = {}, {}
+    for name, (b, h, t, pad, empty) in {"ce": (48, CE_HEADS[d], 336, (256, 276), False),
+                                        "small_unaligned_empty_rows": (3, 2, 77, (0, 3), True)}.items():
+        q, k, v, do, mask = _qkv(gen, b, h, t, pad, empty, d)
+        o, lse = A.flash_forward(q, k, v, mask, True, scale)
+        delta = (do.float() * o.float()).sum(-1)
+        first = A.flash_bwd_dkv(q, k, v, mask, do, lse, delta, True, scale)
+        second = A.flash_bwd_dkv(q, k, v, mask, do, lse, delta, True, scale)
+        bit_equal[name] = all(torch.equal(x, y) for x, y in zip(first, second))
+        o_p, lse_p = A.flash_forward_plain(q, k, v, mask, True, scale)
+        got = A.flash_backward(q, k, v, mask, o, lse, do, True, scale)
+        want = A.flash_backward_plain(q, k, v, mask, o_p, lse_p, do, True, scale)
+        for label, x, y in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(x.float(), y.float(), atol=ATOL, rtol=RTOL,
+                                       msg=lambda m: f"dkv<{d}> whole backward {name} {label}: {m}")
+        backward[name] = {label: _err(x, y) for label, x, y in zip(("dq", "dk", "dv"), got, want)}
+    emit({"phase": "kernels", "case": f"bwd_dkv_d{d}_cases", "max_abs_err": errs, "atol": ATOL, "rtol": RTOL,
+          "bit_equal": bit_equal, "whole_backward_max_abs_err": backward,
+          "whole_backward_within": {name: max(e.values()) <= DKV_BACKWARD_ATOL for name, e in backward.items()},
+          "whole_backward_reference_atol": DKV_BACKWARD_ATOL})
+    if not all(bit_equal.values()):
+        raise AssertionError(f"flash_bwd_dkv_kernel<{d}>: two launches differ: {bit_equal}")
+    t = timing[d]
+    ms, pair = t["ms"]["flash_bwd_dkv"], t["ms"]["flash_bwd_dkv"] + t["ms"]["flash_bwd_dq"]
+    sdpa = t["library_ms"]["flash_bwd_dkv"]
+    emit({"phase": "kernels", "case": f"bwd_dkv_d{d}_against_sdpa", "shape": [48, CE_HEADS[d], 336, d], "ms": ms,
+          "bound_ms": t["bound_ms"]["flash_bwd_dkv"], "ratio_to_bound": ms / t["bound_ms"]["flash_bwd_dkv"],
+          "bound_by": t["bound_by"]["flash_bwd_dkv"], "dkv_plus_dq_ms": pair, "sdpa_bwd_ms": sdpa,
+          "pair_ratio_to_sdpa": pair / sdpa, "bit_equal": bit_equal})
+    return max(errs.values())
 
 
 def check_xla_routing(gen) -> None:
@@ -2442,6 +2531,12 @@ def phase_cka_sweep(smi: str, default_run: dict, device: str = "cuda", n_val: in
 # the phase runs two ranks on cuda:0 over gloo, which stages CUDA tensors
 # through the host: a check of correctness, not a measure of scaling.
 MP_WORLD, MP_BACKEND, MP_DEVICE = 2, "gloo", "cuda:0"
+# Phases multiprocess and tensor_parallel at full width but cut in depth, every check kept, their
+# one-process references run at the same depth: the 410M windows and the CL runs (the shipped config's
+# model) at MP_LAYERS of 24 layers, the 1B windows at TP_WINDOW_LAYERS of 16 (ranks share one card over
+# gloo: these phases check correctness, and at full depth they took ~45 % of the script's time)
+MP_LAYERS = 6
+TP_WINDOW_LAYERS = 4
 MP_WAIT_S = 900  # each rank's bound, the SIGTERM's wait included
 MP_SIGTERM_MAX_WINDOWS = 40  # windows the ranks run while rank 1 waits for its SIGTERM
 # the CL runs keep only the preemption's bundle: epoch-end bundles (~9 GB, written
@@ -2524,7 +2619,7 @@ def mp_windows(rank: int, world: int, device: str, root: str, sigterm: bool, row
     stops them both."""
     from mafed_tpu_torch.core import dist as D
 
-    cfg = model_config_for_preset("410m")
+    cfg = model_config_for_preset("410m", num_hidden_layers=MP_LAYERS)
     n_ce, b, text_len, windows = 3, 16, 80, 3
     model = init_model(cfg, seed=0, device=device)
     D.broadcast_model_(model)
@@ -2569,8 +2664,26 @@ def mp_windows(rank: int, world: int, device: str, root: str, sigterm: bool, row
     return out
 
 
+def mp_cl_model_config(argv) -> ModelConfig:
+    """The model of `argv`'s config file (the shipped config's 410M) cut to MP_LAYERS layers."""
+    cfg = parse_with_config(build_arg_parser(), argv)
+    return dataclasses.replace(ModelConfig.from_json(cfg.model_config), num_hidden_layers=MP_LAYERS)
+
+
+def cl_reference(root: str, device: str) -> dict:
+    """The one-process run that cl_runs' ranks are held to: cl_sequence_default's
+    command line plus MP_CL_SWITCHES on mp_cl_model_config's model, writing
+    no checkpoint. Returns its accuracy matrix, logged losses and launches."""
+    argv = cl_sequence_argv(os.path.join(root, "data")) + MP_CL_SWITCHES
+    run = drive_sequence(argv + ["--output_dir", os.path.join(root, "cl_one_process")], device,
+                         mp_cl_model_config(argv), keep_checkpoints="none", write=())
+    return {"accuracy_matrix": run["result"]["accuracy_matrix"], "losses": run["losses"],
+            "launches": run["launches"], "seconds": run["wall"], "layers": run["model_cfg"].num_hidden_layers}
+
+
 def cl_runs(rank: int, device: str, root: str, name: str, extra, interrupt: str, check_best: bool = False) -> dict:
     """cl_sequence_default's command line (plus MP_CL_SWITCHES and `extra`)
+    on mp_cl_model_config's model,
     three times over the ranks: uninterrupted, into ROOT/<name>_full; stopped
     after CL_INTERRUPT_AFTER updates by `interrupt` ("countdown": the
     preemption countdown on every rank; "sigterm": a SIGTERM to rank 1
@@ -2604,7 +2717,7 @@ def cl_runs(rank: int, device: str, root: str, name: str, extra, interrupt: str,
         preempt.tick_update = counted_tick if stopped else tick
         try:
             # with the SIGTERM, a countdown no run reaches: drive_sequence then takes its exit 143
-            run = drive_sequence(argv + out_argv, device, None, keep_checkpoints="none",
+            run = drive_sequence(argv + out_argv, device, mp_cl_model_config(argv), keep_checkpoints="none",
                                  preempt_after=(10 ** 9 if sigterm else CL_INTERRUPT_AFTER) if stopped else None,
                                  write=(last_best,) if check_best and run_name == "full" else ())
         finally:
@@ -2808,25 +2921,29 @@ def _check_cl_runs(name: str, cl: list, default_losses: dict) -> dict:
     return err
 
 
-def phase_multiprocess(smi: str, default_accuracy, default_losses, root: str, device: str = "cuda") -> dict:
-    """Data parallelism over torch.distributed at full width: two ranks on
-    the one card over gloo (MP_BACKEND, MP_DEVICE). process_reduce_sum on
-    known values; phase window's three 410M MAFED windows against its
-    one-process run (the reference, run here first on `device`): the ranks bit-equal, within the
-    stated tolerances of one process, 118 / 48 / 48 launches a window on each
-    rank; a SIGTERM to rank 1 alone stops both after the same window; the
-    two-task CL sequence of cl_sequence_default's command line (the teacher
-    cache primed by both ranks into one directory), its accuracy matrix beside
-    the one-process one (`default_accuracy`), its logged losses within
-    MP_METRIC_RTOL of the one-process ones (`default_losses`: bundles
-    written or not, the same updates), then preempted by the countdown and
-    resumed bit-equal (`cl_runs`); one pretraining update at a global MP_PRETRAIN_GLOBAL
-    against one process. Then the NCCL windows, on two cards only. Returns the
-    launches of every rank and the one-process pretraining run."""
+def phase_multiprocess(smi: str, root: str, device: str = "cuda") -> tuple:
+    """Data parallelism over torch.distributed at full width (cut in depth:
+    MP_LAYERS): two ranks on the one card over gloo (MP_BACKEND, MP_DEVICE).
+    process_reduce_sum on known values; phase window's three 410M MAFED
+    windows against their one-process run (the reference, run here first on
+    `device`): the ranks bit-equal, within the stated tolerances of one
+    process, 5 L - 2 / 2 L / 2 L launches a window on each rank; a SIGTERM to
+    rank 1 alone stops both after the same window; the two-task CL sequence
+    of cl_sequence_default's command line (the teacher cache primed by both
+    ranks into one directory), its accuracy matrix beside the one-process
+    one (`cl_reference`, run here first), its logged losses within
+    MP_METRIC_RTOL of the one-process ones, then preempted by the countdown
+    and resumed bit-equal (`cl_runs`); one pretraining update at a global
+    MP_PRETRAIN_GLOBAL against one process. Then the NCCL windows, on two
+    cards only. Returns the launches of every rank and of the references,
+    the one-process pretraining run and the one-process CL run."""
     write_synthetic_vqa(os.path.join(root, "data"), ("taskA", "taskB"), 128, 32)
     write_caption_manifests(os.path.join(root, "captions"), 2 * MP_PRETRAIN_GLOBAL, 0)
-    # the one-process references, before the ranks take the card: the windows on the rows in their
-    # order and in the ranks' (the spread of one process), then pretraining
+    # the one-process references, before the ranks take the card: the CL sequence, the windows on the
+    # rows in their order and in the ranks' (the spread of one process), then pretraining
+    cl_one = cl_reference(root, device)
+    default_accuracy, default_losses = cl_one["accuracy_matrix"], cl_one["losses"]
+    free_device_memory()
     window_reference = mp_windows(0, 1, device, root, sigterm=False)
     free_device_memory()
     interleaved = torch.cat([torch.arange(r, 16, MP_WORLD) for r in range(MP_WORLD)])
@@ -2883,8 +3000,9 @@ def phase_multiprocess(smi: str, default_accuracy, default_losses, root: str, de
           "note": "two ranks share one card over gloo: a check of correctness, no measure of scaling",
           "reduce_sum": [r["reduce_sum"] for r in ranks], "window": window,
           "sigterm": sigterm,
+          "layers": {"windows": MP_LAYERS, "cl": cl_one["layers"], "of": 24},
           "cl": {"switches": MP_CL_SWITCHES, "accuracy_matrix": cl[0]["accuracy_matrix"],
-                 "one_process_accuracy_matrix": default_accuracy,
+                 "one_process_accuracy_matrix": default_accuracy, "one_process_seconds": cl_one["seconds"],
                  "difference": (acc - np.asarray(default_accuracy)).tolist(), "bwt": cl[0]["bwt"],
                  "resumed_bit_equal": True, "preempted_bundle": cl[0]["bundle"],
                  "images_primed_each_rank": [c["images_primed"] for c in cl],
@@ -2907,7 +3025,7 @@ def phase_multiprocess(smi: str, default_accuracy, default_losses, root: str, de
         launches = _sum_launches([launches] + [r["window"]["launches"] for r in nccl])
     else:
         emit({"phase": "multiprocess_nccl", "run": False, "cards": torch.cuda.device_count()})
-    return _sum_launches([launches, window_reference["launches"], one["launches"]]), one
+    return _sum_launches([launches, window_reference["launches"], one["launches"], cl_one["launches"]]), one, cl_one
 
 
 # --- phase tensor_parallel: the (data, model) grid of core/mesh.py --------------------------------------------
@@ -2927,7 +3045,7 @@ def _windows_1b(rank: int, device: str, tp) -> tuple:
     from mafed_tpu_torch.core import dist as D
     from mafed_tpu_torch.models.tensor_parallel import shard_model_
 
-    cfg = model_config_for_preset("1b")
+    cfg = model_config_for_preset("1b", num_hidden_layers=TP_WINDOW_LAYERS)
     n_ce, b, text_len, windows = 3, 16, 80, 3
     model = shard_model_(init_model(cfg, seed=0, device=device), tp)
     D.broadcast_model_(model)
@@ -3010,11 +3128,12 @@ def tp_worker(rank: int, world: int, device: str, root: str, mode: str) -> dict:
 
 def phase_tensor_parallel(smi: str, default_accuracy, default_losses, pretrain_one: dict, root: str,
                           device: str = "cuda") -> dict:
-    """Tensor parallelism at full width, ranks of this script on the one card
-    over gloo (MP_BACKEND, MP_DEVICE): the 1B windows on two ranks under
-    TP_WINDOW_MESH against one process (rank 0 alone, first); the CL sequence on
-    four ranks under TP_CL_MESH against cl_sequence_default's one process
-    (`default_accuracy`, `default_losses`), with the SIGTERM and the resume;
+    """Tensor parallelism at full width (cut in depth: TP_WINDOW_LAYERS,
+    MP_LAYERS), ranks of this script on the one card over gloo (MP_BACKEND,
+    MP_DEVICE): the 1B windows on two ranks under TP_WINDOW_MESH against one
+    process (rank 0 alone, first); the CL sequence on four ranks under
+    TP_CL_MESH against phase multiprocess's one process (`default_accuracy`,
+    `default_losses`: cl_reference), with the SIGTERM and the resume;
     pretraining on two ranks under TP_PRETRAIN_MESH against phase
     multiprocess's one process (`pretrain_one`). Reads phase multiprocess's
     data under `root`. Then the NCCL windows, on two cards only. Returns the
@@ -3067,7 +3186,7 @@ def phase_tensor_parallel(smi: str, default_accuracy, default_losses, pretrain_o
                              + [run for c in cl for run in c["launches"].values()] + [p["launches"] for p in pre])
     emit({"phase": name, "card": smi, "backend": ranks_w[0]["backend"], "device": MP_DEVICE,
           "note": "ranks share one card over gloo: a check of correctness, no measure of scaling",
-          "window_1b": {"mesh": TP_WINDOW_MESH, **window},
+          "window_1b": {"mesh": TP_WINDOW_MESH, "layers": TP_WINDOW_LAYERS, "of": 16, **window},
           "cl": {"mesh": TP_CL_MESH, "switches": MP_CL_SWITCHES, "accuracy_matrix": cl[0]["accuracy_matrix"],
                  "one_process_accuracy_matrix": default_accuracy, "bwt": cl[0]["bwt"],
                  "best_checkpoint_bit_equal": True, "resumed_bit_equal": True,
@@ -3180,12 +3299,11 @@ def main() -> int:
     by_path["cl_resume"] = phase_cl_resume(smi, default)
     free_device_memory()
     with tempfile.TemporaryDirectory(prefix="multiprocess_") as root:
-        by_path["multiprocess"], pretrain_one = phase_multiprocess(
-            smi, default["result"]["accuracy_matrix"], default["losses"], root)
+        by_path["multiprocess"], pretrain_one, cl_one = phase_multiprocess(smi, root)
         free_device_memory()
         by_path["tensor_parallel"] = phase_tensor_parallel(
-            smi, default["result"]["accuracy_matrix"], default["losses"], pretrain_one, root)
-        del pretrain_one
+            smi, cl_one["accuracy_matrix"], cl_one["losses"], pretrain_one, root)
+        del pretrain_one, cl_one
     free_device_memory()
     by_path["profile"] = phase_profile(smi)
     # one entry per kernel and head_dim that launched: times at its head_dim's CE shape (410M: 64, the
@@ -3202,7 +3320,9 @@ def main() -> int:
         {"name": f"{name}<{d}>", "head_dim": d, "route": "cuda", "source": "mafed_tpu_torch/csrc/flash_attn.cu",
          "instantiation": (build.instantiation(f"{name}_wide_kernel", build.WIDE_SLICE) if build.wide_head_dim(d)
                            else build.instantiation(f"{name}_kernel", d)),
-         "replaces": replaces, "design": SM90_FWD_SPLIT[d] if name == "flash_fwd" and d in SM90_FWD_SPLIT else design,
+         "replaces": replaces,
+         "design": (SM90_FWD_SPLIT[d] if name == "flash_fwd" and d in SM90_FWD_SPLIT else
+                    SM90_DKV_CTA[d] if name == "flash_bwd_dkv" and d in SM90_DKV_CTA else design),
          "launches": launched[d][name],
          "launches_by_path": {p: path.get(d, {}).get(name, 0) for p, path in by_path.items()},
          "max_abs_err": errs[name, d], "ms": timing[d]["ms"][name], "plain_ms": timing[d]["plain_ms"][name],

@@ -39,25 +39,33 @@
 // (one m64n128k16 or m64n256k16 a k-step). At D = 64 a CTA is one warpgroup
 // with one query tile.
 //
-// The backward kernels split the output's panels instead. Their tiles are
-// ceil(D / 64) panels of 64 columns (`panels`); with WG > 1 each warpgroup
-// owns panels / WG of the output's panels, and every warpgroup computes the
-// whole 64 x 64 score tile (S^T and dP^T, or S and dP) over the full D
-// itself: the products that make the scores are repeated WG times, but
-// nothing passes between warpgroups (an exchange of scores through shared
-// memory would not fit beside the 192 KB of tiles at D = 256). dK/dV at
-// D = 256 needs it (dK and dV are 256 registers together); at D = 128 one
-// warpgroup holds dK and dV beside S^T and dP^T in 234 registers. The
-// warpgroups of each kernel and head_dim are FWD_WG_*, DKV_WG_*, DQ_WG_*
-// below.
+// The dQ kernel at D = 256 is one warpgroup with all of dQ. At 64 and 128
+// the dK/dV and dQ kernels are one warpgroup a 64-row tile over
+// ceil(D / 64) panels of 64 columns (`panels`). dK/dV at 256 and 96 (dkv_cta,
+// below) has a body of its own:
 //
-// D = 96 in the backward. The dK/dV and dQ kernels run the D = 128 tile:
-// their tensor maps are 96 columns wide, so TMA fills columns 96..127 of the
-// second panel with zeros (as it fills rows past a sequence's end). Their
-// score products S and dP stop at column 96 (6 of the 8 k-steps); their
-// products into 64-column panels (dV, dK, dQ) run the whole second panel,
-// whose columns 96..127 come out zero and are never stored: a third of that
-// panel's work is wasted.
+// dK/dV at D = 256 splits each score tile over its two warpgroups: dK and dV
+// are 256 registers a thread together, so warpgroup w owns columns 128 w ..
+// 128 w + 127 of both, and forms S^T and dP^T for queries 32 w .. 32 w + 31 of
+// the tile only (m64n32k16 over all of D), so each score element is formed
+// once in the CTA. The warpgroups then exchange P^T and dS^T, rounded to bf16
+// as the next products read them, through two 8 KB panels of shared memory
+// (an exchange of the f32 scores would not fit beside the 192 KB of tiles;
+// the bf16 one does, ~210 KB in all), and each adds P^T dO and dS^T Q over
+// all 64 queries into its columns.
+//
+// D = 96. The forward and dK/dV keep [64][96] tiles without padding: three
+// 32-column panels with the 64-byte swizzle (12 KB a tile), the score products
+// in 6 k-steps, the products into the 96 output columns (O += P V, dV += P^T
+// dO, dK += dS^T Q) one m64n96k16 a k-step. The dQ kernel runs the D = 128
+// tile: its tensor maps are 96 columns wide, so TMA fills columns 96..127 of
+// the second panel with zeros (as it fills rows past a sequence's end); its
+// score products stop at column 96 (6 of the 8 k-steps), and its product into
+// the second 64-column panel of dQ runs columns 96..127 too, which come out
+// zero and are never stored.
+//
+// The warpgroups of each kernel and head_dim are FWD_WG_*, DKV_WG_*, DQ_WG_*
+// below.
 //
 // Every multiple of 128 from 384 on (a runtime head_dim) takes the wide
 // kernels further down (flash_*_wide_kernel): a grid axis over 128-column
@@ -82,20 +90,25 @@ constexpr int WARPS = 4;                // each warp owns 16 rows of its warpgro
 constexpr int THREADS = WARPS * 32;     // one warpgroup
 constexpr float NEG = -3.4028234663852886e38f;  // finfo(float32).min
 
-// 64-column panels of a [64][D] tile: D = 96 is padded to two
+// 64-column panels of a [64][D] tile: D = 96 is padded to two (dQ)
 __host__ __device__ constexpr int panels(int d) { return (d + 63) / 64; }
 
 // Warpgroups of the backward kernels at head_dim 256 (64 takes one
-// everywhere). At the 1B CE shape [48, 8, 336, 256] on an H100 SXM at 700 W
-// (scripts/flash_variants.py, each pair timed in turns): dQ 0.182 ms with one
-// against 0.200 with two.
+// everywhere). dK/dV: two, each forming the score columns of half the
+// queries and owning half of dK and dV (dkv_cta). dQ: at the 1B CE shape
+// [48, 8, 336, 256] on an H100 SXM at 700 W (scripts/flash_variants.py, each
+// pair timed in turns) 0.182 ms with one against 0.200 with two.
 constexpr int DKV_WG_256 = 2, DQ_WG_256 = 1;
 // At head_dim 128 and 96, at the 1.4B CE shape [48, 16, 336, 128] and the
 // GPT-NeoX-20B-width one [48, 64, 336, 96] (the same card and script, three
-// rounds in turns): dK/dV 0.224-0.247 / 0.753-0.783 ms with one against
-// 0.371-0.372 / 1.298-1.305 with two (two warpgroups of 168 registers fit one
-// CTA per SM, one of 234 fits two); dQ 0.154-0.167 / 0.532-0.560 with one
-// against 0.185-0.192 / 0.603-0.625 with two.
+// rounds in turns): dK/dV at 128 0.224-0.247 ms with one warpgroup against
+// 0.371-0.372 with two (two warpgroups of 168 registers fit one CTA per SM,
+// one of 234 fits two); dQ 0.154-0.167 / 0.532-0.560 with one against
+// 0.185-0.192 / 0.603-0.625 with two. dK/dV at 96 (dkv_cta): one warpgroup;
+// at [48, 64, 336, 96] 0.70-0.74 ms (200 registers, two CTAs an SM) against
+// 0.82-0.86 with two a CTA, each with its own 64-key tile and sharing each
+// Q/dO tile (one CTA an SM, also with 3 or 4 stages), and 0.75-0.77 held to
+// three CTAs an SM (168 registers, spills).
 constexpr int DKV_WG_128 = 1, DQ_WG_128 = 1;
 constexpr int DKV_WG_96 = 1, DQ_WG_96 = 1;
 // The forward at 96, 128 and 256 (fwd_cta): FWD_WG_* warpgroups a CTA, each
@@ -345,18 +358,22 @@ template <int D, int WG> struct FwdSmem {  // byte offsets from the 1024-aligned
   static constexpr size_t ALLOC = BAR + (1 + STAGES) * 8 + 1024;
 };
 
+// A [64][D] tile by TMA: at 96 three 32-column boxes with the 64-byte
+// swizzle (the unpadded tiles of fwd_cta and dkv_cta), else D / 64 boxes of
+// 64 columns with the 128-byte one.
 template <int D>
-__device__ __forceinline__ void fwd_load_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int row,
-                                              int plane) {
+__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int row,
+                                          int plane) {
   if constexpr (D == 96)
     sm90::tma_load_tile_sw64<D>(dst, map, bar, row, plane);
   else
     sm90::tma_load_tile<D>(dst, map, bar, row, plane);
 }
 
-// K-major descriptor of k-step kk of a Q or K tile, for S = Q K^T.
+// K-major descriptor of k-step kk of a [64][D] tile (Q or K of S = Q K^T; K
+// and Q, V and dO of S^T and dP^T), in load_tile's layout.
 template <int D>
-__device__ __forceinline__ uint64_t fwd_desc_k(uint32_t tile, int kk) {
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
   if constexpr (D == 96)
     return sm90::desc_k_major_sw64(tile, kk);
   else
@@ -400,8 +417,8 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap* tm_q, const CUtensorM
   uint64_t* keep_slot = reinterpret_cast<uint64_t*>(smem + L::KEEP);
   const auto load_kv = [&](int kt, int s) {
     sm90::mbar_expect_tx(&bar[1 + s], 2 * L::TILE);
-    fwd_load_tile<D>(smem + L::K + s * L::TILE, tm_k, &bar[1 + s], kt * BLOCK, bh);
-    fwd_load_tile<D>(smem + L::V + s * L::TILE, tm_v, &bar[1 + s], kt * BLOCK, bh);
+    load_tile<D>(smem + L::K + s * L::TILE, tm_k, &bar[1 + s], kt * BLOCK, bh);
+    load_tile<D>(smem + L::V + s * L::TILE, tm_v, &bar[1 + s], kt * BLOCK, bh);
   };
   if (tid == 0) {
     for (int i = 0; i < 1 + STAGES; ++i) sm90::mbar_init(&bar[i], 1);
@@ -412,7 +429,7 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap* tm_q, const CUtensorM
   if (tid == 0) {
     sm90::mbar_expect_tx(&bar[0], n_tiles * L::TILE);
     for (int w = 0; w < n_tiles; ++w)
-      fwd_load_tile<D>(smem + w * L::TILE, tm_q, &bar[0], (qt_first + w) * BLOCK, bh);
+      load_tile<D>(smem + w * L::TILE, tm_q, &bar[0], (qt_first + w) * BLOCK, bh);
     for (int s = 0; s < STAGES && s < upper; ++s) load_kv(s, s);
   }
 
@@ -441,7 +458,7 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap* tm_q, const CUtensorM
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        sm90::wgmma_ss(sc, fwd_desc_k<D>(sQ, kk), fwd_desc_k<D>(sK, kk), kk > 0);
+        sm90::wgmma_ss(sc, desc_k<D>(sQ, kk), desc_k<D>(sK, kk), kk > 0);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(sc);
@@ -617,32 +634,297 @@ flash_fwd_kernel<128, FWD_WG_128>(const __grid_constant__ CUtensorMap tm_q, cons
 // STAGES stages, from the diagonal tile on when causal. Per tile: S^T = K Q^T
 // and dP^T = V dO^T are wgmma with both operands K-major in shared memory,
 // committed as two groups; P^T = keep ? exp(S^T scale - lse) : 0 is formed in
-// registers (log2 domain) as soon as S^T lands, and dV += P^T dO is issued
-// while dP^T still runs; then dS^T = P^T (dP^T - delta), and dK += dS^T Q.
-// P^T and dS^T are rounded to bf16 into the A fragments of those products
-// (dO and Q read MN-major). dK and dV stay in registers for the whole sweep.
-// lse and delta come in with ordinary loads (their rows are T x 4 bytes,
-// which TMA takes only when T is a multiple of 4); rows past q_len read
-// lse = +inf, delta = 0, so their p is 0. At D = 64: about 50 KB of shared
-// memory and ~165 registers a thread, 3 CTAs per SM. At D = 256 dK and dV
-// alone would be 256 registers a thread, so the CTA has two warpgroups, each
-// with 128 of the 256 columns of dK and dV (128 registers) and its own S^T
-// and dP^T over the full D: 234 registers a thread, no spill; 199 KB of
-// shared memory, one CTA per SM. At D = 128 (and 96, its padded tile) one
-// warpgroup holds all of dK and dV: 234 registers, no spill, 97 KB, two CTAs
-// per SM (two warpgroups of 168 registers would fit only one CTA per SM).
+// registers (log2 domain) as soon as S^T lands; then dS^T = P^T (dP^T -
+// delta) in f32, and dV += P^T dO, dK += dS^T Q with P^T and dS^T rounded to
+// bf16 (dO and Q read MN-major). dK and dV stay in registers for the whole
+// sweep. lse and delta come in with ordinary loads (their rows are T x 4
+// bytes, which TMA takes only when T is a multiple of 4); rows past q_len read
+// lse = +inf, delta = 0, so their p is 0.
+//
+// At D = 64 and 128 (the template's own body) one warpgroup holds all of dK
+// and dV, P^T and dS^T go from the score accumulators straight into the A
+// fragments of their products, and dV's product is issued while dP^T still
+// runs. D = 64: about 50 KB of shared memory and ~165 registers a thread, 3
+// CTAs per SM. D = 128: 234 registers, no spill, 97 KB, two CTAs per SM (two
+// warpgroups of 168 registers would fit only one CTA per SM).
+//
+// At D = 256 (dkv_cta) dK and dV alone are 256 registers a thread, so two
+// warpgroups share the key tile, warpgroup w with columns 128 w .. 128 w + 127
+// of dK and dV. An earlier form had each warpgroup form the whole S^T and dP^T
+// over all of D, so the score products, two thirds of the tensor-core work,
+// ran twice (0.29-0.31 ms at [48, 8, 336, 256], against 0.27-0.28 here, H100
+// SXM at 700 W, scripts/flash_variants.py). Here warpgroup w forms them for queries 32 w .. 32 w + 31 of the
+// tile only (m64n32k16, B starting 32 rows into each Q / dO panel: 4 KB, whole
+// swizzle atoms), writes its columns of P^T and dS^T as bf16 into two [64
+// keys][64 queries] panels of shared memory in the 128-byte layout, and after
+// a barrier adds P^T dO and dS^T Q over all 64 queries into its columns (one
+// m64n128k16 a k-step, both A operands K-major from those panels). Products a
+// key and query tile, in m64n64k16-equivalents: 32 for the scores and 32 for
+// dK and dV, against 2 x (32 + 16). The exchange carries only what the next
+// products read, 16 KB (the f32 scores, 64 KB, would not fit beside the 192 KB
+// of K, V and two Q/dO stages); the loop's closing barrier, which the ring's
+// refill needs anyway, also frees the panels for the next tile (a second pair
+// of panels measured no faster, nor did dV's product ahead of dS^T behind a
+// second barrier, two m64n64k16 a k-step for dK and dV, or the two score
+// chains interleaved or split over D).
+//
+// What holds both head_dims (PERF.md): the ring alone, every product taken
+// out, already takes 0.184 ms at 256 and 0.603 ms at 96 (the Q/dO tiles of
+// every key tile streamed through L2, ~4 TB/s); the products add ~0.09 /
+// ~0.11 ms on top. Clusters of two CTAs sharing each Q/dO tile by TMA multicast
+// measured 0.34 / 1.03 ms (the cluster launch alone 0.33 / 1.01), CTAs kept
+// resident across key tiles and heads 0.30 / 0.75, and a producer warp with
+// per-warp release of the ring's stages 0.33 / 0.88 (its 288 threads held to
+// 168 registers, spilling).
+//
+// At D = 96 (dkv_cta) the tiles lose their padding: [64][96] as three
+// 32-column panels with the 64-byte swizzle (12 KB instead of 16), S^T and
+// dP^T in 6 k-steps, dV and dK one m64n96k16 a k-step (P^T and dS^T from
+// registers, dO and Q MN-major across the three panels), where the padded
+// tile ran two m64n64k16, a third of the second one on zeros.
 // ---------------------------------------------------------------------------
-template <int D> struct DkvSmem {  // byte offsets from the 1024-aligned base
-  static constexpr uint32_t TILE = panels(D) * sm90::PANEL_BYTES;
+template <int D, int WG> struct DkvSmem {  // byte offsets from the 1024-aligned base
+  // a [64][D] tile: at 96 unpadded (three 32-column panels), else ceil(D / 64) 64-column panels
+  static constexpr uint32_t TILE = D == 96 ? BLOCK * D * 2 : panels(D) * sm90::PANEL_BYTES;
   static constexpr uint32_t K = 0;
   static constexpr uint32_t V = K + TILE;
   static constexpr uint32_t Q = V + TILE;
   static constexpr uint32_t DO = Q + STAGES * TILE;
-  static constexpr uint32_t LSE = DO + STAGES * TILE;      // STAGES x 64 f32
-  static constexpr uint32_t DELTA = LSE + STAGES * 256;    // STAGES x 64 f32
-  static constexpr uint32_t BAR = DELTA + STAGES * 256;    // K/V, then one per stage
+  static constexpr uint32_t XP = DO + STAGES * TILE;    // at 256: P^T, then dS^T, [64 keys][64 queries] panels
+  static constexpr uint32_t LSE = XP + (D == 256 ? 2 * sm90::PANEL_BYTES : 0);  // STAGES x 64 f32
+  static constexpr uint32_t DELTA = LSE + STAGES * 256;  // STAGES x 64 f32
+  static constexpr uint32_t BAR = DELTA + STAGES * 256;  // K/V, then one per stage
   static constexpr size_t ALLOC = BAR + (1 + STAGES) * 8 + 1024;
 };
+
+// Store N columns, from column c0, of a 64-row m64nNk16 accumulator of the
+// tile at row0 into rows of D columns, times `scale`, as bf16 pairs; rows at
+// or past n_rows are never stored.
+template <int D, int N>
+__device__ __forceinline__ void store_acc_cols(bf16* __restrict__ dst, const float (&acc)[N / 2], int row0,
+                                               int n_rows, float scale, int c0) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + wg_warp() * 16 + lane / 4 + 8 * i;
+    if (row >= n_rows) continue;
+    bf16* out = dst + (size_t)row * D + c0 + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j) =
+          sm90::pack_bf16(acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
+  }
+}
+
+// acc = A B^T over all of D (S^T = K Q^T or dP^T = V dO^T), both K-major: at
+// 96 all 64 queries of the tile (m64n64k16), at 256 the 32 rows of the B tile
+// from sB (m64n32k16).
+template <int D, int R>
+__device__ __forceinline__ void dkv_scores(float (&acc)[R], uint32_t sA, uint32_t sB) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if constexpr (D == 256)
+      sm90::wgmma_ss_n32(acc, sm90::desc_k_major(sA, kk), sm90::desc_k_major(sB, kk), kk > 0);
+    else
+      sm90::wgmma_ss(acc, desc_k<D>(sA, kk), desc_k<D>(sB, kk), kk > 0);
+  }
+}
+
+// One CTA of flash_bwd_dkv_kernel<D, WG> at D = 96 or 256: key tile x, the
+// query tiles it needs (causal: from its diagonal). At 96 one warpgroup; at
+// 256 two, each forming the scores of half the queries and owning half of dK
+// and dV, P^T and dS^T exchanged through shared memory.
+template <int D, int WG>
+__device__ __forceinline__ void dkv_cta(const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                        const CUtensorMap* tm_do, const float* __restrict__ lse,
+                                        const float* __restrict__ delta, const int* __restrict__ mask,
+                                        bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int q_len,
+                                        int kv_len, int causal, float scale) {
+  static_assert(D == 96 || D == 256, "dkv_cta's tiles and products are built for 96 and 256");
+  static_assert(D == 96 ? WG == 1 : WG == 2, "at 256 the scores and dK, dV split over two warpgroups");
+  using L = DkvSmem<D, WG>;
+  constexpr bool SPLIT = D == 256;                // score columns split over the warpgroups, P^T and dS^T exchanged
+  constexpr int QW = SPLIT ? BLOCK / WG : BLOCK;  // queries of a tile in this warpgroup's S^T and dP^T
+  constexpr int CW = SPLIT ? D / WG : D;          // columns of dK and dV this warpgroup owns
+  const int tid = threadIdx.x, wg = tid / THREADS, warp = wg_warp(), lane = tid % 32;
+  const int bh = blockIdx.y, b = bh / heads;
+  const int n_qt = (q_len + BLOCK - 1) / BLOCK;
+  const int kt = blockIdx.x, first = causal ? kt : 0;  // causal: queries before k0 contribute nothing
+  const int n_it = n_qt - first;
+  const int k0 = kt * BLOCK, c0 = SPLIT ? wg * CW : 0, q_off = SPLIT ? wg * QW : 0;
+  dk += (size_t)bh * kv_len * D;
+  dv += (size_t)bh * kv_len * D;
+  lse += (size_t)bh * q_len;
+  delta += (size_t)bh * q_len;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  float* s_lse = reinterpret_cast<float*>(smem + L::LSE);
+  float* s_delta = reinterpret_cast<float*>(smem + L::DELTA);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR);
+
+  // this thread's keys k0 + r_i, r_i = 16 warp + lane / 4 + 8 i
+  bool key_keep[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + warp * 16 + lane / 4 + 8 * i;
+    key_keep[i] = key < kv_len && (mask == nullptr || mask[(size_t)b * kv_len + key] > 0);
+  }
+
+  auto load_qdo = [&](int qt, int s) {
+    sm90::mbar_expect_tx(&bar[1 + s], 2 * L::TILE);
+    load_tile<D>(smem + L::Q + s * L::TILE, tm_q, &bar[1 + s], qt * BLOCK, bh);
+    load_tile<D>(smem + L::DO + s * L::TILE, tm_do, &bar[1 + s], qt * BLOCK, bh);
+  };
+  // lse (threads 0-63) or delta (64-127) of query q0 + tid % 64; other
+  // warpgroups' threads fetch and store nothing
+  auto fetch_row_stat = [&](int q0) {
+    const int qrow = q0 + tid % 64;
+    if (tid < 64) return qrow < q_len ? lse[qrow] : INFINITY;
+    return tid < THREADS && qrow < q_len ? delta[qrow] : 0.0f;
+  };
+  auto store_row_stat = [&](int s, float x) {
+    if (tid < 64)
+      s_lse[s * 64 + tid] = x * LOG2E;  // log2 domain, +inf stays +inf
+    else if (tid < THREADS)
+      s_delta[s * 64 + tid - 64] = x;
+  };
+  const float scale_log2 = scale * LOG2E;
+
+  if (tid == 0) {
+    for (int i = 0; i < 1 + STAGES; ++i) sm90::mbar_init(&bar[i], 1);
+    sm90::fence_mbar_init();
+  }
+  if (n_it > 0) store_row_stat(0, fetch_row_stat(first * BLOCK));
+  __syncthreads();
+  if (tid == 0) {
+    sm90::mbar_expect_tx(&bar[0], 2 * L::TILE);
+    load_tile<D>(smem + L::K, tm_k, &bar[0], k0, bh);
+    load_tile<D>(smem + L::V, tm_v, &bar[0], k0, bh);
+    for (int s = 0; s < STAGES && s < n_it; ++s) load_qdo(first + s, s);
+  }
+
+  // S^T, dP^T: m64n{QW}k16, d[4 j + 2 i + c] = (key r_i, query q_off + 8 j + 2 (lane % 4) + c);
+  // dK, dV: m64n{CW}k16 over columns c0 ..
+  float dk_acc[CW / 2], dv_acc[CW / 2], st[QW / 2], dpt[QW / 2];
+#pragma unroll
+  for (int r = 0; r < QW / 2; ++r) st[r] = dpt[r] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < CW / 2; ++r) dk_acc[r] = dv_acc[r] = 0.0f;
+  sm90::mbar_wait(&bar[0], 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int qt = first + it, s = it % STAGES;
+    const float next_stat = it + 1 < n_it ? fetch_row_stat((qt + 1) * BLOCK) : 0.0f;
+    sm90::mbar_wait(&bar[1 + s], (it / STAGES) & 1);
+    const uint32_t sK = sm90::opaque(sm90::smem_addr(smem + L::K));
+    const uint32_t sV = sm90::opaque(sm90::smem_addr(smem + L::V));
+    const uint32_t sQ = sm90::smem_addr(smem + L::Q + s * L::TILE);
+    const uint32_t sDO = sm90::smem_addr(smem + L::DO + s * L::TILE);
+
+    // S^T and dP^T of this warpgroup's queries (at 256 from row q_off of
+    // the Q and dO panels: q_off x 128 bytes) as two groups
+    sm90::fence_regs(st);
+    sm90::fence_regs(dpt);
+    sm90::wgmma_fence();
+    dkv_scores<D>(st, sK, sQ + q_off * 128);
+    sm90::wgmma_commit();
+    dkv_scores<D>(dpt, sV, sDO + q_off * 128);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(st);
+
+    // p^T in registers: rows are keys, columns the warpgroup's queries; at
+    // 256 also into the exchange panel as bf16 (its rounding for dV)
+    [[maybe_unused]] unsigned char* xp = smem + L::XP;
+    const bool diag = causal && qt == kt;
+    const float* t_lse = s_lse + s * 64 + q_off;
+    const float* t_delta = s_delta + s * 64 + q_off;
+#pragma unroll
+    for (int j = 0; j < QW / 8; ++j) {
+      const int col0 = 8 * j + 2 * (lane % 4);
+      const float2 lse2 = *reinterpret_cast<const float2*>(t_lse + col0);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = warp * 16 + lane / 4 + 8 * i;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int r = 4 * j + 2 * i + c;
+          const bool keep = key_keep[i] && (!diag || row <= q_off + col0 + c);
+          st[r] = keep ? sm90::exp2_approx(fmaf(st[r], scale_log2, -(c ? lse2.y : lse2.x))) : 0.0f;
+        }
+        if constexpr (SPLIT)
+          *reinterpret_cast<uint32_t*>(xp + sm90::sw128_offset(row, q_off + col0)) =
+              sm90::pack_bf16(st[4 * j + 2 * i], st[4 * j + 2 * i + 1]);
+      }
+    }
+    if constexpr (!SPLIT) {  // dV += P^T dO while dP^T runs, P^T (bf16) from registers
+      uint32_t pa[4][4];
+      sm90::acc_to_a(st, pa);
+      sm90::fence_regs(dv_acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs_n96(dv_acc, pa[kk], sm90::desc_mn_major_sw64(sDO, kk));
+      sm90::wgmma_commit();
+    }
+
+    // ds^T = p^T (dp^T - delta)
+    sm90::wgmma_wait<SPLIT ? 0 : 1>();
+    sm90::fence_regs(dpt);
+#pragma unroll
+    for (int j = 0; j < QW / 8; ++j) {
+      const int col0 = 8 * j + 2 * (lane % 4);
+      const float2 delta2 = *reinterpret_cast<const float2*>(t_delta + col0);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int r = 4 * j + 2 * i + c;
+          dpt[r] = st[r] * (dpt[r] - (c ? delta2.y : delta2.x));
+        }
+        if constexpr (SPLIT)
+          *reinterpret_cast<uint32_t*>(xp + sm90::PANEL_BYTES +
+                                       sm90::sw128_offset(warp * 16 + lane / 4 + 8 * i, q_off + col0)) =
+              sm90::pack_bf16(dpt[4 * j + 2 * i], dpt[4 * j + 2 * i + 1]);
+      }
+    }
+    if constexpr (SPLIT) {
+      // dV += P^T dO and dK += dS^T Q over all 64 queries into this
+      // warpgroup's columns, once both halves of P^T and dS^T are written
+      sm90::fence_proxy_async();
+      __syncthreads();
+      const uint32_t sX = sm90::smem_addr(xp);
+      sm90::fence_regs(dv_acc);
+      sm90::fence_regs(dk_acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_ss_n128(dv_acc, sm90::desc_k_major(sX, kk), sm90::desc_mn_major(sDO, c0 / 64, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_ss_n128(dk_acc, sm90::desc_k_major(sX + sm90::PANEL_BYTES, kk),
+                            sm90::desc_mn_major(sQ, c0 / 64, kk));
+    } else {  // dK += dS^T Q, dS^T (bf16) from registers
+      uint32_t dsa[4][4];
+      sm90::acc_to_a(dpt, dsa);
+      sm90::fence_regs(dk_acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs_n96(dk_acc, dsa[kk], sm90::desc_mn_major_sw64(sQ, kk));
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dv_acc);
+    sm90::fence_regs(dk_acc);
+
+    if (it + 1 < n_it) store_row_stat((it + 1) % STAGES, next_stat);
+    __syncthreads();  // every warp is done with stage s (and at 256 with the exchange panels)
+    if (tid == 0 && it + STAGES < n_it) load_qdo(qt + STAGES, s);
+  }
+
+  store_acc_cols<D, CW>(dv, dv_acc, k0, kv_len, 1.0f, c0);
+  store_acc_cols<D, CW>(dk, dk_acc, k0, kv_len, scale, c0);
+}
 
 template <int D, int WG>
 __global__ void __launch_bounds__(THREADS * WG)
@@ -652,7 +934,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int q_len, int kv_len, int causal,
                      float scale) {
   static_assert(D % 16 == 0 && panels(D) % WG == 0, "tiles are 64-column panels, split evenly over warpgroups");
-  using L = DkvSmem<D>;
+  using L = DkvSmem<D, WG>;
   constexpr int NPW = panels(D) / WG;  // dK and dV panels of each warpgroup
   const int kt = blockIdx.x, bh = blockIdx.y, b = bh / heads;
   const int tid = threadIdx.x, warp = wg_warp(), lane = tid % 32, p0 = tid / THREADS * NPW;
@@ -814,6 +1096,30 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
 
   store_acc_rows<D, NPW>(dv, dv_acc, k0, kv_len, 1.0f, p0);
   store_acc_rows<D, NPW>(dk, dk_acc, k0, kv_len, scale, p0);
+}
+
+// At 96 and 256 the kernel is dkv_cta (the template's body above runs 64 and 128).
+template <>
+__global__ void __launch_bounds__(THREADS * DKV_WG_96)
+flash_bwd_dkv_kernel<96, DKV_WG_96>(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                                    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                                    const float* __restrict__ lse, const float* __restrict__ delta,
+                                    const int* __restrict__ mask, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                    int heads, int q_len, int kv_len, int causal, float scale) {
+  dkv_cta<96, DKV_WG_96>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, mask, dk, dv, heads, q_len, kv_len, causal, scale);
+}
+
+template <>
+__global__ void __launch_bounds__(THREADS * DKV_WG_256)
+flash_bwd_dkv_kernel<256, DKV_WG_256>(const __grid_constant__ CUtensorMap tm_q,
+                                      const __grid_constant__ CUtensorMap tm_k,
+                                      const __grid_constant__ CUtensorMap tm_v,
+                                      const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                                      const float* __restrict__ delta, const int* __restrict__ mask,
+                                      bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int q_len,
+                                      int kv_len, int causal, float scale) {
+  dkv_cta<256, DKV_WG_256>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, mask, dk, dv, heads, q_len, kv_len, causal,
+                           scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -1459,13 +1765,16 @@ template <int D, int WG>
 cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                            const void* delta, const void* mask, void* dk, void* dv, int batch_heads, int heads,
                            int q_len, int kv_len, int causal, float scale, cudaStream_t stream) {
+  // at 96 boxes of 32 columns with the 64-byte swizzle (dkv_cta's unpadded tiles)
+  const auto make_map = D == 96 ? sm90_host::make_map_3d_sw64 : sm90_host::make_map_3d;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   cudaError_t err;
-  if ((err = sm90_host::make_map_3d(&tm_q, q, batch_heads, q_len, D)) != cudaSuccess) return err;
-  if ((err = sm90_host::make_map_3d(&tm_k, k, batch_heads, kv_len, D)) != cudaSuccess) return err;
-  if ((err = sm90_host::make_map_3d(&tm_v, v, batch_heads, kv_len, D)) != cudaSuccess) return err;
-  if ((err = sm90_host::make_map_3d(&tm_do, dout, batch_heads, q_len, D)) != cudaSuccess) return err;
-  constexpr size_t smem = DkvSmem<D>::ALLOC;
+  if ((err = make_map(&tm_q, q, batch_heads, q_len, D)) != cudaSuccess) return err;
+  if ((err = make_map(&tm_k, k, batch_heads, kv_len, D)) != cudaSuccess) return err;
+  if ((err = make_map(&tm_v, v, batch_heads, kv_len, D)) != cudaSuccess) return err;
+  if ((err = make_map(&tm_do, dout, batch_heads, q_len, D)) != cudaSuccess) return err;
+  using L = DkvSmem<D, WG>;
+  constexpr size_t smem = L::ALLOC;
   err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, WG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((kv_len + BLOCK - 1) / BLOCK, batch_heads);

@@ -30,8 +30,13 @@
 //   MN-major (V of O += P V, N = 96 in one product): k-step kk starts 16 rows
 //     (1024 bytes) further down; SBO = 512 bytes (the next 8 rows of K), LBO =
 //     the next 32-column panel (4 KB: N runs over three panels).
-// tests/test_torch_d96_layout.py and tests/test_torch_fwd_layout.py emulate
-// the TMA writes and these reads.
+// The bf16 dK/dV kernel at D = 256 also writes two [64 keys][64 queries]
+// panels itself (P^T and dS^T, bf16, in the 128-byte layout TMA would give
+// them: `sw128_offset`) and reads them K-major as the A operand of m64n128k16
+// products whose B (dO, Q) is MN-major (`wgmma_ss_n128`); a thread's stores
+// reach wgmma's reads through `fence_proxy_async` and a barrier.
+// tests/test_torch_d96_layout.py, tests/test_torch_fwd_layout.py and
+// tests/test_torch_dkv_layout.py emulate the TMA writes and these reads.
 
 #pragma once
 
@@ -180,6 +185,17 @@ __device__ __forceinline__ uint64_t desc_mn_major_sw64(uint32_t tile, int kk) {
   return desc_sw64(tile + kk * 1024, PANEL_SW64_BYTES, 512);
 }
 
+// Byte offset of element (row, col) of a [64][64] bf16 panel in the 128-byte
+// swizzle (the 16-byte chunk c of row r at chunk c ^ (r % 8)), as TMA writes
+// it and desc_k_major reads it; the panel 1024-byte aligned.
+__device__ __forceinline__ uint32_t sw128_offset(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// Orders this thread's generic shared-memory stores before later reads of the
+// async proxy (wgmma's operands), once a barrier has passed.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 // Wait until at most N committed groups are still in flight.
@@ -213,6 +229,24 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_D32_LIST ", %32, %33, p, 1, 1, 0, 0;\n"
       "}\n"
       : SM90_D32
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+#define SM90_D16                                                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define SM90_D16_LIST "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (+)= A . B, m64n32k16, A and B both K-major in shared memory (B's 32 rows
+// are N).
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " SM90_D16_LIST ", %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : SM90_D16
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
@@ -294,6 +328,19 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d += A . B, m64n128k16, A K-major in shared memory, B MN-major in shared
+// memory (desc_mn_major: 128 columns over two 64-column panels, LBO).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_D64_LIST ", %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : SM90_D64
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 // d += A . B, m64n256k16, A from registers (as in wgmma_rs), B MN-major in
 // shared memory (desc_mn_major: 256 columns over four 64-column panels, LBO).
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t desc_b) {
@@ -316,6 +363,8 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
 #undef SM90_D48_LIST
 #undef SM90_D32
 #undef SM90_D32_LIST
+#undef SM90_D16
+#undef SM90_D16_LIST
 
 // 2^x on the special-function unit; -inf gives 0, results below 2^-126 flush to 0.
 __device__ __forceinline__ float exp2_approx(float x) {

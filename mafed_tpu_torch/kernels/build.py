@@ -2,7 +2,8 @@
 
 `load_library()` compiles `csrc/flash_attn.cu` (the bfloat16 kernels, which
 include `csrc/sm90.cuh`) and `csrc/flash_attn_f32.cu` (the float32 kernels)
-with nvcc for sm_90a into one shared library with a plain C interface under
+with nvcc for sm_90a, one nvcc a source started together, and links them
+into one shared library with a plain C interface under
 `mafed_tpu_torch/_build/`, keyed by a hash of every file under `csrc/`, and
 binds it with ctypes. Nothing is built when this module is
 imported: the first launch builds. The library does not link `libcuda`: the
@@ -152,13 +153,32 @@ def nvcc_command(sources, out: Path) -> list:
     ]
 
 
+def object_command(source: Path, out: Path) -> list:
+    """nvcc's command line that compiles one source into the object `out` of the shared library."""
+    return [
+        _cuda_tool("nvcc"), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out), str(source),
+    ]
+
+
 def _compile(out: Path) -> None:
+    """One nvcc a source, all started together, then one link into `out`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(nvcc_command(SOURCES, tmp), capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    objects = [tmp.with_name(f"{tmp.name}.{source.stem}.o") for source in SOURCES]
+    try:
+        procs = [subprocess.Popen(object_command(source, obj), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for source, obj in zip(SOURCES, objects)]
+        log = "".join(proc.communicate()[0] for proc in procs)
+        if any(proc.returncode != 0 for proc in procs):
+            raise RuntimeError(f"nvcc failed ({[proc.returncode for proc in procs]}):\n{log}")
+        link = subprocess.run([_cuda_tool("nvcc"), "-shared", "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{link.stdout}{link.stderr}")
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent loader sees the whole library or none
 

@@ -20,6 +20,8 @@ CE shape (410M [48, 16, 336, 64], a decoder at
 GPT-NeoX-20B's width [48, 64, 336, 96], 1.4B [48, 16, 336, 128], 1B [48, 8,
 336, 256], that width as 16 heads of 384 [48, 16, 336, 384], 1B as 4 heads
 of 512 [48, 4, 336, 512]).
+A variant that does not build is reported (its nvcc output under
+"build_error") and left out of the rest.
 A variant whose name starts with "probe" is a deliberately wrong copy
 that takes some work out of a kernel, to see what that work costs: its
 errors are recorded and it is timed, but it does not stop the run.
@@ -100,8 +102,10 @@ def main() -> int:
         dtype = torch.float32 if f32 else torch.bfloat16
         atol, rtol = (chip_smoke.F32_ATOL, chip_smoke.F32_RTOL) if f32 else (chip_smoke.ATOL, chip_smoke.RTOL)
         for name, (log, rc, path) in _build(variants, workdir, int(f32)).items():
-            if rc != 0:
-                raise RuntimeError(f"variant {name} failed to build:\n{log[-3000:]}")
+            if rc != 0:  # reported, and left out of the checks and the timing
+                results[name] = {"card": smi, "dtype": args.dtype, "build_error": log[-3000:]}
+                print(f"flash_variants: variant {name} failed to build:\n{log[-3000:]}", file=sys.stderr)
+                continue
             lib = ctypes.CDLL(path)
             build._bind(lib)
             libs[name] = lib

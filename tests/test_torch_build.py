@@ -31,14 +31,14 @@ ptxas info    : Used 255 registers, used 1 barriers
 # a float32 kernel (wg "f32" below: its mangled name takes float pointers),
 # whose forward is built at four slice widths (64, 96, 128 and 512). The
 # bf16 forward at 96, 128 and 256 takes two warpgroups a CTA, each with its own
-# query tile (at 96 unpadded tiles of three 32-column boxes).
+# query tile (at 96 unpadded tiles of three 32-column boxes, as dK/dV at 96).
 _MANGLED = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}ELi{wg}EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16Pfiiiif"
 _MANGLED_WIDE = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16Pfiiiiif"
 _MANGLED_F32 = "_ZN12_GLOBAL__N_1{n}{name}ILi{d}EEEvPKfS2_S2_PKiPfS5_iiiiiif"
 _ENTRIES = [("flash_fwd_kernel", 64, 1, 92, 0), ("flash_fwd_kernel", 96, 2, 121, 0),
             ("flash_fwd_kernel", 128, 2, 128, 0), ("flash_fwd_kernel", 256, 2, 195, 0),
-            ("flash_bwd_dkv_kernel", 256, 2, 234, 24), ("flash_bwd_dkv_kernel", 128, 1, 234, 0),
-            ("flash_bwd_dkv_kernel", 96, 1, 234, 0), ("flash_bwd_dkv_kernel", 64, 1, 163, 0),
+            ("flash_bwd_dkv_kernel", 256, 2, 192, 24), ("flash_bwd_dkv_kernel", 128, 1, 234, 0),
+            ("flash_bwd_dkv_kernel", 96, 1, 200, 0), ("flash_bwd_dkv_kernel", 64, 1, 163, 0),
             ("flash_bwd_dq_kernel", 128, 1, 154, 0), ("flash_bwd_dq_kernel", 64, 1, 122, 0),
             ("flash_bwd_dq_kernel", 256, 1, 218, 0), ("flash_bwd_dq_kernel", 96, 1, 154, 0),
             ("flash_bwd_dq_wide_kernel", 128, None, 177, 0), ("flash_fwd_wide_kernel", 128, None, 140, 0),
@@ -68,8 +68,8 @@ _HMMA_TF32 = "        /*0500*/                   HMMA.1688.F32.TF32 R4, R16, R20
 
 def _boxes(name, d):
     """TMA boxes a tile of a bfloat16 kernel's canned SASS: 64-column boxes,
-    32-column ones for the forward at 96."""
-    return d // 32 if (name, d) == ("flash_fwd_kernel", 96) else -(-d // 64)
+    32-column ones for the forward and dK/dV at 96."""
+    return d // 32 if (name, d) in (("flash_fwd_kernel", 96), ("flash_bwd_dkv_kernel", 96)) else -(-d // 64)
 
 
 def _hmma_count(name, regs):

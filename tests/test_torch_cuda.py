@@ -17,7 +17,10 @@ the same bits in two launches, and its (o, lse) feed the <96> backward
 kernels to the plain backward's gradients; likewise the forward at 128 and
 256 (two query tiles a CTA, each score tile formed once), at one query row,
 at both sides of a tile edge and at odd counts of tiles, with and without
-key padding.
+key padding. The dK/dV kernel at 96 and 256 (dkv_cta) is held the same
+way: q_len 1 to 336, 577 keys, bit-equal launches, and the whole backward
+from the kernels' forward within one bf16 step (at least 2^-6, 0.0156) of
+the plain one.
 
 The float32 kernels (a `--compute_dtype float32` run) are held against the
 plain versions at float32 at atol = rtol = 1e-4 (lse 1e-5): the three
@@ -154,7 +157,7 @@ def test_d96_forward_is_bit_equal_across_launches(gpu, b, h, q_len, kv_len, caus
 @pytest.mark.parametrize("b,h,q_len,kv_len,causal", [(8, 16, 336, 336, True), (2, 4, 129, 577, False)])
 def test_d96_forward_feeds_the_backward_kernels(gpu, b, h, q_len, kv_len, causal):
     """The forward's (o, lse) at 96 into the <96> dK/dV and dQ kernels
-    (their padded 128-column tile) give dq, dk, dv within the bf16
+    (dK/dV's unpadded tiles, dQ's padded 128-column one) give dq, dk, dv within the bf16
     tolerance of the plain backward from the plain forward's (o, lse)."""
     q, k, v, g, mask = _inputs(b, h, q_len, seed=23, kv_len=kv_len, masked=(256, 276) if causal else None, d=96)
     scale = 96 ** -0.5
@@ -223,6 +226,101 @@ def test_query_split_forward_feeds_the_backward_kernels(gpu, head_dim, b, h, q_l
     want = tattn.flash_backward_plain(q, k, v, mask, o_p, lse_p, g, causal, scale)
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         torch.testing.assert_close(x.float(), y.float(), atol=ATOL, rtol=RTOL, msg=name)
+
+
+# dK/dV at 96 and 256 (dkv_cta: at 96 unpadded tiles; at 256 each score tile's queries split over two
+# warpgroups, P^T and dS^T exchanged through shared memory): one query row, both sides of a tile edge, odd
+# counts of tiles and the window's 336
+DKV_Q_LENS = [1, 63, 64, 65, 130, 320, 336]
+DKV_BACKWARD_ATOL = 2.0 ** -6  # the least step of the whole backward's bound (0.0156)
+
+
+def _bf16_step(x):
+    """One bf16 step (2^-7 of the power of two at or below |x|) of each element, at least DKV_BACKWARD_ATOL."""
+    return torch.clamp(torch.ldexp(torch.ones_like(x), torch.frexp(x.abs())[1] - 8), min=DKV_BACKWARD_ATOL)
+
+
+def _dkv(q, k, v, g, mask, causal, scale):
+    """The kernel's (dk, dv) and the plain backward's, from the plain forward's lse and delta."""
+    o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, causal, scale)
+    delta = (g.float() * o_p.float()).sum(-1)
+    got = tattn.flash_bwd_dkv(q, k, v, mask, g, lse_p, delta, causal, scale)
+    _, dk_p, dv_p = tattn.flash_backward_plain(q, k, v, mask, o_p, lse_p, g, causal, scale)
+    return got, (dk_p, dv_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [96, 256])
+@pytest.mark.parametrize("q_len", DKV_Q_LENS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("padded", [True, False])
+def test_dkv_cta_matches_plain(gpu, head_dim, q_len, causal, padded):
+    """dK/dV at 96 and 256 against the plain backward (one launch, at this
+    head_dim), with the key-padding mask or none: dk and dv within the bf16
+    tolerance, and exactly 0 at the masked keys (the first three of every
+    sample, every key of sample 0)."""
+    q, k, v, g, mask = _inputs(3, 4, q_len, seed=27, d=head_dim)
+    mask = mask if padded else None
+    tattn.reset_launches()
+    (dk, dv), (dk_p, dv_p) = _dkv(q, k, v, g, mask, causal, head_dim ** -0.5)
+    assert tattn.LAUNCHES_BY_HEAD_DIM == {head_dim: {"flash_fwd": 0, "flash_bwd_dkv": 1, "flash_bwd_dq": 0}}
+    torch.testing.assert_close(dk.float(), dk_p.float(), atol=ATOL, rtol=RTOL, msg="dk")
+    torch.testing.assert_close(dv.float(), dv_p.float(), atol=ATOL, rtol=RTOL, msg="dv")
+    if padded:
+        assert (dk[0] == 0).all() and (dv[0] == 0).all()
+        assert (dk[:, :, :3] == 0).all() and (dv[:, :, :3] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [96, 256])
+@pytest.mark.parametrize("q_len,kv_len,masked", D96_CASES)
+def test_dkv_cta_takes_more_keys_than_queries(gpu, head_dim, q_len, kv_len, masked):
+    """dK/dV at 96 and 256, non-causal, 577 keys (CLIP-L/14-336's) against
+    fewer queries and a masked key range: dk and dv within the bf16
+    tolerance of the plain backward."""
+    q, k, v, g, mask = _inputs(2, 4, q_len, seed=28, kv_len=kv_len, masked=masked, d=head_dim)
+    (dk, dv), (dk_p, dv_p) = _dkv(q, k, v, g, mask, False, head_dim ** -0.5)
+    torch.testing.assert_close(dk.float(), dk_p.float(), atol=ATOL, rtol=RTOL, msg="dk")
+    torch.testing.assert_close(dv.float(), dv_p.float(), atol=ATOL, rtol=RTOL, msg="dv")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,b,h", [(96, 48, 64), (256, 48, 8)])
+@pytest.mark.parametrize("q_len", [77, 320, 336])
+def test_dkv_cta_is_bit_equal_across_launches(gpu, head_dim, b, h, q_len):
+    """Two launches of dK/dV at 96 and 256 give the same dk and dv, bit for
+    bit (no atomics: each key tile's sums run in one order), at the CE shape
+    too."""
+    q, k, v, g, mask = _inputs(b, h, q_len, seed=29, masked=(256, 276) if q_len > 276 else None, d=head_dim)
+    scale = head_dim ** -0.5
+    o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, True, scale)
+    delta = (g.float() * o_p.float()).sum(-1)
+    first = tattn.flash_bwd_dkv(q, k, v, mask, g, lse_p, delta, True, scale)
+    second = tattn.flash_bwd_dkv(q, k, v, mask, g, lse_p, delta, True, scale)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,b,h", [(96, 48, 64), (256, 48, 8), (96, 3, 2), (256, 3, 2)])
+def test_dkv_cta_in_the_whole_backward(gpu, head_dim, b, h):
+    """The whole backward at 96 and 256 from the kernels' forward (o, lse),
+    dq from the dQ kernel: dq, dk and dv within the bf16 tolerance of the
+    plain backward from the plain forward's (o, lse), and each element
+    within one bf16 step of the larger of the two values, at least 2^-6
+    (0.0156): at the CE shape, the kernels' f32 sums and the plain ones
+    round to neighbouring bf16 values, one step apart (0.03125 from 4 up),
+    and a small unaligned one."""
+    t = 336 if b == 48 else 77
+    q, k, v, g, mask = _inputs(b, h, t, seed=30, masked=(256, 276) if t == 336 else None, d=head_dim)
+    scale = head_dim ** -0.5
+    o, lse = tattn.flash_forward(q, k, v, mask, True, scale)
+    o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, True, scale)
+    got = tattn.flash_backward(q, k, v, mask, o, lse, g, True, scale)
+    want = tattn.flash_backward_plain(q, k, v, mask, o_p, lse_p, g, True, scale)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(x.float(), y.float(), atol=ATOL, rtol=RTOL, msg=name)
+        x, y = x.float(), y.float()
+        assert ((x - y).abs() <= _bf16_step(torch.maximum(x.abs(), y.abs()))).all(), name
 
 
 F32_ATOL = F32_RTOL = 1e-4

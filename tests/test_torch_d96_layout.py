@@ -29,8 +29,9 @@ passes the 128-byte layout that every other bf16 kernel runs on the card,
 and fails each field set wrong. The forward run through the model (the
 kernel's control flow: two warpgroups' query tiles a CTA, each up to its
 diagonal, the online softmax over 64-key tiles, P rounded to bf16) matches
-the JAX package's Pallas forward in interpret mode. The backward kernels at
-96 keep the padded 128-column tile, and the tests read that from the
+the JAX package's Pallas forward in interpret mode. At 96 the dK/dV kernel
+takes the same unpadded tiles (tests/test_torch_dkv_layout.py) and the dQ
+kernel keeps the padded 128-column tile; the tests read both from the
 launchers too.
 """
 
@@ -344,33 +345,48 @@ def test_forward_launcher_at_96_takes_the_unpadded_tile():
     assert "FwdSmem<D, WG>::ALLOC" in body and "flash_fwd_kernel<D, WG><<<" in body
     assert "(n_qt + WG - 1) / WG" in body
     assert build.route("flash_fwd", "bfloat16", 96).instantiation == "flash_fwd_kernel<96>"
-    assert re.search(r"if constexpr \(D == 96\)\s*sm90::tma_load_tile_sw64<D>\(", _body(FLASH, "void fwd_load_tile("))
+    assert re.search(r"if constexpr \(D == 96\)\s*sm90::tma_load_tile_sw64<D>\(", _body(FLASH, "void load_tile("))
     assert re.search(r"if constexpr \(D == 96\)\s*return sm90::desc_k_major_sw64\(tile, kk\);",
-                     _body(FLASH, "uint64_t fwd_desc_k("))
+                     _body(FLASH, "uint64_t desc_k("))
     assert re.search(r"if constexpr \(D == 96\)\s*sm90::wgmma_rs_n96\(acc, a, sm90::desc_mn_major_sw64\(sV, kk\)\);",
                      _body(FLASH, "void fwd_pv("))
     cta = _body(FLASH, "void fwd_cta(")
-    assert "sm90::wgmma_ss(sc, fwd_desc_k<D>(sQ, kk), fwd_desc_k<D>(sK, kk), kk > 0)" in cta
+    assert "sm90::wgmma_ss(sc, desc_k<D>(sQ, kk), desc_k<D>(sK, kk), kk > 0)" in cta
     assert "for (int kk = 0; kk < 4; ++kk) fwd_pv<D>(acc, pa[kk], sV, kk);" in cta
     assert "m64n96k16" in _body(SM90, "void wgmma_rs_n96(")
 
 
-@pytest.mark.parametrize("entry,launcher", [("flash_attn_bwd_dkv", "launch_bwd_dkv"),
-                                            ("flash_attn_bwd_dq", "launch_bwd_dq")])
+@pytest.mark.parametrize("entry,launcher", [("flash_attn_bwd_dq", "launch_bwd_dq")])
 def test_backward_launchers_at_96_keep_the_128_column_tile(entry, launcher):
-    """The dK/dV and dQ launchers at 96 still run the D = 128 tile: the
-    generic template at D = 96, make_map_3d's 64-column boxes, tiles of
-    panels(96) = 2 panels of 64 columns (128, the last 32 zeros)."""
+    """The dQ launcher at 96 still runs the D = 128 tile: the generic
+    template at D = 96, make_map_3d's 64-column boxes, tiles of panels(96) =
+    2 panels of 64 columns (128, the last 32 zeros)."""
     assert _case_96(entry).startswith(f"{launcher}<96, ")
     body = _body(FLASH, f"cudaError_t {launcher}(")
     assert body.count("make_map_3d(") == 4 and "sw64" not in body
     panels = re.search(r"constexpr int panels\(int d\) \{ return ([^;]+); \}", FLASH).group(1)
     assert eval(_py(panels), {}, {"d": 96}) * 64 == 128
-    smem = "DkvSmem" if launcher == "launch_bwd_dkv" else "QTileSmem"
-    assert re.search(rf"struct {smem}[^{{]*\{{\s*(//[^\n]*)?\s*static constexpr uint32_t TILE = panels\(D\) \* "
+    assert re.search(r"struct QTileSmem[^{]*\{\s*(//[^\n]*)?\s*static constexpr uint32_t TILE = panels\(D\) \* "
                      r"sm90::PANEL_BYTES;", FLASH)
     kernel = _body(FLASH, f"{launcher.replace('launch', 'flash')}_kernel(")
     assert "sw64" not in kernel and "sm90::desc_k_major(" in kernel
+
+
+def test_dkv_launcher_at_96_takes_the_unpadded_tile():
+    """flash_attn_bwd_dkv at 96 goes to launch_bwd_dkv<96, DKV_WG_96>: four
+    32-column maps (q, k, v, dO: make_map_3d_sw64 at 96), DkvSmem's 12 KB
+    tiles, the kernel flash_bwd_dkv_kernel<96> (kernels/build.py reads it
+    under that name), whose dkv_cta loads and reads the tiles at 96 as the
+    model does (tests/test_torch_dkv_layout.py)."""
+    assert _case_96("flash_attn_bwd_dkv") == "launch_bwd_dkv<96, DKV_WG_96>"
+    body = _body(FLASH, "cudaError_t launch_bwd_dkv(")
+    assert "const auto make_map = D == 96 ? sm90_host::make_map_3d_sw64 : sm90_host::make_map_3d;" in body
+    assert body.count("make_map(") == 4 and "using L = DkvSmem<D, WG>;" in body
+    assert re.search(r"static constexpr uint32_t TILE = D == 96 \? BLOCK \* D \* 2 :", _body(FLASH, "struct DkvSmem"))
+    assert build.route("flash_bwd_dkv", "bfloat16", 96).instantiation == "flash_bwd_dkv_kernel<96>"
+    cta = _body(FLASH, "void dkv_cta(")
+    assert "load_tile<D>(smem + L::K, tm_k, &bar[0], k0, bh);" in cta and "sm90::tma_load_tile<" not in cta
+    assert "sm90::desc_mn_major_sw64(sDO, kk)" in cta and "sm90::desc_mn_major_sw64(sQ, kk)" in cta
 
 
 # ---------------------------------------------------------------------------
