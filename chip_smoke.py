@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
      (-Xptxas -v) and the HGMMA, UTMALDG, FFMA and HMMA instruction counts
      (cuobjdump -sass, where the toolkit has it) of each instantiation: the
      three bf16 kernels at head_dim 64, 96, 128 and 256 and the three wide
-     kernels (every multiple of 128 from 384 on, a grid axis over
+     kernels (every multiple of 128 from 384 on: the forward one CTA a query
+     tile and a piece of up to 512 columns, dK/dV and dQ a grid axis over
      128-column output slices), fifteen TMA + wgmma kernels that may lack
      neither; and the float32 kernels (the forward one slice of all of
      head_dim up to 512: an instantiation at each of 64, 96 and 128 and one
@@ -26,7 +27,8 @@ Phases, each printing one JSON line:
      passes), at the regrouped decoders' (1B as 4 heads of 512: its CE and
      student passes and decode prefill; the 20B width as 16 heads of 384:
      its CE and student passes), causal cases at 640 and 1024 (the slice
-     loop past four slices), at a tensor-parallel rank's (its heads: 4 of
+     loop past four slices; the wide forward's two pieces), at a
+     tensor-parallel rank's (its heads: 4 of
      256 at 1B, 8 of 64 at 410M), and in 65- and 129-token cases across the tile edges, a
      small unaligned case with fully-masked rows at every head_dim, a
      non-causal unmasked one at 96, 128, 384 and 512 and a small unaligned
@@ -42,10 +44,11 @@ Phases, each printing one JSON line:
      float32-accurate products; the CUDA-core bound, the products at the
      card's float32 rate outside the tensor cores, beside it) and SDPA at
      float32 with TF32 off on the backend it takes; then the forward at
-     96, 128 and 256 and dK/dV at 96 and 256 beyond those cases (query
-     lengths from 1 to 336, 577 keys, two launches bit-equal, the whole
-     backward from the kernels' forward; their ms against SDPA's and their
-     bounds: the fwd_d* and bwd_dkv_d* lines); then
+     96, 128 and 256, the wide forward at 384 and 512 and dK/dV at 96 and
+     256 beyond those cases (query lengths from 1 to 336, 577 keys, two
+     launches bit-equal, the whole backward from the kernels' forward; their
+     ms against SDPA's and their bounds: the fwd_d*, fwd_wide_d* and
+     bwd_dkv_d* lines); then
      one shape that the JAX package sends to xla_attention (32 heads of 80,
      Pythia-2.8B's width): dot_product_attention equal to masked_attention,
      no launch;
@@ -286,6 +289,11 @@ SM90 = "sm90 tma+wgmma"
 SM90_FWD_SPLIT = {96: "sm90 tma+wgmma, unpadded 64-byte-swizzled tiles, S once, two query tiles a CTA",
                   128: "sm90 tma+wgmma, S once, P V m64n128k16, two query tiles a CTA",
                   256: "sm90 tma+wgmma, S once, P V m64n256k16, two query tiles a CTA"}
+# the bf16 wide forward (flash_attn.cu flash_fwd_wide_kernel): one CTA a query tile and a piece of up to 512
+# columns, one warpgroup a 128-column slice, Q loaded once, each score tile formed once (split over D, the
+# partials summed through shared memory)
+SM90_FWD_WIDE = ("sm90 tma+wgmma, one CTA a query tile and up to 512 columns, a warpgroup a 128-column slice, "
+                 "Q once, S once split over D (partials summed in shared memory), P V m64n128k16")
 # the float32 kernels' designs: all three in 3xTF32 on the tensor cores, the forward's score tile formed once
 # over all of head_dim (one CTA a query tile and up to 512 output columns)
 SM90_F32 = {"flash_fwd": "sm90 3xtf32 mma.sync, score tile once over head_dim, cp.async",
@@ -464,7 +472,8 @@ KERNEL_CASES = [
     ("causal_129_padded_d384", 8, 4, 129, 384, True, (0, 7), False),
     ("small_unaligned_empty_rows_d384", 3, 2, 77, 384, True, (0, 3), True),
     ("noncausal_unmasked_d384", 16, 16, 257, 384, False, None, False),
-    # five and eight slices: the slice loop past the four of 512
+    # five and eight slices: the slice loop past the four of 512, the wide forward's two pieces (its score in
+    # rounds of 3 and 4 slices)
     ("causal_200_padded_d640", 2, 2, 200, 640, True, (0, 5), False),
     ("causal_130_padded_d1024", 2, 2, 130, 1024, True, (0, 5), False),
     # phase multiprocess: a rank's half of the 410M window (its CE stack of 3 x 8 rows, its student
@@ -559,7 +568,7 @@ def phase_kernels(gen):
     # tensor cores, or the bytes; the CUDA-core bound beside it)
     timing_f32 = {d: kernel_timing(gen, f"timing_f32_ce_{d}", 48, h, 336, d, dtype=torch.float32)
                   for d, h in ((64, 16), (96, 64), (128, 16), (256, 8), (384, 16), (512, 4))}
-    for d in SM90_FWD_SPLIT:
+    for d in (*SM90_FWD_SPLIT, *WIDE_FWD_CHECKED):
         errs["flash_fwd", d] = max(errs["flash_fwd", d], check_fwd_query_split(gen, d, timing[d]))
     for d in SM90_DKV_CTA:
         errs["flash_bwd_dkv", d] = max(errs["flash_bwd_dkv", d], check_bwd_dkv(gen, d, timing))
@@ -572,18 +581,23 @@ def phase_kernels(gen):
 # last key tile; an odd count of query tiles)
 SPLIT_NONCAUSAL_CASES = [(4, 16, 129, 577, (500, 577)), (4, 16, 65, 577, (3, 40)), (2, 8, 320, 577, (560, 577))]
 # (batch, heads) of each head_dim's CE shape [48, H, 336, D]
-CE_HEADS = {96: 64, 128: 16, 256: 8}
+CE_HEADS = {96: 64, 128: 16, 256: 8, 384: 16, 512: 4}
+# the wide forward (flash_fwd_wide_kernel) checked and timed as the forwards at 96, 128 and 256 are: its lines
+# are fwd_wide_d*
+WIDE_FWD_CHECKED = (384, 512)
 
 
 def check_fwd_query_split(gen, d: int, timing_d: dict) -> float:
-    """flash_fwd_kernel<d> at 96, 128 or 256 (two query tiles a CTA, fwd_cta)
-    beyond KERNEL_CASES: the non-causal calls of SPLIT_NONCAUSAL_CASES
-    against the plain version; (o, lse) bit-equal across two launches at the
-    CE shape and a small one; its (o, lse) into the <d> backward kernels
-    against the plain backward; its time at the CE shape against SDPA's
+    """flash_fwd_kernel<d> at 96, 128 or 256 (two query tiles a CTA, fwd_cta),
+    or the wide forward at 384 or 512 (one CTA a query tile, each score tile
+    formed once; lines named fwd_wide_d<d>), beyond KERNEL_CASES: the
+    non-causal calls of SPLIT_NONCAUSAL_CASES against the plain version;
+    (o, lse) bit-equal across two launches at the CE shape and a small one;
+    its (o, lse) into the <d> backward kernels against the plain backward; its time at the CE shape against SDPA's
     forward and its bound (emitted, from `timing_d`, kernel_timing's at
     [48, H, 336, d]). Returns the largest |o, lse - plain|."""
     scale, largest = d ** -0.5, 0.0
+    line = f"fwd_wide_d{d}" if build.wide_head_dim(d) else f"fwd_d{d}"
     for b, h, tq, tk, masked in SPLIT_NONCAUSAL_CASES:
         q = torch.randn(b, h, tq, d, generator=gen, device="cuda").bfloat16()
         k, v = (torch.randn(b, h, tk, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
@@ -595,7 +609,7 @@ def check_fwd_query_split(gen, d: int, timing_d: dict) -> float:
         torch.testing.assert_close(lse, lse_p, atol=LSE_ATOL, rtol=0)
         err = max(_err(o, o_p), _err(lse, lse_p))
         largest = max(largest, err)
-        emit({"phase": "kernels", "case": f"fwd_d{d}_noncausal", "shape": [b, h, tq, tk, d], "masked": list(masked),
+        emit({"phase": "kernels", "case": f"{line}_noncausal", "shape": [b, h, tq, tk, d], "masked": list(masked),
               "max_abs_err": err, "atol": ATOL, "rtol": RTOL, "lse_atol": LSE_ATOL})
     bit_equal = {}
     ce = f"ce_d{d}"
@@ -611,12 +625,12 @@ def check_fwd_query_split(gen, d: int, timing_d: dict) -> float:
         want = A.flash_backward_plain(q, k, v, mask, o_p, lse_p, do, causal, scale)
         for label, x, y in zip(("dq", "dk", "dv"), got, want):
             torch.testing.assert_close(x.float(), y.float(), atol=ATOL, rtol=RTOL, msg=lambda m: f"{label}: {m}")
-        emit({"phase": "kernels", "case": f"fwd_d{d}_into_backward_{name}", "shape": [b, h, t, d],
+        emit({"phase": "kernels", "case": f"{line}_into_backward_{name}", "shape": [b, h, t, d],
               "max_abs_err": {label: _err(x, y) for label, x, y in zip(("dq", "dk", "dv"), got, want)}})
     if not all(bit_equal.values()):
-        raise AssertionError(f"flash_fwd_kernel<{d}>: two launches differ: {bit_equal}")
+        raise AssertionError(f"{line}: two launches differ: {bit_equal}")
     ms, sdpa = timing_d["ms"]["flash_fwd"], timing_d["library_ms"]["flash_fwd"]
-    emit({"phase": "kernels", "case": f"fwd_d{d}_against_sdpa", "shape": [48, CE_HEADS[d], 336, d], "ms": ms,
+    emit({"phase": "kernels", "case": f"{line}_against_sdpa", "shape": [48, CE_HEADS[d], 336, d], "ms": ms,
           "sdpa_fwd_ms": sdpa, "ratio_to_sdpa": ms / sdpa, "bound_ms": timing_d["bound_ms"]["flash_fwd"],
           "ratio_to_bound": ms / timing_d["bound_ms"]["flash_fwd"], "bound_by": timing_d["bound_by"]["flash_fwd"],
           "bit_equal": bit_equal})
@@ -3318,10 +3332,10 @@ def main() -> int:
         raise AssertionError(f"kernels that the main path never launched: {idle}")
     kernels = [
         {"name": f"{name}<{d}>", "head_dim": d, "route": "cuda", "source": "mafed_tpu_torch/csrc/flash_attn.cu",
-         "instantiation": (build.instantiation(f"{name}_wide_kernel", build.WIDE_SLICE) if build.wide_head_dim(d)
-                           else build.instantiation(f"{name}_kernel", d)),
+         "instantiation": build.route(name, "bfloat16", d).instantiation,
          "replaces": replaces,
          "design": (SM90_FWD_SPLIT[d] if name == "flash_fwd" and d in SM90_FWD_SPLIT else
+                    SM90_FWD_WIDE if name == "flash_fwd" and build.wide_head_dim(d) else
                     SM90_DKV_CTA[d] if name == "flash_bwd_dkv" and d in SM90_DKV_CTA else design),
          "launches": launched[d][name],
          "launches_by_path": {p: path.get(d, {}).get(name, 0) for p, path in by_path.items()},

@@ -68,9 +68,13 @@
 // below.
 //
 // Every multiple of 128 from 384 on (a runtime head_dim) takes the wide
-// kernels further down (flash_*_wide_kernel): a grid axis over 128-column
-// slices of the output, so that neither shared memory nor the accumulators
-// grow with D.
+// kernels further down (flash_*_wide_kernel), whose shared memory and
+// accumulators do not grow with D: the forward one CTA a query tile and a
+// piece of up to 512 output columns, one warpgroup a 128-column slice of it,
+// each score tile formed once (split over D, the partials summed through
+// shared memory) up to 512 columns; dK/dV and dQ a grid axis over
+// 128-column slices of the output, each slice forming the score tile
+// itself.
 //
 // Nothing is allocated on the device here: the Python wrapper allocates the
 // outputs, and every launch goes on the stream it is given.
@@ -1280,39 +1284,45 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
 // dK and dV of one 64-key tile at 384 are 2 x 64 x 384 f32, 49,152 of the SM's
 // 65,536 registers, before S^T and dP^T.
 //
-// Design. A grid axis over SW-column slices of the output (SW = 128: three
-// slices at 384, four at 512, eight at 1024). The CTA of slice s computes the
-// whole 64 x 64 score tile S (and dP in the backward) over all of D, then
-// only its slice's products: O_s += P V_s; dV_s += P^T dO_s and
-// dK_s += dS^T Q_s; dQ_s += dS K_s. Its accumulators are then those of the
-// <128> kernels (one warpgroup), whatever D. Every operand streams in 64-row
-// x 64-column panels through one TMA ring of WIDE_STAGES slots of two panels,
-// one mbarrier each: a score product takes one slot
-// per 64 columns of D (the A panel, then the B panel), a slice product one
-// slot (the slice's panels of its B operand). Shared memory does not grow
-// with D, so every multiple of 128 runs. A slot is refilled once the wgmma
-// that read it has completed on every warp (`WideRing::release`): the score
-// products keep one k-group in flight while the previous slot is released.
-// Every slice computes the same m and l by the same instructions in the same
-// order; slice 0 alone writes lse.
+// The forward (flash_fwd_wide_kernel, below) owns one 64-row query tile and
+// one piece of up to WIDE_FWD_PIECE = 512 output columns a CTA, one
+// warpgroup for each 128-column slice of its piece (3 at 384, 4 at 512), and
+// forms each score tile once, split over D; its design note is with it.
+//
+// dK/dV and dQ. A grid axis over SW-column slices of the output (SW = 128:
+// three slices at 384, four at 512, eight at 1024). The CTA of slice s
+// computes the whole 64 x 64 score tile S (and dP) over all of D, then only
+// its slice's products: dV_s += P^T dO_s and dK_s += dS^T Q_s; dQ_s += dS K_s.
+// Its accumulators are then those of the <128> kernels (one warpgroup),
+// whatever D. Every operand streams in 64-row x 64-column panels through one
+// TMA ring of WIDE_STAGES slots of two panels, one mbarrier each: a score
+// product takes one slot per 64 columns of D (the A panel, then the B
+// panel), a slice product one slot (the slice's panels of its B operand).
+// Shared memory does not grow with D, so every multiple of 128 runs. A slot
+// is refilled once the wgmma that read it has completed on every warp
+// (`WideRing::release`): the score products keep one k-group in flight while
+// the previous slot is released. Every slice computes the same scores by the
+// same instructions in the same order.
 //
 // Cost. The score products, and the loads of their Q and K (dO and V)
-// panels, repeat D / SW times; each CTA reads its operands from L2. Bound on
-// the H100 as for the kernels above: memory at VQA lengths (the times are in
-// PERF.md).
+// panels, repeat D / SW times; each CTA reads its operands from L2: a
+// (query tile, key tile) pair loads D / SW x (D / 64 x 16 KB + 16 KB) per
+// score product (dQ two, dK/dV two), ~6.5 TB/s from L2 at the CE shapes by
+// that count (PERF.md; reckoned from the loads issued, not measured). One
+// CTA barrier for every slot. Bound on the H100 as for the kernels above:
+// memory at VQA lengths (the times are in PERF.md).
 // ---------------------------------------------------------------------------
-// At the CE shapes [48, 16, 336, 384] and [48, 4, 336, 512] on an H100 SXM at
-// 700 W (scripts/flash_variants.py, three rounds in turns): six stages made
-// the forward 0.46-0.47 / 1.12-1.15 ms against 0.34-0.35 / 0.83-0.84 with
-// four, the backward kernels unchanged.
+// The ring's slots of the wide dK/dV and dQ kernels. At the CE shapes
+// [48, 16, 336, 384] and [48, 4, 336, 512] on an H100 SXM at 700 W
+// (scripts/flash_variants.py, three rounds in turns) six stages left both
+// kernels' times unchanged.
 constexpr int WIDE_STAGES = 4;
-// Output columns of one CTA of every wide kernel (kernels/build.py WIDE_SLICE
-// mirrors it). dK/dV holds two slice accumulators beside S^T and dP^T: at 256
-// that is 320 registers a thread. A 256-column slice (half the repeated score
-// products) measured slower for the others (the same script and shapes): the
-// forward 0.515 / 1.69-1.72 ms (205 registers, 128 KB of ring), dQ
-// 0.71-0.73 / 2.14-2.15 (244 registers), against 0.34-0.35 / 0.83-0.84 and
-// 0.70-0.72 / 1.61-1.63 at 128.
+// Output columns of one CTA of the wide dK/dV and dQ kernels (kernels/build.py
+// WIDE_SLICE mirrors it). dK/dV holds two slice accumulators beside S^T and
+// dP^T: at 256 that is 320 registers a thread. A 256-column slice (half the
+// repeated score products) measured slower (the same script and shapes): dQ
+// 0.71-0.73 / 2.14-2.15 ms (244 registers) against 0.70-0.72 / 1.61-1.63 at
+// 128.
 constexpr int WIDE_SLICE = 128;
 // A slice is one slot's two 64-column panels, and divides every wide head_dim
 // (a multiple of 128): no slice is partial.
@@ -1449,89 +1459,298 @@ __device__ __forceinline__ void store_wide_rows(bf16* __restrict__ dst, const fl
   }
 }
 
-// Forward. Grid (slices, query tiles, batch x heads). Per key tile: items
-// 0 .. np - 1 the (Q, K) panels of S, item np the slice of V.
-template <int SW>
-__global__ void __launch_bounds__(THREADS)
+// ---------------------------------------------------------------------------
+// Wide forward. Replaces _flash_kernel (mafed_tpu/kernels/attention.py:81-153)
+// at every multiple of 128 from 384 on.
+//
+// Design. A CTA owns one 64-row query tile and one piece of up to
+// WIDE_FWD_PIECE = 512 output columns, with one warpgroup for each 128-column
+// slice of its piece: 3 at 384, 4 at 512. The grid is (pieces, query tiles,
+// batch x heads); D is cut into ceil(D / 512) pieces of ceil(slices /
+// pieces) warpgroups each (640: two pieces of 3, the last slice slot of the
+// second empty; 1024: two of 4). Warpgroup w of piece p owns slice s = p W +
+// w, O[:, 128 s .. 128 s + 127] (m64n128k16: 64 f32 a thread).
+// - Q loaded once: up to 512 columns Q's tile stays in shared memory for the
+//   whole key loop (48 KB at 384, 64 KB at 512). K and V tiles stream
+//   through TMA, each loaded once a CTA, on barriers of their own: K of tile
+//   j + 1 loads while the softmax and P V of tile j run, V of tile j + 1
+//   while S of tile j + 1 is formed.
+// - The score tile formed once, split over D: warpgroup w forms the partial
+//   S_w = Q[:, slice w] K[:, slice w]^T, a whole 64 x 64 tile that reads
+//   only its slice, in two halves of 32 keys (8 k-steps of m64n32k16 each,
+//   16 registers). The partials meet in shared memory: each warpgroup writes
+//   its registers in fragment order (`wide_xchg`) into its own K slice,
+//   which only its own products read: the first half's into K's rows 0..31,
+//   which the second half's products no longer read, the second half's into
+//   rows 32..63 once those products have completed. After one CTA barrier
+//   every thread reads the same fragment positions of every warpgroup's
+//   partial and sums them in the same order, slice 0 first: every warpgroup
+//   then holds a bit-identical S, and softmax_tile gives the same m, l and
+//   alpha in each. Warpgroup 0 of piece 0 alone writes lse.
+// - P V on the slice: P (bf16) goes to A fragments and O_w += P V[:, slice w]
+//   runs as one m64n128k16 a k-step, V read MN-major from the slice's two
+//   panels.
+// Past 512 columns a CTA forms S over all of D in rounds of W slices (slice
+// r W + w of round r to warpgroup w, its partial summed over its rounds in
+// one m64n64k16 accumulator, written whole once the last round's products
+// have completed), with Q's slices loaded beside K's each round; the pieces
+// of a tile each form S again, by the same instructions in the same order,
+// so they agree bit for bit. That bounds shared memory and the accumulators
+// for any D.
+//
+// Budgets. Q, K and V take 3 x W x 16 KB (192 KB at 512, 144 KB at 384 of the
+// 205,872 B allocated); the exchange takes no room of its own (W x 16 KB,
+// each partial in its own K slice). Registers: 64 for O, 32 for S, 16 for
+// P's fragments, at most 128 a thread (512 threads, one CTA an SM; at 384
+// one CTA an SM too, by shared memory). Built for the H100 (PERF.md), the
+// products over the whole 64 x 64 tile at once (32 registers) spilled 4-36 B
+// at 128 in every form tried, the last with m and l in shared memory and the
+// keep bits fetched after the products; so m and l live in shared memory (a
+// float4 a thread, read and written once a key tile), the keep bits are
+// fetched after the products, and up to 512 columns the partial is formed in
+// halves: 128 registers, no spill.
+//
+// Cost (reckoned from the loads issued, not measured). A (query tile, key
+// tile) pair loads K and V once from L2, 2 x 64 x D x 2 bytes (96 KB at 384,
+// 128 KB at 512), and a CTA Q once: at the CE shapes [48, 16, 336, 384] and
+// [48, 4, 336, 512] (6 query tiles and 21 causal pairs a head) ~1.81 and
+// ~0.60 GB, where 128-column slice CTAs that each formed the whole score
+// tile loaded D / 128 x (D / 64 x 16 KB + 16 KB) a pair (~5.5 and ~2.4 GB).
+// Three CTA barriers a key tile (the partials written, read, V read), where
+// the slice CTAs took one a 64-column panel (nine a key tile at 512).
+// ---------------------------------------------------------------------------
+// Output columns of one CTA of the wide forward (kernels/build.py
+// WIDE_FWD_PIECE mirrors it), and its most warpgroups: one a WIDE_SLICE slice
+constexpr int WIDE_FWD_PIECE = 512;
+constexpr int WIDE_FWD_WG = WIDE_FWD_PIECE / WIDE_SLICE;
+
+// Shared memory of the wide forward, byte offsets from the 1024-aligned base:
+// Q, K and V as WIDE_FWD_WG slices each ([64][128]: two 64-column panels, 16
+// KB), slice w of each at w x SLICE; the keep bits of two key tiles; the
+// barriers (Q, K, V); each thread's row max and sum (its m and l, a float4).
+struct WideFwdSmem {
+  static constexpr uint32_t SLICE = 2 * sm90::PANEL_BYTES;
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t K = Q + WIDE_FWD_WG * SLICE;
+  static constexpr uint32_t V = K + WIDE_FWD_WG * SLICE;
+  static constexpr uint32_t KEEP = V + WIDE_FWD_WG * SLICE;  // 2 x uint64, by key tile parity
+  static constexpr uint32_t BAR = KEEP + 2 * 8;
+  static constexpr uint32_t ML = BAR + 32;
+  static constexpr size_t ALLOC = ML + WIDE_FWD_WG * THREADS * 16 + 1024;
+};
+
+// Byte offset, within its warpgroup's K slice, of float4 r4 (registers 4 r4
+// .. 4 r4 + 3: keys 8 r4 .. 8 r4 + 7 of its two rows) of thread t's partial S: the first
+// half's (r4 < 4) in K's rows 0..31 of both panels (bytes 0..4095 and
+// 8192..12287), the second half's in rows 32..63; consecutive threads at
+// consecutive 16 bytes, so a warp's stores and loads take no bank twice in a
+// phase.
+__device__ __forceinline__ uint32_t wide_xchg(int r4, int t) {
+  return (uint32_t)((r4 / 4) * 4096 + (r4 / 2 % 2) * 8192 + (r4 % 2) * 2048 + t * 16);
+}
+
+// PW is WIDE_FWD_PIECE: a template argument only so that kernels/build.py
+// names the instantiation as it names the others.
+template <int PW>
+__global__ void __launch_bounds__(PW / WIDE_SLICE * THREADS, 1)
 flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ mask, bf16* __restrict__ o,
                       float* __restrict__ lse, int heads, int q_len, int kv_len, int d, int causal, float scale) {
-  constexpr int SP = SW / 64;  // O panels of the slice
-  const int c0 = blockIdx.x * SW, qt = blockIdx.y, bh = blockIdx.z, b = bh / heads;
-  const int lane = threadIdx.x % 32, np = d / 64, q0 = qt * BLOCK;
-  o += (size_t)bh * q_len * d;
-  lse += (size_t)bh * q_len;
-  const int* mask_row = mask == nullptr ? nullptr : mask + (size_t)b * kv_len;
-
+  static_assert(PW == WIDE_FWD_PIECE, "the shared memory holds WIDE_FWD_WG slices of each tile");
+  using L = WideFwdSmem;
+  const int tid = threadIdx.x, wg = tid / THREADS, t = tid % THREADS, lane = tid % 32;
+  const int nwg = blockDim.x / THREADS;                // W: the slices of a piece
+  const int n_sl = d / WIDE_SLICE, rounds = (n_sl + nwg - 1) / nwg;
+  const int piece = blockIdx.x, qt = blockIdx.y, bh = blockIdx.z;
+  const int sl = piece * nwg + wg, q0 = qt * BLOCK;    // this warpgroup's output slice (none past n_sl)
+  const int n_kt = (kv_len + BLOCK - 1) / BLOCK, upper = causal ? min(qt + 1, n_kt) : n_kt;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
-  uint64_t* keep_word = reinterpret_cast<uint64_t*>(smem + WideSmem<SW>::KEEP);
-  const int n_kt = (kv_len + BLOCK - 1) / BLOCK, upper = causal ? min(qt + 1, n_kt) : n_kt;
-  const int per_tile = np + 1;
-  const WideRing<SW> ring{smem, bh, upper * per_tile};
-  const CUtensorMap *mq = &tm_q, *mk = &tm_k, *mv = &tm_v;
-  const auto load = [=](int g) {
-    const int kt = g / per_tile, i = g % per_tile;
-    if (i < np)
-      ring.pair(g, mq, q0, mk, kt * BLOCK, 64 * i);
-    else
-      ring.slice(g, mv, kt * BLOCK, c0);
+  uint64_t* keep_slot = reinterpret_cast<uint64_t*>(smem + L::KEEP);
+  // the keep bit of key k0 + tid (tid < 64)
+  const auto keep = [&](int k0) {
+    return keep_key(mask == nullptr ? nullptr : mask + (size_t)(blockIdx.z / heads) * kv_len, k0, kv_len);
   };
-  ring.start(load);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  const CUtensorMap *mq = &tm_q, *mk = &tm_k, *mv = &tm_v;
+  // n slices of rows row.. of map m, from slice first, into dst on barrier br (thread 0)
+  const auto load_slices = [&](uint32_t dst, const CUtensorMap* m, uint64_t* br, int row, int first, int n) {
+    for (int i = 0; i < n; ++i)
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        sm90::tma_load_3d(smem + dst + i * L::SLICE + p * sm90::PANEL_BYTES, m, br,
+                          (first + i) * WIDE_SLICE + 64 * p, row, bh);
+  };
+  // round r of key tile kt onto the K barrier: K's slices r W .. and, past one round, Q's
+  const auto load_round = [&](int kt, int r) {
+    const int first = r * nwg, n = min(nwg, n_sl - first);
+    sm90::mbar_expect_tx(&bar[1], (rounds > 1 ? 2 : 1) * n * L::SLICE);
+    if (rounds > 1) load_slices(L::Q, mq, &bar[1], q0, first, n);
+    load_slices(L::K, mk, &bar[1], kt * BLOCK, first, n);
+  };
+  // the V slices of this CTA's piece for key tile kt onto the V barrier
+  const auto load_v = [&](int kt) {
+    const int first = piece * nwg, n = min(nwg, n_sl - first);
+    sm90::mbar_expect_tx(&bar[2], n * L::SLICE);
+    load_slices(L::V, mv, &bar[2], kt * BLOCK, first, n);
+  };
 
-  float acc[SP][32], sc[32];
-#pragma unroll
-  for (int r = 0; r < 32; ++r) {
-    sc[r] = 0.0f;
-#pragma unroll
-    for (int n = 0; n < SP; ++n) acc[n][r] = 0.0f;
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) sm90::mbar_init(&bar[i], 1);
+    sm90::fence_mbar_init();
   }
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};  // row max (log2 domain) and sum
-  const float scale_log2 = scale * LOG2E;
+  if (tid < 64 && upper > 0) store_keep_bits(&keep_slot[0], keep(0));
+  __syncthreads();
+  if (tid == 0 && upper > 0) {
+    if (rounds == 1) {  // Q once, for the whole key loop
+      sm90::mbar_expect_tx(&bar[0], n_sl * L::SLICE);
+      load_slices(L::Q, mq, &bar[0], q0, 0, n_sl);
+    }
+    load_round(0, 0);
+    load_v(0);
+  }
 
-  int g = 0;
+  float acc[64];  // O's slice, m64n128k16: d[4 j + 2 i + c] = (row r_i, column 8 j + 2 (lane % 4) + c)
+#pragma unroll
+  for (int r = 0; r < 64; ++r) acc[r] = 0.0f;
+  float4* ml = reinterpret_cast<float4*>(smem + L::ML) + tid;  // row max (log2 domain) and sum of rows r_0, r_1
+  *ml = make_float4(-INFINITY, -INFINITY, 0.0f, 0.0f);
+  if (rounds == 1 && upper > 0) sm90::mbar_wait(&bar[0], 0);
+
+  int k_phase = 0;  // completed phases of the K barrier
   for (int kt = 0; kt < upper; ++kt) {
-    // read after the score products' releases; the last reader of the
-    // previous tile's bits passed the release of its V slice
-    if (threadIdx.x < 64) store_keep_bits(keep_word, keep_key(mask_row, kt * BLOCK, kv_len));
-    wide_scores(sc, ring, g, np, load);
-    g += np;
-    const uint64_t kbits = *keep_word;
-    const bool diag = causal && kt == qt;
-    float alpha[2];
-    if (diag || kbits != ~0ull)
-      softmax_tile<true>(sc, m, l, alpha, kbits, diag, scale_log2);
-    else
-      softmax_tile<false>(sc, m, l, alpha, kbits, false, scale_log2);
+    // this warpgroup's partial S over its slices of D, written in fragment order into its own K slice
+    unsigned char* xs = smem + L::K;
+    float sc[32];
+    if (rounds == 1) {
+      // one round: the partial in two halves of 32 keys (m64n32k16), each written as soon as it is formed into
+      // the K rows its products no longer read
+      sm90::mbar_wait(&bar[1], k_phase++ & 1);
+      const uint32_t sQw = sm90::opaque(sm90::smem_addr(smem + L::Q + wg * L::SLICE));
+      const uint32_t sKw = sm90::opaque(sm90::smem_addr(smem + L::K + wg * L::SLICE));
 #pragma unroll
-    for (int n = 0; n < SP; ++n)
+      for (int h = 0; h < 2; ++h) {
+        float sh[16];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+        for (int r = 0; r < 16; ++r) sh[r] = 0.0f;
+        sm90::fence_regs(sh);
+        sm90::wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          acc[n][4 * j + 2 * i] *= alpha[i];
-          acc[n][4 * j + 2 * i + 1] *= alpha[i];
+        for (int kk = 0; kk < WIDE_SLICE / 16; ++kk)
+          sm90::wgmma_ss_n32(sh, sm90::desc_k_major(sQw, kk), sm90::desc_k_major(sKw + h * 4096, kk), kk > 0);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(sh);
+#pragma unroll
+        for (int r4 = 0; r4 < 4; ++r4)
+          *reinterpret_cast<float4*>(xs + wg * L::SLICE + wide_xchg(4 * h + r4, t)) =
+              make_float4(sh[4 * r4], sh[4 * r4 + 1], sh[4 * r4 + 2], sh[4 * r4 + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) sc[r] = 0.0f;
+      for (int r = 0; r < rounds; ++r) {
+        sm90::mbar_wait(&bar[1], k_phase++ & 1);
+        if (r * nwg + wg < n_sl) {  // the same for the whole warpgroup
+          const uint32_t sQw = sm90::opaque(sm90::smem_addr(smem + L::Q + wg * L::SLICE));
+          const uint32_t sKw = sm90::opaque(sm90::smem_addr(smem + L::K + wg * L::SLICE));
+          sm90::fence_regs(sc);
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < WIDE_SLICE / 16; ++kk)
+            sm90::wgmma_ss(sc, sm90::desc_k_major(sQw, kk), sm90::desc_k_major(sKw, kk), r > 0 || kk > 0);
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(sc);
         }
+        if (r + 1 < rounds) {
+          __syncthreads();  // every warpgroup is done with round r's slices
+          if (tid == 0) load_round(kt, r + 1);
+        }
+      }
+#pragma unroll
+      for (int r4 = 0; r4 < 8; ++r4)
+        *reinterpret_cast<float4*>(xs + wg * L::SLICE + wide_xchg(r4, t)) =
+            make_float4(sc[4 * r4], sc[4 * r4 + 1], sc[4 * r4 + 2], sc[4 * r4 + 3]);
+    }
+
+    // the next tile's keep bits, stored before the partials are read; then the partials meet in the K
+    // slices, S summed slice 0 first in every warpgroup
+    const bool next_keep = tid < 64 && kt + 1 < upper && keep((kt + 1) * BLOCK);
+    if (tid < 64 && kt + 1 < upper) store_keep_bits(&keep_slot[(kt + 1) % 2], next_keep);
+    __syncthreads();  // every partial written
+#pragma unroll
+    for (int r4 = 0; r4 < 8; ++r4) {
+      float4 s = *reinterpret_cast<const float4*>(xs + wide_xchg(r4, t));
+#pragma unroll
+      for (int w = 1; w < WIDE_FWD_WG; ++w) {
+        if (w < nwg) {
+          const float4 x = *reinterpret_cast<const float4*>(xs + w * L::SLICE + wide_xchg(r4, t));
+          s.x += x.x;
+          s.y += x.y;
+          s.z += x.z;
+          s.w += x.w;
+        }
+      }
+      sc[4 * r4] = s.x;
+      sc[4 * r4 + 1] = s.y;
+      sc[4 * r4 + 2] = s.z;
+      sc[4 * r4 + 3] = s.w;
+    }
+    sm90::fence_proxy_async();  // the exchange's accesses before the next tile's TMA writes to the K slices
+    __syncthreads();            // every partial read: the K slices take the next tile
+    if (tid == 0 && kt + 1 < upper) load_round(kt + 1, 0);
+
+    // every tile through the masked softmax, as fwd_cta's
+    float alpha[2];
+    float4 mlv = *ml;
+    float m[2] = {mlv.x, mlv.y}, l[2] = {mlv.z, mlv.w};
+    softmax_tile<true>(sc, m, l, alpha, keep_slot[kt % 2], causal && kt == qt, scale * LOG2E);
+    *ml = make_float4(m[0], m[1], l[0], l[1]);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        acc[4 * j + 2 * i] *= alpha[i];
+        acc[4 * j + 2 * i + 1] *= alpha[i];
+      }
+
+    // O_w += P V[:, slice], P (bf16) from registers
     uint32_t pa[4][4];
     sm90::acc_to_a(sc, pa);
-    wide_slice_product(acc, pa, ring, g++, load);  // O_s += P V_s
+    sm90::mbar_wait(&bar[2], kt & 1);
+    if (sl < n_sl) {  // the same for the whole warpgroup
+      const uint32_t sVw = sm90::opaque(sm90::smem_addr(smem + L::V + wg * L::SLICE));
+      sm90::fence_regs(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs_n128(acc, pa[kk], sm90::desc_mn_major(sVw, 0, kk));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+    }
+    __syncthreads();  // every warpgroup is done with tile kt's V
+    if (tid == 0 && kt + 1 < upper) load_v(kt + 1);
   }
 
+  // o of this warpgroup's slice; lse once a row, by warpgroup 0 of piece 0
+  const float4 mlv = *ml;
+  const float m[2] = {mlv.x, mlv.y}, l[2] = {mlv.z, mlv.w};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const bool empty = l[i] == 0.0f;
     const float l_safe = empty ? 1.0f : l[i];
-#pragma unroll
-    for (int n = 0; n < SP; ++n)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        acc[n][4 * j + 2 * i] /= l_safe;
-        acc[n][4 * j + 2 * i + 1] /= l_safe;
-      }
     const int row = q0 + wg_warp() * 16 + lane / 4 + 8 * i;
-    if (c0 == 0 && lane % 4 == 0 && row < q_len) lse[row] = empty ? INFINITY : m[i] * LN2 + logf(l_safe);
+    if (row >= q_len) continue;
+    const size_t at = (size_t)bh * q_len + row;  // row of the [batch*heads, q_len] outputs
+    if (piece == 0 && wg == 0 && lane % 4 == 0) lse[at] = empty ? INFINITY : m[i] * LN2 + logf(l_safe);
+    if (sl >= n_sl) continue;
+    bf16* out = o + at * d + sl * WIDE_SLICE + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j) =
+          sm90::pack_bf16(acc[4 * j + 2 * i] / l_safe, acc[4 * j + 2 * i + 1] / l_safe);
   }
-  store_wide_rows<SW>(o, acc, q0, q_len, d, c0, 1.0f);
 }
 
 // dK, dV. Grid (slices, key tiles, batch x heads). Per query tile: items
@@ -1804,11 +2023,13 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const voi
   return cudaGetLastError();
 }
 
-// The wide kernels: grid (slices, tiles, batch x heads), one warpgroup.
+// The wide dK/dV and dQ kernels: grid (slices, tiles, batch x heads), one warpgroup.
 __host__ __forceinline__ dim3 wide_grid(int head_dim, int len, int batch_heads) {
   return dim3(head_dim / WIDE_SLICE, (len + BLOCK - 1) / BLOCK, batch_heads);
 }
 
+// The wide forward: grid (pieces, query tiles, batch x heads), ceil(D / WIDE_FWD_PIECE) pieces of
+// ceil(slices / pieces) slices, one warpgroup a slice.
 cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v, const void* mask, void* o, void* lse,
                             int batch_heads, int heads, int q_len, int kv_len, int d, int causal, float scale,
                             cudaStream_t stream) {
@@ -1817,11 +2038,14 @@ cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v, const v
   if ((err = sm90_host::make_map_3d(&tm_q, q, batch_heads, q_len, d)) != cudaSuccess) return err;
   if ((err = sm90_host::make_map_3d(&tm_k, k, batch_heads, kv_len, d)) != cudaSuccess) return err;
   if ((err = sm90_host::make_map_3d(&tm_v, v, batch_heads, kv_len, d)) != cudaSuccess) return err;
-  constexpr size_t smem = WideSmem<WIDE_SLICE>::ALLOC;
-  err = cudaFuncSetAttribute(flash_fwd_wide_kernel<WIDE_SLICE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  constexpr size_t smem = WideFwdSmem::ALLOC;
+  err = cudaFuncSetAttribute(flash_fwd_wide_kernel<WIDE_FWD_PIECE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_wide_kernel<WIDE_SLICE><<<wide_grid(d, q_len, batch_heads), THREADS, smem, stream>>>(
+  const int slices = d / WIDE_SLICE, pieces = (slices + WIDE_FWD_WG - 1) / WIDE_FWD_WG;
+  const int wgs = (slices + pieces - 1) / pieces;
+  const dim3 grid(pieces, (q_len + BLOCK - 1) / BLOCK, batch_heads);
+  flash_fwd_wide_kernel<WIDE_FWD_PIECE><<<grid, THREADS * wgs, smem, stream>>>(
       tm_q, tm_k, tm_v, (const int*)mask, (bf16*)o, (float*)lse, heads, q_len, kv_len, d, causal, scale);
   return cudaGetLastError();
 }

@@ -17,8 +17,10 @@ and head_dim (`flash_fwd_kernel<256>`), read from the first template
 argument of the mangled name (`...flash_fwd_kernelILi256E...`), so every
 head_dim of a kernel is reported, and checked, on its own. The wide kernels,
 which take every multiple of 128 from 384 on as a runtime argument, are
-keyed by their template argument, the width of the output slice of one CTA
-(`flash_fwd_wide_kernel<128>`), and so are the float32 kernels, which take
+keyed by their template argument, the most output columns of one CTA (the
+forward's piece of up to 512 columns, `flash_fwd_wide_kernel<512>`; the
+dK/dV and dQ kernels' slice of 128, `flash_bwd_dq_wide_kernel<128>`), and
+so are the float32 kernels, which take
 every head_dim at run time (`flash_bwd_dq_f32_kernel<128>`; the float32
 forward one slice of all of head_dim, `flash_fwd_f32_kernel<64>`, `<96>`
 and `<128>` at those head_dims and `<512>` above). `route()` names the
@@ -46,10 +48,17 @@ SOURCES = (CSRC / "flash_attn.cu", CSRC / "flash_attn_f32.cu")
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 HEAD_DIMS = (64, 96, 128, 256)  # the head_dims the library instantiates a kernel for
-# the kernels of every multiple of 128 from 384 on, built at one output slice width (flash_attn.cu
-# WIDE_SLICE)
+# the kernels of every multiple of 128 from 384 on: the forward built at its piece of up to
+# WIDE_FWD_PIECE output columns a CTA, one warpgroup a 128-column slice of it (flash_attn.cu
+# WIDE_FWD_PIECE); dK/dV and dQ at one output slice width a CTA (WIDE_SLICE)
 WIDE_KERNELS = ("flash_fwd_wide_kernel", "flash_bwd_dkv_wide_kernel", "flash_bwd_dq_wide_kernel")
 WIDE_SLICE = 128
+WIDE_FWD_PIECE = 512
+
+
+def wide_width(kernel: str) -> int:
+    """The template argument of a wide kernel: the most output columns of one of its CTAs."""
+    return WIDE_FWD_PIECE if kernel == WIDE_KERNELS[0] else WIDE_SLICE
 # the float32 kernels, all three in 3xTF32 mma.sync, no wgmma: head_dim at run time, a grid axis over
 # output slices of at most F32_SLICE columns (flash_attn_f32.cu SLICE); the forward's slice is all of
 # head_dim up to F32_FWD_SLICE (FWD_SLICE): an instantiation at each of F32_FWD_HEAD_DIMS (its slice
@@ -79,7 +88,7 @@ def instantiation(kernel: str, head_dim: int) -> str:
 
 
 BF16_INSTANTIATIONS = (tuple(instantiation(k, d) for k in KERNELS for d in HEAD_DIMS)
-                       + tuple(instantiation(k, WIDE_SLICE) for k in WIDE_KERNELS))
+                       + tuple(instantiation(k, wide_width(k)) for k in WIDE_KERNELS))
 F32_INSTANTIATIONS = (tuple(instantiation(F32_KERNELS[0], w) for w in (*F32_FWD_HEAD_DIMS, F32_FWD_SLICE))
                       + tuple(instantiation(k, F32_SLICE) for k in F32_KERNELS[1:]))
 INSTANTIATIONS = BF16_INSTANTIATIONS + F32_INSTANTIATIONS
@@ -88,7 +97,8 @@ INSTANTIATIONS = BF16_INSTANTIATIONS + F32_INSTANTIATIONS
 @dataclass(frozen=True)
 class Route:
     """Where a launch goes: the C entry point, the kernel instantiation it
-    launches, and the CTAs a tile takes on the grid axis over output slices."""
+    launches, and the CTAs a tile takes on the grid axis over output columns
+    (slices, or the wide forward's pieces)."""
     entry: str
     instantiation: str
     slices: int
@@ -98,11 +108,12 @@ def route(name: str, dtype: str, head_dim: int) -> Route:
     """The route of kernel `name` ("flash_fwd", "flash_bwd_dkv",
     "flash_bwd_dq") at input dtype `dtype` ("bfloat16" or "float32") and
     `head_dim`, as the C launchers choose it: at bfloat16 the kernel of that
-    head_dim (one CTA a tile) or, from 384 on, the wide kernel (head_dim / 128
-    slices); at float32 the float32 kernel (ceil(head_dim / 128) slices; the
-    forward all of head_dim in one slice up to 512 columns, at its
-    instantiation of head_dim 64, 96 or 128, else its <512> with
-    ceil(head_dim / 512) slices)."""
+    head_dim (one CTA a tile) or, from 384 on, the wide kernel: the forward's
+    <512> in ceil(head_dim / 512) pieces (one CTA a query tile up to 512
+    columns), dK/dV's and dQ's <128> in head_dim / 128 slices; at float32 the
+    float32 kernel (ceil(head_dim / 128) slices; the forward all of head_dim
+    in one slice up to 512 columns, at its instantiation of head_dim 64, 96
+    or 128, else its <512> with ceil(head_dim / 512) slices)."""
     if dtype not in DTYPES:
         raise TypeError(f"the CUDA kernels take {' or '.join(DTYPES)}, not {dtype}")
     if not takes_head_dim(head_dim):
@@ -114,7 +125,8 @@ def route(name: str, dtype: str, head_dim: int) -> Route:
             width = head_dim if head_dim in F32_FWD_HEAD_DIMS else F32_FWD_SLICE
         return Route(ENTRY_POINTS[name] + "_f32", instantiation(f"{name}_f32_kernel", width), -(-head_dim // width))
     if wide_head_dim(head_dim):
-        return Route(ENTRY_POINTS[name], instantiation(f"{name}_wide_kernel", WIDE_SLICE), head_dim // WIDE_SLICE)
+        width = wide_width(f"{name}_wide_kernel")
+        return Route(ENTRY_POINTS[name], instantiation(f"{name}_wide_kernel", width), -(-head_dim // width))
     return Route(ENTRY_POINTS[name], instantiation(f"{name}_kernel", head_dim), 1)
 
 

@@ -1,10 +1,13 @@
 """The port's kernel build helpers (mafed_tpu_torch/kernels/build.py) on the CPU:
 the library's name follows every source file, and the ptxas report and the
 SASS dump are read per instantiation (kernel and head_dim; a wide kernel and
-its slice width; a float32 kernel and its slice width), and the SASS check
-asks TMA loads and wgmma of the bfloat16 kernels and TF32 mma.sync (the
-3xTF32 products) without wgmma of the float32 kernels, the forward's two
-instantiations among them. Nothing here compiles."""
+its width, the most output columns of a CTA; a float32 kernel and its slice
+width), and the SASS check asks TMA loads and wgmma of the bfloat16 kernels
+and TF32 mma.sync (the 3xTF32 products) without wgmma of the float32
+kernels, the forward's two instantiations among them. Nothing here
+compiles."""
+
+import re
 
 import pytest
 
@@ -27,7 +30,8 @@ ptxas info    : Used 255 registers, used 1 barriers
 # kernel nor head_dim): each kernel's warpgroups (the *_WG_* of flash_attn.cu)
 # and its registers as ptxas read them for sm_90a on an H100, with a spill made
 # up at dK/dV 256 so that one is read. A wide kernel has one template argument,
-# the width of its output slice (128), and takes head_dim at run time; so does
+# the most output columns of one CTA (the forward's piece of 512, dK/dV's and
+# dQ's slice of 128), and takes head_dim at run time; so does
 # a float32 kernel (wg "f32" below: its mangled name takes float pointers),
 # whose forward is built at four slice widths (64, 96, 128 and 512). The
 # bf16 forward at 96, 128 and 256 takes two warpgroups a CTA, each with its own
@@ -41,7 +45,7 @@ _ENTRIES = [("flash_fwd_kernel", 64, 1, 92, 0), ("flash_fwd_kernel", 96, 2, 121,
             ("flash_bwd_dkv_kernel", 96, 1, 200, 0), ("flash_bwd_dkv_kernel", 64, 1, 163, 0),
             ("flash_bwd_dq_kernel", 128, 1, 154, 0), ("flash_bwd_dq_kernel", 64, 1, 122, 0),
             ("flash_bwd_dq_kernel", 256, 1, 218, 0), ("flash_bwd_dq_kernel", 96, 1, 154, 0),
-            ("flash_bwd_dq_wide_kernel", 128, None, 177, 0), ("flash_fwd_wide_kernel", 128, None, 140, 0),
+            ("flash_bwd_dq_wide_kernel", 128, None, 177, 0), ("flash_fwd_wide_kernel", 512, None, 128, 0),
             ("flash_bwd_dkv_wide_kernel", 128, None, 243, 0), ("flash_bwd_dq_f32_kernel", 128, "f32", 155, 0),
             ("flash_bwd_dkv_f32_kernel", 128, "f32", 192, 0), ("flash_fwd_f32_kernel", 128, "f32", 115, 0),
             ("flash_fwd_f32_kernel", 512, "f32", 127, 0), ("flash_fwd_f32_kernel", 96, "f32", 63, 0),
@@ -136,11 +140,12 @@ def test_sass_counts_keep_every_instantiation_apart():
 
 def test_the_wide_kernels_are_instantiations_of_their_own():
     """The three wide kernels are reported under their own names, at their
-    slice width, beside the twelve fixed instantiations."""
-    wide = [build.instantiation(k, build.WIDE_SLICE) for k in build.WIDE_KERNELS]
-    assert wide == ["flash_fwd_wide_kernel<128>", "flash_bwd_dkv_wide_kernel<128>", "flash_bwd_dq_wide_kernel<128>"]
+    width (the forward's piece of up to 512 output columns a CTA, dK/dV's and
+    dQ's slice of 128), beside the twelve fixed instantiations."""
+    wide = [build.instantiation(k, build.wide_width(k)) for k in build.WIDE_KERNELS]
+    assert wide == ["flash_fwd_wide_kernel<512>", "flash_bwd_dkv_wide_kernel<128>", "flash_bwd_dq_wide_kernel<128>"]
     assert build.BF16_INSTANTIATIONS[-3:] == tuple(wide) and len(set(build.BF16_INSTANTIATIONS)) == 15
-    assert build._kernel_of(_mangled("flash_fwd_wide_kernel", 128, None)) == "flash_fwd_wide_kernel<128>"
+    assert build._kernel_of(_mangled("flash_fwd_wide_kernel", 512, None)) == "flash_fwd_wide_kernel<512>"
     assert build._kernel_of(_mangled("flash_fwd_kernel", 256, 2)) == "flash_fwd_kernel<256>"
 
 
@@ -207,24 +212,30 @@ def test_sass_check_asks_wgmma_of_bf16_and_ffma_without_wgmma_of_f32():
     assert faults({"flash_bwd_dkv_f32_kernel<128>": ""}) == ["flash_bwd_dkv_f32_kernel<128>: not in the SASS"]
 
 
-ROUTE_CASES = [(64, 1, "flash_fwd_kernel<64>"), (96, 1, "flash_fwd_kernel<96>"), (128, 1, "flash_fwd_kernel<128>"),
-               (256, 1, "flash_fwd_kernel<256>"), (384, 3, "flash_fwd_wide_kernel<128>"),
-               (512, 4, "flash_fwd_wide_kernel<128>"), (640, 5, "flash_fwd_wide_kernel<128>")]
+# (head_dim, bf16 CTAs a tile of the forward and of dK/dV and dQ, the bf16 forward's instantiation and the
+# backward kernels' width)
+ROUTE_CASES = [(64, (1, 1), "flash_fwd_kernel<64>", 64), (96, (1, 1), "flash_fwd_kernel<96>", 96),
+               (128, (1, 1), "flash_fwd_kernel<128>", 128), (256, (1, 1), "flash_fwd_kernel<256>", 256),
+               (384, (1, 3), "flash_fwd_wide_kernel<512>", 128), (512, (1, 4), "flash_fwd_wide_kernel<512>", 128),
+               (640, (2, 5), "flash_fwd_wide_kernel<512>", 128)]
 
 
-@pytest.mark.parametrize("head_dim,bf16_slices,bf16_kernel", ROUTE_CASES)
-def test_route_names_the_entry_kernel_and_slices(head_dim, bf16_slices, bf16_kernel):
+@pytest.mark.parametrize("head_dim,bf16_slices,bf16_kernel,bwd_width", ROUTE_CASES)
+def test_route_names_the_entry_kernel_and_slices(head_dim, bf16_slices, bf16_kernel, bwd_width):
     """At every head_dim the JAX dispatcher sends to Pallas: bfloat16 to the
-    kernel of its head_dim (one CTA a tile) or a wide kernel (head_dim / 128
-    slices), float32 to the float32 kernels: the backward pair at
-    ceil(head_dim / 128) slices, the forward at one slice up to 512 columns
-    (its instantiation of head_dim 64, 96 or 128; its <512> above:
+    kernel of its head_dim (one CTA a tile) or a wide kernel: the forward's
+    <512> in ceil(head_dim / 512) pieces, dK/dV's and dQ's <128> in
+    head_dim / 128 slices; float32 to the float32 kernels: the backward pair
+    at ceil(head_dim / 128) slices, the forward at one slice up to 512
+    columns (its instantiation of head_dim 64, 96 or 128; its <512> above:
     ceil(head_dim / 512))."""
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         bf16 = build.route(name, "bfloat16", head_dim)
+        fwd = name == "flash_fwd"
+        kernel = bf16_kernel if fwd else re.sub(r"<\d+>", f"<{bwd_width}>", bf16_kernel.replace("flash_fwd", name))
         assert (bf16.entry, bf16.instantiation, bf16.slices) == (
-            build.ENTRY_POINTS[name], bf16_kernel.replace("flash_fwd", name), bf16_slices)
-        width = (head_dim if head_dim <= 128 else 512) if name == "flash_fwd" else 128
+            build.ENTRY_POINTS[name], kernel, bf16_slices[0 if fwd else 1])
+        width = (head_dim if head_dim <= 128 else 512) if fwd else 128
         f32 = build.route(name, "float32", head_dim)
         assert (f32.entry, f32.instantiation, f32.slices) == (
             build.ENTRY_POINTS[name] + "_f32", f"{name}_f32_kernel<{width}>", -(-head_dim // width))

@@ -17,7 +17,9 @@ the same bits in two launches, and its (o, lse) feed the <96> backward
 kernels to the plain backward's gradients; likewise the forward at 128 and
 256 (two query tiles a CTA, each score tile formed once), at one query row,
 at both sides of a tile edge and at odd counts of tiles, with and without
-key padding. The dK/dV kernel at 96 and 256 (dkv_cta) is held the same
+key padding; likewise the wide forward at 384, 512, 640 and 1024 (one CTA
+a query tile and a piece of up to 512 columns, each score tile formed once
+up to 512). The dK/dV kernel at 96 and 256 (dkv_cta) is held the same
 way: q_len 1 to 336, 577 keys, bit-equal launches, and the whole backward
 from the kernels' forward within one bf16 step (at least 2^-6, 0.0156) of
 the plain one.
@@ -226,6 +228,66 @@ def test_query_split_forward_feeds_the_backward_kernels(gpu, head_dim, b, h, q_l
     want = tattn.flash_backward_plain(q, k, v, mask, o_p, lse_p, g, causal, scale)
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         torch.testing.assert_close(x.float(), y.float(), atol=ATOL, rtol=RTOL, msg=name)
+
+
+# the wide forward (one CTA a query tile and a piece of up to 512 columns, one warpgroup a 128-column slice,
+# each score tile formed once up to 512 columns): 384 and 512 (one piece), 640 and 1024 (two pieces, the score
+# in rounds; 640's second piece with an empty slice)
+WIDE_FWD_HEAD_DIMS = [384, 512, 640, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", WIDE_FWD_HEAD_DIMS)
+@pytest.mark.parametrize("q_len", SPLIT_Q_LENS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("padded", [True, False])
+def test_wide_forward_matches_plain(gpu, head_dim, q_len, causal, padded):
+    """The wide forward against the plain forward (one launch, at this
+    head_dim): o within the bf16 tolerance, lse in every row (+inf exactly
+    on the empty rows of the masked sample, within 1e-4 elsewhere), with
+    the key-padding mask or none."""
+    q, k, v, _, mask = _inputs(3, 4, q_len, seed=31, d=head_dim)
+    mask = mask if padded else None
+    scale = head_dim ** -0.5
+    tattn.reset_launches()
+    o, lse = tattn.flash_forward(q, k, v, mask, causal, scale)
+    assert tattn.LAUNCHES_BY_HEAD_DIM == {head_dim: {"flash_fwd": 1, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}}
+    o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, causal, scale)
+    torch.testing.assert_close(o.float(), o_p.float(), atol=ATOL, rtol=RTOL)
+    fin = torch.isfinite(lse_p)
+    assert torch.equal(torch.isinf(lse), ~fin) and torch.equal(lse[~fin], lse_p[~fin])
+    assert fin.all() if not padded else not fin[0].any() and (o[0] == 0).all()
+    torch.testing.assert_close(lse[fin], lse_p[fin], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", WIDE_FWD_HEAD_DIMS)
+@pytest.mark.parametrize("q_len,kv_len,masked", D96_CASES)
+def test_wide_forward_takes_more_keys_than_queries(gpu, head_dim, q_len, kv_len, masked):
+    """The wide forward, non-causal, 577 keys (CLIP-L/14-336's) against
+    fewer queries and a masked key range: o and lse within the bf16
+    tolerance and 1e-4 of the plain forward."""
+    q, k, v, _, mask = _inputs(2, 4, q_len, seed=32, kv_len=kv_len, masked=masked, d=head_dim)
+    scale = head_dim ** -0.5
+    o, lse = tattn.flash_forward(q, k, v, mask, False, scale)
+    o_p, lse_p = tattn.flash_forward_plain(q, k, v, mask, False, scale)
+    torch.testing.assert_close(o.float(), o_p.float(), atol=ATOL, rtol=RTOL)
+    fin = torch.isfinite(lse_p)
+    assert torch.equal(torch.isinf(lse), ~fin) and not fin[0].any() and fin[1].all()
+    torch.testing.assert_close(lse[fin], lse_p[fin], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,b,h", [(384, 48, 16), (512, 48, 4), (640, 8, 4), (1024, 8, 2)])
+@pytest.mark.parametrize("q_len", [77, 320, 336])
+def test_wide_forward_is_bit_equal_across_launches(gpu, head_dim, b, h, q_len):
+    """Two launches of the wide forward give the same o and lse, bit for
+    bit (no atomics; every warpgroup sums the partial scores in one order),
+    at the CE shapes of 384 and 512 and the prefill's five query tiles."""
+    q, k, v, _, mask = _inputs(b, h, q_len, seed=33, masked=(256, 276) if q_len > 276 else None, d=head_dim)
+    first = tattn.flash_forward(q, k, v, mask, True, head_dim ** -0.5)
+    second = tattn.flash_forward(q, k, v, mask, True, head_dim ** -0.5)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 # dK/dV at 96 and 256 (dkv_cta: at 96 unpadded tiles; at 256 each score tile's queries split over two

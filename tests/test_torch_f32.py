@@ -96,7 +96,8 @@ def test_wrappers_route_each_dtype_and_head_dim(mocked_card, head_dim, dtype):
         fwd_width = head_dim if head_dim <= 128 else 512
         assert [r.slices for r in routes] == [-(-head_dim // fwd_width)] + [-(-head_dim // 128)] * 2
     else:
-        assert {r.slices for r in routes} == {head_dim // 128 if build.wide_head_dim(head_dim) else 1}
+        wide = build.wide_head_dim(head_dim)  # the wide forward in pieces of up to 512 columns
+        assert [r.slices for r in routes] == ([-(-head_dim // 512)] + [head_dim // 128] * 2 if wide else [1] * 3)
     assert tattn.LAUNCHES_BY_DTYPE == {dtype: dict.fromkeys(kernels, 1)}
     assert tattn.LAUNCHES_BY_HEAD_DIM == {head_dim: dict.fromkeys(kernels, 1)}
 
